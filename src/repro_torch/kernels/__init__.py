@@ -1,0 +1,24 @@
+"""Hopper kernels of the port, with their plain PyTorch versions in ref.py.
+
+segment_reduce   — the p4mr REDUCER (fp32 atomic scatter)
+hash_partition   — the p4mr MAPPER (routing-id hash + histogram)
+ring_fused_step  — Scenario-3 fused in-transit hop (accumulate + compress)
+"""
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.ops import (
+    LAUNCHES,
+    hash_partition,
+    reset_launches,
+    ring_fused_step,
+    segment_reduce,
+)
+
+__all__ = [
+    "ops",
+    "ref",
+    "LAUNCHES",
+    "hash_partition",
+    "reset_launches",
+    "ring_fused_step",
+    "segment_reduce",
+]

@@ -1,0 +1,58 @@
+"""Public kernel wrappers: dispatch by the tensor's device.
+
+A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
+on a CUDA device goes to the Hopper kernel, which launches or raises. There
+is no fallback from one to the other. ``LAUNCHES`` counts, per kernel, the
+kernel launches made through these wrappers (CPU calls do not count), so a
+run can show that its path went through the kernels.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import hash_partition as _hashp
+from repro_torch.kernels import ref
+from repro_torch.kernels import ring_fused_step as _ring
+from repro_torch.kernels import segment_reduce as _segred
+
+LAUNCHES = {"hash_partition": 0, "segment_reduce": 0, "ring_fused_step": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """values (..., n, d), seg_ids (..., n) int32 (-1 = drop) → (..., num_segments, d) fp32."""
+    if _on_cpu(values):
+        return ref.segment_reduce(values, seg_ids, num_segments)
+    out = _segred.segment_reduce(values, seg_ids, num_segments)
+    LAUNCHES["segment_reduce"] += 1
+    return out
+
+
+def hash_partition(tokens: torch.Tensor, num_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (..., n) int32 → (bucket ids (..., n) int32, histogram (..., B) int32)."""
+    if _on_cpu(tokens):
+        return ref.hash_partition(tokens, num_buckets)
+    out = _hashp.hash_partition(tokens, num_buckets)
+    LAUNCHES["hash_partition"] += 1
+    return out
+
+
+def ring_fused_step(acc: torch.Tensor, wire: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """acc fp32, wire bf16 → (acc + fp32(wire), bf16 of that sum)."""
+    if _on_cpu(acc):
+        return ref.ring_fused_step(acc, wire)
+    out = _ring.ring_fused_step(acc, wire)
+    LAUNCHES["ring_fused_step"] += 1
+    return out

@@ -1,0 +1,207 @@
+"""A device mesh held in one tensor: the port's stand-in for ``shard_map``.
+
+The JAX package runs SPMD over N devices, each seeing its own shard, and
+moves data with ``lax`` collectives. The port runs every shard on one card:
+a tensor carries one leading dim per mesh axis, in mesh order, followed by
+the per-device (local) shape. Collectives become index operations over
+those dims with ``lax``'s semantics, so code written per device in the
+reference reads the same here with ``mesh`` passed along.
+
+``Mesh(..., device=None)`` means the card; with no CUDA it raises rather
+than run on the CPU. The tests pass ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+Perm = Sequence[tuple[int, int]]
+
+
+class Mesh:
+    """Named mesh axes of given sizes, laid out on ``device``."""
+
+    def __init__(self, axis_names: Sequence[str], shape: Sequence[int], device=None):
+        self.axis_names = tuple(axis_names)
+        self.shape = tuple(int(s) for s in shape)
+        if len(self.axis_names) != len(self.shape):
+            raise ValueError(f"{len(self.axis_names)} axis names for {len(self.shape)} sizes")
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f"duplicate axis names {self.axis_names}")
+        if any(s < 1 for s in self.shape):
+            raise ValueError(f"axis sizes must be positive, got {self.shape}")
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Mesh() runs on the CUDA device and none is available; "
+                    "pass device='cpu' to run on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+
+    # -- layout ------------------------------------------------------------
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def dim(self, axis: str) -> int:
+        """The tensor dim that carries mesh axis ``axis``."""
+        try:
+            return self.axis_names.index(axis)
+        except ValueError:
+            raise ValueError(f"unknown mesh axis {axis!r}; mesh has {self.axis_names}") from None
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[self.dim(axis)]
+
+    def axis_index(self, axis: str) -> torch.Tensor:
+        """Every device's index along ``axis``: an int64 tensor of the mesh shape."""
+        a = self.dim(axis)
+        view = [1] * self.ndim
+        view[a] = self.shape[a]
+        idx = torch.arange(self.shape[a], device=self.device).view(view)
+        return idx.expand(self.shape).contiguous()
+
+    def shard(self, data) -> torch.Tensor:
+        """Lay per-device numpy shards onto the mesh (``in_specs=P(*axes)``):
+        an array whose leading dims are the mesh shape, or a flat sequence of
+        ``mesh.size`` equal-shaped per-device arrays in row-major mesh order."""
+        if isinstance(data, np.ndarray):
+            arr = data
+        else:
+            arr = np.stack([np.asarray(s) for s in data])
+            arr = arr.reshape(self.shape + arr.shape[1:])
+        if arr.shape[: self.ndim] != self.shape:
+            raise ValueError(f"leading dims {arr.shape[:self.ndim]} are not the mesh {self.shape}")
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _local(self, x: torch.Tensor) -> int:
+        """Check ``x`` carries the mesh dims; return the dim its local shape starts at."""
+        if tuple(x.shape[: self.ndim]) != self.shape:
+            raise ValueError(f"tensor {tuple(x.shape)} does not lead with the mesh {self.shape}")
+        return self.ndim
+
+    # -- collectives ---------------------------------------------------------
+    def ppermute(self, x: torch.Tensor, axis: str, perm: Perm) -> torch.Tensor:
+        """``lax.ppermute``: device ``src`` sends its shard to ``dst`` along
+        ``axis``; a device that no pair sends to receives zeros."""
+        self._local(x)
+        a, p = self.dim(axis), self.axis_size(axis)
+        srcs = [int(s) for s, _ in perm]
+        dsts = [int(d) for _, d in perm]
+        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+            raise ValueError(f"perm {list(perm)} sends from or to a device twice")
+        if any(not 0 <= i < p for i in srcs + dsts):
+            raise ValueError(f"perm {list(perm)} out of range for axis size {p}")
+        xs = x.movedim(a, 0)
+        if sorted(dsts) == list(range(p)):
+            inv = [0] * p
+            for s, d in zip(srcs, dsts):
+                inv[d] = s
+            out = xs[torch.tensor(inv, device=x.device)]
+        else:
+            out = torch.zeros_like(xs)
+            if srcs:
+                out[torch.tensor(dsts, device=x.device)] = xs[torch.tensor(srcs, device=x.device)]
+        return out.movedim(0, a).contiguous()
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int = 0,
+                   concat_axis: int = 0, tiled: bool = False) -> torch.Tensor:
+        """``lax.all_to_all``: chunk ``d`` of local dim ``split_axis`` on
+        device ``s`` lands as chunk ``s`` of local dim ``concat_axis`` on
+        device ``d``; untiled, ``recv[d][s] = send[s][d]``."""
+        nm = self._local(x)
+        a, p = self.dim(axis), self.axis_size(axis)
+        s = nm + split_axis
+        if not tiled:
+            if x.shape[s] != p:
+                raise ValueError(f"split dim {x.shape[s]} != axis size {p}")
+            return x.transpose(a, s).movedim(s, nm + concat_axis).contiguous()
+        n = x.shape[s]
+        if n % p:
+            raise ValueError(f"split dim {n} not divisible by axis size {p}")
+        y = x.reshape(x.shape[:s] + (p, n // p) + x.shape[s + 1:]).transpose(a, s)
+        # y's local dims: the split dim became (source, chunk); gather the
+        # sources into the concat dim, in source order
+        c = nm + concat_axis + (1 if concat_axis >= split_axis else 0)
+        j = c - 1 if c > s else c
+        y = y.movedim(s, j)
+        return y.reshape(y.shape[:j] + (y.shape[j] * y.shape[j + 1],) + y.shape[j + 2:]).contiguous()
+
+    def all_gather(self, x: torch.Tensor, axis: str, tiled: bool = False) -> torch.Tensor:
+        """``lax.all_gather``: every device gets the (p, *local) stack of the
+        shards along ``axis`` (tiled: concatenated along local dim 0)."""
+        nm = self._local(x)
+        a, p = self.dim(axis), self.axis_size(axis)
+        y = x.movedim(a, nm - 1).unsqueeze(a)
+        out = y.expand(y.shape[:a] + (p,) + y.shape[a + 1:]).contiguous()
+        if tiled:
+            out = out.reshape(out.shape[:nm] + (-1,) + out.shape[nm + 2:])
+        return out
+
+    def psum(self, x: torch.Tensor, axes, axis_index_groups: Sequence[Sequence[int]] | None = None
+             ) -> torch.Tensor:
+        """``lax.psum`` over one axis or a tuple of axes; with
+        ``axis_index_groups`` (one axis only), each group sums on its own."""
+        self._local(x)
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        dims = [self.dim(a) for a in axes]
+        if axis_index_groups is None:
+            return x.sum(dim=dims, keepdim=True).expand(x.shape).contiguous()
+        if len(axes) != 1:
+            raise ValueError("axis_index_groups needs exactly one axis")
+        a, p = dims[0], self.shape[dims[0]]
+        members = sorted(int(i) for g in axis_index_groups for i in g)
+        if members != list(range(p)):
+            raise ValueError(f"axis_index_groups {axis_index_groups} must partition range({p})")
+        xs = x.movedim(a, 0)
+        out = torch.empty_like(xs)
+        for g in axis_index_groups:
+            idx = torch.tensor([int(i) for i in g], device=x.device)
+            out[idx] = xs[idx].sum(0, keepdim=True).expand((len(g),) + xs.shape[1:])
+        return out.movedim(0, a).contiguous()
+
+    # -- per-device indexing -----------------------------------------------
+    def _per_device(self, index, n: int, size: int = 1) -> torch.Tensor:
+        """Flat per-device start indices into a dim of ``n``, as ``lax`` reads
+        them: negative counts from the end, then clamped so ``size`` fits."""
+        idx = torch.as_tensor(index, device=self.device).to(torch.int64)
+        idx = idx.expand(self.shape).reshape(-1)
+        return torch.where(idx < 0, idx + n, idx).clamp(0, n - size)
+
+    def dynamic_index_in_dim(self, x: torch.Tensor, index) -> torch.Tensor:
+        """``lax.dynamic_index_in_dim`` (``keepdims=False``) on local dim 0,
+        with a per-device index (an int or a tensor of the mesh shape)."""
+        nm = self._local(x)
+        flat = x.reshape((self.size,) + x.shape[nm:])
+        rows = torch.arange(self.size, device=x.device)
+        return flat[rows, self._per_device(index, x.shape[nm])].reshape(self.shape + x.shape[nm + 1:])
+
+    def dynamic_update_index_in_dim(self, x: torch.Tensor, update: torch.Tensor, index
+                                    ) -> torch.Tensor:
+        """``lax.dynamic_update_index_in_dim`` on local dim 0, per-device
+        index; writes into ``x`` in place and returns it."""
+        nm = self._local(x)
+        flat = x.view((self.size,) + x.shape[nm:])
+        rows = torch.arange(self.size, device=x.device)
+        flat[rows, self._per_device(index, x.shape[nm])] = update.reshape((self.size,) + x.shape[nm + 1:])
+        return x
+
+    def dynamic_slice_in_dim(self, x: torch.Tensor, start, size: int) -> torch.Tensor:
+        """``lax.dynamic_slice_in_dim`` on local dim 0: ``size`` entries from a
+        per-device ``start`` (negative counts from the end; clamped into range)."""
+        nm = self._local(x)
+        n = x.shape[nm]
+        if not 0 <= size <= n:
+            raise ValueError(f"slice size {size} outside [0, {n}]")
+        flat = x.reshape((self.size,) + x.shape[nm:])
+        start = self._per_device(start, n, size)
+        cols = start[:, None] + torch.arange(size, device=x.device)
+        rows = torch.arange(self.size, device=x.device)[:, None]
+        return flat[rows, cols].reshape(self.shape + (size,) + x.shape[nm + 1:])
