@@ -3,10 +3,12 @@
 segment_reduce   — the p4mr REDUCER (fp32 atomic scatter)
 hash_partition   — the p4mr MAPPER (routing-id hash + histogram)
 ring_fused_step  — Scenario-3 fused in-transit hop (accumulate + compress)
+flash_attention  — the LM stack's prefill attention (online-softmax blocks)
 """
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import (
     LAUNCHES,
+    flash_attention,
     hash_partition,
     reset_launches,
     ring_fused_step,
@@ -17,6 +19,7 @@ __all__ = [
     "ops",
     "ref",
     "LAUNCHES",
+    "flash_attention",
     "hash_partition",
     "reset_launches",
     "ring_fused_step",

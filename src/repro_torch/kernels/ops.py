@@ -10,12 +10,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import hash_partition as _hashp
 from repro_torch.kernels import ref
 from repro_torch.kernels import ring_fused_step as _ring
 from repro_torch.kernels import segment_reduce as _segred
 
-LAUNCHES = {"hash_partition": 0, "segment_reduce": 0, "ring_fused_step": 0}
+LAUNCHES = {"hash_partition": 0, "segment_reduce": 0, "ring_fused_step": 0,
+            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -55,4 +57,15 @@ def ring_fused_step(acc: torch.Tensor, wire: torch.Tensor) -> tuple[torch.Tensor
         return ref.ring_fused_step(acc, wire)
     out = _ring.ring_fused_step(acc, wire)
     LAUNCHES["ring_fused_step"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (b, h, sq, d), k/v (b, h_kv, sk, d) → softmax(q·kᵀ/√d)·v as
+    (b, h, sq, d) in q's dtype."""
+    if _on_cpu(q):
+        return ref.flash_attention(q, k, v, causal=causal)
+    out = _flash.flash_attention(q, k, v, causal=causal)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -2,11 +2,13 @@
 
 Each function computes what its kernel computes, with ordinary tensor ops,
 on any device. The CPU path of ``kernels.ops`` runs them; on the card they
-are only the yardstick a kernel is held against. Every function takes an
-optional batch of leading dims (one row per mapper or reducer), which the
-kernels cover in one launch.
+are only the yardstick a kernel is held against. The data-plane functions
+take an optional batch of leading dims (one row per mapper or reducer),
+which the kernels cover in one launch.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -58,3 +60,23 @@ def ring_fused_step(acc: torch.Tensor, wire: torch.Tensor) -> tuple[torch.Tensor
     (acc + fp32(wire), that sum rounded to bf16, nearest even)."""
     new_acc = acc + wire.to(torch.float32)
     return new_acc, new_acc.to(torch.bfloat16)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q (b, h, sq, d), k/v (b, h_kv, sk, d) → softmax(q·kᵀ/√d)·v as
+    (b, h, sq, d) in q's dtype, fp32 math. Query head ``i`` attends to kv
+    head ``i // (h // h_kv)`` (h_kv = h is the JAX oracle's case). The
+    causal mask is aligned to the bottom right, ``kpos <= qpos + (sk - sq)``,
+    as in the JAX oracle."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    rep = q.shape[1] // k.shape[1]
+    kf = k.to(torch.float32).repeat_interleave(rep, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(rep, dim=1)
+    s = torch.matmul(q.to(torch.float32), kf.transpose(-1, -2)) * scale
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        s = s.masked_fill(torch.arange(sk, device=q.device)[None, :] > qpos, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, vf).to(q.dtype)

@@ -21,6 +21,17 @@ import torch
 Perm = Sequence[tuple[int, int]]
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """``None`` means the card; with no CUDA this raises rather than run on
+    the CPU. ``who`` names the caller in the message."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{who} runs on the CUDA device and none is available; "
+                               "pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
 class Mesh:
     """Named mesh axes of given sizes, laid out on ``device``."""
 
@@ -33,13 +44,7 @@ class Mesh:
             raise ValueError(f"duplicate axis names {self.axis_names}")
         if any(s < 1 for s in self.shape):
             raise ValueError(f"axis sizes must be positive, got {self.shape}")
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "Mesh() runs on the CUDA device and none is available; "
-                    "pass device='cpu' to run on the CPU")
-            device = "cuda"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "Mesh()")
 
     # -- layout ------------------------------------------------------------
     @property

@@ -192,7 +192,8 @@ def test_cpu_calls_take_the_plain_path_and_do_not_count():
     ops.hash_partition(torch.zeros(4, dtype=torch.int32), 2)
     ops.segment_reduce(torch.ones(4, 1), torch.zeros(4, dtype=torch.int32), 2)
     ops.ring_fused_step(torch.ones(4), torch.ones(4, dtype=torch.bfloat16))
-    assert ops.LAUNCHES == {"hash_partition": 0, "segment_reduce": 0, "ring_fused_step": 0}
+    assert ops.LAUNCHES == {"hash_partition": 0, "segment_reduce": 0, "ring_fused_step": 0,
+                            "flash_attention": 0}
 
 
 @pytest.mark.parametrize("name", ["hash_partition", "ring_fused_step", "segment_reduce"])
@@ -251,4 +252,5 @@ def test_wrappers_count_kernel_launches_on_the_card(cuda):
     ops.segment_reduce(torch.ones(4, 1, device=cuda), torch.zeros(4, dtype=torch.int32, device=cuda), 2)
     ops.ring_fused_step(torch.ones(4, device=cuda), torch.ones(4, dtype=torch.bfloat16, device=cuda))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"hash_partition": 1, "segment_reduce": 1, "ring_fused_step": 1}
+    assert ops.LAUNCHES == {"hash_partition": 1, "segment_reduce": 1, "ring_fused_step": 1,
+                            "flash_attention": 0}
