@@ -4,13 +4,16 @@
     PYTHONPATH=src python3 benchmarks/torch_path_profile.py
 
 Runs each main path of ``chip_smoke.py`` (its ``inputs`` and ``main_paths``,
-the same full size) once to warm up, then twice under ``torch.profiler``
+the same full size), then the serving prefill (``serve_inputs`` and
+``prefill_paths``: Qwen1.5-0.5B at full width, 8 × 4096 tokens, attention
+through ``flash_attention``), each once to warm up, then twice under ``torch.profiler``
 (CPU + CUDA activity), each call inside a ``record_function`` window that
 ends after ``torch.cuda.synchronize()``. From the second window of that one
 trace it prints, per path: the window (call to synchronized end), the
 device span (first to last device timestamp), the device busy time (the
 union of all kernel, copy and set intervals), the idle share
-1 - busy / window, and the top kernels by device time. A trace whose busy
+1 - busy / window, the device time by kind of kernel (the port's, cuBLAS
+matmuls, other), and the top kernels by device time. A trace whose busy
 time exceeds its window raises. Ends with the card's name and power limit.
 Needs a CUDA device.
 """
@@ -23,6 +26,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 TOP = 12  # kernels listed per path
 WINDOW = "path_window"
+# device time by kind of kernel, from the kernel's name: the port's own
+# kernels, cuBLAS matrix products, and everything else (elementwise passes,
+# reductions, copies, sorts)
+KINDS = (("port kernels", ("flash_", "segment_", "hash_partition",
+                           "ring_fused_step")),
+         ("matmuls (cuBLAS)", ("gemm", "xmma", "nvjet", "cutlass", "cublas")))
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k.lower() in low for k in keys):
+            return kind
+    return "other"
 
 
 def busy_us(intervals: list[tuple[float, float]]) -> float:
@@ -46,9 +63,13 @@ def main() -> int:
     sys.path[:0] = [str(ROOT), str(ROOT / "src")]
     import chip_smoke
 
-    _, words, _, grads = chip_smoke.inputs()
+    def paths():
+        _, words, _, grads = chip_smoke.inputs()
+        yield from chip_smoke.main_paths(words, grads).items()
+        yield from chip_smoke.prefill_paths(*chip_smoke.serve_inputs()).items()
+
     cuda = torch.autograd.DeviceType.CUDA
-    for name, fn in chip_smoke.main_paths(words, grads).items():
+    for name, fn in paths():
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -87,6 +108,11 @@ def main() -> int:
             k = per_kernel.setdefault(e.name, [0.0, 0])
             k[0] += e.time_range.end - e.time_range.start
             k[1] += 1
+        by_kind: dict[str, float] = {}
+        for kname, (us, _) in per_kernel.items():
+            by_kind[kind_of(kname)] = by_kind.get(kind_of(kname), 0.0) + us
+        print("   by kind: " + ", ".join(f"{k} {us / 1e3:.3f} ms" for k, us in
+                                        sorted(by_kind.items(), key=lambda kv: -kv[1])))
         for kname, (us, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]:
             print(f"   {us / 1e3:9.3f} ms  x{count:<4d} {kname[:90]}")
     smi = subprocess.run(

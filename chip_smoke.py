@@ -5,10 +5,12 @@
 
 1. Builds the Hopper kernels (``src/repro_torch/csrc``) into ``build/``.
 2. Holds every kernel against its plain PyTorch version on the card, at edge
-   shapes (bitwise where the function is exact, 2e-2 for float sums; for
-   ``flash_attention`` causal and not, d 64 and 128, fp32 at 3e-4 and bf16
-   at 3e-2 elementwise and ``ROW_TOL`` per output row, ragged lengths up
-   to 4096, grouped kv heads, strided layouts).
+   shapes (bitwise where the function is exact, 2e-2 for float sums;
+   ``segment_reduce`` in both of its branches, the shared-memory histogram
+   up to the largest segment count that fits and the global atomics one
+   past it; for ``flash_attention`` causal and not, d 64 and 128, fp32 at
+   3e-4 and bf16 at 3e-2 elementwise and ``ROW_TOL`` per output row, ragged
+   lengths up to 4096, grouped kv heads, strided layouts).
 3. Runs the paper's word count at full width — 8 mappers x 2**24 Zipf words,
    vocab 50,000 — in three forms (token shuffle + reducer count, histogram
    shuffle, S1 host baseline), each bitwise against ``wordcount_reference``,
@@ -16,9 +18,10 @@
    parameter count) in all five scenarios against a float64 host mean.
    Kernel launch counts are zeroed before each path and read after it.
 4. Times each kernel at its main-path shapes with CUDA events, beside its
-   plain version, a one-call PyTorch yardstick where one exists, and its
-   bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32, 989 TFLOP/s bf16 on
-   the tensor cores).
+   plain version, a one-call PyTorch yardstick where one exists (for
+   ``segment_reduce`` the faster of ``index_add_`` and ``bincount``), and
+   its bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32, 989 TFLOP/s bf16
+   on the tensor cores).
 5. Serves Qwen1.5-0.5B at full width (24 layers, d 1024, 16 heads of 64,
    vocab 151,936; random weights from ``SEED``): prefills 8 prompts of 4096
    tokens through the ``flash_attention`` kernel (exactly 24 launches) and
@@ -40,8 +43,9 @@ last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that last line. Needs one CUDA device.
 
 ``inputs`` and ``main_paths`` are the one definition of the word-count and
-aggregation paths; ``benchmarks/torch_path_profile.py`` profiles the same
-table.
+aggregation paths, ``serve_inputs``, ``serve_paths`` and ``prefill_paths``
+of the serving ones; ``benchmarks/torch_path_profile.py`` profiles the same
+tables.
 """
 from __future__ import annotations
 
@@ -224,6 +228,7 @@ def check_kernels_at_edges(torch) -> None:
     pad = torch.full((300,), -1, dtype=torch.int32, device=dev)
     if sr(vals((300, 2), torch.float32), pad, 4).abs().sum() != 0:
         raise AssertionError("segment_reduce counted padding rows")
+    check_segment_reduce_branches(torch, sr, tokens, vals)
 
     for n in (1, 100, 1023, 1024, 1025, 16384, 40000):
         acc = vals((n + 1,), torch.float32)
@@ -235,6 +240,63 @@ def check_kernels_at_edges(torch) -> None:
     torch.cuda.synchronize()
 
 
+def check_segment_reduce_branches(torch, sr, tokens, vals) -> int:
+    """``segment_reduce``'s two branches against the plain version: the
+    shared-memory histogram (uint32 counts for a broadcast value row, fp32
+    sums otherwise) wherever the bins fit in ``max_bin_bytes``, and the
+    global-atomic scatter one segment past that. Counts bitwise, float sums
+    at 2e-2. Returns the number of cases."""
+    from repro_torch.kernels import ref
+
+    seg_mod = importlib.import_module("repro_torch.kernels.segment_reduce")
+    limit = seg_mod.max_bin_bytes()
+    most = limit // 4  # count bins (or d-1 fp32 bins) that fit
+    dev = "cuda"
+
+    def ones(shape):
+        return torch.ones((1,) * (len(shape) + 1), device=dev).expand(tuple(shape) + (1,))
+
+    def zipf(shape, nseg, hot):
+        """Ids whose one id ``hot`` is more than half of each row, the rest
+        uniform, a few -1 (padding) and a few past ``nseg`` (dropped)."""
+        ids = tokens(shape, -1, nseg + 3)
+        ids[tokens(shape, 0, 10) < 6] = hot
+        return ids
+
+    counts = [  # (ids, num_segments): bitwise
+        (zipf((20_001,), most, 7), most),  # largest count histogram that fits
+        (zipf((20_001,), most + 1, most), most + 1),  # one past: global branch
+        (zipf((8, 40_003), 50_000, 3), 50_000),  # batched reducers, rows start mid-vector
+        (zipf((3, 1_000_003), 1000, 999), 1000),  # many chunks a reducer, ragged tails
+        (torch.full((4, 5000), -1, dtype=torch.int32, device=dev), 50_000),  # all padding
+    ]
+    big = zipf((100_005,), 50_000, 1)
+    counts.append((big[1:], 50_000))  # starts 4 bytes past a 16-byte boundary
+    n = 0
+    for ids, nseg in counts:
+        if not equal(sr(ones(ids.shape), ids, nseg), ref.segment_reduce(ones(ids.shape), ids, nseg)):
+            raise AssertionError(f"segment_reduce counts differ at ids {tuple(ids.shape)}, "
+                                 f"num_segments={nseg}")
+        n += 1
+    bcast = torch.randn((1, 3), device=dev).expand(20_001, 3)  # a broadcast row, d 3: counted
+    ids = zipf((20_001,), 500, 2)
+    torch.testing.assert_close(sr(bcast, ids, 500), ref.segment_reduce(bcast, ids, 500),
+                               rtol=2e-2, atol=2e-2)
+    sums = [  # (rows, d, num_segments, dtype): fp32 sums in shared memory, then past it
+        ((20_001,), 1, most, torch.float32),
+        ((20_001,), 1, most + 1, torch.float32),
+        ((4, 9_999), 8, most // 8, torch.bfloat16),
+        ((4, 9_999), 8, most // 8 + 1, torch.bfloat16),
+        ((2, 3_001), 64, 900, torch.float16),
+    ]
+    for shape, d, nseg, dtype in sums:
+        v, ids = vals(tuple(shape) + (d,), dtype), zipf(shape, nseg, 0)
+        torch.testing.assert_close(sr(v, ids, nseg), ref.segment_reduce(v, ids, nseg),
+                                   rtol=2e-2, atol=2e-2)
+    torch.cuda.synchronize()
+    return n + 1 + len(sums)
+
+
 def row_rel_err(got, want) -> float:
     """Largest normwise relative difference over the rows (last dim) of two
     (..., d) tensors, in float64."""
@@ -244,9 +306,10 @@ def row_rel_err(got, want) -> float:
 
 def check_flash_at_edges(torch, dtypes=None) -> int:
     """``flash_attention`` against its plain version on the card: causal and
-    not, d 64 and 128, fp32 and bf16 (or ``dtypes``), ragged and aligned
-    lengths up to the prefill's 4096, b·h 1 and 6; then grouped kv heads, the
-    model's strided (b, s, h, d) layout and sq != sk. Tolerance 3e-4 fp32,
+    not, d 64 and 128, fp32 and bf16 (or ``dtypes``), lengths on both sides
+    of the bf16 kernel's 128-row query tile and 128- or 64-key K/V tile up
+    to the prefill's 4096, b·h 1 and 6; then grouped kv heads (rep 2, 4 and
+    16), the model's strided (b, s, h, d) layout and sq != sk. Tolerance 3e-4 fp32,
     3e-2 bf16 elementwise (``tests/test_kernels.py:101``) and ``ROW_TOL`` per
     output row. Returns the number of cases."""
     from repro_torch.kernels import ref
@@ -276,7 +339,7 @@ def check_flash_at_edges(torch, dtypes=None) -> int:
     n = 0
     for dtype in dtypes or (torch.float32, torch.bfloat16):
         for d in (64, 128):
-            for s in (1, 100, 128, 129, 1000, 4096):
+            for s in (1, 100, 127, 128, 129, 1000, 4095, 4096):
                 for b, h in ((1, 1), (2, 3)):
                     for causal in (True, False):
                         q, k, v = (rnd(b, h, s, d, dtype=dtype) for _ in range(3))
@@ -289,7 +352,12 @@ def check_flash_at_edges(torch, dtypes=None) -> int:
             check(q, k, v, False, f"GQA 8/2 strided s=257 d={d} {dtype} non-causal")
             k, v = (rnd(2, 2, 70, d, dtype=dtype) for _ in range(2))
             check(q, k, v, False, f"sq=257 sk=70 d={d} {dtype}")
-            n += 3
+            # 16 query heads over 8 kv heads (rep 2) and over 1 (rep 16), strided
+            q = rnd(1, 129, 16, d, dtype=dtype).transpose(1, 2)
+            for kvh in (8, 1):
+                k, v = (rnd(1, 129, kvh, d, dtype=dtype).transpose(1, 2) for _ in range(2))
+                check(q, k, v, True, f"GQA 16/{kvh} strided s=129 d={d} {dtype}")
+            n += 5
     torch.cuda.synchronize()
     return n
 
@@ -389,6 +457,19 @@ def serve_paths(model, prompts) -> dict:
     from repro_torch.launch import serve
 
     return {"serve_flash": lambda: serve.generate(model, prompts, SERVE_GEN, impl="flash")}
+
+
+def prefill_paths(model, prompts) -> dict:
+    """The serving path's prefill alone, name → call: ``launch.steps``'
+    prefill step with its attention through the ``flash_attention`` kernel,
+    writing the first ``SERVE_PROMPT`` slots of a cache allocated once (as
+    ``serve.generate`` does), so a repeated call is the warm prefill."""
+    from repro_torch.launch import steps
+
+    b, s = prompts.shape
+    step = steps.make_prefill_step(model, global_batch=b, seq=s, impl="flash")
+    cache = model.init_cache(b, s + SERVE_GEN)
+    return {"serve_prefill_flash": lambda: step(prompts, cache)}
 
 
 def main() -> int:
@@ -510,6 +591,7 @@ def main() -> int:
 
     # segment_reduce at both of its main-path shapes: the histogram path's
     # mapper counts and the token path's reducer counts of received words
+    seg_mod = importlib.import_module("repro_torch.kernels.segment_reduce")
     for path, ids in (("wordcount_histogram", words), ("wordcount_token", outs.pop("recv"))):
         ones = torch.ones((1, 1, 1), device="cuda").expand(ids.shape + (1,))
         ks, ps = sr(ones, ids, VOCAB), ref.segment_reduce(ones, ids, VOCAB)
@@ -522,6 +604,9 @@ def main() -> int:
         src = torch.ones((1,), device="cuda").expand(flat_idx.shape)
         lib_out = torch.zeros((dump + 1,), device="cuda")
         n_ids = int((ids >= 0).sum())
+        # two one-call yardsticks for the same counts; the row keeps the faster
+        index_add_ms = cuda_ms(lambda: lib_out.index_add_(0, flat_idx, src))
+        bincount_ms = cuda_ms(lambda: torch.bincount(flat_idx, minlength=dump + 1))
         b, b_by = bound_ms(ids.numel() * 4 + 4 + w * VOCAB * 4, n_ids)
         rows.append({
             "name": "segment_reduce", "route": "cuda",
@@ -531,7 +616,10 @@ def main() -> int:
             "ms": cuda_ms(lambda: sr(ones, ids, VOCAB)),
             "plain_ms": cuda_ms(lambda: ref.segment_reduce(ones, ids, VOCAB)),
             "bound_ms": b, "bound_by": b_by,
-            "library_ms": cuda_ms(lambda: lib_out.index_add_(0, flat_idx, src)),
+            "library_ms": min(index_add_ms, bincount_ms),
+            "index_add_ms": index_add_ms, "bincount_ms": bincount_ms,
+            "branch": ("shared-memory histogram" if VOCAB * 4 <= seg_mod.max_bin_bytes()
+                       else "global atomics"),
             "path": path,
             "shape": f"ids {tuple(ids.shape)} int32 ({n_ids} valid), broadcast ones, "
                      f"nseg={VOCAB} per row",

@@ -5,7 +5,10 @@ into ``build/lib<name>.so`` at the repository root, for ``sm_90a`` (Hopper).
 The first call builds every source that is missing or older than its
 ``.cu``, one ``nvcc`` process per source, all started together. Nothing is
 built when this module is imported, so the CPU-only tests can import the
-whole package.
+whole package. Every source also links ``libcuda`` (``-lcuda``, through
+the toolkit's stub library where the system's own is not on the linker's
+path): ``flash_attention`` calls ``cuTensorMapEncodeTiled`` for its TMA
+descriptors.
 """
 from __future__ import annotations
 
@@ -42,6 +45,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
+def _libcuda_link_flags(nvcc: str) -> list[str]:
+    """Flags that link libcuda: the toolkit's stub library resolves the
+    symbols at build time, and the system's ``libcuda.so.1`` at load."""
+    stubs = Path(nvcc).resolve().parent.parent / "lib64" / "stubs"
+    return ([f"-L{stubs}"] if stubs.is_dir() else []) + ["-lcuda"]
+
+
 def _stale(name: str) -> bool:
     lib = BUILD / f"lib{name}.so"
     return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
@@ -62,7 +72,8 @@ def build_all() -> float:
         procs = {}
         for name in todo:
             tmp = BUILD / f"lib{name}.so.tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+                   *_libcuda_link_flags(nvcc)]
             procs[name] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         failed = []

@@ -7,7 +7,9 @@ reaches device memory. ``csrc/flash_attention.cu`` holds the kernel and its
 note gives the bound (operations, on the bf16 tensor cores). Unlike the TPU
 kernel it takes any sequence length (ragged tiles are masked) and k/v with
 fewer heads than q (grouped-query attention: query head ``i`` reads kv head
-``i // (h // h_kv)``). The plain version is ``kernels.ref.flash_attention``.
+``i // (h // h_kv)``). bf16 inputs are loaded by TMA through tensor maps
+that the launcher builds per call over the tensors as laid out; fp32 inputs
+take a CUDA-core kernel. The plain version is ``kernels.ref.flash_attention``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,10 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
-_MAX_Q_TILES = 65535  # grid.y; a tile is 64 rows (bf16) or 32 rows (fp32)
+# grid: fp32 (b·h, q tiles of 32 rows), q tiles on grid.y; bf16 one linear
+# grid.x of b·h × q tiles of 128 rows
+_MAX_Q_TILES = 65535
+_Q_TILE_ROWS = {torch.bfloat16: 128, torch.float32: 32}
 
 
 def _fn():
@@ -32,14 +37,17 @@ def _fn():
 
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it through its strides (unit
-    stride along d; for cp.async's 16-byte copies, 16-byte aligned rows),
-    else a contiguous copy."""
+    """``t`` itself when the kernel can read it through its strides, else a
+    contiguous copy in a new allocation. Both kernels need unit stride along d; a bf16 tensor map
+    (TMA) also needs a 16-byte aligned start and, along every dimension
+    longer than 1, a positive stride of a multiple of 16 bytes. The model's
+    (b, s, h, d) views meet that and are read in place; a view that does not
+    (an offset start, a broadcast head) costs one copy here."""
     rows_aligned = t.data_ptr() % 16 == 0 and all(
-        st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+        st > 0 and st % 8 == 0 for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
     if t.stride(3) == 1 and (t.dtype != torch.bfloat16 or rows_aligned):
         return t
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)  # a new, aligned allocation
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -66,8 +74,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if causal and sq != sk:
         raise ValueError(f"causal attention needs sq == sk, got {sq} and {sk}")
-    rows = 64 if q.dtype == torch.bfloat16 else 32
-    if sk < 1 or -(-sq // rows) > _MAX_Q_TILES or b * h >= 2**31:
+    n_tiles = -(-sq // _Q_TILE_ROWS[q.dtype])
+    if (sk < 1 or n_tiles > _MAX_Q_TILES or b * h >= 2**31
+            or (q.dtype == torch.bfloat16 and n_tiles * b * h >= 2**31)):
         raise ValueError(f"sizes out of the kernel's range: b·h={b * h}, sq={sq}, sk={sk}")
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -80,5 +89,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 b, h, hkv, sq, sk, d, *strides, int(causal),
                 1.0 / math.sqrt(d),
                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a layout of q "
+                           f"{tuple(q.stride())}, k {tuple(k.stride())}, v {tuple(v.stride())} "
+                           f"(CUresult {-err})")
     _build.check(err, "flash_attention")
     return out

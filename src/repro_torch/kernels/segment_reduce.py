@@ -3,10 +3,12 @@
 Replaces the Pallas TPU kernel ``repro/kernels/segment_reduce.py``
 (``segment_reduce``): rows of ``values`` summed into ``num_segments``
 stateful buckets (word counts, reducer labels). The TPU kernel's one-hot
-matmul is not carried over; ``csrc/segment_reduce.cu`` scatters with fp32
-atomics, and its note gives the bound (one id and one value row per row,
-plus contention on hot words). The plain version is
-``kernels.ref.segment_reduce``.
+matmul is not carried over. ``csrc/segment_reduce.cu`` keeps a private
+histogram per block in shared memory where the bins fit
+(``max_bin_bytes``: num_segments × 4 bytes for a broadcast value row,
+counted in uint32; else num_segments × d × 4 in fp32) and scatters with
+global fp32 atomics where they do not; its note gives the bound (one id and
+one value row per row). The plain version is ``kernels.ref.segment_reduce``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,16 @@ def _fn():
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def max_bin_bytes() -> int:
+    """The most bytes of bins the kernel's shared-memory branch takes on the
+    current CUDA device; a shape whose bins are larger takes the global-atomic
+    branch."""
+    fn = _build.library("segment_reduce").segment_reduce_max_bin_bytes
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:

@@ -10,6 +10,8 @@ counts bitwise. Tests marked ``cuda`` hold the CUDA kernels against their
 plain versions and run only where a GPU is present.
 """
 import importlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -243,6 +245,18 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
     wire = torch.randn(40001, generator=g).to(cuda, torch.bfloat16)
     for k, p in zip(ring_fused_step.ring_fused_step(acc, wire), ref.ring_fused_step(acc, wire)):
         assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_at_edges_on_the_card(cuda):
+    """The edge sweep of ``chip_smoke.py`` (its one definition), with both
+    branches of ``segment_reduce``: the shared-memory histogram up to the
+    largest segment count that fits and the global atomics past it."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.check_kernels_at_edges(torch)
 
 
 @pytest.mark.cuda
