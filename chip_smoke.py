@@ -16,7 +16,18 @@
    shuffle, S1 host baseline), each bitwise against ``wordcount_reference``,
    and the §4 aggregation of 8 x 25,557,032 fp32 gradients (ResNet-50's
    parameter count) in all five scenarios against a float64 host mean.
-   Kernel launch counts are zeroed before each path and read after it.
+   Then the same jobs as p4mr programs compiled by the port's compiler onto
+   an 8-ring (``TorusTopology((8,))``) and run by
+   ``plan.run(backend="torch")``: the word count as the rebalanced
+   in-network tree (``PLAN_PASSES``) and as the unlowered KEYBY fan-in over
+   ``kernel_histogram``'s per-shard histograms, bitwise against
+   ``wordcount_reference``; S1 (unoptimized, reducer pinned at d0's
+   switch), S2 and S3 (``PLAN_PASSES``) against a float64 host sum within
+   ``AGG_TOL`` and bitwise against the same plan run on the CPU over the
+   first ``PREFIX`` elements. Plans compile once, outside the timed call;
+   the host compile time, each path's wall and peak device memory are
+   logged. Kernel launch counts are zeroed before each path and read
+   after it.
 4. Times each kernel at its main-path shapes with CUDA events, beside its
    plain version, a one-call PyTorch yardstick where one exists (for
    ``segment_reduce`` the faster of ``index_add_`` and ``bincount``), and
@@ -92,6 +103,18 @@ QK_GAIN = 2.0
 ROW_TOL = {"torch.float32": 3e-4, "torch.bfloat16": 1e-2}
 AGG_TOL = {"s1_host": 1e-5, "s2_in_net": 1e-5, "s3_in_net_map": 3e-2,
            "native": 1e-5, "hierarchical": 1e-5}
+# the compiled-plan paths: the port's optimizing passes (the reference's
+# default pipeline minus lower-shuffle and reroute-feedback, which wait for
+# the simulators), the fabric, and the prefix held bitwise to a CPU run
+PLAN_PASSES = ("parse", "validate", "dead-node-elim", "rebalance-reduce-tree",
+               "insert-combiners", "place", "route", "emit", "verify")
+PLAN_RING = 8
+PREFIX = 2**20
+# switch memory for the aggregation plans: the default 1 MiB cannot hold one
+# 25,557,032-wide state table (204 MB at 8 bytes an item); 512 MiB holds two,
+# as 1 MiB holds two of the word count's 50,000-word tables, so both trees
+# get fan-in 2
+PLAN_SWITCH_MEMORY = 1 << 29
 
 
 def log(msg: str) -> None:
@@ -157,11 +180,50 @@ def inputs():
             grads_np, Mesh(("data",), (8,)).shard(grads_np))
 
 
-def main_paths(words, grads) -> dict:
+def compile_plans(compile_ms: dict | None = None) -> dict:
+    """The compiled-plan paths' plans, name → ``CompiledPlan``, each
+    compiled on the host by the port's compiler onto ``PLAN_RING`` switches;
+    each compile's wall (ms) goes into ``compile_ms`` when given."""
+    from repro_torch import compiler
+    from repro_torch.core import scenarios
+    from repro_torch.core import wordcount as wc
+    from repro_torch.core.topology import TorusTopology
+
+    topo = TorusTopology(dims=(PLAN_RING,))
+    agg_cost = compiler.CostModel(switch_memory_bytes=PLAN_SWITCH_MEMORY)
+    jobs = {
+        "plan_wordcount_tree": (wc.wordcount_program(N_MAPPERS, VOCAB), PLAN_PASSES, {}),
+        "plan_wordcount_keyby": (
+            wc.wordcount_shuffle_program(N_MAPPERS, VOCAB, num_buckets=N_MAPPERS),
+            compiler.UNOPTIMIZED_PASSES, {}),
+        "plan_aggregate_s1": (
+            scenarios.scenario_program(8, "s1_host", state_width=GRAD_SIZE),
+            compiler.UNOPTIMIZED_PASSES,
+            {"pins": {"R": topo.attach_switch("d0")}, "cost_model": agg_cost}),
+        "plan_aggregate_s2": (scenarios.scenario_program(8, "s2_in_net", state_width=GRAD_SIZE),
+                              PLAN_PASSES, {"cost_model": agg_cost}),
+        "plan_aggregate_s3": (
+            scenarios.scenario_program(8, "s3_in_net_map", state_width=GRAD_SIZE),
+            PLAN_PASSES, {"cost_model": agg_cost}),
+    }
+    plans = {}
+    for name, (prog, passes, kw) in jobs.items():
+        t = time.perf_counter()
+        plans[name] = compiler.compile(prog, topo, passes=passes, **kw)
+        if compile_ms is not None:
+            compile_ms[name] = (time.perf_counter() - t) * 1e3
+    return plans
+
+
+def main_paths(words, grads, plans: dict | None = None) -> dict:
     """The port's main paths, name → call, through the entry points a user
     calls: word count by token shuffle, by histogram shuffle and by the S1
     host baseline on ``("all",)=8``; aggregation in S1, S2, S3 and NATIVE on
-    ``("data",)=8`` and HIERARCHICAL on ``("pod","data")=(2,4)``."""
+    ``("data",)=8`` and HIERARCHICAL on ``("pod","data")=(2,4)``; then the
+    compiled plans of ``compile_plans`` (``plans``, or compiled here,
+    outside the calls), run by ``plan.run(backend="torch")``: the word counts over
+    ``kernel_histogram``'s per-shard histograms, the aggregations over the
+    gradient rows. Each plan call returns {sink: float64 numpy}."""
     from repro_torch.core import scenarios
     from repro_torch.core import wordcount as wc
     from repro_torch.mesh import Mesh
@@ -184,6 +246,17 @@ def main_paths(words, grads) -> dict:
             grads, mesh8, sc, data_axis="data")
     paths["aggregate_hierarchical"] = lambda: scenarios.aggregate(
         grads.view(2, 4, -1), mesh24, "hierarchical", data_axis="data", pod_axis="pod")
+
+    def plan_wordcount(plan):
+        hist = wc.kernel_histogram(words, VOCAB)  # one segment_reduce launch, every mapper
+        return plan.run({f"s{i}": hist[i] for i in range(N_MAPPERS)}, backend="torch")
+
+    for name, plan in (plans or compile_plans()).items():
+        if name.startswith("plan_wordcount"):
+            paths[name] = lambda plan=plan: plan_wordcount(plan)
+        else:
+            paths[name] = lambda plan=plan: plan.run(
+                {f"g{i}": grads[i] for i in range(8)}, backend="torch")
     return paths
 
 
@@ -517,6 +590,7 @@ def main() -> int:
     if want_counts.max() >= wc.MAX_EXACT_COUNT:
         raise AssertionError("a word count reaches 2**24: fp32 atomics would not be exact")
     want_mean = torch.from_numpy(grads_np.mean(0, dtype=np.float64)).cuda()
+    want_sum = grads_np.sum(0, dtype=np.float64)
     n_valid = int(sum((s >= 0).sum() for s in shards))
     del grads_np
     log(f"data: word count {N_MAPPERS} x {TOKENS_PER_MAPPER} tokens, vocab {VOCAB}, top word "
@@ -526,17 +600,34 @@ def main() -> int:
     launches = {k: 0 for k in ops.LAUNCHES}
     walls: dict[str, float] = {}
     outs: dict[str, object] = {}
-    for name, fn in main_paths(words, grads).items():
+    path_peak_gb: dict[str, float] = {}
+    compile_ms: dict[str, float] = {}
+    plans = compile_plans(compile_ms)
+    paths = main_paths(words, grads, plans)
+    for name, plan in plans.items():
+        width = plan.program.nodes[plan.program.sources()[0]].items
+        log(f"compiled {name}: {compile_ms[name]:.3f} ms on the host, {len(plan.program)} nodes, "
+            f"{plan.routes.total_hops} wire hops (one ppermute each of a ({PLAN_RING}, {width}) "
+            f"value, {PLAN_RING * width * 4 / 1e9:.3f} GB at fp32)")
+        log("  " + "; ".join(f"{r.name}: {r.summary}" for r in plan.pass_records))
+    # the phase's peak so far: each path below resets the counter to read its own
+    pre_paths_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, fn in paths.items():
         ops.reset_launches()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t
+        path_peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
         got = dict(ops.LAUNCHES)
         for k, v in got.items():
             launches[k] += v
-        log(f"path {name}: {walls[name] * 1e3:.3f} ms wall, launches {got}")
+        log(f"path {name}: {walls[name] * 1e3:.3f} ms wall, launches {got}, peak device memory "
+            f"{path_peak_gb[name]:.3f} GB ({path_peak_gb[name] - base_gb:.3f} GB over the "
+            f"{base_gb:.3f} GB held before the call)")
 
         if name == "wordcount_token":
             reducer_counts, recv = out
@@ -555,6 +646,30 @@ def main() -> int:
             if not np.array_equal(out.reshape(-1).to(torch.int64).cpu().numpy(), want_counts):
                 raise AssertionError(f"{name} counts differ from wordcount_reference")
             log("  counts bitwise == wordcount_reference")
+        elif name.startswith("plan_wordcount_"):
+            counts = out["OUT"]
+            if got["segment_reduce"] != 1:
+                raise AssertionError(f"{name} made {got['segment_reduce']} segment_reduce launches")
+            if not counts.max() < wc.MAX_EXACT_COUNT:
+                raise AssertionError(f"{name}: a count reaches 2**24, past exact fp32")
+            if counts.dtype != np.float64 or not np.array_equal(counts, want_counts.astype(np.float64)):
+                raise AssertionError(f"{name} counts differ from wordcount_reference")
+            log(f"  counts bitwise == wordcount_reference (top count {int(counts.max())} < 2**24)")
+        elif name.startswith("plan_aggregate_"):
+            sc = name.removeprefix("plan_aggregate_")
+            sc = {"s1": "s1_host", "s2": "s2_in_net", "s3": "s3_in_net_map"}[sc]
+            tol = AGG_TOL[sc]
+            got_sum = out["OUT"]
+            err = float(np.linalg.norm(got_sum - want_sum) / np.linalg.norm(want_sum))
+            cpu = plans[name].run({f"g{i}": grads[i, :PREFIX].cpu() for i in range(8)},
+                                  backend="torch", device="cpu")["OUT"]
+            same = np.array_equal(got_sum[:PREFIX].view(np.uint64), cpu.view(np.uint64))
+            log(f"  normwise err vs float64 host sum {err!r} (limit {tol}); first {PREFIX} "
+                f"elements {'bitwise ==' if same else 'DIFFER from'} the plan run on the CPU")
+            if not np.isfinite(got_sum).all() or got_sum.shape != (GRAD_SIZE,) or err > tol:
+                raise AssertionError(f"{name}: beyond {tol} of the float64 sum, or malformed")
+            if not same:
+                raise AssertionError(f"{name}: the card's result differs from the CPU's")
         else:
             sc = name.removeprefix("aggregate_")
             tol = AGG_TOL[sc]
@@ -645,8 +760,9 @@ def main() -> int:
         "shape": f"acc ({GRAD_SIZE},) fp32 + wire bf16: one S3 hop over 8 ranks",
     })
 
-    peak_wc_gb = torch.cuda.max_memory_allocated() / 1e9
-    del words, grads, acc, wire, kout, pout, outs, shards, want_counts, want_mean
+    peak_wc_gb = max(pre_paths_peak_gb, torch.cuda.max_memory_allocated() / 1e9,
+                     *path_peak_gb.values())
+    del words, grads, acc, wire, kout, pout, outs, shards, want_counts, want_mean, want_sum
 
     # 5. serving at full width -------------------------------------------------
     from repro_torch.launch import serve
@@ -766,6 +882,7 @@ def main() -> int:
     })
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
+                    "plan_compile_ms": compile_ms, "path_peak_mem_gb": path_peak_gb,
                     "peak_mem_gb": {"wordcount_aggregation": peak_wc_gb,
                                     "serve": torch.cuda.max_memory_allocated() / 1e9},
                     "build_s": build_s}))

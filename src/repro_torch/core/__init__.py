@@ -1,4 +1,6 @@
-"""Word count, in-transit collectives and the §4 scenarios on the world-dim mesh."""
+"""Word count, in-transit collectives and the §4 scenarios on the world-dim
+mesh, and the p4mr IR (``primitives``, ``dag``), DSL, topologies, placement,
+routing and reference interpreter (``codelet``) the compiler works on."""
 from repro_torch.core import collectives, scenarios, wordcount
 from repro_torch.core.scenarios import Scenario, aggregate
 

@@ -13,13 +13,14 @@ The port of the mesh half of ``repro/core/scenarios.py``:
                      across pods, gather back.
 
 All strategies give the same means (S3 within compression tolerance).
+``scenario_program`` states S1/S2/S3 as p4mr programs for the compiler.
 """
 from __future__ import annotations
 
 import enum
 from typing import Any
 
-from repro_torch.core import collectives as coll
+from repro_torch.core import collectives as coll, dag
 from repro_torch.mesh import Mesh
 
 
@@ -133,3 +134,68 @@ def wire_bytes_per_device(nbytes: float, world: int, scenario: Scenario | str) -
         return 1.0 * nbytes * (world - 1) / world  # bf16 wire halves bytes
     raise ValueError(scenario)
 
+
+# ---------------------------------------------------------------------------
+# The scenarios as p4mr programs, lowered by the pass-based compiler and run
+# by ``plan.run(backend="torch")`` on the world-dim mesh.
+# ---------------------------------------------------------------------------
+def scenario_program(
+    world: int,
+    scenario: Scenario | str,
+    *,
+    state_width: int = 1,
+    shuffle_buckets: int | None = None,
+    hosts: "list[str] | None" = None,
+):
+    """Gradient aggregation over ``world`` workers as a p4mr Program.
+
+    * S1_HOST       — one endpoint reduce (pinned at the sink's switch by
+                      the caller): all raw traffic to the host.
+    * S2_IN_NET     — in-network reduce. Chain form (``shuffle_buckets
+                      =None``): left-deep binary SUMs, the naive frontend
+                      output the rebalance pass restructures. Shuffle form
+                      (``shuffle_buckets=B``): every worker KEYBYs its
+                      gradient into B buckets and one SUM reduces them —
+                      the ``lower-shuffle`` pass turns that into B pinned
+                      per-bucket reducers, i.e. an in-network
+                      reduce-scatter with a gather at the sink.
+    * S3_IN_NET_MAP — S2 plus an in-transit bf16 wire map per store (the
+                      bucket edges inherit the narrowed wire format).
+    """
+    scenario = Scenario(scenario)
+    if scenario not in (Scenario.S1_HOST, Scenario.S2_IN_NET, Scenario.S3_IN_NET_MAP):
+        raise ValueError(f"no DAG form for {scenario} (native/hierarchical are mesh collectives)")
+    if hosts is None:
+        hosts = [f"d{i}" for i in range(world)]
+    elif len(hosts) != world:
+        raise ValueError(f"{world} workers but {len(hosts)} hosts")
+    p = dag.Program()
+    leaves = []
+    for i in range(world):
+        p.store(f"g{i}", host=hosts[i], items=state_width)
+        if scenario is Scenario.S3_IN_NET_MAP:
+            p.map(f"w{i}", f"g{i}", fn_name="to_bf16")
+            leaves.append(f"w{i}")
+        else:
+            leaves.append(f"g{i}")
+    if shuffle_buckets is not None:
+        buckets = max(1, min(shuffle_buckets, state_width))
+        keybys = []
+        for i, leaf in enumerate(leaves):
+            p.key_by(f"k{i}", leaf, num_buckets=buckets)
+            keybys.append(f"k{i}")
+        p.sum("R", *keybys, state_width=state_width)
+    elif scenario is Scenario.S1_HOST or len(leaves) == 1:
+        p.sum("R", *leaves, state_width=state_width)
+    else:
+        acc = leaves[0]
+        for i, leaf in enumerate(leaves[1:]):
+            name = "R" if i == len(leaves) - 2 else f"r{i}"
+            p.sum(name, acc, leaf, state_width=state_width)
+            acc = name
+    out = "R"
+    if scenario is Scenario.S3_IN_NET_MAP:
+        p.map("U", "R", fn_name="from_bf16")
+        out = "U"
+    p.collect("OUT", out, sink_host=hosts[0])
+    return p

@@ -12,16 +12,18 @@ Word ids are dense ints in [0, vocab); bucket(word) = word // (vocab/p).
 histogram; ``local_histogram`` is the plain scatter-add the reference uses
 by default and for its S1 baseline. ``wordcount_token_shuffle`` is the
 other data plane: raw words travel to the reducer of their hash bucket and
-are counted there.
+are counted there. ``wordcount_program`` and ``wordcount_shuffle_program``
+state the same job as p4mr programs for the compiler.
 """
 from __future__ import annotations
 
 import warnings
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import dag
 from repro_torch.kernels import ops
 from repro_torch.mesh import Mesh
 
@@ -125,3 +127,77 @@ def wordcount_reference(word_shards: list[np.ndarray], vocab: int) -> np.ndarray
         ws = ws[ws >= 0]
         np.add.at(out, ws, 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Word-count as a p4mr DAG, lowered by the pass-based compiler: per-shard
+# histogram stores feeding a reduction the compiler restructures (chain →
+# balanced tree, combiners at shared uplinks); ``plan.run(backend="torch")``
+# runs it on the world-dim mesh.
+# ---------------------------------------------------------------------------
+def wordcount_program(
+    num_shards: int,
+    vocab: int,
+    *,
+    hosts: list[str] | None = None,
+    sink_host: str | None = None,
+):
+    """Chain-of-binary-SUMs word-count DAG (what a naive frontend emits).
+
+    Store ``s<i>`` carries shard i's (vocab,)-histogram; the left-deep
+    SUM chain is exactly the shape the rebalance pass turns into a
+    balanced in-network tree. ``hosts`` defaults to torus devices d0..dn-1.
+    """
+    if num_shards < 1:
+        raise ValueError("need at least one shard")
+    hosts = hosts if hosts is not None else [f"d{i}" for i in range(num_shards)]
+    if len(hosts) != num_shards:
+        raise ValueError(f"{num_shards} shards but {len(hosts)} hosts")
+    p = dag.Program()
+    for i, h in enumerate(hosts):
+        p.store(f"s{i}", host=h, path=f"shard_{i}", items=vocab)
+    if num_shards == 1:
+        p.sum("COUNTS", "s0", state_width=vocab)
+    else:
+        acc = "s0"
+        for i in range(1, num_shards):
+            name = "COUNTS" if i == num_shards - 1 else f"partial{i}"
+            p.sum(name, acc, f"s{i}", state_width=vocab)
+            acc = name
+    p.collect("OUT", "COUNTS", sink_host=sink_host or hosts[-1])
+    return p
+
+
+def wordcount_shuffle_program(
+    num_shards: int,
+    vocab: int,
+    *,
+    num_buckets: int | None = None,
+    weights: Sequence[float] | None = None,
+    hosts: list[str] | None = None,
+    sink_host: str | None = None,
+):
+    """Word-count as the paper's real Map-Reduce shape: MAP→KEYBY→REDUCE.
+
+    Store ``s<i>`` carries shard i's (vocab,)-histogram, ``k<i>`` declares
+    the mapper→reducer hash routing (``weights`` = per-bucket skew), and
+    the single SUM is the reducer the ``lower-shuffle`` pass splits into
+    per-bucket in-network reducers; unlowered, it runs as one fan-in
+    reducer. ``wordcount_program`` keeps the naive chain form the
+    rebalance pass exists for.
+    """
+    if num_shards < 1:
+        raise ValueError("need at least one shard")
+    hosts = hosts if hosts is not None else [f"d{i}" for i in range(num_shards)]
+    if len(hosts) != num_shards:
+        raise ValueError(f"{num_shards} shards but {len(hosts)} hosts")
+    buckets = num_buckets if num_buckets is not None else min(num_shards, vocab)
+    p = dag.Program()
+    keybys = []
+    for i, h in enumerate(hosts):
+        p.store(f"s{i}", host=h, path=f"shard_{i}", items=vocab)
+        p.key_by(f"k{i}", f"s{i}", num_buckets=buckets, weights=weights)
+        keybys.append(f"k{i}")
+    p.sum("COUNTS", *keybys, state_width=vocab)
+    p.collect("OUT", "COUNTS", sink_host=sink_host or hosts[-1])
+    return p
