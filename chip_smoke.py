@@ -24,10 +24,22 @@
    ``wordcount_reference``; S1 (unoptimized, reducer pinned at d0's
    switch), S2 and S3 (``PLAN_PASSES``) against a float64 host sum within
    ``AGG_TOL`` and bitwise against the same plan run on the CPU over the
-   first ``PREFIX`` elements. Plans compile once, outside the timed call;
-   the host compile time, each path's wall and peak device memory are
-   logged. Kernel launch counts are zeroed before each path and read
-   after it.
+   first ``PREFIX`` elements. Then the default pipeline's plans, lowered
+   shuffles: ``wordcount_via_plan``'s compile (a ``p4mr.Session``
+   arbitrating 1, 4 or 8 buckets through ``lower-shuffle`` and
+   ``reroute-feedback``) over the same histograms, bitwise, with
+   ``wordcount_via_plan`` itself run beside it, on the card (its default)
+   and on the host (``backend="simulate"``); and
+   ``compile_scenario``'s S1/S2/S3 plans over the gradient rows, within
+   ``AGG_TOL`` of the float64 sum and bitwise against the same plan run on
+   the CPU at full width. Then the vectorized simulator's step on the card
+   (the plan's own ``VoqParams`` with ``use_torch=True``) over the
+   ``BENCH_simulator.json`` fat_tree_k8 cell, which must take steps on the
+   card and give the numpy path's makespan and busy ticks, and S3's ring in the order ``plan_ring_order`` derives on a
+   (2, 4) torus. Plans compile once, outside the timed call; the host
+   compile time, each plan's simulated makespan, each path's wall and peak
+   device memory are logged. Kernel launch counts are zeroed before each
+   path and read after it.
 4. Times each kernel at its main-path shapes with CUDA events, beside its
    plain version, a one-call PyTorch yardstick where one exists (for
    ``segment_reduce`` the faster of ``index_add_`` and ``bincount``), and
@@ -101,11 +113,13 @@ QK_GAIN = 2.0
 # rounding is up to 2**-9 of each value and the kernel's bf16 P adds as much;
 # for fp32 the reference's elementwise 3e-4, held per row.
 ROW_TOL = {"torch.float32": 3e-4, "torch.bfloat16": 1e-2}
+SCENARIOS = {"s1": "s1_host", "s2": "s2_in_net", "s3": "s3_in_net_map"}
 AGG_TOL = {"s1_host": 1e-5, "s2_in_net": 1e-5, "s3_in_net_map": 3e-2,
            "native": 1e-5, "hierarchical": 1e-5}
-# the compiled-plan paths: the port's optimizing passes (the reference's
-# default pipeline minus lower-shuffle and reroute-feedback, which wait for
-# the simulators), the fabric, and the prefix held bitwise to a CPU run
+# the first compiled-plan paths keep their pipeline, the default one minus
+# lower-shuffle and reroute-feedback, so that their plans stay binary trees
+# and their numbers comparable; the fabric; and the prefix of their output
+# held bitwise to a CPU run
 PLAN_PASSES = ("parse", "validate", "dead-node-elim", "rebalance-reduce-tree",
                "insert-combiners", "place", "route", "emit", "verify")
 PLAN_RING = 8
@@ -115,6 +129,9 @@ PREFIX = 2**20
 # as 1 MiB holds two of the word count's 50,000-word tables, so both trees
 # get fan-in 2
 PLAN_SWITCH_MEMORY = 1 << 29
+# the simulator path: ``benchmarks/bench_simulator.py``'s fat_tree_k8 cell
+# (16 mappers, vocab 8192, 16 buckets, no skew, trains capped as by default)
+SIM_K, SIM_MAPPERS, SIM_VOCAB, SIM_BUCKETS = 8, 16, 8192, 16
 
 
 def log(msg: str) -> None:
@@ -182,10 +199,11 @@ def inputs():
 
 def compile_plans(compile_ms: dict | None = None) -> dict:
     """The compiled-plan paths' plans, name → ``CompiledPlan``, each
-    compiled on the host by the port's compiler onto ``PLAN_RING`` switches;
-    each compile's wall (ms) goes into ``compile_ms`` when given."""
+    compiled on the host by the port's compiler: onto ``PLAN_RING``
+    switches, and for ``simulator_device_step`` onto a k=8 fat-tree; each
+    compile's wall (ms) goes into ``compile_ms`` when given."""
     from repro_torch import compiler
-    from repro_torch.core import scenarios
+    from repro_torch.core import scenarios, topology
     from repro_torch.core import wordcount as wc
     from repro_torch.core.topology import TorusTopology
 
@@ -206,10 +224,23 @@ def compile_plans(compile_ms: dict | None = None) -> dict:
             scenarios.scenario_program(8, "s3_in_net_map", state_width=GRAD_SIZE),
             PLAN_PASSES, {"cost_model": agg_cost}),
     }
+    ft = topology.fat_tree_topology(SIM_K)
+    sim_prog = wc.wordcount_shuffle_program(
+        SIM_MAPPERS, SIM_VOCAB, num_buckets=SIM_BUCKETS,
+        hosts=[f"h{i}" for i in range(SIM_MAPPERS)], sink_host=f"h{len(ft.hosts) - 1}")
+    builds = {name: (lambda prog=prog, passes=passes, kw=kw: compiler.compile(
+        prog, topo, passes=passes, **kw)) for name, (prog, passes, kw) in jobs.items()}
+    # the default pipeline: wordcount_via_plan's compile, and compile_scenario
+    builds["plan_wordcount_session"] = lambda: wc._compile_wordcount_plan(N_MAPPERS, VOCAB)
+    for sc in ("s1", "s2", "s3"):
+        builds[f"plan_scenario_{sc}"] = lambda sc=sc: scenarios.compile_scenario(
+            8, SCENARIOS[sc], state_width=GRAD_SIZE, cost_model=agg_cost)
+    builds["simulator_device_step"] = lambda: compiler.compile(
+        sim_prog, ft, passes=compiler.STATIC_ECMP_PASSES)
     plans = {}
-    for name, (prog, passes, kw) in jobs.items():
+    for name, build in builds.items():
         t = time.perf_counter()
-        plans[name] = compiler.compile(prog, topo, passes=passes, **kw)
+        plans[name] = build()
         if compile_ms is not None:
             compile_ms[name] = (time.perf_counter() - t) * 1e3
     return plans
@@ -223,9 +254,17 @@ def main_paths(words, grads, plans: dict | None = None) -> dict:
     compiled plans of ``compile_plans`` (``plans``, or compiled here,
     outside the calls), run by ``plan.run(backend="torch")``: the word counts over
     ``kernel_histogram``'s per-shard histograms, the aggregations over the
-    gradient rows. Each plan call returns {sink: float64 numpy}."""
+    gradient rows. Each plan call returns {sink: float64 numpy}. Then
+    ``simulator_device_step``, the vectorized simulator over that plan with
+    its step on the card (returns a ``SimReport``), and
+    ``aggregate_s3_plan_order``, S3 on ``("data",)=8`` in the ring order
+    ``plan_ring_order`` derives on a (2, 4) torus."""
+    import dataclasses
+
+    from repro_torch.compiler.vectorized import VoqParams, simulate_vectorized
     from repro_torch.core import scenarios
     from repro_torch.core import wordcount as wc
+    from repro_torch.core.topology import TorusTopology
     from repro_torch.mesh import Mesh
 
     mesh = Mesh(("all",), (N_MAPPERS,))
@@ -254,9 +293,18 @@ def main_paths(words, grads, plans: dict | None = None) -> dict:
     for name, plan in (plans or compile_plans()).items():
         if name.startswith("plan_wordcount"):
             paths[name] = lambda plan=plan: plan_wordcount(plan)
+        elif name == "simulator_device_step":
+            spec = plan.flow_spec()  # built once, outside the call
+            params = dataclasses.replace(VoqParams.from_cost_model(plan.cost_model),
+                                         use_torch=True)
+            paths[name] = lambda plan=plan, spec=spec, params=params: simulate_vectorized(
+                plan.program, spec, plan.cost_model, params=params)
         else:
             paths[name] = lambda plan=plan: plan.run(
                 {f"g{i}": grads[i] for i in range(8)}, backend="torch")
+    order = scenarios.plan_ring_order(8, topo=TorusTopology(dims=(2, 4)))
+    paths["aggregate_s3_plan_order"] = lambda: scenarios.aggregate(
+        grads, mesh8, "s3_in_net_map", data_axis="data", ring_order=order)
     return paths
 
 
@@ -554,6 +602,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
+    from repro_torch.compiler import vectorized
+    from repro_torch.compiler.simulator import simulate_timing
+    from repro_torch.compiler.vectorized import simulate_vectorized
     from repro_torch.core import wordcount as wc
     from repro_torch.kernels import _build, ops, ref
 
@@ -602,18 +653,30 @@ def main() -> int:
     outs: dict[str, object] = {}
     path_peak_gb: dict[str, float] = {}
     compile_ms: dict[str, float] = {}
+    host_s: dict[str, float] = {}  # host-side runs beside the paths: checks, simulations
     plans = compile_plans(compile_ms)
     paths = main_paths(words, grads, plans)
+    makespans = {}
     for name, plan in plans.items():
         width = plan.program.nodes[plan.program.sources()[0]].items
+        # a fresh simulation: the plan's own memo may hold the compile's run
+        t = time.perf_counter()
+        makespans[name] = simulate_timing(plan.program, plan.routes, plan.cost_model).makespan_ticks
+        host_s[f"{name}.simulate_timing"] = time.perf_counter() - t
+        if name == "simulator_device_step":
+            what = f"{plan.flow_spec().total_packets} packets on a k={SIM_K} fat-tree"
+        else:
+            what = (f"one ppermute each of a ({PLAN_RING}, {width}) value, "
+                    f"{PLAN_RING * width * 4 / 1e9:.3f} GB at fp32")
         log(f"compiled {name}: {compile_ms[name]:.3f} ms on the host, {len(plan.program)} nodes, "
-            f"{plan.routes.total_hops} wire hops (one ppermute each of a ({PLAN_RING}, {width}) "
-            f"value, {PLAN_RING * width * 4 / 1e9:.3f} GB at fp32)")
+            f"{plan.routes.total_hops} wire hops ({what}); simulated makespan "
+            f"{makespans[name]} ticks ({host_s[f'{name}.simulate_timing'] * 1e3:.3f} ms)")
         log("  " + "; ".join(f"{r.name}: {r.summary}" for r in plan.pass_records))
     # the phase's peak so far: each path below resets the counter to read its own
     pre_paths_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, fn in paths.items():
         ops.reset_launches()
+        vectorized.STEPS["torch"] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9
@@ -623,6 +686,7 @@ def main() -> int:
         walls[name] = time.perf_counter() - t
         path_peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
         got = dict(ops.LAUNCHES)
+        torch_steps = vectorized.STEPS["torch"]
         for k, v in got.items():
             launches[k] += v
         log(f"path {name}: {walls[name] * 1e3:.3f} ms wall, launches {got}, peak device memory "
@@ -655,9 +719,56 @@ def main() -> int:
             if counts.dtype != np.float64 or not np.array_equal(counts, want_counts.astype(np.float64)):
                 raise AssertionError(f"{name} counts differ from wordcount_reference")
             log(f"  counts bitwise == wordcount_reference (top count {int(counts.max())} < 2**24)")
+            if name == "plan_wordcount_session":
+                # the same compile's own entry point: on the card (its default:
+                # kernel_histogram, then the plan's torch step in float64), and
+                # on the host (numpy histograms, then the packet simulator)
+                for where, kw in (("on the card", {}), ("on the host", {"backend": "simulate"})):
+                    t = time.perf_counter()
+                    via_counts, sim = wc.wordcount_via_plan(shards, VOCAB, **kw)
+                    key = f"wordcount_via_plan {where}"
+                    host_s[key] = time.perf_counter() - t
+                    if not np.array_equal(via_counts, want_counts):
+                        raise AssertionError(f"{key}: counts differ from wordcount_reference")
+                    log(f"  {key}: counts bitwise == wordcount_reference, simulated makespan "
+                        f"{sim.report.makespan_ticks} ticks ({sim.report.time_s!r} s modelled), "
+                        f"{host_s[key]:.2f} s wall")
+        elif name.startswith("plan_scenario_"):
+            sc = SCENARIOS[name.removeprefix("plan_scenario_")]
+            tol = AGG_TOL[sc]
+            got_sum = out["OUT"]
+            err = float(np.linalg.norm(got_sum - want_sum) / np.linalg.norm(want_sum))
+            # the same plan object on the CPU at full width: a lowered plan's
+            # bucket windows are fixed at GRAD_SIZE, so a prefix would not do
+            t = time.perf_counter()
+            cpu = plans[name].run({f"g{i}": grads[i].cpu() for i in range(8)},
+                                  backend="torch", device="cpu")["OUT"]
+            host_s[f"{name}.cpu_run"] = time.perf_counter() - t
+            same = np.array_equal(got_sum.view(np.uint64), cpu.view(np.uint64))
+            del cpu
+            log(f"  normwise err vs float64 host sum {err!r} (limit {tol}); all {GRAD_SIZE} "
+                f"elements {'bitwise ==' if same else 'DIFFER from'} the plan run on the CPU "
+                f"({host_s[f'{name}.cpu_run']:.2f} s wall there)")
+            if not np.isfinite(got_sum).all() or got_sum.shape != (GRAD_SIZE,) or err > tol:
+                raise AssertionError(f"{name}: beyond {tol} of the float64 sum, or malformed")
+            if not same:
+                raise AssertionError(f"{name}: the card's result differs from the CPU's")
+        elif name == "simulator_device_step":
+            plan = plans[name]
+            if not torch_steps:
+                raise AssertionError("the simulator took no step on the card")
+            t = time.perf_counter()
+            rep_np = simulate_vectorized(plan.program, plan.flow_spec(), plan.cost_model)
+            host_s["simulator_numpy"] = time.perf_counter() - t
+            log(f"  {plan.flow_spec().total_packets} packets: makespan {out.makespan_ticks} ticks "
+                f"with the step on the card ({torch_steps} steps) vs {rep_np.makespan_ticks} on the numpy path "
+                f"({host_s['simulator_numpy'] * 1e3:.3f} ms wall there); busy ticks "
+                f"{'equal' if out.switch_busy_ticks == rep_np.switch_busy_ticks else 'DIFFER'}")
+            if (out.makespan_ticks != rep_np.makespan_ticks
+                    or out.switch_busy_ticks != rep_np.switch_busy_ticks):
+                raise AssertionError("the simulator's step on the card differs from numpy's")
         elif name.startswith("plan_aggregate_"):
-            sc = name.removeprefix("plan_aggregate_")
-            sc = {"s1": "s1_host", "s2": "s2_in_net", "s3": "s3_in_net_map"}[sc]
+            sc = SCENARIOS[name.removeprefix("plan_aggregate_")]
             tol = AGG_TOL[sc]
             got_sum = out["OUT"]
             err = float(np.linalg.norm(got_sum - want_sum) / np.linalg.norm(want_sum))
@@ -671,7 +782,8 @@ def main() -> int:
             if not same:
                 raise AssertionError(f"{name}: the card's result differs from the CPU's")
         else:
-            sc = name.removeprefix("aggregate_")
+            sc = ("s3_in_net_map" if name == "aggregate_s3_plan_order"
+                  else name.removeprefix("aggregate_"))
             tol = AGG_TOL[sc]
             err = (out.reshape(8, GRAD_SIZE).double() - want_mean).abs()
             bad = not bool((err <= tol + tol * want_mean.abs()).all())
@@ -882,7 +994,8 @@ def main() -> int:
     })
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
-                    "plan_compile_ms": compile_ms, "path_peak_mem_gb": path_peak_gb,
+                    "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,
+                    "host_s": host_s, "path_peak_mem_gb": path_peak_gb,
                     "peak_mem_gb": {"wordcount_aggregation": peak_wc_gb,
                                     "serve": torch.cuda.max_memory_allocated() / 1e9},
                     "build_s": build_s}))

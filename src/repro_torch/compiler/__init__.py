@@ -1,17 +1,19 @@
 """repro_torch.compiler — pass-based p4mr compiler driver (§5 Fig 9).
 
     from repro_torch import compiler
-    plan = compiler.compile(dsl.PAPER_SOURCE, topology.paper_topology().as_indexed(),
-                            passes=compiler.UNOPTIMIZED_PASSES)
+    plan = compiler.compile(dsl.PAPER_SOURCE, topology.paper_topology().as_indexed())
+    plan.simulate(inputs)                  # packet-level dataplane simulator
     plan.run(inputs, backend="torch")      # world-dim mesh on the card
     plan.run(inputs, backend="reference")  # numpy oracle
 
-Ported passes: parse → validate → dead-node-elim → rebalance-reduce-tree →
-insert-combiners → place (§3 cost model) → route → emit → verify. Every
-stage is a registered pass over a shared ``CompileCtx``; see
-``driver.py``. ``lower-shuffle``, ``reroute-feedback`` and ``autotune``
-(and with them the default pipeline) raise ``NotImplementedError`` until
-the simulator slice of the port (ROADMAP.md, queue 1 item 5).
+Pipeline: parse → validate → dead-node-elim → lower-shuffle (KeyBy →
+per-bucket routed edges, see ``repro_torch.shuffle``) →
+rebalance-reduce-tree → insert-combiners → place (§3 cost model) → route
+→ reroute-feedback (streaming-simulate, then re-route on *measured*
+per-switch queueing and per-bucket traffic, to a fixed point) → emit →
+verify. Every stage is a registered pass over a shared ``CompileCtx``;
+see ``driver.py``. ``autotune`` (``AUTOTUNE_PASSES``) raises
+``NotImplementedError`` until it is ported (ROADMAP.md, queue 1 item 7).
 """
 from repro_torch.compiler.cost import CostModel, PlanCost, Traffic
 from repro_torch.compiler.driver import (
@@ -22,6 +24,7 @@ from repro_torch.compiler.driver import (
     CompileCtx,
     PassManager,
     PassRecord,
+    UNPORTED_PASSES,
     compile,
     compile_best,
     get_pass,
@@ -29,6 +32,7 @@ from repro_torch.compiler.driver import (
     registered_passes,
 )
 from repro_torch.compiler.plan import CompiledPlan
+from repro_torch.compiler.simulator import SimReport, SimResult, SimulatorBackend, simulate_timing
 from repro_torch.compiler.torch_backend import emit_step
 
 # importing the pass module registers the built-in passes
@@ -46,10 +50,15 @@ __all__ = [
     "CompileCtx",
     "PassManager",
     "PassRecord",
+    "UNPORTED_PASSES",
     "compile",
     "get_pass",
     "register_pass",
     "registered_passes",
     "emit_step",
     "CompiledPlan",
+    "SimReport",
+    "SimResult",
+    "SimulatorBackend",
+    "simulate_timing",
 ]

@@ -68,8 +68,73 @@ class CostModel:
     item_bytes: int = 8
     recirculation_s: float = 1e-6  # per stateful-merge recirculation
     max_fanin: int = 8  # cap on multi-way reduce width
+    # streaming-simulator granularity: packet trains longer than this are
+    # coalesced into integer-weight super-packets (bounds event count)
+    sim_train_cap: int = 256
+    # ---- streaming-simulator engine knobs (see compiler.vectorized) ----
+    # which engine simulate_timing uses by default: the batched-step
+    # "vectorized" core, or the per-packet "event" heap (reference)
+    sim_engine: str = "vectorized"
+    # vectorized-engine fidelity: "voq" = per-port virtual output queues
+    # with finite buffers / drops / backpressure (the fast fluid core);
+    # "fifo" = infinite-buffer single-FIFO compatibility mode, bit-exact
+    # with the event engine (tick-calendar scheduling)
+    sim_fidelity: str = "voq"
+    # per-hop link latency in ticks (firesim's LINKLATENCY analogue):
+    # a packet served at hop i is servable at hop i+1 this many ticks
+    # after hop-i service starts
+    sim_link_latency_ticks: int = 1
+    # per-output-port bandwidth cap in packets/tick (the §3 C/e throttle
+    # split per port, firesim's throttle_numer/denom); None = the port
+    # never limits below the switch's 1 pkt/tick aggregate service rate
+    sim_port_bw: float | None = None
+    # finite per-switch transit buffer in packets (firesim's
+    # LIMITED_BUFSIZE); None = infinite (the reference model). When
+    # finite, arrivals beyond capacity follow ``sim_buffer_policy``
+    sim_buffer_packets: float | None = None
+    # "backpressure": a full downstream switch stalls the upstream VOQ
+    # (credit-based; counted in port_blocked_ticks); "drop": overflow
+    # packets vanish (counted in port_drops)
+    sim_buffer_policy: str = "backpressure"
+    # run the vectorized engine's dense per-step math as torch ops on the
+    # card (the reference's ``sim_use_jax``: its jax.jit step; numpy is the
+    # default; raises without CUDA). It covers the default knobs only: with
+    # port caps, a finite buffer or fifo fidelity it raises, where the
+    # reference's jax step quietly leaves the work to numpy
+    sim_use_torch: bool = False
+    # ---- INT-style fabric telemetry (repro_torch.telemetry.fabric) ----
+    # collect per-flow per-hop records (hop latency, queue depth at
+    # dequeue, egress utilization) plus tick-sampled per-port series on
+    # SimReport.timeline. Off by default: the fast path must pay nothing
+    sim_telemetry: bool = False
+    # sample the fabric series every this many ticks
+    sim_telemetry_interval: float = 16.0
+    # streaming aggregation window (repro_torch.telemetry.stream), in ticks:
+    # samples are folded into windows this wide and pushed to observers
+    # passed via simulate_timing(..., observers=[...]) while the run is
+    # live. A window normally spans several sample intervals
+    sim_telemetry_window: float = 64.0
+
+    def __post_init__(self) -> None:
+        # a zero/negative sampling period would spin the collectors
+        # forever (the boundary cursor never advances past t) — reject at
+        # construction, naming the knob, instead of hanging a simulation
+        for knob in ("sim_telemetry_interval", "sim_telemetry_window"):
+            v = getattr(self, knob)
+            if not v > 0:
+                raise ValueError(
+                    f"CostModel.{knob} must be > 0 ticks, got {v!r}"
+                )
 
     # ------------------------------------------------------------ traffic --
+    @property
+    def tick_s(self) -> float:
+        """Wall time of one streaming-simulator tick — one packet's
+        service at a switch: serializing ``packet.total_bits`` at line
+        rate C, floored by the forwarding latency. This is the §3 ``C/e``
+        throttle expressed as a per-switch service rate."""
+        return max(self.packet.total_bits / self.link_bps, self.hop_latency_s)
+
     def wire_bytes(self, packets: int) -> float:
         return packets * self.packet.total_bits / 8.0
 

@@ -8,11 +8,11 @@ hand-wiring ``dsl.parse_ast → place → build_routes → compile_program``.
 
     plan = compile(dsl.PAPER_SOURCE, paper_topology())          # optimized
     plan = compile(prog, topo, passes=UNOPTIMIZED_PASSES)       # baseline
-    out = plan.run(inputs, backend="torch")
+    out = plan.run(inputs, backend="torch"); sim = plan.simulate(inputs)
 
-The optimized default pipeline holds passes that wait for a later slice
-of the port (``UNPORTED_PASSES``): until then it raises
-``NotImplementedError``; spell out the pass tuple instead.
+The reference's ``autotune`` pass waits for a later slice of the port
+(``UNPORTED_PASSES``): asking for it, or for ``AUTOTUNE_PASSES``, raises
+``NotImplementedError``.
 
 Custom passes register with ``@register_pass("name")`` and slot into any
 pipeline tuple.
@@ -52,9 +52,7 @@ def register_pass(name: str) -> Callable[[PassFn], PassFn]:
 # passes of the reference compiler that this package does not carry yet;
 # asking for one raises instead of failing later in some other way
 UNPORTED_PASSES: dict[str, str] = {
-    "lower-shuffle": "queue 1 item 5",
-    "reroute-feedback": "queue 1 item 5",
-    "autotune": "queue 1 item 5 onward",
+    "autotune": "queue 1 item 7",
 }
 
 
@@ -82,6 +80,8 @@ def _ensure_builtin_passes() -> None:
     # pass modules import this module for register_pass, so load them lazily
     if "parse" not in _PASS_REGISTRY:
         import repro_torch.compiler.passes  # noqa: F401
+    if "lower-shuffle" not in _PASS_REGISTRY:
+        import repro_torch.shuffle.lower  # noqa: F401
     if "verify" not in _PASS_REGISTRY:
         import repro_torch.verify  # noqa: F401
 
@@ -205,11 +205,16 @@ def compile(
     via ``plan.run(inputs, backend="torch")`` (world-dim mesh) or
     ``backend="reference"`` (numpy oracle).
 
-    ``options`` is a free-form dict every pass can read. The built-in
-    ``route`` pass reads ``switch_penalty_seed`` / ``link_penalty_seed``
-    (external contention maps that bias its tie-breaks) and raises
-    ``NotImplementedError`` when either is given, until
-    ``telemetry.fabric`` is ported (ROADMAP.md, queue 1 item 5).
+    ``options`` is a free-form dict every pass can read. Keys understood
+    by the built-in pipeline:
+
+    * ``reroute_rounds`` — iteration cap for ``reroute-feedback``.
+    * ``switch_penalty_seed`` / ``link_penalty_seed`` — external
+      contention maps (switch → pressure, (switch, switch) → pressure)
+      that bias ``route`` and ``reroute-feedback`` tie-breaks away from
+      fabric other tenants already load (a contention-aware compile seeds
+      job B's compile with job A's measured ``telemetry.fabric``
+      pressure).
     """
     ctx = CompileCtx(
         topology=topology,
@@ -245,6 +250,8 @@ def compile_best(
     pipelines: Sequence[Sequence[str | PassFn]] = (DEFAULT_PASSES, UNOPTIMIZED_PASSES),
     cost_model: CostModel | None = None,
     pins: dict[str, NodeId] | None = None,
+    autotune: bool = False,
+    objective: str | None = None,
     options: dict[str, Any] | None = None,
 ) -> CompiledPlan:
     """Compile under each candidate pipeline, keep the cheapest plan.
@@ -255,13 +262,19 @@ def compile_best(
     than guess, let the §3 cost model arbitrate — the same move as
     profile-guided pass selection in a conventional compiler.
 
-    The default candidates include ``DEFAULT_PASSES``, which raises until
-    its unported passes come (ROADMAP.md, queue 1 item 5); pass
-    ``pipelines`` explicitly. The reference's ``autotune``/``objective``
-    knobs come with the autotuner and the streaming simulator.
+    ``objective="static"`` (the default) keeps the lowest ``cost.scalar``;
+    ``"streamed"`` the lowest streamed makespan (``simulate_timing``), ties
+    by ``cost.scalar``. ``autotune=True`` would add ``AUTOTUNE_PASSES`` and
+    default the objective to ``"streamed"``, as in the reference; the
+    autotuner is not ported yet, so it raises ``NotImplementedError``.
     """
     if not pipelines:
         raise ValueError("need at least one candidate pipeline")
+    if autotune:
+        get_pass("autotune")  # raises, naming the ROADMAP item
+    objective = objective or "static"
+    if objective not in ("static", "streamed"):
+        raise ValueError(f"unknown objective {objective!r} (static or streamed)")
     plans = [
         compile(
             src_or_program, topology,
@@ -269,4 +282,6 @@ def compile_best(
         )
         for p in pipelines
     ]
+    if objective == "streamed":
+        return min(plans, key=lambda pl: (pl.simulate_timing().time_s, pl.cost.scalar))
     return min(plans, key=lambda pl: pl.cost.scalar)

@@ -6,9 +6,10 @@ trace. Frontend: ``parse``, ``validate``. Optimization: ``dead-node-elim``,
 ``rebalance-reduce-tree`` (chains of binary reduces → balanced multi-way
 trees bounded by the per-switch state budget), ``insert-combiners``
 (SwitchAgg-style partial aggregation at each store's uplink switch).
-Backend: ``place`` (§3 cost-model-driven), ``route``, ``emit``. The
-reference's ``reroute-feedback`` pass needs the streaming simulator and
-waits for it (``driver.UNPORTED_PASSES``).
+Backend: ``place`` (§3 cost-model-driven), ``route``,
+``reroute-feedback`` (route → streaming-simulate → re-route on measured
+queueing, to a fixed point), ``emit``. ``lower-shuffle`` lives in
+``repro_torch.shuffle.lower``.
 """
 from __future__ import annotations
 
@@ -358,15 +359,112 @@ def route_pass(ctx: CompileCtx) -> str:
     seed = ctx.options.get("switch_penalty_seed") or None
     link_seed = ctx.options.get("link_penalty_seed") or None
     if seed or link_seed:
-        # the seeds are re-normalized by telemetry.fabric, which comes with
-        # the simulators
-        raise NotImplementedError(
-            "route with switch_penalty_seed/link_penalty_seed needs "
-            "telemetry.fabric, not ported to repro_torch yet (ROADMAP.md, "
-            "queue 1 item 5)"
+        from repro_torch.telemetry.fabric import normalized
+
+        ctx.routes = build_routes(
+            ctx.require_program(), ctx.topology, ctx.placement,
+            switch_penalty=normalized(seed) if seed else None,
+            link_penalty=normalized(link_seed) if link_seed else None,
+        )
+        return (
+            f"{len(ctx.routes.routes)} routes, total_hops={ctx.routes.total_hops}, "
+            f"seeded ({len(seed or ())} switch / {len(link_seed or ())} link)"
         )
     ctx.routes = build_routes(ctx.require_program(), ctx.topology, ctx.placement)
     return f"{len(ctx.routes.routes)} routes, total_hops={ctx.routes.total_hops}"
+
+
+@register_pass("reroute-feedback")
+def reroute_feedback_pass(ctx: CompileCtx) -> str:
+    """Close the route → simulate → reroute loop on *measured* queueing.
+
+    The ``route`` pass spreads equal-cost ties by static route counts —
+    blind to how many packets each route actually carries and to stateful
+    recirculation hotspots. This pass runs the streaming simulator on the
+    current routes, then re-runs ``build_routes`` with (a) per-edge
+    *packet* weights from the cost model's traffic (a hot shuffle bucket
+    claims more of a link than a cold one), (b) per-switch penalties
+    from the simulator's measured queueing plus per-switch buffer drops,
+    and (c) per-link penalties from the VOQ engine's per-port signals
+    (peak VOQ depth, drops, backpressure-blocked ticks) — contention a
+    switch-level number can't localize: one saturated output port must
+    not repel traffic from the switch's other ports. All penalties are
+    normalized below packet scale so they steer ties rather than
+    override traffic. It iterates to a routing fixed point or
+    ``options["reroute_rounds"]`` (default 3), keeping the best-makespan
+    table seen — so the emitted plan's streamed makespan never exceeds
+    the static-ECMP plan's.
+    """
+    if ctx.placement is None or ctx.routes is None:
+        raise _verify_fail(
+            "V001", "reroute-feedback requires routes (run 'route' first)"
+        )
+    from repro_torch.compiler.simulator import simulate_timing
+
+    p = ctx.require_program()
+    cm = ctx.cost_model
+    max_rounds = int(ctx.options.get("reroute_rounds", 3))
+    static_rep = simulate_timing(p, ctx.routes, cm)
+    stats = {
+        "rounds": 0,
+        "converged": False,
+        "static_makespan_ticks": static_rep.makespan_ticks,
+        "static_time_s": static_rep.time_s,
+        "makespan_ticks": static_rep.makespan_ticks,
+        "time_s": static_rep.time_s,
+    }
+    ctx.options["reroute_feedback"] = stats
+    if max_rounds <= 0:
+        return "disabled (reroute_rounds=0)"
+
+    traffic = cm.traffic(p)
+    weights = {lbl: float(t.packets) for lbl, t in traffic.items()}
+    cur, cur_rep = ctx.routes, static_rep
+    best, best_rep = cur, cur_rep
+    from repro_torch.telemetry.fabric import link_pressure, normalized, switch_pressure
+
+    # external contention seeds (see route_pass): folded into every
+    # round's measured penalties so tie-breaks keep avoiding fabric other
+    # tenants load even as this job's own feedback evolves
+    seed = normalized(ctx.options.get("switch_penalty_seed") or {})
+    link_seed = normalized(ctx.options.get("link_penalty_seed") or {})
+
+    def _fold(measured: dict, extern: dict) -> dict:
+        if not extern:
+            return measured
+        keys = set(measured) | set(extern)
+        return normalized(
+            {k: measured.get(k, 0.0) + extern.get(k, 0.0) for k in keys}
+        )
+
+    for round_no in range(1, max_rounds + 1):
+        # per-switch: measured queueing + packets dropped at the switch's
+        # full buffer (the latter is zero under the infinite default);
+        # per-link: the VOQ engine's per-port contention (empty when the
+        # report came from the event engine). Both read the unified
+        # telemetry pressure surface and are normalized below packet
+        # scale so they steer ties rather than override traffic.
+        penalty = _fold(normalized(switch_pressure(cur_rep)), seed)
+        link_penalty = _fold(normalized(link_pressure(cur_rep)), link_seed)
+        nxt = build_routes(
+            p, ctx.topology, ctx.placement,
+            edge_weight=weights, switch_penalty=penalty, link_penalty=link_penalty,
+        )
+        stats["rounds"] = round_no
+        if [r.path for r in nxt.routes] == [r.path for r in cur.routes]:
+            stats["converged"] = True
+            break
+        cur, cur_rep = nxt, simulate_timing(p, nxt, cm)
+        if cur_rep.time_s < best_rep.time_s:
+            best, best_rep = cur, cur_rep
+    ctx.routes = best
+    stats["makespan_ticks"] = best_rep.makespan_ticks
+    stats["time_s"] = best_rep.time_s
+    return (
+        f"{stats['rounds']} round(s), "
+        f"{'fixed point' if stats['converged'] else 'round cap'}, "
+        f"makespan {static_rep.makespan_ticks}→{best_rep.makespan_ticks} ticks"
+    )
 
 
 @register_pass("emit")
@@ -384,5 +482,7 @@ def emit_pass(ctx: CompileCtx) -> str:
         cost=cost,
         pins=dict(ctx.pins),
         trace=tuple(ctx.trace),
+        feedback=ctx.options.get("reroute_feedback"),
+        shuffle_meta=ctx.options.get("shuffle_lowering"),
     )
     return f"plan: {len(p)} nodes, cost={cost.serial_time_s * 1e6:.2f}us"

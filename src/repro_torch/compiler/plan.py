@@ -6,8 +6,7 @@ topology, the §3 cost estimate, and the execution backends:
 
 * ``torch_step()`` — the ``ppermute`` step over a world-dim ``Mesh``;
 * ``execute_reference()`` — the oracle;
-* ``simulate()`` — the packet-level dataplane simulator, which raises
-  ``NotImplementedError`` until the simulator slice of the port.
+* ``simulate()`` — the packet-level dataplane simulator (no devices).
 """
 from __future__ import annotations
 
@@ -23,12 +22,6 @@ from repro_torch.core.routing import RoutingTable
 
 NodeId = Hashable
 
-_NO_SIMULATOR = (
-    "the packet simulator (compiler/simulator.py, compiler/vectorized.py) is "
-    "not ported to repro_torch yet (ROADMAP.md, queue 1 item 5); use "
-    "backend='torch' or backend='reference'"
-)
-
 
 @dataclasses.dataclass
 class CompiledPlan:
@@ -40,6 +33,12 @@ class CompiledPlan:
     cost: PlanCost
     pins: dict[str, NodeId] = dataclasses.field(default_factory=dict)
     trace: tuple = ()  # PassRecords from the driver, for diagnostics
+    # reroute-feedback stats (rounds, converged, static vs feedback
+    # makespan) when that pass ran; None otherwise
+    feedback: dict | None = None
+    # lower-shuffle metadata: reduce label -> {num_buckets, widths,
+    # keybys, bucket_reducers, bucket_switch}; None when nothing lowered
+    shuffle_meta: dict | None = None
     # verifier output (repro_torch.verify Diagnostic tuple) when the 'verify'
     # pass (or check_plan) ran over this plan; None = never verified.
     # An empty tuple means verified clean.
@@ -77,16 +76,67 @@ class CompiledPlan:
         )
 
     def simulate(self, inputs: Mapping[str, np.ndarray], *, engine: str | None = None):
-        """The streaming packet simulator (not ported yet)."""
-        raise NotImplementedError(_NO_SIMULATOR)
+        """Run the streaming packet simulator; returns a ``SimResult``.
+        ``engine`` selects ``"vectorized"`` (batched-step VOQ core, the
+        default via ``CostModel.sim_engine``) or ``"event"`` (per-packet
+        reference heap)."""
+        from repro_torch.compiler.simulator import SimulatorBackend
+
+        return SimulatorBackend(self).run(inputs, engine=engine)
 
     def flow_spec(self):
-        """Packet trains + flow graph of the simulator (not ported yet)."""
-        raise NotImplementedError(_NO_SIMULATOR)
+        """Packet trains + flow graph derived from program/routes/cost
+        model — memoized on the plan. Autotune evaluates the same plan's
+        timing repeatedly (and both engines consume the same spec), so
+        re-deriving trains per call is pure waste. ``dataclasses.replace``
+        (how every autotune action derives a mutated plan) copies fields
+        only, not this cache, so mutated plans rebuild naturally."""
+        if getattr(self, "_flow_spec", None) is None:
+            from repro_torch.compiler.simulator import build_flow_spec
+
+            self._flow_spec = build_flow_spec(self.program, self.routes, self.cost_model)
+        return self._flow_spec
 
     def simulate_timing(self, *, engine: str | None = None, observers=None):
-        """Timing half of the simulator (not ported yet)."""
-        raise NotImplementedError(_NO_SIMULATOR)
+        """Timing half of the simulator alone (no input arrays needed);
+        returns a ``SimReport``. Streamed makespan depends on traffic
+        shapes, not payload values — this is what bucket-count
+        arbitration and the reroute-feedback loop consume. Memoized per
+        engine: program/routes are fixed once emitted, and arbitration +
+        stats + benchmarks would otherwise re-run the same simulation.
+
+        ``observers`` (streaming telemetry sinks — see
+        ``repro_torch.telemetry.stream``) bypass the memo both ways: the run
+        always executes (observers see live windows) and its report is
+        not cached (it carries a timeline the default path didn't ask
+        for)."""
+        from repro_torch.compiler.simulator import ENGINES, simulate_timing
+
+        eng = engine if engine is not None else getattr(self.cost_model, "sim_engine", "vectorized")
+        if eng not in ENGINES:
+            raise ValueError(f"unknown simulator engine {eng!r}; one of {ENGINES}")
+        if observers:
+            return simulate_timing(
+                self.program, self.routes, self.cost_model,
+                engine=eng, spec=self.flow_spec(), observers=observers,
+            )
+        reports = getattr(self, "_timing_reports", None)
+        if reports is None:
+            reports = self._timing_reports = {}
+        if eng not in reports:
+            from repro_torch.telemetry.trace import current_tracer, maybe_span
+
+            # span only the real simulation — memo hits are free and
+            # would drown the trace in zero-width spans
+            with maybe_span(
+                current_tracer(), "plan.simulate_timing", engine=eng
+            ) as attrs:
+                reports[eng] = simulate_timing(
+                    self.program, self.routes, self.cost_model,
+                    engine=eng, spec=self.flow_spec(),
+                )
+                attrs["makespan_ticks"] = reports[eng].makespan_ticks
+        return reports[eng]
 
     def execute_reference(self, inputs: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
         """Reference oracle on this plan's (rewritten) program."""
@@ -98,23 +148,30 @@ class CompiledPlan:
         self,
         inputs: Mapping[str, Any],
         *,
-        backend: str = "simulate",
+        backend: str = "torch",
         axis_name: str = "all",
         item_dtype=None,
         device=None,
     ) -> dict[str, np.ndarray]:
         """One execution surface over every backend.
 
-        ``inputs`` maps each Store label to its array (numpy, or a tensor,
-        which may already lie on the card); the result maps each program
-        sink to its output array:
+        ``inputs`` maps each Store label to its array; the result maps each
+        program sink to its output array:
 
-        * ``"torch"``     — the step of ``torch_backend`` over a world-dim
-          ``Mesh`` with one row per topology switch, on the card unless
-          ``device`` says otherwise (``device="cpu"``); float64 outputs;
-        * ``"reference"`` — the oracle (``core.codelet.execute_reference``);
-        * ``"simulate"``  — the streaming packet simulator, which raises
-          ``NotImplementedError`` until it is ported.
+        * ``"torch"`` (the default) — the step of ``torch_backend`` over a
+          world-dim ``Mesh`` with one row per topology switch, on the card
+          unless ``device`` says otherwise (``device="cpu"``); inputs are
+          numpy arrays or tensors, which may already lie on the card;
+          float64 outputs;
+        * ``"reference"`` — the oracle (``core.codelet.execute_reference``),
+          on the host: it takes numpy arrays or CPU tensors and refuses a
+          tensor on the card;
+        * ``"simulate"``  — the streaming packet simulator, on the host; its
+          outputs are the oracle's (so the same inputs as ``"reference"``);
+          use ``simulate()`` directly when the timing report is wanted too.
+
+        The reference package's default is ``"simulate"``; the port's is
+        the card, and the host backends are asked for by name.
         """
         from repro_torch.telemetry.trace import current_tracer, maybe_span
 

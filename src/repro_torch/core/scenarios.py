@@ -13,7 +13,11 @@ The port of the mesh half of ``repro/core/scenarios.py``:
                      across pods, gather back.
 
 All strategies give the same means (S3 within compression tolerance).
-``scenario_program`` states S1/S2/S3 as p4mr programs for the compiler.
+``scenario_program`` states S1/S2/S3 as p4mr programs for the compiler;
+``compile_scenario`` compiles them through a ``p4mr.Session``,
+``plan_ring_order`` derives ``aggregate``'s ring order from a compiled
+plan, and ``simulated_scenario_time`` prices one round on the packet
+simulator.
 """
 from __future__ import annotations
 
@@ -199,3 +203,145 @@ def scenario_program(
         out = "U"
     p.collect("OUT", out, sink_host=hosts[0])
     return p
+
+
+def compile_scenario(
+    world: int,
+    scenario: Scenario | str,
+    *,
+    state_width: int = 1,
+    topo=None,
+    cost_model=None,
+):
+    """Compile a scenario's aggregation DAG to a ``CompiledPlan``.
+
+    S1 expresses its fan-in through the shuffle subsystem too (a single
+    KEYBY bucket whose reducer is pinned to the sink's uplink — endpoint
+    compute stays the point of the baseline, no optimization passes).
+    S2/S3 let the §3 cost model arbitrate between the chain form (via
+    ``compile_best``: chain vs rebalanced tree) and the compiled-shuffle
+    form at several bucket counts (``shuffle.arbitrate_buckets``) — the
+    same move, applied to the fan-out degree. Note the plan simulator
+    prices wire + hop latency only: the paper's S1 penalty (endpoint CPU
+    serialize/reduce rates) is out of model, so S1-vs-S2 crossover
+    happens at larger worlds here than in Fig 4. Compiles through a
+    ``repro_torch.p4mr.Session`` (the framework API).
+    """
+    from repro_torch import p4mr
+    from repro_torch.core.topology import TorusTopology
+
+    scenario = Scenario(scenario)
+    topo = topo if topo is not None else TorusTopology(dims=(world,))
+    sess = p4mr.Session(topo, cost_model=cost_model)
+    if scenario is Scenario.S1_HOST:
+        sink = topo.attach_switch("d0")
+        program = scenario_program(world, scenario, state_width=state_width, shuffle_buckets=1)
+        return sess.compile(
+            program,
+            name="s1",
+            pins={"R": sink},
+            options=p4mr.CompileOptions(
+                passes=("parse", "validate", "lower-shuffle", "place", "route", "emit")
+            ),
+        )
+    chain = sess.compile_best(
+        scenario_program(world, scenario, state_width=state_width), name="chain"
+    )
+    # clamp to the key space before dedup: tiny state_width collapses the
+    # candidates, so we don't compile the same 1-bucket program twice
+    candidates = sorted({max(1, min(b, state_width)) for b in (world // 2, world)})
+    shuffled = sess.arbitrate_buckets(
+        lambda b: scenario_program(world, scenario, state_width=state_width, shuffle_buckets=b),
+        candidates,
+        name="shuffled",
+    )
+    return min((chain, shuffled), key=lambda pl: pl.cost.scalar)
+
+
+def plan_ring_order(
+    world: int,
+    *,
+    topo=None,
+    state_width: int = 8,
+) -> list[int]:
+    """Ring device order for ``aggregate``'s S2/S3 in-transit rings,
+    derived from a compiled plan instead of the hardcoded rank order.
+
+    Compiles the S2 aggregation DAG on ``topo`` (default: the
+    ``world``-device torus; named ``SwitchTopology`` fabrics are embedded
+    via ``as_indexed`` so switch ids are mesh indices) and chains the
+    workers' placed stores by the plan's own distance metric: starting
+    from the plan's collection sink, each hop goes to the nearest
+    not-yet-visited worker switch (``weighted_distance``, the same metric
+    the placer scored — so a DCN-penalized pod dim is walked last). On a
+    multi-dim torus this yields the snake order whose ring hops are
+    physical neighbor links, where the hardcoded rank order pays
+    wrap-around detours. The result is a permutation of ``range(world)``:
+    any order is value-preserving, this one follows the plan's cheap
+    edges.
+    """
+    from repro_torch import p4mr
+    from repro_torch.core import primitives as prim
+    from repro_torch.core.topology import TorusTopology
+
+    topo = topo if topo is not None else TorusTopology(dims=(world,))
+    if hasattr(topo, "as_indexed"):
+        topo = topo.as_indexed()
+    hosts = list(topo.hosts)
+    if world > len(hosts):
+        raise ValueError(f"{world} workers but topology has {len(hosts)} hosts")
+    # one static-pipeline compile: the walk below only needs the plan's
+    # placement and metric, so the chain-vs-shuffle arbitration of
+    # compile_best and the reroute-feedback simulate rounds (which only
+    # move routes, fixed after placement) would both be wasted here
+    plan = p4mr.Session(topo, options="static_ecmp").compile(
+        scenario_program(
+            world, Scenario.S2_IN_NET, state_width=state_width, hosts=hosts[:world]
+        ),
+        name="ring-order",
+    )
+    devices = sorted(
+        int(plan.placement.switch_of(n.name))
+        for n in plan.program
+        if isinstance(n, prim.Store)
+    )
+    if devices != list(range(world)):
+        raise ValueError(
+            f"workers on {type(topo).__name__} do not map to devices "
+            f"0..{world - 1}: {devices} (one uplink switch per worker required)"
+        )
+    sink = next(
+        int(plan.placement.switch_of(n.name))
+        for n in plan.program
+        if isinstance(n, prim.Collect)
+    )
+    dist = getattr(topo, "weighted_distance", topo.hop_distance)
+    order: list[int] = []
+    remaining = devices
+    cur = sink
+    while remaining:
+        nxt = min(remaining, key=lambda d: (dist(cur, d), d))
+        order.append(nxt)
+        remaining = [d for d in remaining if d != nxt]
+        cur = nxt
+    return order
+
+
+def simulated_scenario_time(
+    world: int,
+    scenario: Scenario | str,
+    *,
+    state_width: int = 1,
+    topo=None,
+    cost_model=None,
+) -> float:
+    """Packet-simulator completion time of one aggregation round."""
+    import numpy as np
+
+    plan = compile_scenario(
+        world, scenario, state_width=state_width, topo=topo, cost_model=cost_model
+    )
+    inputs = {
+        f"g{i}": np.ones((state_width,), np.float64) for i in range(world)
+    }
+    return plan.simulate(inputs).report.time_s

@@ -13,7 +13,8 @@ histogram; ``local_histogram`` is the plain scatter-add the reference uses
 by default and for its S1 baseline. ``wordcount_token_shuffle`` is the
 other data plane: raw words travel to the reducer of their hash bucket and
 are counted there. ``wordcount_program`` and ``wordcount_shuffle_program``
-state the same job as p4mr programs for the compiler.
+state the same job as p4mr programs for the compiler, and
+``wordcount_via_plan`` counts through a compiled, lowered shuffle plan.
 """
 from __future__ import annotations
 
@@ -183,8 +184,9 @@ def wordcount_shuffle_program(
     the mapper→reducer hash routing (``weights`` = per-bucket skew), and
     the single SUM is the reducer the ``lower-shuffle`` pass splits into
     per-bucket in-network reducers; unlowered, it runs as one fan-in
-    reducer. ``wordcount_program`` keeps the naive chain form the
-    rebalance pass exists for.
+    reducer. This is what ``wordcount_via_plan`` compiles;
+    ``wordcount_program`` keeps the naive chain form the rebalance pass
+    exists for.
     """
     if num_shards < 1:
         raise ValueError("need at least one shard")
@@ -201,3 +203,98 @@ def wordcount_shuffle_program(
     p.sum("COUNTS", *keybys, state_width=vocab)
     p.collect("OUT", "COUNTS", sink_host=sink_host or hosts[-1])
     return p
+
+
+def _compile_wordcount_plan(
+    num_shards: int,
+    vocab: int,
+    *,
+    topo=None,
+    passes=None,
+    cost_model=None,
+    num_buckets: int | None = None,
+    weights: Sequence[float] | None = None,
+):
+    """``wordcount_via_plan``'s compile: a ``p4mr.Session`` on ``topo``
+    (default: the ``num_shards``-device torus) compiles the MAP→KEYBY→
+    REDUCE program, or, with ``num_buckets=None``, arbitrates the bucket
+    count over 1 / p/2 / p (``shuffle.arbitrate_buckets``). Returns the
+    ``CompiledPlan``."""
+    from repro_torch import compiler, p4mr, shuffle
+    from repro_torch.core.topology import TorusTopology
+
+    n = num_shards
+    topo = topo if topo is not None else TorusTopology(dims=(max(n, 2),))
+    cm = cost_model or compiler.CostModel(max_fanin=4)
+    opts = p4mr.CompileOptions(passes=tuple(passes)) if passes is not None else None
+    sess = p4mr.Session(topo, cost_model=cm, options=opts)
+
+    def make(b: int):
+        # re-bin declared skew to the candidate bucket count (weights are a
+        # density over the key space, not tied to one bucket granularity)
+        w = shuffle.resample_weights(weights, b) if weights is not None else None
+        return wordcount_shuffle_program(n, vocab, num_buckets=b, weights=w)
+
+    if num_buckets is not None:
+        return sess.compile(make(min(num_buckets, vocab)), name="wordcount")
+    candidates = sorted({1, max(1, n // 2), min(n, vocab)})
+    return sess.arbitrate_buckets(make, candidates, name="wordcount")
+
+
+def wordcount_via_plan(
+    word_shards: list[np.ndarray],
+    vocab: int,
+    *,
+    topo=None,
+    passes=None,
+    cost_model=None,
+    num_buckets: int | None = None,
+    weights: Sequence[float] | None = None,
+    backend: str = "torch",
+    device=None,
+):
+    """Count words through the compiler: shards → histograms → MAP→KEYBY→
+    REDUCE program → ``lower-shuffle`` → the compiled plan. Returns
+    ``(counts, SimResult)``; counts are bitwise what
+    ``wordcount_reference`` produces — integer-valued sums, reassembled in
+    bucket order.
+
+    ``backend="torch"`` (the default) counts on the card, or on
+    ``device`` when one is named (``device="cpu"``): ``kernel_histogram``
+    over the shards, padded with -1 to one length, then the plan's torch
+    step in float64; the ``SimResult`` holds those counts and the plan's
+    streamed timing (``plan.simulate_timing()``, which depends on the
+    traffic's shape only). ``backend="simulate"`` is the reference
+    package's route and runs on the host alone: numpy histograms, then
+    the packet simulator.
+
+    ``num_buckets=None`` lets the §3 cost model arbitrate the fan-out the
+    same way ``compile_best`` arbitrates chain-vs-tree
+    (``shuffle.arbitrate_buckets`` over 1 / p/2 / p buckets). Compiles
+    through a ``repro_torch.p4mr.Session`` (the framework API).
+    """
+    if backend not in ("torch", "simulate"):
+        raise ValueError(f"unknown backend {backend!r}; one of 'torch', 'simulate'")
+    plan = _compile_wordcount_plan(
+        len(word_shards), vocab, topo=topo, passes=passes, cost_model=cost_model,
+        num_buckets=num_buckets, weights=weights,
+    )
+    if backend == "simulate":
+        inputs = {
+            f"s{i}": wordcount_reference([ws], vocab).astype(np.float64)
+            for i, ws in enumerate(word_shards)
+        }
+        sim = plan.simulate(inputs)
+        return sim.outputs["OUT"].astype(np.int64), sim
+    from repro_torch.compiler.simulator import SimResult
+    from repro_torch.mesh import resolve_device
+
+    dev = resolve_device(device, "wordcount_via_plan")
+    width = max(len(ws) for ws in word_shards)
+    words = torch.full((len(word_shards), width), -1, dtype=torch.int32)
+    for i, ws in enumerate(word_shards):
+        words[i, : len(ws)] = torch.from_numpy(np.asarray(ws, dtype=np.int32))
+    hist = kernel_histogram(words.to(dev), vocab)
+    out = plan.run({f"s{i}": hist[i] for i in range(len(word_shards))},
+                   backend="torch", device=dev, item_dtype=torch.float64)
+    return out["OUT"].astype(np.int64), SimResult(outputs=out, report=plan.simulate_timing())

@@ -6,29 +6,43 @@ switches"), as far as the port carries it.
   (``Dataset.map(...).key_by(...).reduce("SUM").collect(...)``) that
   constructs ``dag.Program``s directly; ``from_source`` /
   ``Job.to_source()`` round-trip with the paper's surface syntax.
-* **Compile and run** — ``repro_torch.compiler.compile(job.program(),
-  topology, passes=...)`` and ``plan.run(inputs, backend="torch")``.
+* **Compile** — ``Session`` owns topology + ``CostModel`` + typed
+  ``CompileOptions`` (presets ``unoptimized`` / ``static_ecmp`` /
+  ``default`` over the registered pass pipelines; ``autotuned`` raises
+  until the autotuner is ported) and compiles many jobs against one
+  fabric.
+* **Execute** — every backend behind one call:
+  ``plan.run(inputs)`` on the card (``backend="torch"``, the default), or
+  on the host by name (``backend="simulate" | "reference"``); and
+  ``session.simulate()`` streams *all* registered jobs' packet trains
+  through the shared switches at once (multi-tenant contention).
 
-    from repro_torch import compiler, p4mr
+    from repro_torch import p4mr
     from repro_torch.core.topology import TorusTopology
 
     job = p4mr.job("wordcount")
-    s = [job.store(f"s{i}", host=f"d{i}", items=64) for i in range(8)]
-    s[0].reduce("SUM", *s[1:], label="COUNTS").collect("d0")
+    mapped = [job.store(f"s{i}", host=f"d{i}", items=64).key_by(8)
+              for i in range(8)]
+    mapped[0].reduce("SUM", *mapped[1:], label="COUNTS").collect("d0")
 
-    plan = compiler.compile(job.program(), TorusTopology(dims=(8,)),
-                            passes=compiler.UNOPTIMIZED_PASSES)
-    counts = plan.run(histograms, backend="torch")   # == "reference"
+    sess = p4mr.Session(TorusTopology(dims=(8,)))
+    plan = sess.compile(job)
+    counts = plan.run(histograms)   # on the card; == backend="simulate" on the host
 
-``Session`` and ``Scheduler`` come with later slices of the port
-(ROADMAP.md, queue 1 item 5 onward).
+The reference's ``Scheduler`` comes with a later slice of the port
+(ROADMAP.md, queue 1 item 7).
 """
 from repro_torch.p4mr.builder import Dataset, Job, from_program, from_source, job
+from repro_torch.p4mr.session import CompileOptions, Session, SessionReport, merge_plans
 
 __all__ = [
+    "CompileOptions",
     "Dataset",
     "Job",
+    "Session",
+    "SessionReport",
     "from_program",
     "from_source",
     "job",
+    "merge_plans",
 ]

@@ -19,7 +19,7 @@ Checker catalog (codes are stable; full descriptions in docs/verify.md):
   V102  dangling dependency / label-key mismatch (single-definition)
   V103  reduce fan-in exceeds the CostModel bound
   V104  ShuffleBucket key-space coverage not exactly-once (gap/overlap)
-  V105  Concat lists a source more than once
+  V105  Concat drops or invents a bucket reducer (vs shuffle_meta)
   V106  structural: empty program, reduce without sources, orphan node
   V110  Store/Collect host not attached to the target topology
   V201  node placed on a nonexistent switch / never placed
@@ -218,10 +218,12 @@ def _check_bucket_coverage(program: dag.Program, out: list[Diagnostic]) -> None:
                     ))
 
 
-def _check_concat(program: dag.Program, out: list[Diagnostic]) -> None:
-    """V105: a Concat lists no source twice. (The reference also holds a
-    lowered shuffle's Concat to the bucket reducers ``lower-shuffle``
-    recorded; that half comes with the pass.)"""
+def _check_concat(
+    program: dag.Program, shuffle_meta: Mapping | None, out: list[Diagnostic]
+) -> None:
+    """V105: Concat completeness — no duplicate sources, and (when the
+    lowering recorded its bucket reducers) the reassembling Concat must
+    consume exactly those reducers."""
     for node in program:
         if isinstance(node, prim.Concat):
             dup = [s for s, n in Counter(node.srcs).items() if n > 1]
@@ -231,6 +233,28 @@ def _check_concat(program: dag.Program, out: list[Diagnostic]) -> None:
                     f"concat lists source(s) {sorted(dup)} more than once",
                     subject=node.name,
                 ))
+    for label, meta in (shuffle_meta or {}).items():
+        expected = set(meta.get("bucket_reducers", {}).values())
+        node = program.nodes.get(label)
+        if node is None or not isinstance(node, prim.Concat) or not expected:
+            continue
+        got = set(node.srcs)
+        for missing in sorted(expected - got):
+            b = next(
+                b for b, lbl in meta["bucket_reducers"].items() if lbl == missing
+            )
+            out.append(Diagnostic(
+                "V105", _ERR,
+                f"drops bucket reducer {missing!r} (bucket {b}): its key "
+                "slice would never be reassembled",
+                subject=label,
+            ))
+        for extra in sorted(got - expected):
+            out.append(Diagnostic(
+                "V105", _ERR,
+                f"consumes {extra!r} which is not a bucket reducer of this shuffle",
+                subject=label,
+            ))
 
 
 def _check_hosts(program: dag.Program, topology: Any, out: list[Diagnostic]) -> None:
@@ -256,12 +280,14 @@ def verify_program(
     *,
     cost_model: Any = None,
     topology: Any = None,
+    shuffle_meta: Mapping | None = None,
 ) -> list[Diagnostic]:
     """All V1xx IR/dataflow diagnostics of ``program`` in one run.
 
     ``cost_model`` enables V103 (fan-in bounds) — only pass it for
     programs the rebalance pass has already processed; ``topology``
-    enables V110 (host attachment).
+    enables V110 (host attachment); ``shuffle_meta`` enables the
+    meta-backed half of V105.
     """
     out: list[Diagnostic] = []
     _check_structure(program, out)
@@ -270,7 +296,7 @@ def verify_program(
     if cost_model is not None:
         _check_fanin(program, cost_model, out)
     _check_bucket_coverage(program, out)
-    _check_concat(program, out)
+    _check_concat(program, shuffle_meta, out)
     if topology is not None:
         _check_hosts(program, topology, out)
     return out
@@ -505,6 +531,7 @@ def verify_plan(
             plan.program,
             cost_model=plan.cost_model,
             topology=plan.topology,
+            shuffle_meta=plan.shuffle_meta,
         )
         if not any(d.code in ("V101", "V102") for d in out):
             _check_placement(plan, out)
