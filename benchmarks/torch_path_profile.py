@@ -4,7 +4,8 @@
     PYTHONPATH=src python3 benchmarks/torch_path_profile.py
 
 Runs each main path of ``chip_smoke.py`` (its ``inputs`` and ``main_paths``,
-the same full size), then the serving prefill (``serve_inputs`` and
+the same full size; then ``recurrence_inputs`` and ``recurrence_paths``, the
+sharded scan and the pipeline), then the serving prefill (``serve_inputs`` and
 ``prefill_paths``: Qwen1.5-0.5B at full width, 8 × 4096 tokens, attention
 through ``flash_attention``), each once to warm up, then twice under ``torch.profiler``
 (CPU + CUDA activity), each call inside a ``record_function`` window that
@@ -66,6 +67,7 @@ def main() -> int:
     def paths():
         _, words, _, grads = chip_smoke.inputs()
         yield from chip_smoke.main_paths(words, grads).items()
+        yield from chip_smoke.recurrence_paths(*chip_smoke.recurrence_inputs()).items()
         yield from chip_smoke.prefill_paths(*chip_smoke.serve_inputs()).items()
 
     cuda = torch.autograd.DeviceType.CUDA

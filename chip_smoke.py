@@ -36,7 +36,20 @@
    (the plan's own ``VoqParams`` with ``use_torch=True``) over the
    ``BENCH_simulator.json`` fat_tree_k8 cell, which must take steps on the
    card and give the numpy path's makespan and busy ticks, and S3's ring in the order ``plan_ring_order`` derives on a
-   (2, 4) torus. Plans compile once, outside the timed call; the host
+   (2, 4) torus. Then the autotuned pipeline: the Session word count's
+   compile with the ``autotune`` pass appended and telemetry on
+   (``plan_wordcount_autotuned``), run over the same histograms, bitwise;
+   ``BENCH_scheduler.json``'s two-tenant cell at vocab 50,000 scheduled by
+   ``p4mr.Scheduler`` on a k=4 fat-tree, each tenant's plan run on the
+   card over its own 4 shards' histograms, bitwise
+   (``scheduler_two_tenants``). Then, in a phase of its own with its own
+   peak device memory, ``sequence_parallel_linear_scan`` of an
+   RG-LRU recurrence at recurrentgemma-2b's width (8 ranks × 2,048
+   positions × batch 8 × 2,560, fp32) within 2e-5 of a float64 sequential
+   recurrence on the card; and ``pipeline_apply`` of 8 stages of
+   tanh(h @ W_s) at d 1024 over 32 microbatches of (8, 512, 1024) fp32
+   within 2e-5 of the stages applied in sequence in float64. Plans compile
+   (and the tenants are scheduled) once, outside the timed call; the host
    compile time, each plan's simulated makespan, each path's wall and peak
    device memory are logged. Kernel launch counts are zeroed before each
    path and read after it.
@@ -65,10 +78,11 @@ Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that last line. Needs one CUDA device.
 
-``inputs`` and ``main_paths`` are the one definition of the word-count and
-aggregation paths, ``serve_inputs``, ``serve_paths`` and ``prefill_paths``
-of the serving ones; ``benchmarks/torch_path_profile.py`` profiles the same
-tables.
+``inputs`` and ``main_paths`` are the one definition of the word-count,
+aggregation, compiled-plan and scheduler paths, ``recurrence_inputs`` and
+``recurrence_paths`` of the scan and pipeline ones, ``serve_inputs``,
+``serve_paths`` and ``prefill_paths`` of the serving ones;
+``benchmarks/torch_path_profile.py`` profiles the same tables.
 """
 from __future__ import annotations
 
@@ -132,6 +146,17 @@ PLAN_SWITCH_MEMORY = 1 << 29
 # the simulator path: ``benchmarks/bench_simulator.py``'s fat_tree_k8 cell
 # (16 mappers, vocab 8192, 16 buckets, no skew, trains capped as by default)
 SIM_K, SIM_MAPPERS, SIM_VOCAB, SIM_BUCKETS = 8, 16, 8192, 16
+# the scheduler path: ``benchmarks/bench_scheduler.py``'s two_wordcounts
+# cell at VOCAB words; tenant → (the corpus shards it counts, on hosts h<i>,
+# and its sink host)
+TENANTS = {"tenant_a": (range(0, 4), "h15"), "tenant_b": (range(4, 8), "h12")}
+# the recurrence paths: an RG-LRU recurrence at recurrentgemma-2b's width
+# (src/repro/configs/recurrentgemma_2b.py, d 2560) sharded over 8 ranks, and
+# 8 pipeline stages of tanh(h @ W_s) at qwen1.5-0.5b's d_model 1024; both
+# held to the reference tests' 2e-5 (rtol = atol) against float64
+SCAN_RANKS, SCAN_LEN, SCAN_BATCH, SCAN_WIDTH = 8, 2048, 8, 2560
+PIPE_STAGES, PIPE_MICRO, PIPE_SHAPE = 8, 32, (8, 512, 1024)
+RECURRENCE_TOL = 2e-5
 
 
 def log(msg: str) -> None:
@@ -197,11 +222,29 @@ def inputs():
             grads_np, Mesh(("data",), (8,)).shard(grads_np))
 
 
+def autotuned_wordcount():
+    """``plan_wordcount_session``'s compile with the ``autotune`` pass
+    appended: a ``Session`` on the 8-ring with ``max_fanin=4``, the
+    ``autotuned`` preset and telemetry on, arbitrating 1 / 4 / 8 buckets.
+    Returns (plan, the session's ``Telemetry``)."""
+    from repro_torch import compiler, p4mr
+    from repro_torch.core import wordcount as wc
+    from repro_torch.core.topology import TorusTopology
+
+    sess = p4mr.Session(TorusTopology(dims=(PLAN_RING,)), cost_model=compiler.CostModel(max_fanin=4),
+                        options="autotuned", telemetry=True)
+    plan = sess.arbitrate_buckets(
+        lambda b: wc.wordcount_shuffle_program(N_MAPPERS, VOCAB, num_buckets=b),
+        [1, N_MAPPERS // 2, N_MAPPERS], name="wordcount")
+    return plan, sess.telemetry
+
+
 def compile_plans(compile_ms: dict | None = None) -> dict:
     """The compiled-plan paths' plans, name → ``CompiledPlan``, each
     compiled on the host by the port's compiler: onto ``PLAN_RING``
     switches, and for ``simulator_device_step`` onto a k=8 fat-tree; each
-    compile's wall (ms) goes into ``compile_ms`` when given."""
+    compile's wall (ms) goes into ``compile_ms`` when given. The autotuned
+    plan is ``autotuned_wordcount``'s."""
     from repro_torch import compiler
     from repro_torch.core import scenarios, topology
     from repro_torch.core import wordcount as wc
@@ -246,19 +289,43 @@ def compile_plans(compile_ms: dict | None = None) -> dict:
     return plans
 
 
-def main_paths(words, grads, plans: dict | None = None) -> dict:
+def schedule_tenants():
+    """``BENCH_scheduler.json``'s two_wordcounts cell at ``VOCAB`` words:
+    ``Scheduler(reroute_rounds=3)`` on a k=4 fat-tree admits ``TENANTS``.
+    Returns (``ScheduleReport``, tenant → its plan on the fat-tree's integer
+    view, which the torch backend addresses)."""
+    from repro_torch import p4mr
+    from repro_torch.core.topology import fat_tree_topology
+
+    sess = p4mr.Session(fat_tree_topology(4))
+    sched = p4mr.Scheduler(sess, reroute_rounds=3)
+    for name, (hosts, sink) in TENANTS.items():
+        job = p4mr.job(name)
+        keyed = [job.store(f"s{i}", host=f"h{h}", items=VOCAB).key_by(4)
+                 for i, h in enumerate(hosts)]
+        keyed[0].reduce("SUM", *keyed[1:], label="R").collect(sink, label="OUT")
+        sched.submit(job, name=name)
+    rep = sched.run()
+    return rep, {name: sess.plans[name].indexed() for name in rep.admitted}
+
+
+def main_paths(words, grads, plans: dict | None = None, schedule=None) -> dict:
     """The port's main paths, name → call, through the entry points a user
     calls: word count by token shuffle, by histogram shuffle and by the S1
     host baseline on ``("all",)=8``; aggregation in S1, S2, S3 and NATIVE on
     ``("data",)=8`` and HIERARCHICAL on ``("pod","data")=(2,4)``; then the
-    compiled plans of ``compile_plans`` (``plans``, or compiled here,
-    outside the calls), run by ``plan.run(backend="torch")``: the word counts over
-    ``kernel_histogram``'s per-shard histograms, the aggregations over the
-    gradient rows. Each plan call returns {sink: float64 numpy}. Then
-    ``simulator_device_step``, the vectorized simulator over that plan with
-    its step on the card (returns a ``SimReport``), and
+    compiled plans of ``compile_plans`` and ``autotuned_wordcount``
+    (``plans``, or compiled here, outside the calls), run by
+    ``plan.run(backend="torch")``: the word counts over ``kernel_histogram``'s
+    per-shard histograms, the aggregations over the gradient rows. Each plan
+    call returns {sink: float64 numpy}. Then ``simulator_device_step``, the
+    vectorized simulator over that plan with its step on the card (returns a
+    ``SimReport``), and
     ``aggregate_s3_plan_order``, S3 on ``("data",)=8`` in the ring order
-    ``plan_ring_order`` derives on a (2, 4) torus."""
+    ``plan_ring_order`` derives on a (2, 4) torus. Last
+    ``scheduler_two_tenants``: the tenants of ``schedule_tenants`` (``schedule``,
+    or scheduled here, outside the call), each plan run on the card over its
+    own mappers' ``kernel_histogram`` rows (one launch for all 8)."""
     import dataclasses
 
     from repro_torch.compiler.vectorized import VoqParams, simulate_vectorized
@@ -290,7 +357,8 @@ def main_paths(words, grads, plans: dict | None = None) -> dict:
         hist = wc.kernel_histogram(words, VOCAB)  # one segment_reduce launch, every mapper
         return plan.run({f"s{i}": hist[i] for i in range(N_MAPPERS)}, backend="torch")
 
-    for name, plan in (plans or compile_plans()).items():
+    plans = plans or {**compile_plans(), "plan_wordcount_autotuned": autotuned_wordcount()[0]}
+    for name, plan in plans.items():
         if name.startswith("plan_wordcount"):
             paths[name] = lambda plan=plan: plan_wordcount(plan)
         elif name == "simulator_device_step":
@@ -305,7 +373,79 @@ def main_paths(words, grads, plans: dict | None = None) -> dict:
     order = scenarios.plan_ring_order(8, topo=TorusTopology(dims=(2, 4)))
     paths["aggregate_s3_plan_order"] = lambda: scenarios.aggregate(
         grads, mesh8, "s3_in_net_map", data_axis="data", ring_order=order)
+    _, tenant_plans = schedule or schedule_tenants()
+
+    def scheduled():
+        hist = wc.kernel_histogram(words, VOCAB)  # one segment_reduce launch, every mapper
+        return {name: plan.run({f"s{i}": hist[m] for i, m in enumerate(TENANTS[name][0])})
+                for name, plan in tenant_plans.items()}
+
+    paths["scheduler_two_tenants"] = scheduled
     return paths
+
+
+def recurrence_inputs():
+    """The recurrence paths' data on the card, from ``SEED``: the decay
+    ``a`` in [0.5, 1) and input ``b`` of (``SCAN_RANKS``, ``SCAN_LEN``,
+    ``SCAN_BATCH``, ``SCAN_WIDTH``) fp32 (rank r holds positions
+    [r·SCAN_LEN, (r+1)·SCAN_LEN)), the stages' (d, d) weights scaled by
+    1/√d, and ``PIPE_MICRO`` microbatches of ``PIPE_SHAPE`` fp32."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = (SCAN_RANKS, SCAN_LEN, SCAN_BATCH, SCAN_WIDTH)
+    a = 0.5 + 0.5 * torch.rand(shape, generator=g, device="cuda")
+    b = torch.randn(shape, generator=g, device="cuda")
+    d = PIPE_SHAPE[-1]
+    ws = torch.randn((PIPE_STAGES, d, d), generator=g, device="cuda") / d**0.5
+    micro = torch.randn((PIPE_MICRO,) + PIPE_SHAPE, generator=g, device="cuda")
+    return a, b, ws, micro
+
+
+def pipeline_stage(w, h):
+    """tanh(h @ W_s) on every stage at once: each stage's microbatch rows
+    times its (d, d) weights, one batched product."""
+    import torch
+
+    p, d = w.shape[0], w.shape[-1]
+    return torch.tanh(torch.bmm(h.reshape(p, -1, d), w)).view(h.shape)
+
+
+def recurrence_paths(a, b, ws, micro) -> dict:
+    """``sequence_parallel_linear_scan`` of ``h_t = a_t·h_{t−1} + b_t`` over
+    ``("seq",)=SCAN_RANKS`` and ``pipeline_apply`` of ``PIPE_STAGES`` stages
+    over ``("pipe",)=PIPE_STAGES``, name → call."""
+    from repro_torch.core.pipeline import pipeline_apply
+    from repro_torch.core.ring_scan import sequence_parallel_linear_scan
+    from repro_torch.mesh import Mesh
+
+    seq, pipe = Mesh(("seq",), (SCAN_RANKS,)), Mesh(("pipe",), (PIPE_STAGES,))
+    return {
+        "ring_scan_linear_recurrence": lambda: sequence_parallel_linear_scan(a, b, seq, "seq"),
+        "pipeline_apply": lambda: pipeline_apply(pipeline_stage, ws, micro, pipe, "pipe"),
+    }
+
+
+def sequential_recurrence(a, b):
+    """The scan's check: ``h_t = a_t·h_{t−1} + b_t`` in float64, one position
+    at a time along the whole (rank-major) sequence, on the card."""
+    import torch
+
+    out = torch.empty(a.shape, dtype=torch.float64, device=a.device)
+    h = torch.zeros(a.shape[2:], dtype=torch.float64, device=a.device)
+    for r in range(a.shape[0]):
+        for t in range(a.shape[1]):
+            h = torch.addcmul(b[r, t].double(), a[r, t].double(), h)
+            out[r, t] = h
+    return out
+
+
+def beyond_tol(got, want) -> tuple[float, float]:
+    """(largest |got − want|, largest |got − want| / (tol + tol·|want|)) in
+    float64, ``RECURRENCE_TOL`` as rtol and atol: the second is at most 1
+    where ``numpy.testing.assert_allclose`` would pass."""
+    d = (got.double() - want).abs()
+    return float(d.max()), float((d / (RECURRENCE_TOL + RECURRENCE_TOL * want.abs())).max())
 
 
 def check_kernels_at_edges(torch) -> None:
@@ -655,7 +795,13 @@ def main() -> int:
     compile_ms: dict[str, float] = {}
     host_s: dict[str, float] = {}  # host-side runs beside the paths: checks, simulations
     plans = compile_plans(compile_ms)
-    paths = main_paths(words, grads, plans)
+    t = time.perf_counter()
+    plans["plan_wordcount_autotuned"], tuned_telemetry = autotuned_wordcount()
+    compile_ms["plan_wordcount_autotuned"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    schedule = schedule_tenants()
+    compile_ms["scheduler_two_tenants"] = (time.perf_counter() - t) * 1e3
+    paths = main_paths(words, grads, plans, schedule)
     makespans = {}
     for name, plan in plans.items():
         width = plan.program.nodes[plan.program.sources()[0]].items
@@ -672,9 +818,35 @@ def main() -> int:
             f"{plan.routes.total_hops} wire hops ({what}); simulated makespan "
             f"{makespans[name]} ticks ({host_s[f'{name}.simulate_timing'] * 1e3:.3f} ms)")
         log("  " + "; ".join(f"{r.name}: {r.summary}" for r in plan.pass_records))
-    # the phase's peak so far: each path below resets the counter to read its own
-    pre_paths_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name, fn in paths.items():
+        if name == "plan_wordcount_autotuned":
+            tune, tel = plan.tuning, tuned_telemetry.metrics.to_dict()
+            log(f"  autotune: accepted {tune.accepted_by_kind()} of {len(tune.actions)} actions; "
+                f"streamed makespan {tune.initial_makespan_ticks} -> {tune.final_makespan_ticks} "
+                f"ticks (model ticks); telemetry verify.runs "
+                f"{tel['counters'].get('verify.runs', 0)}, "
+                f"{len(tuned_telemetry.tracer.spans)} spans")
+            if tune.final_makespan_ticks > tune.initial_makespan_ticks:
+                raise AssertionError("the autotuned plan is slower than the plan it started from")
+    rep_s, tenant_plans = schedule
+    schedule_ticks = {"scheduled": rep_s.makespan_ticks,
+                      "unscheduled": rep_s.unscheduled_makespan_ticks,
+                      "solo": rep_s.solo_makespan_ticks,
+                      "hot_swaps_accepted": sum(h.accepted for h in rep_s.hot_swaps),
+                      "anomalies": len(rep_s.anomalies)}
+    log(f"scheduled scheduler_two_tenants: {compile_ms['scheduler_two_tenants']:.3f} ms on the "
+        f"host; {rep_s.summary()}; makespan scheduled {rep_s.makespan_ticks}, unscheduled "
+        f"{rep_s.unscheduled_makespan_ticks}, solo {rep_s.solo_makespan_ticks} ticks; hot swaps "
+        + "; ".join(f"{h.name} {h.makespan_before}->{h.makespan_after} "
+                    f"({'accepted' if h.accepted else 'kept'})" for h in rep_s.hot_swaps))
+    if sorted(tenant_plans) != sorted(TENANTS):
+        raise AssertionError(f"the scheduler admitted {sorted(tenant_plans)}, not both tenants")
+    if rep_s.makespan_ticks > rep_s.unscheduled_makespan_ticks:
+        raise AssertionError("the schedule is worse than the unscheduled merge")
+
+    def drive(name, fn):
+        """One path's call: kernel launch counts and the simulator's card
+        steps zeroed just before it and read just after, its wall and its
+        own peak device memory logged. Returns (out, launches, steps)."""
         ops.reset_launches()
         vectorized.STEPS["torch"] = 0
         torch.cuda.synchronize()
@@ -686,12 +858,17 @@ def main() -> int:
         walls[name] = time.perf_counter() - t
         path_peak_gb[name] = torch.cuda.max_memory_allocated() / 1e9
         got = dict(ops.LAUNCHES)
-        torch_steps = vectorized.STEPS["torch"]
         for k, v in got.items():
             launches[k] += v
         log(f"path {name}: {walls[name] * 1e3:.3f} ms wall, launches {got}, peak device memory "
             f"{path_peak_gb[name]:.3f} GB ({path_peak_gb[name] - base_gb:.3f} GB over the "
             f"{base_gb:.3f} GB held before the call)")
+        return out, got, vectorized.STEPS["torch"]
+
+    # the phase's peak so far: each path below resets the counter to read its own
+    pre_paths_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, fn in paths.items():
+        out, got, torch_steps = drive(name, fn)
 
         if name == "wordcount_token":
             reducer_counts, recv = out
@@ -753,6 +930,15 @@ def main() -> int:
                 raise AssertionError(f"{name}: beyond {tol} of the float64 sum, or malformed")
             if not same:
                 raise AssertionError(f"{name}: the card's result differs from the CPU's")
+        elif name == "scheduler_two_tenants":
+            if got["segment_reduce"] != 1:
+                raise AssertionError(f"{name} made {got['segment_reduce']} segment_reduce launches")
+            for tenant, counts in ((n, o["OUT"]) for n, o in out.items()):
+                mine = wc.wordcount_reference([shards[m] for m in TENANTS[tenant][0]], VOCAB)
+                if counts.dtype != np.float64 or not np.array_equal(counts, mine.astype(np.float64)):
+                    raise AssertionError(f"{name}: {tenant}'s counts differ from "
+                                         "wordcount_reference over its shards")
+            log("  each tenant's counts bitwise == wordcount_reference over its own 4 shards")
         elif name == "simulator_device_step":
             plan = plans[name]
             if not torch_steps:
@@ -875,6 +1061,56 @@ def main() -> int:
     peak_wc_gb = max(pre_paths_peak_gb, torch.cuda.max_memory_allocated() / 1e9,
                      *path_peak_gb.values())
     del words, grads, acc, wire, kout, pout, outs, shards, want_counts, want_mean, want_sum
+    # the paths' closures hold the corpus, the gradients and the plans; the
+    # checks left the token path's buffers and a float64 error tensor
+    del paths, schedule, tenant_plans, recv, reducer_counts, err
+
+    # 3b. the recurrences: a phase of its own, with its own peak (the
+    # allocator keeps its cached blocks, as it did for the paths above)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    recurrence = recurrence_inputs()
+    torch.cuda.synchronize()
+    log(f"data: recurrence a, b ({SCAN_RANKS}, {SCAN_LEN}, {SCAN_BATCH}, {SCAN_WIDTH}) fp32 "
+        f"({recurrence[0].numel() * 4 / 1e9:.3f} GB each), {PIPE_STAGES} stage weights "
+        f"({PIPE_SHAPE[-1]}, {PIPE_SHAPE[-1]}), {PIPE_MICRO} microbatches {PIPE_SHAPE} fp32; "
+        f"{time.perf_counter() - t:.2f} s on the card")
+    pre_paths_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, fn in recurrence_paths(*recurrence).items():
+        out, _, _ = drive(name, fn)
+        if name == "ring_scan_linear_recurrence":
+            t = time.perf_counter()
+            want = sequential_recurrence(*recurrence[:2])
+            host_s["ring_scan_float64_reference"] = time.perf_counter() - t
+            err, ratio = beyond_tol(out, want)
+            del want
+            log(f"  max abs err vs the float64 sequential recurrence {err!r}, "
+                f"{ratio!r} of the rtol=atol={RECURRENCE_TOL} limit "
+                f"({host_s['ring_scan_float64_reference']:.2f} s for the reference)")
+            if out.shape != recurrence[0].shape or not bool(torch.isfinite(out).all()) or ratio > 1:
+                raise AssertionError(f"{name}: beyond rtol=atol={RECURRENCE_TOL}, or malformed")
+        elif name == "pipeline_apply":
+            from repro_torch.core.pipeline import pipeline_stats
+
+            ws, micro = recurrence[2].double(), recurrence[3].double()
+            want = micro
+            for s in range(PIPE_STAGES):
+                want = torch.tanh(want @ ws[s])
+            err, ratio = beyond_tol(out[0], want)
+            rows_same = all(out[r].data_ptr() == out[0].data_ptr() for r in range(PIPE_STAGES))
+            del want, ws, micro
+            st = pipeline_stats(PIPE_STAGES, PIPE_MICRO)
+            log(f"  {st.ticks} ticks, bubble fraction {st.bubble_fraction!r}; max abs err vs "
+                f"the stages applied in sequence (float64) {err!r}, {ratio!r} of the "
+                f"rtol=atol={RECURRENCE_TOL} limit; every stage row a view of the last's: "
+                f"{rows_same}")
+            if (tuple(out.shape) != (PIPE_STAGES, PIPE_MICRO) + PIPE_SHAPE or ratio > 1
+                    or not rows_same):
+                raise AssertionError(f"{name}: beyond rtol=atol={RECURRENCE_TOL}, or malformed")
+        del out
+    peak_rec_gb = max(pre_paths_peak_gb, torch.cuda.max_memory_allocated() / 1e9,
+                      *(path_peak_gb[n] for n in ("ring_scan_linear_recurrence", "pipeline_apply")))
+    del recurrence
 
     # 5. serving at full width -------------------------------------------------
     from repro_torch.launch import serve
@@ -995,8 +1231,11 @@ def main() -> int:
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,
+                    "autotune": plans["plan_wordcount_autotuned"].tuning.summary(),
+                    "schedule_ticks": schedule_ticks,
                     "host_s": host_s, "path_peak_mem_gb": path_peak_gb,
                     "peak_mem_gb": {"wordcount_aggregation": peak_wc_gb,
+                                    "recurrence": peak_rec_gb,
                                     "serve": torch.cuda.max_memory_allocated() / 1e9},
                     "build_s": build_s}))
     log(json.dumps({"kernels": rows}))

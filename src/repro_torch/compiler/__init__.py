@@ -12,8 +12,8 @@ rebalance-reduce-tree → insert-combiners → place (§3 cost model) → route
 → reroute-feedback (streaming-simulate, then re-route on *measured*
 per-switch queueing and per-bucket traffic, to a fixed point) → emit →
 verify. Every stage is a registered pass over a shared ``CompileCtx``;
-see ``driver.py``. ``autotune`` (``AUTOTUNE_PASSES``) raises
-``NotImplementedError`` until it is ported (ROADMAP.md, queue 1 item 7).
+see ``driver.py``. ``AUTOTUNE_PASSES`` adds the profile-guided
+``autotune`` hill-climb (``repro_torch.autotune``).
 """
 from repro_torch.compiler.cost import CostModel, PlanCost, Traffic
 from repro_torch.compiler.driver import (
@@ -24,7 +24,6 @@ from repro_torch.compiler.driver import (
     CompileCtx,
     PassManager,
     PassRecord,
-    UNPORTED_PASSES,
     compile,
     compile_best,
     get_pass,
@@ -50,7 +49,6 @@ __all__ = [
     "CompileCtx",
     "PassManager",
     "PassRecord",
-    "UNPORTED_PASSES",
     "compile",
     "get_pass",
     "register_pass",

@@ -10,10 +10,6 @@ hand-wiring ``dsl.parse_ast → place → build_routes → compile_program``.
     plan = compile(prog, topo, passes=UNOPTIMIZED_PASSES)       # baseline
     out = plan.run(inputs, backend="torch"); sim = plan.simulate(inputs)
 
-The reference's ``autotune`` pass waits for a later slice of the port
-(``UNPORTED_PASSES``): asking for it, or for ``AUTOTUNE_PASSES``, raises
-``NotImplementedError``.
-
 Custom passes register with ``@register_pass("name")`` and slot into any
 pipeline tuple.
 """
@@ -49,20 +45,8 @@ def register_pass(name: str) -> Callable[[PassFn], PassFn]:
     return deco
 
 
-# passes of the reference compiler that this package does not carry yet;
-# asking for one raises instead of failing later in some other way
-UNPORTED_PASSES: dict[str, str] = {
-    "autotune": "queue 1 item 7",
-}
-
-
 def get_pass(name: str) -> PassFn:
     _ensure_builtin_passes()
-    if name in UNPORTED_PASSES and name not in _PASS_REGISTRY:
-        raise NotImplementedError(
-            f"pass {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md, {UNPORTED_PASSES[name]})"
-        )
     try:
         return _PASS_REGISTRY[name]
     except KeyError:
@@ -82,6 +66,8 @@ def _ensure_builtin_passes() -> None:
         import repro_torch.compiler.passes  # noqa: F401
     if "lower-shuffle" not in _PASS_REGISTRY:
         import repro_torch.shuffle.lower  # noqa: F401
+    if "autotune" not in _PASS_REGISTRY:
+        import repro_torch.autotune  # noqa: F401
     if "verify" not in _PASS_REGISTRY:
         import repro_torch.verify  # noqa: F401
 
@@ -143,7 +129,12 @@ class CompileCtx:
     source: str | None = None
     ast: list | None = None
     program: dag.Program | None = None
+    # snapshot of ``program`` as parsed, before any optimization pass
+    # rewrote it (the 'parse' pass fills this; emit hands it to the plan)
+    source_program: dag.Program | None = None
     pins: dict[str, NodeId] = dataclasses.field(default_factory=dict)
+    # the caller's pins only — ``pins`` accumulates pass-created ones
+    user_pins: dict[str, NodeId] = dataclasses.field(default_factory=dict)
     placement: Placement | None = None
     routes: RoutingTable | None = None
     plan: CompiledPlan | None = None
@@ -212,14 +203,16 @@ def compile(
     * ``switch_penalty_seed`` / ``link_penalty_seed`` — external
       contention maps (switch → pressure, (switch, switch) → pressure)
       that bias ``route`` and ``reroute-feedback`` tie-breaks away from
-      fabric other tenants already load (a contention-aware compile seeds
-      job B's compile with job A's measured ``telemetry.fabric``
-      pressure).
+      fabric other tenants already load. This is the hook the p4mr
+      scheduler uses for contention-aware compilation: it seeds job B's
+      compile with job A's measured ``telemetry.fabric`` pressure.
+    * ``autotune_rounds`` / ``autotune_actions`` — autotune pass knobs.
     """
     ctx = CompileCtx(
         topology=topology,
         cost_model=cost_model or CostModel(),
         pins=dict(pins or {}),
+        user_pins=dict(pins or {}),
         options=dict(options or {}),
     )
     if isinstance(src_or_program, dag.Program):
@@ -262,17 +255,17 @@ def compile_best(
     than guess, let the §3 cost model arbitrate — the same move as
     profile-guided pass selection in a conventional compiler.
 
-    ``objective="static"`` (the default) keeps the lowest ``cost.scalar``;
-    ``"streamed"`` the lowest streamed makespan (``simulate_timing``), ties
-    by ``cost.scalar``. ``autotune=True`` would add ``AUTOTUNE_PASSES`` and
-    default the objective to ``"streamed"``, as in the reference; the
-    autotuner is not ported yet, so it raises ``NotImplementedError``.
+    ``autotune=True`` adds ``AUTOTUNE_PASSES`` to the candidate set (the
+    full pipeline plus the profile-guided hill-climb) and, unless
+    ``objective`` says otherwise, switches the arbitration to the
+    ``"streamed"`` makespan — the quantity autotuning optimizes; the
+    static ``cost.scalar`` cannot see what a deliberate detour buys.
     """
     if not pipelines:
         raise ValueError("need at least one candidate pipeline")
-    if autotune:
-        get_pass("autotune")  # raises, naming the ROADMAP item
-    objective = objective or "static"
+    if autotune and AUTOTUNE_PASSES not in tuple(tuple(p) for p in pipelines):
+        pipelines = (*pipelines, AUTOTUNE_PASSES)
+    objective = objective or ("streamed" if autotune else "static")
     if objective not in ("static", "streamed"):
         raise ValueError(f"unknown objective {objective!r} (static or streamed)")
     plans = [

@@ -57,12 +57,16 @@ def _verify_fail(code: str, msg: str, **loc) -> "Exception":
 @register_pass("parse")
 def parse_pass(ctx: CompileCtx) -> str:
     if ctx.program is not None:
+        ctx.source_program = ctx.program.copy()
         return "input is already a Program"
     if ctx.ast is None:
         if ctx.source is None:
             raise ValueError("nothing to parse: no source, AST or Program")
         ctx.ast = dsl.parse_ast(ctx.source)
     ctx.program = dsl.ast_to_program(ctx.ast)
+    # pre-rewrite snapshot: autotune's rebucket/reweight recompile from
+    # this (a lowered program cannot be re-lowered at a new bucket count)
+    ctx.source_program = ctx.program.copy()
     return f"{len(ctx.program)} nodes"
 
 
@@ -483,6 +487,8 @@ def emit_pass(ctx: CompileCtx) -> str:
         pins=dict(ctx.pins),
         trace=tuple(ctx.trace),
         feedback=ctx.options.get("reroute_feedback"),
+        source_program=ctx.source_program,
+        user_pins=dict(ctx.user_pins),
         shuffle_meta=ctx.options.get("shuffle_lowering"),
     )
     return f"plan: {len(p)} nodes, cost={cost.serial_time_s * 1e6:.2f}us"

@@ -39,6 +39,15 @@ class CompiledPlan:
     # lower-shuffle metadata: reduce label -> {num_buckets, widths,
     # keybys, bucket_reducers, bucket_switch}; None when nothing lowered
     shuffle_meta: dict | None = None
+    # the program as handed to the compiler, before any optimization pass
+    # rewrote it — what the autotune rebucket/reweight actions recompile
+    # from (a lowered program cannot be re-lowered at a new bucket count)
+    source_program: dag.Program | None = None
+    # caller-supplied placement constraints only (pass-accumulated pins
+    # live in ``pins``); recompiles must not bake lowering pins back in
+    user_pins: dict[str, NodeId] = dataclasses.field(default_factory=dict)
+    # TuningReport when repro_torch.autotune produced this plan; None otherwise
+    tuning: Any = None
     # verifier output (repro_torch.verify Diagnostic tuple) when the 'verify'
     # pass (or check_plan) ran over this plan; None = never verified.
     # An empty tuple means verified clean.
@@ -206,6 +215,33 @@ class CompiledPlan:
         return {
             s: out[s + "@all"][0].to(torch.float64).cpu().numpy() for s in self.sinks
         }
+
+    def indexed(self) -> "CompiledPlan":
+        """This plan on ``topology.as_indexed()``: placement,
+        routes and pins relabeled to the view's integer switch ids, the
+        program and everything else as they are. A plan compiled on a
+        named-switch fabric (a fat-tree) runs on the torch backend this
+        way; its simulated timing is unchanged."""
+        from repro_torch.core.routing import RoutingTable
+
+        view = self.topology.as_indexed()
+        ids = view.name_to_id
+        pl = self.placement
+        placement = dataclasses.replace(
+            pl,
+            assignment={label: ids[s] for label, s in pl.assignment.items()},
+            burden={ids[s]: v for s, v in pl.burden.items()},
+            state_used={ids[s]: v for s, v in pl.state_used.items()},
+        )
+        routes = RoutingTable([
+            dataclasses.replace(r, path=tuple(ids[s] for s in r.path))
+            for r in self.routes.routes
+        ])
+        return dataclasses.replace(
+            self, topology=view, placement=placement, routes=routes,
+            pins={label: ids[s] for label, s in self.pins.items()},
+            user_pins={label: ids[s] for label, s in self.user_pins.items()},
+        )
 
     def _mesh_devices(self) -> int:
         """World-dim length the torch backend needs: switch ids must be

@@ -81,8 +81,10 @@ def emit_step(
             elif isinstance(node, prim.MapFn):
                 values[node.name] = prim.MAP_FNS[node.fn_name](routed(node.src, node.name))
             elif isinstance(node, prim.KeyBy):
-                # unlowered KeyBy: pass-through (lowering waits for the
-                # lower-shuffle pass; the fused equivalent is shuffle.spmd)
+                # unlowered KeyBy: pass-through. Compile with the
+                # lower-shuffle pass (DEFAULT_PASSES) to get per-bucket
+                # ShuffleBucket edges routed below; the fused-collective
+                # equivalent is repro_torch.shuffle.spmd (all_to_all).
                 values[node.name] = routed(node.src, node.name)
             elif isinstance(node, prim.ShuffleBucket):
                 # this bucket's key-space window of the mapper's value

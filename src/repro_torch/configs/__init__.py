@@ -20,7 +20,7 @@ def _module(name: str):
     if arch not in ARCHS:
         raise ValueError(
             f"arch {name!r} is not ported yet (the port has {sorted(_ALIAS)}); "
-            "ROADMAP.md, queue 1 item 8, lists the block kinds still to port")
+            "ROADMAP.md, queue 1 (the LM stack), lists the block kinds still to port")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -28,8 +28,7 @@ realization happens downstream:
    KEYBY-fed reduce into per-bucket ``BUCKET`` edges (``ShuffleBucket``)
    and per-bucket reducers, pinned to switches the §3 CostModel picks
    under per-switch memory budgets; the reduce's label survives as a
-   ``CONCAT`` reassembling bucket order (the pass waits for a later slice
-   of the port; see ROADMAP.md).
+   ``CONCAT`` reassembling bucket order (see ``repro_torch.shuffle.lower``).
 3. **route**   — each bucket edge is routed individually
    (``core.routing.build_routes``, queue-aware ECMP tie-breaking), so the
    shuffle's fan-out is visible in ``CompiledPlan.routes``, the packet

@@ -195,7 +195,7 @@ class GQAAttention(CastOnce):
         q positions."""
         if cross_kv is not None or cross_cache is not None:
             raise NotImplementedError(
-                "cross-attention (enc-dec) is not ported yet: ROADMAP.md queue 1 item 8")
+                "cross-attention (enc-dec) is not ported yet: ROADMAP.md queue 1, the LM stack")
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r} not in {IMPLS}")
         cfg = self.cfg
@@ -220,7 +220,7 @@ class GQAAttention(CastOnce):
             ck, cv = cache["k"], cache["v"]
             if window is not None and ck.shape[1] <= window:
                 raise NotImplementedError(
-                    "the rolling window cache is not ported yet: ROADMAP.md queue 1 item 8")
+                    "the rolling window cache is not ported yet: ROADMAP.md queue 1, the LM stack")
             ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
             cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
             kv_valid = cache_len + s

@@ -20,7 +20,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import MLP, CastOnce, RMSNorm, rope_angles
 from repro_torch.models.parallel import argmax_logits, embed_lookup, logits, pad_vocab
 
-_NOT_PORTED = "is not ported yet: ROADMAP.md queue 1 item 8 lists it"
+_NOT_PORTED = "is not ported yet: ROADMAP.md queue 1 lists it under the LM stack"
 
 
 def block_pattern(cfg: ModelConfig) -> tuple[tuple[str, ...], tuple[str, ...], int]:

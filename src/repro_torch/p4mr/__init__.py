@@ -8,14 +8,18 @@ switches"), as far as the port carries it.
   ``Job.to_source()`` round-trip with the paper's surface syntax.
 * **Compile** — ``Session`` owns topology + ``CostModel`` + typed
   ``CompileOptions`` (presets ``unoptimized`` / ``static_ecmp`` /
-  ``default`` over the registered pass pipelines; ``autotuned`` raises
-  until the autotuner is ported) and compiles many jobs against one
-  fabric.
+  ``default`` / ``autotuned`` over the registered pass pipelines) and
+  compiles many jobs against one fabric.
 * **Execute** — every backend behind one call:
   ``plan.run(inputs)`` on the card (``backend="torch"``, the default), or
   on the host by name (``backend="simulate" | "reference"``); and
   ``session.simulate()`` streams *all* registered jobs' packet trains
   through the shared switches at once (multi-tenant contention).
+* **Serve** — ``Scheduler`` runs the session online: jobs arrive at
+  submit ticks, pass ``FabricBudget`` admission control, are compiled
+  against the measured pressure of resident traffic, ordered by an SLO
+  objective, and hot-swapped when queue pressure drifts. The resulting
+  schedule is never worse than the unscheduled merge.
 
     from repro_torch import p4mr
     from repro_torch.core.topology import TorusTopology
@@ -28,17 +32,28 @@ switches"), as far as the port carries it.
     sess = p4mr.Session(TorusTopology(dims=(8,)))
     plan = sess.compile(job)
     counts = plan.run(histograms)   # on the card; == backend="simulate" on the host
-
-The reference's ``Scheduler`` comes with a later slice of the port
-(ROADMAP.md, queue 1 item 7).
 """
 from repro_torch.p4mr.builder import Dataset, Job, from_program, from_source, job
+from repro_torch.p4mr.scheduler import (
+    Admission,
+    FabricBudget,
+    HotSwap,
+    JobRequest,
+    ScheduleReport,
+    Scheduler,
+)
 from repro_torch.p4mr.session import CompileOptions, Session, SessionReport, merge_plans
 
 __all__ = [
+    "Admission",
     "CompileOptions",
     "Dataset",
+    "FabricBudget",
+    "HotSwap",
     "Job",
+    "JobRequest",
+    "ScheduleReport",
+    "Scheduler",
     "Session",
     "SessionReport",
     "from_program",

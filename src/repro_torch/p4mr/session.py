@@ -10,7 +10,7 @@ packet trains into one streamed simulation over the *shared* switches,
 so cross-job queueing — the contention a per-plan ``simulate_timing()``
 cannot see — shows up as ``combined`` vs ``solo`` makespans.
 
-    sess = p4mr.Session(fat_tree_topology(4))
+    sess = p4mr.Session(fat_tree_topology(4), options="autotuned")
     plan_a = sess.compile(job_a)
     plan_b = sess.compile(job_b, options="static_ecmp")
     rep = sess.simulate()          # both jobs on the fabric at once
@@ -18,8 +18,9 @@ cannot see — shows up as ``combined`` vs ``solo`` makespans.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Hashable, Mapping, Sequence
+from typing import Any, Hashable, Iterator, Mapping, Sequence
 
 from repro_torch.core import dag
 
@@ -49,10 +50,6 @@ class CompileOptions:
     ``passes`` overrides the preset with an explicit pipeline; the knob
     fields map onto the driver's ``options`` dict, and ``extra`` is the
     escape hatch for pass-specific options not modeled here.
-
-    The ``autotuned`` preset names ``AUTOTUNE_PASSES``, whose ``autotune``
-    pass is not ported yet: compiling with it raises
-    ``NotImplementedError`` (``compiler.UNPORTED_PASSES``).
     """
 
     preset: str = "default"
@@ -222,18 +219,29 @@ class Session:
         telemetry: "Any | bool | None" = None,
     ):
         from repro_torch import compiler
+        from repro_torch.telemetry import Telemetry
 
-        if telemetry is not None and telemetry is not False:
-            # the reference's Telemetry facade (tracer + metrics registry)
-            # is not ported yet; None/False is the reference's "off"
-            raise NotImplementedError(
-                "Session(telemetry=...) needs the Telemetry facade, not ported to "
-                "repro_torch yet (ROADMAP.md, queue 1 item 7); pass None or False"
-            )
         self.topology = topology
         self.cost_model = cost_model if cost_model is not None else compiler.CostModel()
         self.options = CompileOptions.of(options)
         self.plans: dict[str, Any] = {}
+        # ``telemetry=True`` builds a fresh Tracer + MetricsRegistry that
+        # every compile/tune/simulate on this session writes into
+        # (repro_torch.telemetry); pass an existing Telemetry to share one
+        # across sessions. None/False disables — zero overhead.
+        self.telemetry = Telemetry.of(telemetry)
+
+    @contextlib.contextmanager
+    def _scope(self, name: str, **attrs: Any) -> Iterator[dict]:
+        """A traced span with the session tracer installed ambiently, so
+        pass / autotune / plan spans nest under the session call — or a
+        no-op when telemetry is off."""
+        if self.telemetry is None:
+            yield {}
+            return
+        with self.telemetry.activate():
+            with self.telemetry.tracer.span(name, **attrs) as span_attrs:
+                yield span_attrs
 
     # ------------------------------------------------------------ compile --
     def _resolve(self, job) -> tuple[Any, str | None]:
@@ -287,15 +295,20 @@ class Session:
 
         opts = CompileOptions.of(options) if options is not None else self.options
         src, jobname = self._resolve(job)
-        plan = compiler.compile(
-            src,
-            self.topology,
-            passes=opts.pass_list(),
-            cost_model=self.cost_model,
-            pins=pins,
-            options=opts.driver_options(),
-        )
-        self._register(name, plan, derived=jobname)
+        with self._scope(
+            "session.compile", job=name or jobname or "job", preset=opts.preset
+        ):
+            plan = compiler.compile(
+                src,
+                self.topology,
+                passes=opts.pass_list(),
+                cost_model=self.cost_model,
+                pins=pins,
+                options=opts.driver_options(),
+            )
+        key = self._register(name, plan, derived=jobname)
+        if self.telemetry is not None:
+            self.telemetry.record_compile(plan, name=key)
         return plan
 
     def compile_best(
@@ -327,17 +340,24 @@ class Session:
                 (optimizing,) if optimizing == baseline else (optimizing, baseline)
             )
         src, jobname = self._resolve(job)
-        plan = compiler.compile_best(
-            src,
-            self.topology,
-            pipelines=pipelines,
-            cost_model=self.cost_model,
-            pins=pins,
-            autotune=autotune,
-            objective=objective,
-            options=opts.driver_options(),
-        )
-        self._register(name, plan, derived=jobname)
+        with self._scope(
+            "session.compile_best",
+            job=name or jobname or "job",
+            pipelines=len(tuple(pipelines)),
+        ):
+            plan = compiler.compile_best(
+                src,
+                self.topology,
+                pipelines=pipelines,
+                cost_model=self.cost_model,
+                pins=pins,
+                autotune=autotune,
+                objective=objective,
+                options=opts.driver_options(),
+            )
+        key = self._register(name, plan, derived=jobname)
+        if self.telemetry is not None:
+            self.telemetry.record_compile(plan, name=key)
         return plan
 
     def arbitrate_buckets(
@@ -355,17 +375,22 @@ class Session:
         from repro_torch import shuffle
 
         opts = CompileOptions.of(options) if options is not None else self.options
-        plan = shuffle.arbitrate_buckets(
-            program_or_factory,
-            self.topology,
-            candidates,
-            cost_model=self.cost_model,
-            pins=pins,
-            passes=opts.pass_list(),
-            options=opts.driver_options(),
-            objective=objective,
-        )
-        self._register(name, plan)
+        with self._scope(
+            "session.arbitrate_buckets", candidates=len(tuple(candidates))
+        ):
+            plan = shuffle.arbitrate_buckets(
+                program_or_factory,
+                self.topology,
+                candidates,
+                cost_model=self.cost_model,
+                pins=pins,
+                passes=opts.pass_list(),
+                options=opts.driver_options(),
+                objective=objective,
+            )
+        key = self._register(name, plan)
+        if self.telemetry is not None:
+            self.telemetry.record_compile(plan, name=key)
         return plan
 
     # ------------------------------------------------------------- verify --
@@ -381,15 +406,16 @@ class Session:
         from repro_torch import verify as v
 
         prof = v.resolve_profile(profile)
-        out = {
-            name: v.verify_plan(pl, profile=prof)
-            for name, pl in self.plans.items()
-        }
-        out["<merged>"] = v.verify_merged(
-            self.plans,
-            cost_model=self.cost_model,
-            memory_headroom=memory_headroom,
-        )
+        with self._scope("session.verify", jobs=len(self.plans)):
+            out = {
+                name: v.verify_plan(pl, profile=prof)
+                for name, pl in self.plans.items()
+            }
+            out["<merged>"] = v.verify_merged(
+                self.plans,
+                cost_model=self.cost_model,
+                memory_headroom=memory_headroom,
+            )
         return out
 
     # ----------------------------------------------------------- simulate --
@@ -416,8 +442,9 @@ class Session:
         outputs; ``names`` restricts which jobs share the run. ``engine``
         picks the simulator core ("event" | "vectorized") for both the
         combined and the solo runs; default is ``CostModel.sim_engine``.
-        ``observers`` are streaming telemetry sinks (``WindowRecorder``s
-        or any ``repro_torch.telemetry.stream.StreamObserver``) fed windowed fabric aggregates from the *combined* run while it
+        ``observers`` are streaming telemetry sinks (detector suites,
+        ``SloMonitor``s, ``WindowRecorder``s — ``repro_torch.telemetry.stream``)
+        fed windowed fabric aggregates from the *combined* run while it
         executes; passing any forces fabric collection on for that run.
         """
         from repro_torch.compiler.simulator import simulate_timing
@@ -444,36 +471,40 @@ class Session:
                 if tick < 0:
                     raise ValueError(f"arrival tick for job {n!r} is negative: {tick}")
                 arr[n] = float(tick)
-        program, routes = merge_plans(picked)
-        release = {
-            f"{name}/{node}": tick
-            for name, tick in arr.items()
-            if tick > 0
-            for node in picked[name].program.nodes
-        }
-        combined = simulate_timing(
-            program, routes, self.cost_model, engine=engine,
-            release=release or None, observers=observers,
-        )
-        solo = {n: pl.simulate_timing(engine=engine) for n, pl in picked.items()}
-        finish = {
-            name: max(
-                (
-                    combined.sink_finish_ticks.get(f"{name}/{s}", 0)
-                    for s in pl.flow_spec().sinks
-                ),
-                default=combined.makespan_ticks,
+        with self._scope("session.simulate", jobs=len(picked)) as scope_attrs:
+            program, routes = merge_plans(picked)
+            release = {
+                f"{name}/{node}": tick
+                for name, tick in arr.items()
+                if tick > 0
+                for node in picked[name].program.nodes
+            }
+            combined = simulate_timing(
+                program, routes, self.cost_model, engine=engine,
+                release=release or None, observers=observers,
             )
-            for name, pl in picked.items()
-        }
-        outputs = None
-        if inputs is not None:
-            unknown = [n for n in inputs if n not in picked]
-            if unknown:
-                raise KeyError(
-                    f"inputs for unknown job(s) {unknown}; have {sorted(picked)}"
+            solo = {n: pl.simulate_timing(engine=engine) for n, pl in picked.items()}
+            finish = {
+                name: max(
+                    (
+                        combined.sink_finish_ticks.get(f"{name}/{s}", 0)
+                        for s in pl.flow_spec().sinks
+                    ),
+                    default=combined.makespan_ticks,
                 )
-            outputs = {n: picked[n].execute_reference(inputs[n]) for n in inputs}
+                for name, pl in picked.items()
+            }
+            outputs = None
+            if inputs is not None:
+                unknown = [n for n in inputs if n not in picked]
+                if unknown:
+                    raise KeyError(
+                        f"inputs for unknown job(s) {unknown}; have {sorted(picked)}"
+                    )
+                outputs = {n: picked[n].execute_reference(inputs[n]) for n in inputs}
+            scope_attrs["makespan_ticks"] = combined.makespan_ticks
+        if self.telemetry is not None:
+            self.telemetry.record_simulation(combined, label="combined")
         return SessionReport(
             combined=combined, solo=solo, outputs=outputs,
             arrivals=arr, finish_ticks=finish,

@@ -4,9 +4,10 @@ The ``Timeline`` of ``telemetry.fabric`` is post-hoc: the engines buffer
 every sample and a consumer walks the finished artifact. This module is
 the *live* half of the INT story — per-switch/per-port state aggregated
 into fixed-width tick windows and pushed to subscribers **while the
-simulation runs**, which is what lets a subscriber (the reference's
-anomaly detectors and SLO monitors, not ported yet) change behavior
-mid-flight instead of diagnosing a corpse.
+simulation runs**, which is what lets detectors
+(``repro_torch.telemetry.anomaly``) and SLO monitors
+(``repro_torch.telemetry.slo``) change behavior mid-flight instead of
+diagnosing a corpse.
 
 The protocol is duck-typed (``StreamObserver`` documents it): an
 observer implements any subset of
@@ -20,7 +21,8 @@ observer implements any subset of
   window is flushed *before* this fires.
 
 Observers ride ``simulate_timing(..., observers=[...])`` /
-``Session.simulate(observers=...)``. Passing observers forces sample collection on for that run even
+``Session.simulate(observers=...)`` / the scheduler's monitored phase-D
+run. Passing observers forces sample collection on for that run even
 when ``CostModel.sim_telemetry`` is off; passing none keeps the default
 fast path allocation-free (the zero-overhead-when-off property
 ``BENCH_telemetry.json`` gates).

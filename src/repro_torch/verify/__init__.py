@@ -6,17 +6,15 @@ satisfies the invariants the backends assume. See ``docs/verify.md``
 for the checker catalog (V1xx IR/dataflow, V2xx placement/routing,
 V3xx target feasibility, V4xx multi-tenant).
 
-Integration surfaces in the port:
+Four integration surfaces:
 
 * the ``verify`` compiler pass (``repro_torch.verify.pass_hook``), always-on
   in the shipped pipelines after ``emit``;
-* ``check_plan`` — pass/fail verification of a plan built or changed by
-  hand (the autotuner and scheduler that call it in the reference come
-  with later slices);
-* Tracer spans (``verify.plan``).
-
-The standalone CLI (``python -m repro.verify`` in the reference) waits for
-ROADMAP.md queue 1 item 7.
+* ``check_plan`` — the post-mutation hook ``autotune.tune`` and the
+  ``Scheduler`` call on every accepted candidate;
+* ``python -m repro_torch.verify`` — the standalone CLI / CI lint;
+* Tracer spans (``verify.plan``) + the ``verify.diagnostics`` counter
+  fed by ``Telemetry.record_compile``.
 
 Importing this package registers the ``verify`` pass (the driver's
 ``_ensure_builtin_passes`` imports it lazily, like the other pass

@@ -529,18 +529,13 @@ def test_unknown_pass_raises_key_error_as_in_jax():
 
 @pytest.mark.parametrize("name", ["lower-shuffle", "reroute-feedback", "autotune"])
 def test_unported_pass_raises_not_implemented_naming_it(name):
-    """``autotune`` is still unported and raises, naming ROADMAP.md; the
-    two passes that used to raise here are ported, and a pipeline that
-    adds either one to ``P`` compiles as the reference's does."""
-    if name in t_compiler.UNPORTED_PASSES:
-        with pytest.raises(NotImplementedError, match=f"'{name}'.*ROADMAP.md"):
-            t_compiler.get_pass(name)
-        with pytest.raises(NotImplementedError, match=f"'{name}'.*ROADMAP.md"):
-            t_compiler.compile(t_dag.paper_example(), t_topology.paper_topology(),
-                               passes=P[:-2] + (name,))
-        return
+    """Every pass compiles as in the JAX package. The name dates from when
+    these passes were unported and raised; it is kept so the test's ID
+    stays. Now it checks that a pipeline that adds the pass to ``P``
+    (``autotune`` at its end) compiles the reference's plan."""
     assert t_compiler.get_pass(name).pass_name == name
-    at = P.index("rebalance-reduce-tree") if name == "lower-shuffle" else P.index("emit")
+    at = {"lower-shuffle": P.index("rebalance-reduce-tree"), "reroute-feedback": P.index("emit"),
+          "autotune": len(P)}[name]
     passes = P[:at] + (name,) + P[at:]
 
     def run(ns):
@@ -555,19 +550,17 @@ def test_unported_pass_raises_not_implemented_naming_it(name):
 
 @pytest.mark.parametrize("pipeline", ["default", "static_ecmp", "autotune", "compile_best"])
 def test_default_pipelines_raise_not_implemented(pipeline):
-    """Only the autotune pipeline still raises; the default pipeline, the
-    static-ECMP one and ``compile_best``'s default candidates compile as
-    the reference's do."""
-    if pipeline == "autotune":
-        with pytest.raises(NotImplementedError, match="autotune.*ROADMAP.md"):
-            t_compiler.compile(t_dag.paper_example(), t_topology.paper_topology(),
-                               passes=t_compiler.AUTOTUNE_PASSES)
-        return
-
+    """The default pipelines compile as in the JAX package. The name dates
+    from when some of them raised; it is kept so the test's ID stays. Now
+    it checks that the default pipeline, the static-ECMP one, the autotune
+    one and ``compile_best``'s default candidates compile the reference's
+    plans, and that nothing is left unported."""
     def run(ns):
         prog, topo = ns.dag.paper_example(), ns.topology.paper_topology()
         if pipeline == "default":
             plan = ns.compiler.compile(prog, topo)
+        elif pipeline == "autotune":
+            plan = ns.compiler.compile(prog, topo, passes=ns.compiler.AUTOTUNE_PASSES)
         elif pipeline == "compile_best":
             plan = ns.compiler.compile_best(prog, topo)
         else:
@@ -576,8 +569,8 @@ def test_default_pipelines_raise_not_implemented(pipeline):
 
     want, got = both(run)
     assert got == want
-    assert set(t_compiler.DEFAULT_PASSES) <= set(t_compiler.registered_passes())
-    assert sorted(t_compiler.UNPORTED_PASSES) == ["autotune"]
+    assert set(t_compiler.AUTOTUNE_PASSES) <= set(t_compiler.registered_passes())
+    assert not hasattr(t_compiler, "UNPORTED_PASSES")
 
 
 @pytest.mark.parametrize("seed", ["switch_penalty_seed", "link_penalty_seed"])
@@ -625,17 +618,28 @@ def test_simulator_entry_points_raise_not_implemented(call):
 @pytest.mark.parametrize("call", ["session_telemetry", "compile_best_autotune",
                                   "autotuned_preset"])
 def test_autotune_and_the_telemetry_facade_raise_naming_roadmap(call):
-    from repro_torch import p4mr
-
-    prog, topo = t_dag.paper_example(), t_topology.paper_topology()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Autotune and the Telemetry facade work as in the JAX package. The
+    name dates from when all three raised, naming ROADMAP.md; it is kept
+    so the test's ID stays. Now it checks that none raises: each compiles
+    the reference's plan and tuning report, and ``Session(telemetry=True)``
+    counts the compile as the reference's does."""
+    def run(ns):
+        p4mr = importlib.import_module(f"{ns.compiler.__name__.split('.')[0]}.p4mr")
+        prog, topo = ns.dag.paper_example(), ns.topology.paper_topology()
         if call == "session_telemetry":
-            p4mr.Session(topo, telemetry=True)
-        elif call == "compile_best_autotune":
-            t_compiler.compile_best(prog, topo, autotune=True)
+            sess = p4mr.Session(topo, telemetry=True)
+            plan = sess.compile(prog)
+            return _summary_of(plan, ns), sess.telemetry.metrics.to_dict()["counters"]
+        if call == "compile_best_autotune":
+            plan = ns.compiler.compile_best(prog, topo, autotune=True)
         else:
-            p4mr.Session(topo, options="autotuned").compile(prog)
-    p4mr.Session(topo, telemetry=False).compile(prog)  # False is "off", as in the reference
+            plan = p4mr.Session(topo, options="autotuned").compile(prog)
+        return _summary_of(plan, ns), plan.tuning and plan.tuning.to_dict()
+
+    want, got = both(run)
+    assert got == want
+    p4mr = importlib.import_module("repro_torch.p4mr")
+    assert p4mr.Session(t_topology.paper_topology(), telemetry=False).telemetry is None
 
 
 def test_unknown_backend_and_jax_backend_raise_value_error():
