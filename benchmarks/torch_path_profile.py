@@ -7,7 +7,10 @@ Runs each main path of ``chip_smoke.py`` (its ``inputs`` and ``main_paths``,
 the same full size; then ``recurrence_inputs`` and ``recurrence_paths``, the
 sharded scan and the pipeline), then the serving prefill (``serve_inputs`` and
 ``prefill_paths``: Qwen1.5-0.5B at full width, 8 × 4096 tokens, attention
-through ``flash_attention``), each once to warm up, then twice under ``torch.profiler``
+through ``flash_attention``) and each other block family's (``family_inputs``,
+``family_prefill_paths``: 4 × 2,048 positions, attention through
+``flash_attention`` where it applies, granite-moe's MoE combine through
+``segment_reduce``), each once to warm up, then twice under ``torch.profiler``
 (CPU + CUDA activity), each call inside a ``record_function`` window that
 ends after ``torch.cuda.synchronize()``. From the second window of that one
 trace it prints, per path: the window (call to synchronized end), the
@@ -69,6 +72,8 @@ def main() -> int:
         yield from chip_smoke.main_paths(words, grads).items()
         yield from chip_smoke.recurrence_paths(*chip_smoke.recurrence_inputs()).items()
         yield from chip_smoke.prefill_paths(*chip_smoke.serve_inputs()).items()
+        for arch in chip_smoke.FAMILY_ARCHS:  # one model at a time: the loop drops each call
+            yield from chip_smoke.family_prefill_paths(*chip_smoke.family_inputs(arch)).items()
 
     cuda = torch.autograd.DeviceType.CUDA
     for name, fn in paths():
@@ -94,6 +99,7 @@ def main() -> int:
                   and e.time_range.start >= w0]
         if not device:
             print(f"== {name}: window {(w1 - w0) / 1e3:.3f} ms; the profiler saw no device activity")
+            del fn
             continue
         spans = [(e.time_range.start, e.time_range.end) for e in device]
         busy = busy_us(spans)
@@ -117,6 +123,7 @@ def main() -> int:
                                         sorted(by_kind.items(), key=lambda kv: -kv[1])))
         for kname, (us, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]:
             print(f"   {us / 1e3:9.3f} ms  x{count:<4d} {kname[:90]}")
+        del fn  # the call's closure holds its inputs (a model for the serving paths)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()

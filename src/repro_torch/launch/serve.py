@@ -2,27 +2,36 @@
 
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --batch 8 --prompt-len 4096 --gen 32
-    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke \
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --smoke \
         --batch 2 --prompt-len 32 --gen 8 --device cpu
 
 The port of ``repro/launch/serve.py`` on one device (``--device``, the card
-by default). The KV cache is allocated at ``prompt_len + gen`` up front and
-prefill writes its first ``prompt_len`` slots in place: the same values as
-the JAX serve.py's prefill cache padded into a decode cache (``pad_cache``),
-without holding both. ``--impl flash`` (the default on the card) runs the
-prefill attention through the ``flash_attention`` kernel, ``masked`` through
-the JAX model's chunked attention; decode is the same for both.
+by default), for every arch of ``repro_torch.configs``. Every cache leaf is
+allocated at ``prompt_len + gen`` positions up front (a local-attention
+layer's at most its window, an enc-dec model's cross cache at the encoder's
+length) and prefill fills it in place: the values of the JAX serve.py's
+prefill cache padded into a decode cache (``pad_cache``), without holding
+both. Inputs are seeded: token prompts; for an embedding-input model
+(qwen2-vl) patch embeddings and a (t, h, w) position grid, the stub that
+the JAX model's input specs describe; for enc-dec (seamless) frame
+embeddings of ``--enc-len`` positions and a token prompt. ``--impl flash``
+(the default on the card) runs the prefill self-attention through the
+``flash_attention`` kernel where the kernel computes the layer's function
+(``models.model.attention_impl``), ``masked`` through the JAX model's
+chunked attention; decode is the same for both.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
-import numpy as np
 import torch
 
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models.model import Model
+
+GRID_SIDE = 32  # a frame of 32 × 32 patches: 448 × 448 pixels at qwen2-vl's 14-pixel patch
 
 
 def _sync(device: torch.device) -> None:
@@ -30,21 +39,59 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, tokens: torch.Tensor, gen: int, *, impl: str) -> dict:
-    """Prefill ``tokens`` (b, s), then decode greedily to ``gen`` tokens in
-    all (the prefill's next token is the first). Returns ``{"tokens": (b,
-    gen) int32 on the model's device, "cache", "prefill_s", "decode_s"}``;
-    times are host walls that end in a device synchronise."""
+def grid_positions(b: int, s: int, device) -> torch.Tensor:
+    """(b, s, 3) int32 M-RoPE positions of s patches laid out row-major on
+    frames of side × side (side = √s up to ``GRID_SIDE``): (frame, row,
+    column) of each."""
+    side = max(1, min(GRID_SIDE, math.isqrt(s)))
+    i = torch.arange(s, device=device)
+    grid = torch.stack([i // (side * side), (i // side) % side, i % side], dim=-1)
+    return grid.to(torch.int32)[None].expand(b, s, 3)
+
+
+def prompt_batch(model: Model, b: int, s: int, *, seed: int, enc_len: int | None = None):
+    """Seeded prompts for ``model`` on its device: tokens (b, s) int32, or
+    the dict its prefill takes (``Model.prefill_hidden``): ``embeds`` (b, s,
+    d) bf16 from N(0, 1) and ``grid_positions`` for an embedding-input model;
+    ``tokens`` with ``enc_embeds`` (b, enc_len, d) bf16 and ``enc_positions``
+    for enc-dec (``enc_len`` defaults to s)."""
+    cfg, dev = model.cfg, model.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dt = getattr(torch, cfg.compute_dtype)
+
+    def embeds(n):
+        return torch.randn((b, n, cfg.d_model), generator=g, device=dev).to(dt)
+
+    if cfg.embed_input and not cfg.enc_layers:
+        batch = {"embeds": embeds(s)}
+        if cfg.mrope_sections is not None:
+            batch["positions"] = grid_positions(b, s, dev)
+        return batch
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device=dev, dtype=torch.int32)
+    if not cfg.enc_layers:
+        return tokens
+    n = s if enc_len is None else enc_len
+    return {"tokens": tokens, "enc_embeds": embeds(n),
+            "enc_positions": torch.arange(n, device=dev, dtype=torch.int32)[None].expand(b, n)}
+
+
+def generate(model: Model, batch, gen: int, *, impl: str) -> dict:
+    """Prefill ``batch`` (tokens (b, s) or a dict of the model's inputs),
+    then decode greedily to ``gen`` tokens in all (the prefill's next token
+    is the first). Returns ``{"tokens": (b, gen) int32 on the model's
+    device, "cache", "prefill_s", "decode_s"}``; times are host walls that
+    end in a device synchronise."""
     if gen < 1:
         raise ValueError(f"gen must be at least 1, got {gen}")
-    b, s = tokens.shape
+    b, s = steps_lib.batch_shape(batch)
     pstep = steps_lib.make_prefill_step(model, global_batch=b, seq=s, impl=impl)
     sstep = steps_lib.make_serve_step(model, global_batch=b, seq_max=s + gen)
     dev = model.device
-    cache = model.init_cache(b, s + gen)
+    enc = None if isinstance(batch, torch.Tensor) else batch.get("enc_embeds")
+    cache = model.init_cache(b, s + gen, enc_len=None if enc is None else enc.shape[1])
     _sync(dev)
     t0 = time.perf_counter()
-    cache, toks = pstep(tokens, cache)
+    cache, toks = pstep(batch, cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
@@ -58,15 +105,15 @@ def generate(model: Model, tokens: torch.Tensor, gen: int, *, impl: str) -> dict
             "decode_s": time.perf_counter() - t0}
 
 
-def run(args) -> np.ndarray:
+def run(args):
     from repro_torch.configs import get_config, get_smoke_config
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, device=args.device, seed=args.seed)
     impl = args.impl or ("flash" if model.device.type == "cuda" else "masked")
-    rng = np.random.RandomState(args.seed)
-    prompts = rng.randint(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
-    res = generate(model, torch.from_numpy(prompts).to(model.device), args.gen, impl=impl)
+    batch = prompt_batch(model, args.batch, args.prompt_len, seed=args.seed,
+                         enc_len=args.enc_len)
+    res = generate(model, batch, args.gen, impl=impl)
     gen = res["tokens"].cpu().numpy()  # (batch, gen)
     n_tok = gen.size
     print(f"[serve] {cfg.name} on {model.device} ({impl}): prefill {args.batch}x"
@@ -84,6 +131,8 @@ def parser():
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--enc-len", type=int, default=None,
+                    help="encoder input length of an enc-dec model (default: --prompt-len)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--impl", choices=("flash", "masked"), default=None,
                     help="prefill attention (default: flash on the card, masked on the CPU)")

@@ -12,31 +12,40 @@ import torch
 from repro_torch.models import model as M
 
 
+def batch_shape(batch) -> tuple[int, int]:
+    """(b, s) of a prompt batch: tokens (b, s), or a dict of ``tokens`` or
+    ``embeds`` (b, s, d) and the other inputs of ``Model.prefill_hidden``."""
+    if isinstance(batch, torch.Tensor):
+        return tuple(batch.shape)
+    return tuple((batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[:2])
+
+
 def make_prefill_step(model: M.Model, *, global_batch: int, seq: int, impl: str = "masked"):
-    """``step(tokens (global_batch, seq) int32, cache=None) → (cache, next
-    tokens (global_batch,) int32)``. A ``cache`` longer than ``seq`` (from
-    ``model.init_cache``) is filled in place at its first ``seq`` slots."""
+    """``step(batch, cache=None) → (cache, next tokens (global_batch,)
+    int32)``; ``batch`` is prompt tokens (global_batch, seq) or a dict of
+    the model's inputs (``Model.prefill_hidden``). A ``cache`` longer than
+    ``seq`` (from ``model.init_cache``) is filled in place."""
 
     @torch.inference_mode()
-    def step(tokens: torch.Tensor, cache: dict | None = None):
-        if tuple(tokens.shape) != (global_batch, seq):
+    def step(batch, cache: dict | None = None):
+        if batch_shape(batch) != (global_batch, seq):
             raise ValueError(f"prefill step built for {(global_batch, seq)}, got "
-                             f"{tuple(tokens.shape)}")
-        return M.prefill(model, tokens, impl=impl, cache=cache)
+                             f"{batch_shape(batch)}")
+        return M.prefill(model, batch, impl=impl, cache=cache)
 
     return step
 
 
 def make_serve_step(model: M.Model, *, global_batch: int, seq_max: int):
     """``step(cache, tokens (global_batch,), cache_len) → (next tokens,
-    cache)``: one greedy decode step over a ``seq_max`` KV cache, written in
-    place at ``cache_len``."""
+    cache)``: one greedy decode step at position ``cache_len`` of a cache
+    allocated for ``seq_max`` positions, written in place."""
 
     @torch.inference_mode()
     def step(cache: dict, tokens: torch.Tensor, cache_len: int):
-        if tuple(tokens.shape) != (global_batch,) or cache["k"].shape[2] != seq_max:
-            raise ValueError(f"serve step built for batch {global_batch} and cache {seq_max}, "
-                             f"got {tuple(tokens.shape)} and {cache['k'].shape[2]}")
+        if tuple(tokens.shape) != (global_batch,):
+            raise ValueError(f"serve step built for batch {global_batch}, got "
+                             f"{tuple(tokens.shape)}")
         if not 0 <= int(cache_len) < seq_max:
             raise ValueError(f"cache_len {cache_len} outside the cache of {seq_max}")
         return M.decode_step(model, cache, tokens, cache_len)

@@ -1,2 +1,3 @@
-"""The dense decoder LM of the port: configuration, layers, attention,
-model, and the map from the JAX package's parameter tree."""
+"""The LM of the port, every block kind of the JAX model's: configuration,
+layers, attention (GQA, MLA), MoE, SSM, RG-LRU, the model, and the map
+from the JAX package's parameter and cache trees."""

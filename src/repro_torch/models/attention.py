@@ -1,20 +1,22 @@
-"""Attention: grouped-query attention with the chunked online-softmax core.
+"""Attention: grouped-query attention with the chunked online-softmax core,
+and multi-head latent attention (MLA).
 
 The counterpart of ``repro/models/attention.py`` on one card (tp = 1).
 Sequence mixing is chosen per step, as in the JAX model:
   * ``masked``   — every (q-chunk, kv-chunk) block pair, causal by mask;
   * ``triangle`` — only the block pairs that meet the causal triangle;
   * ``direct``   — one block over the whole sequence;
-  * ``flash``    — the port's own: causal self-attention prefill through
-                   the ``flash_attention`` Hopper kernel (``kernels.ops``;
-                   its plain version on the CPU). It is exactly the
-                   kernel's function, so it takes no other case.
+  * ``flash``    — the port's own: self-attention prefill (causal, or the
+                   encoder's non-causal) through the ``flash_attention``
+                   Hopper kernel (``kernels.ops``; its plain version on the
+                   CPU). It is exactly the kernel's function, so it takes
+                   no window, cache or cross-attention.
 ``masked``/``triangle``/``direct`` repeat the JAX arithmetic: q scaled in the
 compute dtype, scores from a bf16 product, p cast to v's dtype before the
 P·V product. The kernel scales in fp32 and keeps p in fp32 until its own
 bf16 P·V product, so ``flash`` and ``masked`` agree to bf16 rounding only.
-Cross-attention and the rolling window cache are not on a ported model's
-path and raise ``NotImplementedError``.
+GQA also runs cross-attention (enc-dec: k/v from the encoder's memory, no
+RoPE, no mask) and the local-attention rolling window cache.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import CastOnce, apply_rope
+from repro_torch.models.layers import CastOnce, RMSNorm, apply_rope
 from repro_torch.models.parallel import COMPUTE_DTYPE
 
 NEG_INF = -1e30
@@ -181,68 +183,90 @@ class GQAAttention(CastOnce):
             names += ["bq", "bk", "bv"]
         self.compute = tuple(names)
 
-    def forward(self, x, *, rope, cache=None, cache_len=None, prefill_cache=None,
+    def forward(self, x, *, rope=None, cache=None, cache_len=None, prefill_cache=None,
                 causal=True, window=None, impl="masked", cross_kv=None, cross_cache=None):
         """x (b, s, d) → (y (b, s, d), new_cache).
 
-        ``cache``: {"k", "v"} (b, S_max, KV, hd), written in place at
+        ``cache``: {"k", "v"} (b, S, KV, hd), written in place at
         ``cache_len`` (decode); attention then runs over the cache up to
-        ``cache_len + s``. ``prefill_cache``: a cache of the same form whose
-        first s slots take this prompt's k/v in place, while attention runs
+        ``cache_len + s``. With a ``window``, a cache of at most ``window``
+        slots is a rolling one: slot ``cache_len % S`` takes the new k/v and
+        attention runs over every filled slot without a mask, as the JAX
+        model's rolling write does. ``prefill_cache``: a cache of the same
+        form whose first slots take this prompt's k/v in place (with a
+        ``window``, its last ``window`` positions), while attention runs
         over the fresh k/v (what the JAX model's ``want_cache`` prefill
         computes, without a second copy of the cache). With neither, no
         cache is kept (``new_cache`` is None). ``rope``: (cos, sin) for the
-        q positions."""
-        if cross_kv is not None or cross_cache is not None:
-            raise NotImplementedError(
-                "cross-attention (enc-dec) is not ported yet: ROADMAP.md queue 1, the LM stack")
+        q positions. Cross-attention: ``cross_kv`` (b, s_enc, d), the memory
+        that k/v are projected from (into ``prefill_cache`` when given), or
+        ``cross_cache``, k/v built at prefill."""
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r} not in {IMPLS}")
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.hd
         hq, kv, _, rep_q = gqa_dims(cfg)
+        cross = cross_kv is not None or cross_cache is not None
         q = torch.matmul(x, self.wq_c.to(x.dtype))
-        k = torch.matmul(x, self.wk_c.to(x.dtype).flatten(1)).view(b, s, kv, hd)
-        v = torch.matmul(x, self.wv_c.to(x.dtype).flatten(1)).view(b, s, kv, hd)
         if cfg.qkv_bias:
             q = q + self.bq_c.to(x.dtype)
-            k = k + self.bk_c.to(x.dtype)
-            v = v + self.bv_c.to(x.dtype)
         q = q.view(b, s, hq, hd)
-        cos, sin = rope
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
 
         new_cache = None
         kv_valid = None
-        if cache is not None:
-            ck, cv = cache["k"], cache["v"]
-            if window is not None and ck.shape[1] <= window:
-                raise NotImplementedError(
-                    "the rolling window cache is not ported yet: ROADMAP.md queue 1, the LM stack")
-            ck[:, cache_len:cache_len + s] = k.to(ck.dtype)
-            cv[:, cache_len:cache_len + s] = v.to(cv.dtype)
-            kv_valid = cache_len + s
-            new_cache = cache
-            k_all, v_all = ck, cv
+        q_offset = 0
+        if cross_cache is not None:
+            k_all, v_all = cross_cache["k"], cross_cache["v"]
+            new_cache = cross_cache
         else:
-            if prefill_cache is not None:
-                prefill_cache["k"][:, :s] = k.to(prefill_cache["k"].dtype)
-                prefill_cache["v"][:, :s] = v.to(prefill_cache["v"].dtype)
-                new_cache = prefill_cache
-            k_all, v_all = k, v
-        q_offset = 0 if cache is None else cache_len
+            src = cross_kv if cross else x
+            sk = src.shape[1]
+            k = torch.matmul(src, self.wk_c.to(src.dtype).flatten(1)).view(b, sk, kv, hd)
+            v = torch.matmul(src, self.wv_c.to(src.dtype).flatten(1)).view(b, sk, kv, hd)
+            if cfg.qkv_bias:
+                k = k + self.bk_c.to(x.dtype)
+                v = v + self.bv_c.to(x.dtype)
+            if not cross:
+                cos, sin = rope
+                q = apply_rope(q, cos, sin)
+                k = apply_rope(k, cos, sin)
+            if cache is not None:
+                ck, cv = cache["k"], cache["v"]
+                n_slots = ck.shape[1]
+                if window is not None and n_slots <= window:
+                    # rolling window: slots are not in position order, so the
+                    # rolling write itself keeps causality and the window
+                    at = cache_len % n_slots
+                    kv_valid = min(cache_len + s, n_slots)
+                    window, causal = None, False
+                else:
+                    at = cache_len
+                    kv_valid = cache_len + s
+                ck[:, at:at + s] = k.to(ck.dtype)
+                cv[:, at:at + s] = v.to(cv.dtype)
+                new_cache = cache
+                k_all, v_all = ck, cv
+                q_offset = cache_len
+            else:
+                if prefill_cache is not None:
+                    keep = sk if window is None else min(sk, window)
+                    prefill_cache["k"][:, :keep] = k[:, sk - keep:].to(prefill_cache["k"].dtype)
+                    prefill_cache["v"][:, :keep] = v[:, sk - keep:].to(prefill_cache["v"].dtype)
+                    new_cache = prefill_cache
+                k_all, v_all = k, v
+        if cross:
+            window, causal = None, False
 
         cd = COMPUTE_DTYPE
         if impl == "flash":
-            if cache is not None or not causal or window is not None:
-                raise ValueError("impl='flash' runs causal self-attention prefill only "
-                                 "(no window, no cache offset or kv_len, sq == sk)")
+            if cache is not None or cross or window is not None:
+                raise ValueError("impl='flash' runs self-attention prefill only (causal, or the "
+                                 "encoder's non-causal; no window, cache or cross-attention)")
             # the kernel reads the (b, s, h, d) tensors through strides, and kv
             # head i // rep_q directly: no transposed or repeated copy
             y = ops.flash_attention(q.to(cd).transpose(1, 2), k_all.to(cd).transpose(1, 2),
-                                    v_all.to(cd).transpose(1, 2), causal=True).transpose(1, 2)
+                                    v_all.to(cd).transpose(1, 2), causal=causal).transpose(1, 2)
         else:
             if rep_q > 1:  # expand kv slots to per-q-head (a copy: skipped when 1:1)
                 k_all = torch.repeat_interleave(k_all, rep_q, dim=2)
@@ -252,3 +276,83 @@ class GQAAttention(CastOnce):
                                   window=window, impl=impl, kv_len=kv_valid)
         y = y.reshape(b, s, hq * hd)
         return torch.matmul(y, self.wo_c.to(y.dtype)), new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (MiniCPM3 / DeepSeek-style multi-head latent attention)
+# ---------------------------------------------------------------------------
+class MLAAttention(CastOnce):
+    """Multi-head latent attention with a latent cache {"c_kv" (b, S,
+    kv_lora_rank), "k_rope" (b, S, qk_rope_head_dim)}. Parameters as the
+    JAX leaves: wq_a (d, q_lora), q_norm (q_lora,), wq_b (q_lora, H·(dn +
+    dr)), wkv_a (d, dc + dr), kv_norm (dc,), wkv_b (dc, H·(dn + dv)), wo
+    (H·dv, d). Prefill expands the latent into per-head k/v and runs the
+    chunked attention in bf16; decode absorbs W_UK into q and attends in the
+    latent space, in fp32 from the fp32 ``wkv_b``, as ``mla_apply`` does."""
+
+    compute = ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")
+
+    def __init__(self, cfg: ModelConfig, generator, device):
+        super().__init__()
+        m = cfg.mla
+        d, H = cfg.d_model, cfg.n_heads
+        self.cfg = cfg
+        self.wq_a = self.param((d, m.q_lora_rank), "normal", generator, device)
+        self.q_norm = RMSNorm(m.q_lora_rank, cfg.norm_eps, generator, device)
+        self.wq_b = self.param((m.q_lora_rank, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                               "normal", generator, device)
+        self.wkv_a = self.param((d, m.kv_lora_rank + m.qk_rope_head_dim), "normal", generator,
+                                device)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, cfg.norm_eps, generator, device)
+        self.wkv_b = self.param((m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)),
+                                "normal", generator, device)
+        self.wo = self.param((H * m.v_head_dim, d), "normal", generator, device)
+
+    def forward(self, x, *, rope, cache=None, cache_len=None, prefill_cache=None,
+                impl="masked"):
+        """x (b, s, d) → (y (b, s, d), new_cache). ``cache``, ``cache_len``
+        and ``prefill_cache`` as for ``GQAAttention``, over the latent cache;
+        ``impl`` is the prefill's chunked attention (the kernel takes no
+        96/64 head dims)."""
+        m = self.cfg.mla
+        b, s, _ = x.shape
+        H = self.cfg.n_heads
+        dn, dr, dv, dc = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+        cos, sin = rope
+        q = (self.q_norm(x @ self.wq_a_c) @ self.wq_b_c).view(b, s, H, dn + dr)
+        q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
+        kv_a = x @ self.wkv_a_c
+        c_kv = self.kv_norm(kv_a[..., :dc])
+        k_rope = apply_rope(kv_a[..., dc:][:, :, None, :], cos, sin)[:, :, 0]  # one shared head
+
+        new_cache = None
+        if cache is not None:  # decode: absorbed attention in the latent space, fp32
+            cc, cr = cache["c_kv"], cache["k_rope"]
+            cc[:, cache_len:cache_len + s] = c_kv.to(cc.dtype)
+            cr[:, cache_len:cache_len + s] = k_rope.to(cr.dtype)
+            new_cache = cache
+            w_kb = self.wkv_b.view(dc, H, dn + dv)
+            f32 = torch.float32
+            q_abs = torch.einsum("bshn,chn->bshc", q_nope.to(f32), w_kb[..., :dn])
+            sc = torch.einsum("bshc,bSc->bhsS", q_abs, cc.to(f32))
+            sc = sc + torch.einsum("bshr,bSr->bhsS", q_rope.to(f32), cr.to(f32))
+            sc = sc / math.sqrt(dn + dr)
+            valid = torch.arange(cc.shape[1], device=x.device) < cache_len + s
+            w = torch.softmax(torch.where(valid, sc, NEG_INF), dim=-1)
+            ctx = torch.einsum("bhsS,bSc->bshc", w, cc.to(f32))
+            y = torch.einsum("bshc,chv->bshv", ctx, w_kb[..., dn:])
+        else:  # prefill: expand the latent and run the chunked attention
+            w_kb = self.wkv_b_c.view(dc, H, dn + dv)
+            k_nope = torch.einsum("bsc,chn->bshn", c_kv, w_kb[..., :dn])
+            v = torch.einsum("bsc,chv->bshv", c_kv, w_kb[..., dn:])
+            k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, H, dr)], dim=-1)
+            cd = COMPUTE_DTYPE
+            y = chunked_attention(torch.cat([q_nope, q_rope], dim=-1).to(cd), k.to(cd),
+                                  v.to(cd), scale=1.0 / math.sqrt(dn + dr), causal=True,
+                                  impl=impl)
+            if prefill_cache is not None:
+                prefill_cache["c_kv"][:, :s] = c_kv.to(prefill_cache["c_kv"].dtype)
+                prefill_cache["k_rope"][:, :s] = k_rope.to(prefill_cache["k_rope"].dtype)
+                new_cache = prefill_cache
+        y = y.reshape(b, s, H * dv).to(x.dtype)
+        return y @ self.wo_c, new_cache

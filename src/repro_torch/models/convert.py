@@ -1,9 +1,12 @@
 """Carry parameters and caches between the JAX model and the port.
 
-The JAX model keeps its parameters as a pytree with the layers stacked
-along a leading dim (``blocks/0_attn_mlp/attn/wq`` is (n_layers, d, H·hd));
-the port keeps one module per layer with the same per-layer layout. Both
-functions here work on numpy arrays, so neither package imports the other.
+The JAX model keeps its parameters as a pytree whose superblock leaves are
+stacked along a leading dim (``blocks/0_attn_mlp/attn/wq`` is (n_layers, d,
+H·hd); ``blocks/2_attn_local/...`` is (n_superblocks, ...)), tail blocks
+unstacked (``tail/0_rec/...``) and encoder layers stacked
+(``enc_blocks/...``); the port keeps one module per layer with the same
+per-layer layout. Both functions here work on numpy arrays, so neither
+package imports the other.
 """
 from __future__ import annotations
 
@@ -13,9 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.model import Model, block_pattern
-
-_BLOCK = "blocks/0_attn_mlp"
+from repro_torch.models.model import Model
 
 
 def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -31,14 +32,18 @@ def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def jax_leaf(name: str) -> str:
+    """A port parameter's name within its layer → the JAX leaf's path: an
+    ``RMSNorm``'s ``scale`` is the JAX leaf itself (``ln1.scale`` →
+    ``ln1``, ``attn.q_norm.scale`` → ``attn/q_norm``)."""
+    return name.removesuffix(".scale").replace(".", "/")
+
+
 def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None) -> Model:
     """A ``Model`` of ``cfg`` holding the JAX model's parameters ``tree`` (its
     pytree with numpy leaves, nested or flat with "/" keys). Every leaf must
     be used and have the shape the port expects; the bf16 weight copies are
     made after loading."""
-    unit, tail, _ = block_pattern(cfg)
-    if unit != ("attn_mlp",) or tail:
-        raise NotImplementedError(f"only attn_mlp models load yet, not {unit + tail}")
     model = Model(cfg, device=device)
     flat = flatten(tree)
     targets: dict[str, list[tuple[torch.Tensor, int | None]]] = {
@@ -47,12 +52,13 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None) -> Model:
     }
     if not cfg.tie_embeddings:
         targets["head"] = [(model.head, None)]
-    for i, blk in enumerate(model.blocks):
-        for name, p in (("ln1", blk.ln1.scale), ("ln2", blk.ln2.scale)):
-            targets.setdefault(f"{_BLOCK}/{name}", []).append((p, i))
-        for sub, mod in (("attn", blk.attn), ("mlp", blk.mlp)):
-            for pname, p in mod.named_parameters(recurse=False):
-                targets.setdefault(f"{_BLOCK}/{sub}/{pname}", []).append((p, i))
+    if cfg.enc_layers:
+        targets["enc_norm"] = [(model.enc_norm.scale, None)]
+    places = list(model.layout) + [("enc_blocks", None, i) for i in range(cfg.enc_layers)]
+    for blk, (group, key, i) in zip(list(model.blocks) + list(model.enc_blocks), places):
+        prefix = group if key is None else f"{group}/{key}"
+        for name, p in blk.named_parameters():
+            targets.setdefault(f"{prefix}/{jax_leaf(name)}", []).append((p, i))
     missing = sorted(set(targets) - set(flat))
     extra = sorted(set(flat) - set(targets))
     if missing or extra:
@@ -60,8 +66,8 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None) -> Model:
     with torch.no_grad():
         for name, dests in targets.items():
             arr = np.asarray(flat[name], dtype=np.float32)
-            if dests[0][1] is not None and arr.shape[:1] != (cfg.n_layers,):
-                raise ValueError(f"{name}: shape {arr.shape}, need {cfg.n_layers} stacked layers")
+            if dests[0][1] is not None and arr.shape[:1] != (len(dests),):
+                raise ValueError(f"{name}: shape {arr.shape}, need {len(dests)} stacked layers")
             for p, layer in dests:
                 src = arr if layer is None else arr[layer]
                 if tuple(src.shape) != tuple(p.shape):
@@ -71,14 +77,13 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None) -> Model:
     return model
 
 
-def cache_to_jax(cache: dict, mesh_dims: int = 0) -> dict:
-    """The port's KV cache → the JAX cache pytree of an ``attn_mlp`` model,
-    as float32 numpy (bf16 values are exact in it): ``{"blocks":
-    {"0_attn_mlp": {"attn": {"k", "v"}}}}``, each (n_layers, b, S, KV, hd)
-    behind ``mesh_dims`` leading dims of 1 (the device-major layout of a
-    (1, 1) mesh has two)."""
+def cache_to_jax(cache: Mapping, mesh_dims: int = 0) -> dict:
+    """The port's cache → the JAX cache pytree (the same tree), as float32
+    numpy (bf16 values are exact in it), each leaf behind ``mesh_dims``
+    leading dims of 1 (the device-major layout of a (1, 1) mesh has two)."""
     def leaf(t: torch.Tensor) -> np.ndarray:
         a = t.detach().to(torch.float32).cpu().numpy()
         return a.reshape((1,) * mesh_dims + a.shape)
 
-    return {"blocks": {"0_attn_mlp": {"attn": {"k": leaf(cache["k"]), "v": leaf(cache["v"])}}}}
+    return {k: cache_to_jax(v, mesh_dims) if isinstance(v, Mapping) else leaf(v)
+            for k, v in cache.items()}

@@ -1,4 +1,5 @@
-"""Shared neural layers: RMSNorm, RoPE, activations and the gated MLP.
+"""Shared neural layers: RMSNorm, RoPE and M-RoPE, activations, the gated
+MLP and the depthwise causal conv1d.
 
 The counterpart of ``repro/models/layers.py`` on one card (tp = 1). The
 arithmetic follows the JAX functions step by step, with bf16 where they
@@ -25,9 +26,10 @@ class CastOnce(nn.Module):
 
     compute: tuple[str, ...] = ()
 
-    def param(self, shape, law: str, generator, device) -> nn.Parameter:
+    def param(self, shape, law: str, generator, device, scale: float = 0.02) -> nn.Parameter:
         # serving only: no gradients (training comes with the port of optim/)
-        return nn.Parameter(init_tensor(shape, law, generator, device), requires_grad=False)
+        return nn.Parameter(init_tensor(shape, law, generator, device, scale),
+                            requires_grad=False)
 
     @torch.no_grad()
     def cast_weights(self) -> None:
@@ -58,6 +60,24 @@ def rope_angles(positions: torch.Tensor, dim: int, theta: float):
                                         device=positions.device) / dim))
     ang = positions.to(torch.float32)[..., None] * inv
     return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_angles(positions: torch.Tensor, dim: int, theta: float, sections: tuple[int, ...]):
+    """M-RoPE (qwen2-vl): positions (..., s, 3), the (t, h, w) grids; each
+    band of ``sections`` (summing to dim/2) takes its angle from its grid.
+    Returns cos, sin (..., s, dim/2), fp32."""
+    if sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to {dim // 2}")
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    cos_parts, sin_parts = [], []
+    off = 0
+    for i, sec in enumerate(sections):
+        ang = positions[..., i].to(torch.float32)[..., None] * inv[off:off + sec]
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        off += sec
+    return torch.cat(cos_parts, -1), torch.cat(sin_parts, -1)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -98,3 +118,21 @@ class MLP(CastOnce):
         g = col_parallel(x, self.wi_gate_c)
         u = col_parallel(x, self.wi_up_c)
         return row_parallel(act_fn(self.act)(g) * u, self.wo_c)
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = None):
+    """Depthwise causal conv: x (b, s, c), w (c, width) → (silu(y) in x's
+    dtype, new state). ``state`` (b, width-1, c) holds the inputs before x
+    (zeros when None); the new state is the last width-1 inputs. The taps
+    are summed in fp32 in the JAX function's order."""
+    b, s, c = x.shape
+    width = w.shape[1]
+    if state is None:
+        state = x.new_zeros((b, width - 1, c))
+    xp = torch.cat([state.to(x.dtype), x], dim=1)  # (b, s + width - 1, c)
+    wf = w.to(torch.float32)
+    y = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+    for k in range(width):
+        y = y + xp[:, k:k + s].to(torch.float32) * wf[:, k]
+    new_state = xp[:, -(width - 1):] if width > 1 else state
+    return (y * torch.sigmoid(y)).to(x.dtype), new_state

@@ -1,26 +1,39 @@
-"""Model assembly: the dense decoder LM and its prefill and decode steps.
+"""Model assembly: every block kind of the LM, and its prefill and decode steps.
 
 The counterpart of ``repro/models/model.py`` on one card. ``Model`` owns the
 parameters (fp32, with bf16 copies of the matmul weights: ``layers.
-CastOnce``); the JAX model's ``lax.scan`` over stacked layers is a Python
-loop over ``Model.blocks``. Only the ``attn_mlp`` block kind is ported:
-every other kind raises and names the ``ROADMAP.md`` item that holds it.
+CastOnce``). The JAX model scans a superblock of layers (RecurrentGemma's
+(rec, rec, attn_local); one layer elsewhere) over stacked parameters and
+unrolls a tail; here ``Model.blocks`` is the flat list of layers in the
+order they run, and ``Model.layout`` names each layer's place in the JAX
+tree: ("blocks", "<pos>_<kind>", superblock) or ("tail", "<i>_<kind>",
+None). Enc-dec models add ``enc_blocks`` and ``enc_norm``.
 
-The KV cache is a dict of two stacked tensors, ``{"k", "v"}`` of shape
-(n_layers, b, S_max, KV, hd) in the compute dtype, updated in place.
+A cache mirrors the JAX cache tree without its mesh dims: ``{"blocks":
+{"<pos>_<kind>": {...}}, "tail": {"<i>_<kind>": {...}}}``, each block with
+``attn`` ({"k", "v"}, or MLA's {"c_kv", "k_rope"}), ``cross`` ({"k", "v"}
+over the encoder's memory), ``ssm`` ({"conv_x", "conv_bc", "ssm"}) or
+``rec`` ({"conv", "h"}); a superblock's leaves are stacked over the
+superblocks. ``init_cache`` allocates every leaf once, at its full size,
+and prefill and decode write it in place.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.mesh import resolve_device
-from repro_torch.models.attention import GQAAttention
+from repro_torch.models.attention import GQAAttention, MLAAttention
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import MLP, CastOnce, RMSNorm, rope_angles
+from repro_torch.models.layers import MLP, CastOnce, RMSNorm, mrope_angles, rope_angles
+from repro_torch.models.moe import MoE
 from repro_torch.models.parallel import argmax_logits, embed_lookup, logits, pad_vocab
+from repro_torch.models.rglru import CONV_WIDTH, RGLRU
+from repro_torch.models.ssm import SSM, ssm_dims
 
-_NOT_PORTED = "is not ported yet: ROADMAP.md queue 1 lists it under the LM stack"
+ATTN_KINDS = ("attn_mlp", "attn_local", "enc", "dec", "attn_moe")
+KINDS = ATTN_KINDS + ("ssm", "rec")
 
 
 def block_pattern(cfg: ModelConfig) -> tuple[tuple[str, ...], tuple[str, ...], int]:
@@ -41,57 +54,117 @@ def block_pattern(cfg: ModelConfig) -> tuple[tuple[str, ...], tuple[str, ...], i
     return ("attn_mlp",), (), cfg.n_layers
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config that needs what the port
-    does not have yet."""
-    unit, tail, _ = block_pattern(cfg)
-    for kind in unit + tail:
-        if kind != "attn_mlp":
-            raise NotImplementedError(f"block kind {kind!r} {_NOT_PORTED}")
-    for what, present in (("MLA attention", cfg.mla is not None),
-                          ("the encoder stack", cfg.enc_layers > 0),
-                          ("embedding input", cfg.embed_input),
-                          ("M-RoPE", cfg.mrope_sections is not None),
-                          ("local attention", cfg.window is not None)):
-        if present:
-            raise NotImplementedError(f"{what} {_NOT_PORTED}")
+def attention_impl(cfg: ModelConfig, kind: str, impl: str) -> str:
+    """The prefill self-attention of a ``kind`` layer under ``impl``:
+    ``flash`` only where the kernel computes the layer's function — GQA,
+    causal or the encoder's non-causal, no window, a head dim in
+    ``HEAD_DIMS`` — and ``masked`` elsewhere (MLA's 96/64 heads, local
+    windows). Cross-attention is always chunked."""
+    if impl != "flash":
+        return impl
+    ok = cfg.mla is None and kind != "attn_local" and cfg.hd in HEAD_DIMS
+    return "flash" if ok else "masked"
 
 
 class Block(nn.Module):
-    """One ``attn_mlp`` block: pre-norm attention, then pre-norm MLP."""
+    """One layer of kind ``kind``; its submodules are named as the JAX
+    block's subtrees (``ln1``, ``attn``, ``lnx``, ``cross``, ``ln2``,
+    ``mlp``, ``moe``, ``ssm``, ``rec``)."""
 
-    def __init__(self, cfg: ModelConfig, generator, device):
+    def __init__(self, kind: str, cfg: ModelConfig, generator, device):
         super().__init__()
-        self.ln1 = RMSNorm(cfg.d_model, cfg.norm_eps, generator, device)
-        self.attn = GQAAttention(cfg, generator, device)
-        self.ln2 = RMSNorm(cfg.d_model, cfg.norm_eps, generator, device)
-        self.mlp = MLP(cfg, generator, device)
+        if kind not in KINDS:
+            raise ValueError(f"unknown block kind {kind!r}; the model has {KINDS}")
+        need = {"attn_moe": ("moe", cfg.moe), "ssm": ("ssm", cfg.ssm)}.get(kind)
+        if need is not None and need[1] is None:
+            raise ValueError(f"{cfg.name}: a {kind!r} block needs cfg.{need[0]}")
+        self.kind = kind
+        d, eps = cfg.d_model, cfg.norm_eps
+        self.ln1 = RMSNorm(d, eps, generator, device)
+        if kind in ATTN_KINDS:
+            self.attn = (MLAAttention if cfg.mla is not None else GQAAttention)(
+                cfg, generator, device)
+            if kind == "dec":
+                self.lnx = RMSNorm(d, eps, generator, device)
+                self.cross = GQAAttention(cfg, generator, device)
+        elif kind == "ssm":
+            self.ssm = SSM(cfg, generator, device)
+        else:
+            self.rec = RGLRU(cfg, generator, device)
+        if kind != "ssm":
+            self.ln2 = RMSNorm(d, eps, generator, device)
+            if kind == "attn_moe":
+                self.moe = MoE(cfg, generator, device)
+            else:
+                self.mlp = MLP(cfg, generator, device)
 
 
-def block_apply(kind: str, block: Block, x: torch.Tensor, ctx: dict):
-    """Apply one block. ctx: rope, cache, cache_len, prefill_cache, impl.
-    Returns (x, new_cache)."""
-    if kind != "attn_mlp":
-        raise NotImplementedError(f"block kind {kind!r} {_NOT_PORTED}")
-    y, c = block.attn(block.ln1(x), rope=ctx["rope"], cache=ctx.get("cache"),
-                      cache_len=ctx.get("cache_len"), prefill_cache=ctx.get("prefill_cache"),
-                      causal=True, window=None, impl=ctx["impl"])
-    x = x + y
-    x = x + block.mlp(block.ln2(x))
-    return x, c
+def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = None,
+                prefill_cache: dict | None = None) -> torch.Tensor:
+    """Apply one layer. ctx: rope, impl, cache_len (decode), enc_out (the
+    encoder's memory at an enc-dec prefill). ``cache``: the layer's cache
+    (decode, written in place at ``cache_len``); ``prefill_cache``: the
+    layer's cache that a prefill fills in place."""
+    kind = block.kind
+    cfg = block.attn.cfg if kind in ATTN_KINDS else None
+
+    def sub(c, name):
+        return None if c is None else c[name]
+
+    if kind in ATTN_KINDS:
+        impl = attention_impl(cfg, kind, ctx["impl"])
+        h = block.ln1(x)
+        if cfg.mla is not None:
+            y, _ = block.attn(h, rope=ctx["rope"], cache=sub(cache, "attn"),
+                              cache_len=ctx.get("cache_len"),
+                              prefill_cache=sub(prefill_cache, "attn"), impl=impl)
+        else:
+            y, _ = block.attn(h, rope=ctx["rope"], cache=sub(cache, "attn"),
+                              cache_len=ctx.get("cache_len"),
+                              prefill_cache=sub(prefill_cache, "attn"), causal=kind != "enc",
+                              window=cfg.window if kind == "attn_local" else None, impl=impl)
+        x = x + y
+        if kind == "dec":
+            y, _ = block.cross(block.lnx(x), cross_kv=ctx.get("enc_out"),
+                               cross_cache=sub(cache, "cross"),
+                               prefill_cache=sub(prefill_cache, "cross"),
+                               impl="masked" if impl == "flash" else impl)
+            x = x + y
+        h = block.ln2(x)
+        return x + (block.moe(h, decode=cache is not None) if kind == "attn_moe"
+                    else block.mlp(h))
+    if kind == "ssm":
+        return x + block.ssm(block.ln1(x), state=sub(cache, "ssm"),
+                             prefill_state=sub(prefill_cache, "ssm"))
+    x = x + block.rec(block.ln1(x), state=sub(cache, "rec"),
+                      prefill_state=sub(prefill_cache, "rec"))
+    return x + block.mlp(block.ln2(x))
 
 
-def rope_for(cfg: ModelConfig, positions: torch.Tensor, rope_dim: int):
-    """positions (b, s) → (cos, sin) (b, s, dim/2)."""
+def rope_dim(cfg: ModelConfig) -> int:
+    return cfg.mla.qk_rope_head_dim if cfg.mla is not None else cfg.hd
+
+
+def rope_for(cfg: ModelConfig, positions: torch.Tensor, dim: int):
+    """positions (b, s), or (b, s, 3) for M-RoPE → (cos, sin) (b, s, dim/2)."""
     if positions.dim() == 3:
         if cfg.mrope_sections is not None:
-            raise NotImplementedError(f"M-RoPE {_NOT_PORTED}")
+            return mrope_angles(positions, dim, cfg.rope_theta, cfg.mrope_sections)
         positions = positions[..., 0]
-    return rope_angles(positions, rope_dim, cfg.rope_theta)
+    return rope_angles(positions, dim, cfg.rope_theta)
+
+
+def _layer_view(tree: dict, i: int | None) -> dict:
+    """A superblock's cache leaves at superblock ``i`` (views), or a tail
+    block's as they are (``i`` None)."""
+    if i is None:
+        return tree
+    return {k: _layer_view(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
 class Model(CastOnce):
-    """The dense decoder LM: embedding, ``n_layers`` blocks, final norm and a
+    """The LM: embedding (or embeddings given as input), the layers of
+    ``block_pattern``, an encoder for enc-dec configs, the final norm and a
     head tied to the embedding (or its own). Parameters are made on
     ``device`` (``None``: the card) by the init law of the JAX model
     (``common.init_tensor``) from a ``torch.Generator`` seeded with
@@ -99,7 +172,6 @@ class Model(CastOnce):
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
-        check_ported(cfg)
         device = resolve_device(device, "Model()")
         gen = torch.Generator(device=device).manual_seed(seed)
         self.cfg = cfg
@@ -110,7 +182,16 @@ class Model(CastOnce):
         if not cfg.tie_embeddings:
             self.head = self.param((self.vocab_padded, cfg.d_model), "normal", gen, device)
             self.compute = ("embed", "head")
-        self.blocks = nn.ModuleList(Block(cfg, gen, device) for _ in range(cfg.n_layers))
+        unit, tail, n_sb = block_pattern(cfg)
+        self.layout = [("blocks", f"{pos}_{kind}", i) for i in range(n_sb)
+                       for pos, kind in enumerate(unit)]
+        self.layout += [("tail", f"{i}_{kind}", None) for i, kind in enumerate(tail)]
+        self.blocks = nn.ModuleList(Block(key.split("_", 1)[1], cfg, gen, device)
+                                    for _, key, _ in self.layout)
+        self.enc_blocks = nn.ModuleList(Block("enc", cfg, gen, device)
+                                        for _ in range(cfg.enc_layers))
+        if cfg.enc_layers:
+            self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, gen, device)
         self.cast_weights()
 
     @property
@@ -127,41 +208,110 @@ class Model(CastOnce):
     def head_table(self) -> torch.Tensor:
         return self.embed_c if self.cfg.tie_embeddings else self.head_c
 
-    def init_cache(self, batch: int, seq_max: int) -> dict:
-        """An empty KV cache for ``batch`` sequences of up to ``seq_max``."""
+    def init_cache(self, batch: int, seq_max: int, enc_len: int | None = None) -> dict:
+        """An empty cache for ``batch`` sequences of up to ``seq_max``
+        positions (``enc_len``: the encoder's input length, enc-dec only)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, seq_max, cfg.n_kv_heads, cfg.hd)
+        if cfg.enc_layers and enc_len is None:
+            raise ValueError(f"{cfg.name} is enc-dec: init_cache needs enc_len")
         dt = getattr(torch, cfg.compute_dtype)
-        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
-                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+        unit, tail, n_sb = block_pattern(cfg)
+
+        def zeros(lead, *shape, dtype=dt):
+            return torch.zeros(lead + (batch,) + shape, dtype=dtype, device=self.device)
+
+        def block_cache(kind: str, lead: tuple) -> dict:
+            if kind == "ssm":
+                s = cfg.ssm
+                d_in, heads = ssm_dims(cfg)
+                return {"ssm": {"conv_x": zeros(lead, s.conv_width - 1, d_in),
+                                "conv_bc": zeros(lead, s.conv_width - 1,
+                                                 2 * s.n_groups * s.d_state),
+                                "ssm": zeros(lead, heads, s.d_state, s.head_dim,
+                                             dtype=torch.float32)}}
+            if kind == "rec":
+                return {"rec": {"conv": zeros(lead, CONV_WIDTH - 1, cfg.d_model),
+                                "h": zeros(lead, cfg.d_model, dtype=torch.float32)}}
+            if cfg.mla is not None:
+                m = cfg.mla
+                out = {"attn": {"c_kv": zeros(lead, seq_max, m.kv_lora_rank),
+                                "k_rope": zeros(lead, seq_max, m.qk_rope_head_dim)}}
+            else:
+                slots = min(seq_max, cfg.window) if kind == "attn_local" else seq_max
+                out = {"attn": {"k": zeros(lead, slots, cfg.n_kv_heads, cfg.hd),
+                                "v": zeros(lead, slots, cfg.n_kv_heads, cfg.hd)}}
+            if kind == "dec":
+                out["cross"] = {"k": zeros(lead, enc_len, cfg.n_kv_heads, cfg.hd),
+                                "v": zeros(lead, enc_len, cfg.n_kv_heads, cfg.hd)}
+            return out
+
+        cache = {"blocks": {f"{pos}_{kind}": block_cache(kind, (n_sb,))
+                            for pos, kind in enumerate(unit)}}
+        if tail:
+            cache["tail"] = {f"{i}_{kind}": block_cache(kind, ()) for i, kind in enumerate(tail)}
+        return cache
 
     def backbone(self, x: torch.Tensor, ctx: dict, caches: dict | None = None,
                  prefill_cache: dict | None = None) -> torch.Tensor:
-        """Run all blocks over x (b, s, d). ``caches`` (decode) is read and
-        written at ``ctx["cache_len"]``; ``prefill_cache`` takes the prompt's
-        k/v at its first s slots."""
-        for i, block in enumerate(self.blocks):
-            c = dict(ctx)
-            c["cache"] = None if caches is None else {"k": caches["k"][i], "v": caches["v"][i]}
-            c["prefill_cache"] = (None if prefill_cache is None else
-                                  {"k": prefill_cache["k"][i], "v": prefill_cache["v"][i]})
-            x, _ = block_apply("attn_mlp", block, x, c)
+        """Run every layer over x (b, s, d). ``caches`` (decode) is read and
+        written at ``ctx["cache_len"]``; ``prefill_cache`` is filled with
+        the prompt's k/v and states."""
+        for block, (group, key, i) in zip(self.blocks, self.layout):
+            c = None if caches is None else _layer_view(caches[group][key], i)
+            pc = None if prefill_cache is None else _layer_view(prefill_cache[group][key], i)
+            x = block_apply(block, x, ctx, cache=c, prefill_cache=pc)
         return x
 
-    def prefill_hidden(self, tokens: torch.Tensor, *, impl: str = "masked",
+    def encode(self, embeds: torch.Tensor, positions: torch.Tensor, impl: str) -> torch.Tensor:
+        """The encoder stack (enc-dec): embeds (b, s_enc, d) → memory."""
+        ctx = {"rope": rope_for(self.cfg, positions, rope_dim(self.cfg)), "impl": impl}
+        x = embeds.to(getattr(torch, self.cfg.compute_dtype))
+        for block in self.enc_blocks:
+            x = block_apply(block, x, ctx)
+        return self.enc_norm(x)
+
+    def prefill_hidden(self, batch, *, impl: str = "masked",
                        cache: dict | None = None) -> tuple[dict, torch.Tensor]:
-        """Fill a KV cache from prompts ``tokens`` (b, s). Returns (cache,
-        final-normed hidden state at the last prompt position (b, d)).
-        ``cache`` may be longer than s (room for decoding); it is filled in
-        place, and a cache of length s is made when none is given."""
-        b, s = tokens.shape
+        """Fill a cache from a prompt batch. ``batch``: prompt tokens (b, s),
+        or a dict as the JAX model's prefill takes it: ``tokens``, or
+        ``embeds`` (b, s, d) for an embedding-input model, with optional
+        ``positions`` ((b, s), or (b, s, 3) for M-RoPE), and for enc-dec
+        ``enc_embeds`` (b, s_enc, d) and ``enc_positions`` (b, s_enc).
+        Returns (cache, final-normed hidden state at the last prompt
+        position (b, d)). ``cache`` may be longer than s (room for
+        decoding); it is filled in place, and one of length s is made when
+        none is given."""
+        cfg = self.cfg
+        if isinstance(batch, torch.Tensor):
+            batch = {"tokens": batch}
+        if cfg.embed_input and not cfg.enc_layers:
+            x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
+        else:  # enc-dec: the decoder reads tokens
+            x = embed_lookup(batch["tokens"], self.embed_c)
+        b, s = x.shape[:2]
+        pos = batch.get("positions")
+        if pos is None:
+            pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl}
+        enc_len = None
+        if cfg.enc_layers:
+            ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl)
+            enc_len = ctx["enc_out"].shape[1]
         if cache is None:
-            cache = self.init_cache(b, s)
-        x = embed_lookup(tokens, self.embed_c)
-        pos = torch.arange(s, device=x.device)[None].expand(b, s)
-        ctx = {"rope": rope_for(self.cfg, pos, self.cfg.hd), "impl": impl}
+            cache = self.init_cache(b, s, enc_len=enc_len)
         x = self.backbone(x, ctx, prefill_cache=cache)
         return cache, self.final_norm(x[:, -1])
+
+    def decode_hidden(self, cache: dict, tokens: torch.Tensor, cache_len: int) -> torch.Tensor:
+        """One-token decode: tokens (b,) at position ``cache_len``, written
+        into the cache in place. Returns the final-normed hidden state (b, d)."""
+        cfg = self.cfg
+        x = embed_lookup(tokens[:, None], self.embed_c)  # (b, 1, d)
+        shape = (x.shape[0], 1, 3) if cfg.mrope_sections is not None else (x.shape[0], 1)
+        pos = torch.full(shape, cache_len, device=x.device)
+        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": "masked",
+               "cache_len": cache_len}
+        return self.final_norm(self.backbone(x, ctx, caches=cache)[:, 0])
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """fp32 logits over the padded vocab, padding at -inf."""
@@ -171,10 +321,11 @@ class Model(CastOnce):
         return argmax_logits(h, self.head_table(), self.cfg.vocab)
 
 
-def prefill(model: Model, tokens: torch.Tensor, *, impl: str = "masked",
+def prefill(model: Model, batch, *, impl: str = "masked",
             cache: dict | None = None) -> tuple[dict, torch.Tensor]:
-    """Fill caches from prompts (b, s). Returns (cache, next tokens (b,) int32)."""
-    cache, h = model.prefill_hidden(tokens, impl=impl, cache=cache)
+    """Fill caches from a prompt batch (see ``Model.prefill_hidden``).
+    Returns (cache, next tokens (b,) int32)."""
+    cache, h = model.prefill_hidden(batch, impl=impl, cache=cache)
     return cache, model.greedy(h)
 
 
@@ -182,11 +333,4 @@ def decode_step(model: Model, cache: dict, tokens: torch.Tensor,
                 cache_len: int) -> tuple[torch.Tensor, dict]:
     """One-token decode: tokens (b,) at position ``cache_len``, written into
     the cache in place. Returns (next tokens (b,) int32, cache)."""
-    cache_len = int(cache_len)
-    x = embed_lookup(tokens[:, None], model.embed_c)  # (b, 1, d)
-    b = x.shape[0]
-    pos = torch.full((b, 1), cache_len, device=x.device)
-    ctx = {"rope": rope_for(model.cfg, pos, model.cfg.hd), "impl": "masked",
-           "cache_len": cache_len}
-    x = model.backbone(x, ctx, caches=cache)
-    return model.greedy(model.final_norm(x))[:, 0], cache
+    return model.greedy(model.decode_hidden(cache, tokens, int(cache_len))), cache

@@ -52,21 +52,98 @@ def prompts(vocab: int) -> np.ndarray:
     return np.random.RandomState(5).randint(0, vocab, (B, S)).astype(np.int32)
 
 
+NORMS = ("ln1", "ln2", "lnx", "final_norm", "enc_norm", "q_norm", "kv_norm", "out_norm")
+
+
 def perturb(flat: dict) -> dict:
     """Random biases and norm scales (init makes them zeros and ones), and
-    wq/wk ×10, so the comparison sees every leaf and a peaked softmax."""
+    the query/key projections ×10, so the comparison sees every leaf and a
+    peaked softmax. The SSM's A_log, dt_bias and D and the RG-LRU's lam and
+    gate biases, also zeros and ones at init, get random values too."""
     rs = np.random.RandomState(7)
     out = {}
     for key, a in sorted(flat.items()):
         a = np.asarray(a, np.float32)
         leaf = key.rsplit("/", 1)[-1]
-        if leaf in ("bq", "bk", "bv"):
+        if leaf in ("bq", "bk", "bv", "A_log", "dt_bias", "gate_a_b", "gate_i_b"):
             a = rs.randn(*a.shape).astype(np.float32) * 0.5
-        elif leaf in ("ln1", "ln2", "final_norm"):
+        elif leaf in NORMS + ("D", "lam"):
             a = (1 + 0.2 * rs.randn(*a.shape)).astype(np.float32)
-        elif leaf in ("wq", "wk"):
+        elif leaf in ("wq", "wk", "wq_b", "wkv_b"):
             a = a * 10
         out[key] = a
+    return out
+
+
+def flat_tree(tree) -> dict:
+    """A JAX pytree → {"a/b/c": numpy leaf} (run where jax is imported)."""
+    import jax
+
+    paths, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(str(k.key) for k in path): np.asarray(leaf, np.float32)
+            for path, leaf in paths}
+
+
+def jax_serve(cfg, batch: dict, gen: int, tag: str) -> dict:
+    """Serve ``cfg`` on the JAX package, on a (1, 1) mesh (run in the JAX
+    subprocess). ``batch``: numpy inputs of its prefill (``tokens``, or
+    ``embeds`` and ``positions``, and ``enc_embeds``/``enc_positions`` for
+    enc-dec). Parameters: ``init_params`` seed 0, then ``perturb``. Prefill,
+    then ``gen - 1`` decode steps, each fed the argmax of the last logits,
+    into a cache padded as ``launch/serve.py``'s ``pad_cache`` pads it: to
+    the prefill's cache at ``prompt + gen`` positions (the encoder's length
+    unchanged). The last position's logits come from the reference's own
+    ``prefill``/``decode_step``, with ``argmax_logits`` replaced by the
+    logits it takes the argmax of. Returns {f"{tag}/param/<leaf>",
+    f"{tag}/prefill/<leaf>" (cache), f"{tag}/logits<i>", f"{tag}/tok<i>",
+    f"{tag}/final/<leaf>"} as numpy; caches keep the mesh's two dims."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.launch import serve as jserve
+    from repro.launch import steps as jsteps
+    from repro.launch.mesh import make_mesh
+    from repro.models import model as JM
+    from repro.models.common import init_params, tree_partition_specs
+    from repro.models.parallel import sharded_logits
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    env = jsteps.make_env(cfg, mesh)
+    specs = JM.param_specs(cfg, env)
+    p_part = tree_partition_specs(specs, env.fsdp_axes)
+    params = init_params(specs, 0, jnp.float32, env)
+    flat = perturb(flat_tree(params))
+    _, treedef = jax.tree_util.tree_flatten(params)
+    keys = list(flat_tree(params))
+    params = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(flat[k]) for k in keys])
+    out = {f"{tag}/param/{k}": v for k, v in flat.items()}
+    JM.argmax_logits = lambda x, table, e, vocab: sharded_logits(x, table, e).astype(jnp.float32)
+    m2 = P("data", "model")
+    prefill = jax.jit(jax.shard_map(
+        lambda p, bt: jsteps._expand(JM.prefill(p, jsteps._strip(bt, 2), cfg, env), 2),
+        mesh=mesh, in_specs=(p_part, m2), out_specs=m2, check_vma=False))
+    decode = jax.jit(jax.shard_map(
+        lambda p, c, t, cl: jsteps._expand(
+            JM.decode_step(p, jsteps._strip(c, 2), t, cl, cfg, env), 2),
+        mesh=mesh, in_specs=(p_part, m2, P(), P()), out_specs=m2, check_vma=False))
+    b, s = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[:2]
+    dev_batch = {k: jnp.asarray(v[None, None]) for k, v in batch.items()}
+    cache, lg = prefill(params, dev_batch)
+    longer = {k: jax.ShapeDtypeStruct(v.shape[:3] + (s + gen,) + v.shape[4:], v.dtype)
+              if k in ("tokens", "embeds", "positions") else v for k, v in dev_batch.items()}
+    tmpl, _ = jax.eval_shape(prefill, params, longer)
+    out.update({f"{tag}/prefill/{k}": v for k, v in flat_tree(cache).items()})
+    cache = jserve.pad_cache(
+        cache, jax.tree_util.tree_map(lambda t: jnp.zeros(t.shape, t.dtype), tmpl))
+    for i in range(gen):
+        lg = np.asarray(lg, np.float32).reshape(b, -1)
+        out[f"{tag}/logits{i}"] = lg
+        out[f"{tag}/tok{i}"] = np.argmax(lg, -1).astype(np.int32)
+        if i + 1 < gen:
+            lg, cache = decode(params, cache, jnp.asarray(out[f"{tag}/tok{i}"]),
+                               jnp.asarray(s + i, jnp.int32))
+    out.update({f"{tag}/final/{k}": v for k, v in flat_tree(cache).items()})
     return out
 
 
@@ -167,11 +244,11 @@ def _model(jax_out, name, kv):
     return params_from_jax(tree, smoke_cfg(kv), device="cpu")
 
 
-def _tokens_agree(got, want, logits):
-    """Tokens equal wherever JAX's top-two margin exceeds LOGIT_TOL; returns
+def _tokens_agree(got, want, logits, tol=LOGIT_TOL):
+    """Tokens equal wherever JAX's top-two margin exceeds ``tol``; returns
     how many positions were compared."""
     top2 = np.sort(logits, axis=-1)[:, -2:]
-    decisive = (top2[:, 1] - top2[:, 0]) > LOGIT_TOL
+    decisive = (top2[:, 1] - top2[:, 0]) > tol
     np.testing.assert_array_equal(np.asarray(got)[decisive], np.asarray(want)[decisive])
     assert np.array_equal(np.argmax(logits, -1), want)  # JAX's own tokens are its argmax
     return int(decisive.sum())
@@ -183,6 +260,92 @@ def _close_cache(got: dict, jax_out, name, stage, mesh_dims=2):
         want = jax_out[f"{name}/{stage}_{kv}"]
         assert attn[kv].shape == want.shape
         np.testing.assert_allclose(attn[kv], want, rtol=CACHE_TOL, atol=CACHE_TOL)
+
+
+def port_batch(batch: dict):
+    """A numpy prompt batch (``jax_serve``'s) → the port's prefill input:
+    the tokens tensor alone, or the dict of tensors."""
+    t = {k: torch.from_numpy(v) for k, v in batch.items()}
+    return t["tokens"] if list(t) == ["tokens"] else t
+
+
+def load_model(jax_out, tag: str, cfg):
+    prefix = f"{tag}/param/"
+    tree = {k[len(prefix):]: v for k, v in jax_out.items() if k.startswith(prefix)}
+    return params_from_jax(tree, cfg, device="cpu")
+
+
+def close_cache_tree(got: dict, jax_out, prefix: str, tol: float) -> None:
+    """Every leaf of the port's cache against the JAX cache saved under
+    ``prefix``: the same tree, shapes, and values within ``tol`` (rtol = atol)."""
+    flat = flatten(cache_to_jax(got, 2))
+    want = {k[len(prefix):]: v for k, v in jax_out.items() if k.startswith(prefix)}
+    assert set(flat) == set(want)
+    for k, v in want.items():
+        assert flat[k].shape == v.shape, k
+        np.testing.assert_allclose(flat[k], v, rtol=tol, atol=tol, err_msg=k)
+
+
+def check_serving(jax_out, tag: str, cfg, batch: dict, gen: int, impl: str, *,
+                  cache_tol: float, logit_tol: float) -> int:
+    """The port against ``jax_serve``'s run of the same model: the prefill's
+    cache (every leaf), last-position logits and greedy token; then, over a
+    cache of prompt + gen positions filled by the prefill step, ``gen - 1``
+    decode steps fed JAX's tokens: logits and tokens at each, and the final
+    cache. Tokens are compared where JAX's top-two margin exceeds
+    ``logit_tol``. Returns how many tokens were compared."""
+    model = load_model(jax_out, tag, cfg)
+    pb = port_batch(batch)
+    b, s = steps.batch_shape(pb)
+    with torch.inference_mode():
+        cache, h = model.prefill_hidden(pb, impl=impl)
+        lg = model.logits(h)
+    close_cache_tree(cache, jax_out, f"{tag}/prefill/", cache_tol)
+    np.testing.assert_allclose(lg.numpy(), jax_out[f"{tag}/logits0"], rtol=0, atol=logit_tol)
+    compared = _tokens_agree(model.greedy(h).numpy(), jax_out[f"{tag}/tok0"],
+                             jax_out[f"{tag}/logits0"], logit_tol)
+    enc = batch.get("enc_embeds")
+    cache = model.init_cache(b, s + gen, enc_len=None if enc is None else enc.shape[1])
+    cache, _ = steps.make_prefill_step(model, global_batch=b, seq=s, impl=impl)(pb, cache)
+    for i in range(1, gen):
+        with torch.inference_mode():
+            fed = torch.from_numpy(jax_out[f"{tag}/tok{i - 1}"])
+            h = model.decode_hidden(cache, fed, s + i - 1)
+            lg = model.logits(h)
+        np.testing.assert_allclose(lg.numpy(), jax_out[f"{tag}/logits{i}"], rtol=0,
+                                   atol=logit_tol, err_msg=f"decode step {i}")
+        compared += _tokens_agree(model.greedy(h).numpy(), jax_out[f"{tag}/tok{i}"],
+                                  jax_out[f"{tag}/logits{i}"], logit_tol)
+    close_cache_tree(cache, jax_out, f"{tag}/final/", cache_tol)
+    return compared
+
+
+def card_matches_cpu(arch: str, device) -> None:
+    """``arch``'s smoke config served on the card (``impl="flash"``, the
+    kernels where they apply) and on the CPU (``masked``, the plain
+    versions), from the same parameters: prefill caches, the last hidden
+    state and greedy decode steps agree to bf16 rounding."""
+    cfg = get_smoke_config(arch)
+    cpu = M.Model(cfg, device="cpu", seed=0)
+    card = M.Model(cfg, device="cpu", seed=0).to(device)
+    batch = serve.prompt_batch(cpu, B, S, seed=1)
+    on_card = batch.to(device) if isinstance(batch, torch.Tensor) else {
+        k: v.to(device) for k, v in batch.items()}
+    with torch.inference_mode():
+        cc, hc = cpu.prefill_hidden(batch, impl="masked", cache=cpu.init_cache(
+            B, S + GEN, enc_len=S if cfg.enc_layers else None))
+        cg, hg = card.prefill_hidden(on_card, impl="flash", cache=card.init_cache(
+            B, S + GEN, enc_len=S if cfg.enc_layers else None))
+        torch.testing.assert_close(hg.float().cpu(), hc.float(), rtol=5e-2, atol=5e-2)
+        want, got = flatten(cache_to_jax(cc)), flatten(cache_to_jax(cg))
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=5e-2, atol=5e-2, err_msg=k)
+        tok = cpu.greedy(hc)
+        for i in range(GEN - 1):
+            hc = cpu.decode_hidden(cc, tok, S + i)
+            hg = card.decode_hidden(cg, tok.to(device), S + i)
+            torch.testing.assert_close(hg.float().cpu(), hc.float(), rtol=5e-2, atol=5e-2)
+            tok = cpu.greedy(hc)
 
 
 @pytest.mark.parametrize("impl", ["masked", "flash"])
@@ -281,13 +444,17 @@ def test_generate_equals_the_steps():
     t1, cache = sstep(cache, t0, S)
     t2, cache = sstep(cache, t1, S + 1)
     assert torch.equal(res["tokens"], torch.stack([t0, t1, t2], 1))
-    assert torch.equal(res["cache"]["k"], cache["k"])
+    got, want = flatten(res["cache"]), flatten(cache)
+    assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_unported_configs_and_impls_raise(monkeypatch):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        get_config("mamba2-1.3b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """(The name is historical: every arch is ported.) An unknown arch, a
+    config whose block kind lacks its sub-config, ``impl="flash"`` on a
+    decode step and a model on the card without CUDA raise."""
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("mamba3-9b")
+    with pytest.raises(ValueError, match="cfg.moe"):
         M.Model(dataclasses.replace(get_smoke_config("qwen1.5-0.5b"), family="moe"),
                 device="cpu")
     model = M.Model(get_smoke_config("qwen1.5-0.5b"), device="cpu")
@@ -296,7 +463,9 @@ def test_unported_configs_and_impls_raise(monkeypatch):
         # a decode step (cache offset, kv_len) is not the kernel's function
         model.blocks[0].attn(torch.zeros(1, 1, 32, dtype=torch.bfloat16),
                              rope=M.rope_for(model.cfg, torch.zeros(1, 1), model.cfg.hd),
-                             cache={"k": cache["k"][0], "v": cache["v"][0]}, cache_len=3,
+                             cache={k: v[0] for k, v in
+                                    cache["blocks"]["0_attn_mlp"]["attn"].items()},
+                             cache_len=3,
                              impl="flash")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -328,7 +497,9 @@ def test_flash_prefill_launches_the_kernel_once_per_layer(cuda):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
     cache_m, h_m = model.prefill_hidden(toks, impl="masked")
-    for key in ("k", "v"):
+    cache_f, cache_m = flatten(cache_f), flatten(cache_m)
+    assert set(cache_f) == set(cache_m) == {"blocks/0_attn_mlp/attn/k", "blocks/0_attn_mlp/attn/v"}
+    for key in cache_m:
         torch.testing.assert_close(cache_f[key].float(), cache_m[key].float(),
                                    rtol=CACHE_TOL, atol=CACHE_TOL)
     torch.testing.assert_close(h_f.float(), h_m.float(), rtol=5e-2, atol=5e-2)
