@@ -10,14 +10,18 @@ sharded scan and the pipeline), then the serving prefill (``serve_inputs`` and
 through ``flash_attention``) and each other block family's (``family_inputs``,
 ``family_prefill_paths``: 4 × 2,048 positions, attention through
 ``flash_attention`` where it applies, granite-moe's MoE combine through
-``segment_reduce``), each once to warm up, then twice under ``torch.profiler``
+``segment_reduce``), then a train step of Qwen1.5-0.5B under S3 on 8 ranks
+and of granite-moe-1b-a400m on one (``train_inputs``, ``train_paths``: 8 ×
+2,048 and 4 × 2,048 tokens), each once to warm up, then twice under ``torch.profiler``
 (CPU + CUDA activity), each call inside a ``record_function`` window that
 ends after ``torch.cuda.synchronize()``. From the second window of that one
 trace it prints, per path: the window (call to synchronized end), the
 device span (first to last device timestamp), the device busy time (the
 union of all kernel, copy and set intervals), the idle share
 1 - busy / window, the device time by kind of kernel (the port's, cuBLAS
-matmuls, other), and the top kernels by device time. A trace whose busy
+matmuls, other), and the top kernels by device time; for a train step also
+each phase's window and device busy time in it (``chip_smoke.TRAIN_PHASES``:
+the ranks' forward and backward, the aggregation, the clip and update). A trace whose busy
 time exceeds its window raises. Ends with the card's name and power limit.
 Needs a CUDA device.
 """
@@ -74,6 +78,11 @@ def main() -> int:
         yield from chip_smoke.prefill_paths(*chip_smoke.serve_inputs()).items()
         for arch in chip_smoke.FAMILY_ARCHS:  # one model at a time: the loop drops each call
             yield from chip_smoke.family_prefill_paths(*chip_smoke.family_inputs(arch)).items()
+        for arch, sc, mesh, batch in (
+                (chip_smoke.TRAIN_ARCH, "s3_in_net_map", "8,1", chip_smoke.TRAIN_BATCH),
+                (chip_smoke.MOE_TRAIN_ARCH, "native", "1,1", chip_smoke.MOE_TRAIN_BATCH)):
+            yield from chip_smoke.train_paths(*chip_smoke.train_inputs(arch, sc, mesh,
+                                                                       batch)).items()
 
     cuda = torch.autograd.DeviceType.CUDA
     for name, fn in paths():
@@ -94,7 +103,8 @@ def main() -> int:
         w0, w1 = windows[1]
         # device activity of the second call: kernels, copies and sets; not
         # the windows' own device-side annotations
-        device = [e for e in events if e.device_type == cuda and e.name != WINDOW
+        device = [e for e in events if e.device_type == cuda
+                  and e.name not in (WINDOW,) + chip_smoke.TRAIN_PHASES
                   and not getattr(e, "is_user_annotation", False)
                   and e.time_range.start >= w0]
         if not device:
@@ -123,6 +133,15 @@ def main() -> int:
                                         sorted(by_kind.items(), key=lambda kv: -kv[1])))
         for kname, (us, count) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]:
             print(f"   {us / 1e3:9.3f} ms  x{count:<4d} {kname[:90]}")
+        for phase in chip_smoke.TRAIN_PHASES:  # a train step's phases, each synchronised
+            spans = [(e.time_range.start, e.time_range.end) for e in events
+                     if e.name == phase and e.device_type != cuda and e.time_range.start >= w0]
+            for p0, p1 in spans:
+                inside = [(max(s, p0), min(e, p1)) for s, e in
+                          ((e.time_range.start, e.time_range.end) for e in device)
+                          if e > p0 and s < p1]
+                print(f"   phase {phase}: window {(p1 - p0) / 1e3:.3f} ms, device busy "
+                      f"{busy_us(inside) / 1e3:.3f} ms")
         del fn  # the call's closure holds its inputs (a model for the serving paths)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -94,6 +94,23 @@
    Then ``segment_reduce`` at the MoE combine's shape, against its plain
    version, timed beside ``index_add_``.
 
+7. Trains at full width and depth through ``launch/train.py``'s ``build``
+   and ``run``: Qwen1.5-0.5B on a data world of 8 ranks (``("data",)=8``,
+   ``("pod","data")=(2,4)`` for HIERARCHICAL), global batch 8 × 2,048
+   ``TrainPipeline`` tokens, random weights from ``SEED``. One step under
+   each of NATIVE, S1, S2, S3 and HIERARCHICAL from the same parameters and
+   state, phase by phase (``timed_step``): each scenario's aggregated
+   gradient against the float64 sum of the ranks' within ``AGG_TOL``, S3's
+   bitwise against the same ring run with ``ref.ring_fused_step``, and S3's
+   ``ring_fused_step`` launches 7 per FSDP leaf. Then ``TRAIN_STEPS`` S3
+   steps through ``run`` with ``TRAIN_OPT``'s AdamW: every loss finite, the
+   last five's mean below the first. Then granite-moe-1b-a400m at W = 1 for
+   ``MOE_TRAIN_STEPS`` steps of 4 × 2,048 tokens, the load-balance loss in
+   the loss: ``segment_reduce`` launched once per layer per forward (twice
+   under remat), and the kernel route held to its plain route
+   (``MOE_TRAIN_TOL``): the loss of one batch, and layer 0's output and
+   gradients on its own input.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that last line. Needs one CUDA device.
@@ -102,7 +119,8 @@ that last line. Needs one CUDA device.
 aggregation, compiled-plan and scheduler paths, ``recurrence_inputs`` and
 ``recurrence_paths`` of the scan and pipeline ones, ``serve_inputs``,
 ``serve_paths`` and ``prefill_paths`` of the serving ones, ``family_inputs``,
-``family_paths`` and ``family_prefill_paths`` of the other block kinds';
+``family_paths`` and ``family_prefill_paths`` of the other block kinds',
+``train_inputs`` and ``train_paths`` of training's;
 ``benchmarks/torch_path_profile.py`` profiles the same tables.
 """
 from __future__ import annotations
@@ -204,6 +222,31 @@ FAMILY_LAUNCHES = {"granite-moe-1b-a400m": (24, 24), "minicpm3-4b": (0, 0),
 # (MLA 0.054 at 31 layers), so up to about 0.08 at minicpm3's 62; a decode
 # from an empty cache (the control) is off by order 1.
 CONSIST_TOL = 0.15
+# training (phase 7): qwen1.5-0.5b at full width and depth on a data world
+# of 8 ranks (``launch/train.py``'s --mesh: ("data",)=8, or ("pod","data") =
+# (2, 4) for HIERARCHICAL), global batch 8 × 2,048 (one sequence a rank),
+# one step per scenario from the same parameters, then TRAIN_STEPS steps
+# under S3 with an AdamW warmed up in 5 steps and decayed over the 30 (the
+# reference's default warmup is 100 steps); granite-moe-1b-a400m at W = 1, 4
+# × 2,048 tokens, MOE_TRAIN_STEPS steps
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_MESHES = {"native": "8,1", "s1_host": "8,1", "s2_in_net": "8,1", "s3_in_net_map": "8,1",
+                "hierarchical": "2,4,1"}
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 30
+TRAIN_OPT = {"warmup_steps": 5, "decay_steps": TRAIN_STEPS}
+MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = "granite-moe-1b-a400m", 4, 10
+# the MoE training route (the combine on segment_reduce) against its plain
+# route (ref.segment_reduce through autograd, the kernel route's expert
+# choices replayed), normwise relative: the whole model's loss on one batch,
+# and layer 0's output and its router and expert gradients on the layer's
+# own input. The two differ only in the order of the combine's fp32 sums
+# (8 rows a token), which moves a bf16 output by one ulp now and then.
+# Rehearsed on the CPU with the combine summed in reverse row order
+# (granite-moe's width, 2 layers, 512 tokens): 0 for the loss and for layer
+# 0; on the card a served MoE layer was 4.3e-6 from its plain route (PERF.md).
+# The limits leave two orders of magnitude over that for the backward
+MOE_TRAIN_TOL = {"loss": 1e-4, "layer0": 1e-3}
+TRAIN_PHASES = ("rank_gradients", "aggregate", "apply")
 
 
 def log(msg: str) -> None:
@@ -954,6 +997,264 @@ def cache_consistency(model, batch, impl: str) -> dict:
             "finite": bool(torch.isfinite(h_dec).all())}
 
 
+def train_args(arch: str, scenario: str, mesh: str, global_batch: int, steps: int = 1):
+    """``python -m repro_torch.launch.train``'s arguments for ``arch`` at full
+    width on the card: random weights from ``SEED``, ``TRAIN_SEQ`` tokens a
+    sequence, a step's loss logged each step."""
+    from repro_torch.launch import train
+
+    return train.parser().parse_args([
+        "--arch", arch, "--scenario", scenario, "--mesh", mesh, "--global-batch",
+        str(global_batch), "--seq", str(TRAIN_SEQ), "--seed", str(SEED), "--steps", str(steps),
+        "--device", "cuda", "--log-every", "1"])
+
+
+def train_inputs(arch: str, scenario: str, mesh: str, global_batch: int, model=None):
+    """``launch/train.py``'s ``build`` for ``train_args``: (train step,
+    optimizer state, ``TrainPipeline``). ``model``: one to train (its
+    parameters are not reset); else ``arch`` from ``SEED`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+
+    args = train_args(arch, scenario, mesh, global_batch)
+    model = model or Model(get_config(arch), device="cuda", seed=SEED)
+    step, pipe = train.build(model, train.make_mesh(
+        tuple(int(x) for x in mesh.split(",")), "cuda"), args)
+    return step, step.init_state(), pipe
+
+
+def timed_step(step, state, batch) -> dict:
+    """One train step, phase by phase (``TrainStep.rank_gradients``,
+    ``aggregate``, ``apply``), each in a ``record_function`` window of its
+    name that ends in ``torch.cuda.synchronize()``. Returns every rank's
+    gradients, the aggregated ones, the new state, Σ nll, Σ ntok, the
+    gradient's norm and each phase's wall in ms."""
+    import torch
+    from torch.profiler import record_function
+
+    out, ms = {}, {}
+    for phase in TRAIN_PHASES:
+        t = time.perf_counter()
+        with record_function(phase):
+            if phase == "rank_gradients":
+                out["rank"], out["nll"], out["ntok"] = step.rank_gradients(batch)
+            elif phase == "aggregate":
+                out["grads"] = step.aggregate(out["rank"])
+            else:
+                out["state"], out["grad_norm"] = step.apply(state, out["grads"])
+            torch.cuda.synchronize()
+        ms[phase] = (time.perf_counter() - t) * 1e3
+    out["ms"] = ms
+    return out
+
+
+def train_paths(step, state, pipe) -> dict:
+    """A train step on batch 0 as a path, name → call (the profile's: its
+    parameters move at every call, its optimizer state does not)."""
+    name = f"train_step_{step.model.cfg.name}_{step.scenario.value}"
+    batch = pipe.batch_at(0)
+    return {name: lambda: timed_step(step, state, batch)["ms"]}
+
+
+def aggregation_error(rank: dict, grads: dict) -> tuple[float, str, float]:
+    """The aggregated gradient against the float64 sum of the ranks'
+    (accumulated one rank at a time), Frobenius over all leaves:
+    (normwise relative difference, the worst leaf, its own)."""
+    num = den = 0.0
+    worst = ("", -1.0)
+    for k, g in rank.items():
+        flat = g.reshape((-1,) + g.shape[g.dim() - grads[k].dim():])
+        want = flat[0].double()
+        for r in range(1, flat.shape[0]):
+            want += flat[r].double()
+        d = float((grads[k].double() - want).norm()) ** 2
+        w = float(want.norm()) ** 2
+        num, den = num + d, den + w
+        if w and (d / w) ** 0.5 > worst[1]:
+            worst = (k, (d / w) ** 0.5)
+    return (num / den) ** 0.5, worst[0], worst[1]
+
+
+def moe_layer_grads(moe, h, cot):
+    """Layer ``moe``'s output on its input h (b, s, d) and the gradients of
+    ⟨output, cot⟩ + its load-balance loss by its four weights."""
+    import torch
+
+    y = moe(h)
+    loss = (y.float() * cot).sum() + moe.aux_loss(h.reshape(-1, h.shape[-1]))
+    return [y.detach()] + list(torch.autograd.grad(
+        loss, [moe.router, moe.wi_gate, moe.wi_up, moe.wo]))
+
+
+def train_phase(launches: dict) -> dict:
+    """Phase 7: training at full width. Returns its numbers for the JSON
+    line; adds its main paths' kernel launches to ``launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+
+    res: dict = {"scenarios": {}}
+
+    def count():
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        return dict(ops.LAUNCHES)
+
+    # (a) one step a scenario, from the same parameters and state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    step, _, pipe = train_inputs(TRAIN_ARCH, "native", TRAIN_MESHES["native"], TRAIN_BATCH)
+    model = step.model
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    n_fsdp = sum(d is not None for d in step.dims.values())
+    cfg = model.cfg
+    log(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{sum(p.numel() for p in init.values()) / 1e9:.3f} B fp32 parameters ({len(init)} "
+        f"leaves, {n_fsdp} with an FSDP dim), random from seed {SEED}; global batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, Markov tokens from TrainPipeline(seed={SEED}); "
+        f"built in {time.perf_counter() - t:.2f} s")
+    timed_step(step, step.init_state(), pipe.batch_at(0))  # warm-up: cuBLAS, the allocator
+    del step
+    for sc, mesh in TRAIN_MESHES.items():
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(init[k])
+        model.cast_weights()
+        step, state, pipe = train_inputs(TRAIN_ARCH, sc, mesh, TRAIN_BATCH, model=model)
+        batch = pipe.batch_at(0)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        out = timed_step(step, state, batch)
+        got = count()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 - base_gb
+        step_ms = sum(out["ms"].values())
+        loss = float(out["nll"]) * step.norm
+        err, leaf, leaf_err = aggregation_error(out["rank"], out["grads"])
+        hops = (step.world - 1) * n_fsdp if sc == "s3_in_net_map" else 0
+        r = {**{f"{p}_ms": v for p, v in out["ms"].items()}, "step_ms": step_ms,
+             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+             "peak_gb_over_held": peak_gb, "held_gb": base_gb, "loss": loss,
+             "grad_norm": float(out["grad_norm"]), "agg_err_vs_float64": err,
+             "worst_leaf": leaf, "worst_leaf_err": leaf_err, "launches": got}
+        if sc == "s3_in_net_map":
+            # the same ring hop by hop with the kernel's plain version
+            with mock.patch.object(ops, "ring_fused_step", ref.ring_fused_step):
+                plain = step.aggregate(out["rank"])
+            r["bitwise_vs_plain_ring"] = all(torch.equal(out["grads"][k], plain[k]) for k in plain)
+            del plain
+        res["scenarios"][sc] = r
+        log(f"train step {cfg.name} {sc} on {mesh}: {json.dumps(r)}")
+        if not (np.isfinite(loss) and np.isfinite(r["grad_norm"])):
+            raise AssertionError(f"train step under {sc}: loss {loss}, grad norm {r['grad_norm']}")
+        if err > AGG_TOL[sc]:
+            raise AssertionError(f"train step under {sc}: aggregated gradient {err} from the "
+                                 f"float64 sum (limit {AGG_TOL[sc]})")
+        if got["ring_fused_step"] != hops:
+            raise AssertionError(f"train step under {sc}: {got['ring_fused_step']} ring_fused_step "
+                                 f"launches, not {hops} (7 hops x {n_fsdp} FSDP leaves)")
+        if sc == "s3_in_net_map" and not r["bitwise_vs_plain_ring"]:
+            raise AssertionError("S3's aggregated gradient differs from the ring run with "
+                                 "ref.ring_fused_step")
+        del out, step, state
+    del model, init
+
+    # (b) TRAIN_STEPS steps under S3, through launch/train.py's run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    args = train_args(TRAIN_ARCH, "s3_in_net_map", TRAIN_MESHES["s3_in_net_map"], TRAIN_BATCH,
+                      steps=TRAIN_STEPS)
+    t = time.perf_counter()
+    losses = train.run(args, optimizer=AdamW(**TRAIN_OPT))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    got = count()
+    res["s3_run"] = {"steps": TRAIN_STEPS, "optimizer": TRAIN_OPT, "wall_s": wall,
+                     "first_loss": losses[0], "last5_mean": float(np.mean(losses[-5:])),
+                     "losses": losses, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": got}
+    log(f"train run {TRAIN_ARCH} s3_in_net_map, {TRAIN_STEPS} steps (AdamW {TRAIN_OPT}, lr "
+        f"3e-4): {json.dumps(res['s3_run'])}")
+    if not np.isfinite(losses).all() or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"the S3 run's losses: {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"the S3 run did not learn: first {losses[0]}, last five "
+                             f"{np.mean(losses[-5:])}")
+    if got["ring_fused_step"] != TRAIN_STEPS * 7 * n_fsdp:
+        raise AssertionError(f"the S3 run made {got['ring_fused_step']} ring_fused_step launches")
+
+    # (c) granite-moe: the combine on segment_reduce in the training forward
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, state, pipe = train_inputs(MOE_TRAIN_ARCH, "native", "1,1", MOE_TRAIN_BATCH)
+    model, cfg = step.model, step.model.cfg
+    batches = [pipe.batch_at(k) for k in range(MOE_TRAIN_STEPS)]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    step_ms, moe_losses = [], []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step(state, b)
+        moe_losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    got = count()
+    fwd = cfg.n_layers * (2 if cfg.remat else 1)  # remat runs each layer's forward twice
+    r = {"step_ms": step_ms, "tokens_per_s": MOE_TRAIN_BATCH * TRAIN_SEQ / np.median(step_ms) * 1e3,
+         "held_gb": base_gb, "peak_gb_over_held": torch.cuda.max_memory_allocated() / 1e9 - base_gb,
+         "losses": moe_losses, "launches": got}
+    log(f"train {cfg.name} native on 1,1, {MOE_TRAIN_STEPS} steps of {MOE_TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens: {json.dumps(r)}")
+    if not np.isfinite(moe_losses).all():
+        raise AssertionError(f"{cfg.name}: losses {moe_losses}")
+    if got["segment_reduce"] != MOE_TRAIN_STEPS * fwd:
+        raise AssertionError(f"{cfg.name}: {got['segment_reduce']} segment_reduce launches, not "
+                             f"{MOE_TRAIN_STEPS} steps x {fwd} forward combines")
+    # the kernel route against the plain route, uncounted: the loss of one
+    # batch, then layer 0 on its own input
+    part = {k: torch.as_tensor(v[0], device="cuda") for k, v in batches[0].items()}
+    seen = {}
+
+    def keep_input(mod, args, out):  # returns None: the layer's output stands
+        seen.setdefault("h", args[0].detach())
+
+    hook = model.blocks[0].moe.register_forward_hook(keep_input)
+    routes, flips = [], []
+    with torch.no_grad():
+        with recorded_routes(routes):
+            got_loss = float(model.train_loss(part)[0])
+        hook.remove()
+        with mock.patch.object(ops, "segment_reduce", ref.segment_reduce), \
+                replayed_routes(routes, flips):
+            want_loss = float(model.train_loss(part)[0])
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cot = torch.randn(seen["h"].shape, generator=g, device="cuda")
+    routes0, flips0 = [], []
+    with recorded_routes(routes0):
+        kern = moe_layer_grads(model.blocks[0].moe, seen["h"], cot)
+    with mock.patch.object(ops, "segment_reduce", ref.segment_reduce), \
+            replayed_routes(routes0, flips0):
+        plain = moe_layer_grads(model.blocks[0].moe, seen["h"], cot)
+    names = ("output", "router", "wi_gate", "wi_up", "wo")
+    checks = {"loss": abs(got_loss - want_loss) / abs(want_loss), "router_flips": sum(flips),
+              **{f"layer0_{n}": rel_err(k, p) for n, k, p in zip(names, kern, plain)}}
+    res["moe"] = {**r, "kernel_vs_plain": checks}
+    log(f"  kernel route vs plain route (ref.segment_reduce through autograd, choices "
+        f"replayed): {json.dumps(checks)} (limits {json.dumps(MOE_TRAIN_TOL)})")
+    if checks["loss"] > MOE_TRAIN_TOL["loss"] or any(
+            v > MOE_TRAIN_TOL["layer0"] for k, v in checks.items() if k.startswith("layer0")):
+        raise AssertionError(f"{cfg.name}: the training route differs from its plain route: "
+                             f"{checks}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1537,6 +1838,12 @@ def main() -> int:
                                          f"({weights} weights): {r}")
         family_checks[name] = checks
         del model, batch, fn
+
+    # 7. training at full width ------------------------------------------------
+    t = time.perf_counter()
+    training = train_phase(launches)
+    training["wall_s"] = time.perf_counter() - t
+    log(f"training phase: {training['wall_s']:.2f} s")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was never launched on the main paths")
@@ -1570,7 +1877,7 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
-                    "family_checks": family_checks,
+                    "family_checks": family_checks, "training": training,
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,
                     "autotune": plans["plan_wordcount_autotuned"].tuning.summary(),
                     "schedule_ticks": schedule_ticks,

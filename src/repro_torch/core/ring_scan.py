@@ -70,16 +70,23 @@ def ring_exclusive_scan(a_prod, s_sum, mesh: Mesh, axis_name: str):
 def inclusive_linear_scan(a: torch.Tensor, b: torch.Tensor, dim: int):
     """Inclusive scan of (a, b) under ``_combine`` along ``dim``: position t
     gets the fold of positions [0..t]. Hillis–Steele, log₂ n doubling steps
-    of whole-tensor ops (the port's ``lax.associative_scan``)."""
+    of whole-tensor ops (the port's ``lax.associative_scan``). Each step
+    updates positions k.. in place, or, while autograd records (a step's
+    inputs are saved for the backward), into new tensors: the same numbers."""
     n = a.shape[dim]
-    ha, hb = a.clone(), b.clone()
+    records = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    ha, hb = (a, b) if records else (a.clone(), b.clone())
     k = 1
     while k < n:
         a_l, b_l = ha.narrow(dim, 0, n - k), hb.narrow(dim, 0, n - k)
         a_r, b_r = ha.narrow(dim, k, n - k), hb.narrow(dim, k, n - k)
         new_a, new_b = _combine((a_l, b_l), (a_r, b_r))
-        a_r.copy_(new_a)
-        b_r.copy_(new_b)
+        if records:
+            ha = torch.cat([ha.narrow(dim, 0, k), new_a], dim)
+            hb = torch.cat([hb.narrow(dim, 0, k), new_b], dim)
+        else:
+            a_r.copy_(new_a)
+            b_r.copy_(new_b)
         k *= 2
     return ha, hb
 

@@ -33,13 +33,37 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
+class _SegmentReduce(torch.autograd.Function):
+    """``segment_reduce`` with a gradient. The reference has no backward
+    kernel to port (no ``custom_vjp`` around its ``pallas_call``): the
+    gradient of a row is the gradient of the segment it was summed into,
+    a plain index gather, cast to the values' dtype, and 0 where its id was
+    dropped."""
+
+    @staticmethod
+    def forward(ctx, values, seg_ids, num_segments):
+        ctx.save_for_backward(seg_ids)
+        ctx.dtype = values.dtype
+        if _on_cpu(values):
+            return ref.segment_reduce(values, seg_ids, num_segments)
+        out = _segred.segment_reduce(values, seg_ids, num_segments)
+        LAUNCHES["segment_reduce"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (seg_ids,) = ctx.saved_tensors
+        n_seg = grad_out.shape[-2]
+        ok = (seg_ids >= 0) & (seg_ids < n_seg)
+        idx = torch.where(ok, seg_ids, 0).to(torch.int64)
+        rows = torch.gather(grad_out, -2, idx[..., None].expand(*idx.shape, grad_out.shape[-1]))
+        return torch.where(ok[..., None], rows, 0.0).to(ctx.dtype), None, None
+
+
 def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """values (..., n, d), seg_ids (..., n) int32 (-1 = drop) → (..., num_segments, d) fp32."""
-    if _on_cpu(values):
-        return ref.segment_reduce(values, seg_ids, num_segments)
-    out = _segred.segment_reduce(values, seg_ids, num_segments)
-    LAUNCHES["segment_reduce"] += 1
-    return out
+    """values (..., n, d), seg_ids (..., n) int32 (-1 = drop) → (..., num_segments, d)
+    fp32 (float64 values: float64 on the CPU). Differentiable in ``values``."""
+    return _SegmentReduce.apply(values, seg_ids, num_segments)
 
 
 def hash_partition(tokens: torch.Tensor, num_buckets: int) -> tuple[torch.Tensor, torch.Tensor]:

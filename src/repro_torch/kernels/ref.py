@@ -40,8 +40,9 @@ def hash_partition(tokens: torch.Tensor, num_buckets: int) -> tuple[torch.Tensor
 
 def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """values (..., n, d) float, seg_ids (..., n) int32 → (..., num_segments, d)
-    fp32 sums per segment. Ids outside ``[0, num_segments)`` (-1 = padding)
-    are dropped, as in the TPU kernel's one-hot."""
+    fp32 sums per segment (float64 for float64 values, which the kernel does
+    not take). Ids outside ``[0, num_segments)`` (-1 = padding) are dropped,
+    as in the TPU kernel's one-hot."""
     *batch, n, d = values.shape
     w = 1
     for s in batch:
@@ -50,8 +51,9 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: in
     ok = (ids >= 0) & (ids < num_segments)
     rows = ids + torch.arange(w, device=ids.device)[:, None] * num_segments
     rows = torch.where(ok, rows, w * num_segments)  # a dump row, cut off below
-    out = torch.zeros((w * num_segments + 1, d), dtype=torch.float32, device=values.device)
-    out.index_add_(0, rows.reshape(-1), values.reshape(w * n, d).to(torch.float32))
+    acc = torch.promote_types(values.dtype, torch.float32)
+    out = torch.zeros((w * num_segments + 1, d), dtype=acc, device=values.device)
+    out.index_add_(0, rows.reshape(-1), values.reshape(w * n, d).to(acc))
     return out[:-1].reshape(*batch, num_segments, d)
 
 

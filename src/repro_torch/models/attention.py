@@ -31,6 +31,7 @@ from repro_torch.models.parallel import COMPUTE_DTYPE
 
 NEG_INF = -1e30
 IMPLS = ("masked", "triangle", "direct", "flash")
+TRAIN_IMPLS = ("masked", "triangle", "direct")  # the flash kernel has no backward
 
 
 def gqa_dims(cfg: ModelConfig):
@@ -127,14 +128,13 @@ def chunked_attention(q, k, v, *, scale: float, causal: bool = True, q_offset: i
     k, _ = _pad_to(k, chunk_k, 1)
     v, _ = _pad_to(v, chunk_k, 1)
     nq, nk = q.shape[1] // chunk_q, k.shape[1] // chunk_k
-    qc = q.reshape(b, nq, chunk_q, h, dh)
     kc = k.reshape(b, nk, chunk_k, h, dh)
     vc = v.reshape(b, nk, chunk_k, h, dv)
 
-    def block_mask(i, j):
-        qpos = q_offset + i * chunk_q + torch.arange(chunk_q, device=dev)
+    def block_mask(r0, r1, j):
+        qpos = q_offset + r0 + torch.arange(r1 - r0, device=dev)
         kpos = j * chunk_k + torch.arange(chunk_k, device=dev)
-        mask = (kpos[None, :] < sk).expand(chunk_q, chunk_k)  # kv padding
+        mask = (kpos[None, :] < sk).expand(r1 - r0, chunk_k)  # kv padding
         if causal:
             mask = mask & (kpos[None, :] <= qpos[:, None])
         if window is not None:
@@ -143,20 +143,38 @@ def chunked_attention(q, k, v, *, scale: float, causal: bool = True, q_offset: i
             mask = mask & (kpos[None, :] < kv_len)
         return mask[None, None]
 
-    out = torch.zeros((b, nq, chunk_q, h, dv), dtype=torch.float32, device=dev)
-    M = torch.full((b, h, nq, chunk_q), NEG_INF, dtype=torch.float32, device=dev)
-    L = torch.zeros((b, h, nq, chunk_q), dtype=torch.float32, device=dev)
-    # the JAX model's lax.scan over the block list, as a loop
+    # the JAX model's lax.scan over the block list, as a loop over kv chunks:
+    # the q chunks that pair with kv chunk j (a run of them in every schedule)
+    # take their (i, j) blocks as one block of rows, and each q chunk still
+    # merges its blocks in ascending j, so every element sees the same
+    # arithmetic in the same order
+    runs: dict[int, list[int]] = {}
     for i, j in attention_pairs(nq, nk, chunk_q, chunk_k, causal=causal, window=window,
                                 q_offset=q_offset, impl=impl):
-        m2, l2, o2 = _block(qc[:, i], kc[:, j], vc[:, j], block_mask(i, j))
-        m, l, o = _merge(M[:, :, i], L[:, :, i], out[:, i], m2, l2, o2)
-        out[:, i] = o
-        M[:, :, i] = m
-        L[:, :, i] = l
-    Lm = L.movedim(1, -1)[..., None]  # (b, nq, cq, h, 1)
-    out = (out / torch.clamp_min(Lm, 1e-30)).to(q.dtype)
-    return out.reshape(b, nq * chunk_q, h, dv)[:, :sq]
+        runs.setdefault(j, []).append(i)
+    f32, n = torch.float32, nq * chunk_q
+    # the rows' running (max, sum, output), replaced (not written in place)
+    # at every merge, so that autograd can record the loop
+    M = torch.full((b, h, n), NEG_INF, dtype=f32, device=dev)
+    L = torch.zeros((b, h, n), dtype=f32, device=dev)
+    out = torch.zeros((b, n, h, dv), dtype=f32, device=dev)
+    for j in sorted(runs):
+        ii = runs[j]
+        if ii != list(range(ii[0], ii[-1] + 1)):
+            raise ValueError(f"kv chunk {j} pairs with q chunks {ii}, not a run")
+        r0, r1 = ii[0] * chunk_q, (ii[-1] + 1) * chunk_q
+        m2, l2, o2 = _block(q[:, r0:r1], kc[:, j], vc[:, j], block_mask(r0, r1, j))
+        m, l, o = _merge(M[..., r0:r1], L[..., r0:r1], out[:, r0:r1], m2, l2, o2)
+        M, L, out = _put(M, m, r0, r1, 2), _put(L, l, r0, r1, 2), _put(out, o, r0, r1, 1)
+    out = (out / torch.clamp_min(L.movedim(1, -1)[..., None], 1e-30)).to(q.dtype)
+    return out[:, :sq]
+
+
+def _put(t: torch.Tensor, new: torch.Tensor, r0: int, r1: int, dim: int) -> torch.Tensor:
+    """``t`` with rows [r0, r1) of ``dim`` replaced by ``new``, out of place."""
+    if r0 == 0 and r1 == t.shape[dim]:
+        return new
+    return torch.cat([t.narrow(dim, 0, r0), new, t.narrow(dim, r1, t.shape[dim] - r1)], dim)
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +226,9 @@ class GQAAttention(CastOnce):
         hd = cfg.hd
         hq, kv, _, rep_q = gqa_dims(cfg)
         cross = cross_kv is not None or cross_cache is not None
-        q = torch.matmul(x, self.wq_c.to(x.dtype))
+        q = torch.matmul(x, self.cw("wq").to(x.dtype))
         if cfg.qkv_bias:
-            q = q + self.bq_c.to(x.dtype)
+            q = q + self.cw("bq").to(x.dtype)
         q = q.view(b, s, hq, hd)
 
         new_cache = None
@@ -222,11 +240,11 @@ class GQAAttention(CastOnce):
         else:
             src = cross_kv if cross else x
             sk = src.shape[1]
-            k = torch.matmul(src, self.wk_c.to(src.dtype).flatten(1)).view(b, sk, kv, hd)
-            v = torch.matmul(src, self.wv_c.to(src.dtype).flatten(1)).view(b, sk, kv, hd)
+            k = torch.matmul(src, self.cw("wk").to(src.dtype).flatten(1)).view(b, sk, kv, hd)
+            v = torch.matmul(src, self.cw("wv").to(src.dtype).flatten(1)).view(b, sk, kv, hd)
             if cfg.qkv_bias:
-                k = k + self.bk_c.to(x.dtype)
-                v = v + self.bv_c.to(x.dtype)
+                k = k + self.cw("bk").to(x.dtype)
+                v = v + self.cw("bv").to(x.dtype)
             if not cross:
                 cos, sin = rope
                 q = apply_rope(q, cos, sin)
@@ -275,7 +293,7 @@ class GQAAttention(CastOnce):
                                   scale=1.0 / math.sqrt(hd), causal=causal, q_offset=q_offset,
                                   window=window, impl=impl, kv_len=kv_valid)
         y = y.reshape(b, s, hq * hd)
-        return torch.matmul(y, self.wo_c.to(y.dtype)), new_cache
+        return torch.matmul(y, self.cw("wo").to(y.dtype)), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -319,9 +337,9 @@ class MLAAttention(CastOnce):
         H = self.cfg.n_heads
         dn, dr, dv, dc = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
         cos, sin = rope
-        q = (self.q_norm(x @ self.wq_a_c) @ self.wq_b_c).view(b, s, H, dn + dr)
+        q = (self.q_norm(x @ self.cw("wq_a")) @ self.cw("wq_b")).view(b, s, H, dn + dr)
         q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
-        kv_a = x @ self.wkv_a_c
+        kv_a = x @ self.cw("wkv_a")
         c_kv = self.kv_norm(kv_a[..., :dc])
         k_rope = apply_rope(kv_a[..., dc:][:, :, None, :], cos, sin)[:, :, 0]  # one shared head
 
@@ -342,7 +360,7 @@ class MLAAttention(CastOnce):
             ctx = torch.einsum("bhsS,bSc->bshc", w, cc.to(f32))
             y = torch.einsum("bshc,chv->bshv", ctx, w_kb[..., dn:])
         else:  # prefill: expand the latent and run the chunked attention
-            w_kb = self.wkv_b_c.view(dc, H, dn + dv)
+            w_kb = self.cw("wkv_b").view(dc, H, dn + dv)
             k_nope = torch.einsum("bsc,chn->bshn", c_kv, w_kb[..., :dn])
             v = torch.einsum("bsc,chv->bshv", c_kv, w_kb[..., dn:])
             k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, H, dr)], dim=-1)
@@ -355,4 +373,4 @@ class MLAAttention(CastOnce):
                 prefill_cache["k_rope"][:, :s] = k_rope.to(prefill_cache["k_rope"].dtype)
                 new_cache = prefill_cache
         y = y.reshape(b, s, H * dv).to(x.dtype)
-        return y @ self.wo_c, new_cache
+        return y @ self.cw("wo"), new_cache

@@ -1,15 +1,17 @@
-"""Carry parameters and caches between the JAX model and the port.
+"""Carry parameters, gradients, optimizer state and caches between the JAX
+model and the port.
 
 The JAX model keeps its parameters as a pytree whose superblock leaves are
 stacked along a leading dim (``blocks/0_attn_mlp/attn/wq`` is (n_layers, d,
 H·hd); ``blocks/2_attn_local/...`` is (n_superblocks, ...)), tail blocks
 unstacked (``tail/0_rec/...``) and encoder layers stacked
 (``enc_blocks/...``); the port keeps one module per layer with the same
-per-layer layout. Both functions here work on numpy arrays, so neither
-package imports the other.
+per-layer layout. ``leaf_paths`` maps one onto the other; the functions
+here work on numpy arrays, so neither package imports the other.
 """
 from __future__ import annotations
 
+from collections import Counter
 from collections.abc import Mapping
 
 import numpy as np
@@ -39,42 +41,101 @@ def jax_leaf(name: str) -> str:
     return name.removesuffix(".scale").replace(".", "/")
 
 
+def leaf_paths(model: Model) -> dict[str, tuple[str, int | None]]:
+    """Every port parameter's place in the JAX tree: {port name: (JAX leaf
+    path, index along its stacked-layer dim, or None for an unstacked
+    leaf)}, in the port's parameter order."""
+    cfg = model.cfg
+    out = {"embed": ("embed", None), "final_norm.scale": ("final_norm", None)}
+    if not cfg.tie_embeddings:
+        out["head"] = ("head", None)
+    if cfg.enc_layers:
+        out["enc_norm.scale"] = ("enc_norm", None)
+    groups = [("blocks", model.blocks, model.layout),
+              ("enc_blocks", model.enc_blocks,
+               [("enc_blocks", None, i) for i in range(cfg.enc_layers)])]
+    for attr, blocks, places in groups:
+        for j, (blk, (group, key, i)) in enumerate(zip(blocks, places)):
+            prefix = group if key is None else f"{group}/{key}"
+            for name, _ in blk.named_parameters():
+                out[f"{attr}.{j}.{name}"] = (f"{prefix}/{jax_leaf(name)}", i)
+    return out
+
+
+def to_jax(model: Model, tensors: Mapping[str, torch.Tensor | None]) -> dict[str, np.ndarray]:
+    """Tensors keyed by port parameter name (the parameters, their
+    gradients, optimizer moments) → {JAX leaf path: float32 numpy}, the
+    layers of a stacked leaf stacked again. A missing or None tensor (a
+    parameter the loss does not reach) counts as zeros."""
+    params = dict(model.named_parameters())
+    layers: dict[str, dict] = {}
+    for name, (path, i) in leaf_paths(model).items():
+        t = tensors.get(name)
+        layers.setdefault(path, {})[i] = (
+            np.zeros(tuple(params[name].shape), np.float32) if t is None
+            else t.detach().to(torch.float32).cpu().numpy())
+    return {path: ls[None] if None in ls else np.stack([ls[i] for i in sorted(ls)])
+            for path, ls in layers.items()}
+
+
+def params_to_jax(model: Model) -> dict[str, np.ndarray]:
+    """The model's parameters as the JAX tree's leaves ({path: numpy})."""
+    return to_jax(model, dict(model.named_parameters()))
+
+
+def from_jax(model: Model, tree: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX tree shaped like the parameters (nested, or flat with "/"
+    keys; numpy leaves) → {port parameter name: fp32 tensor on the model's
+    device}: ``to_jax``'s inverse. Every leaf must be used and fit."""
+    flat = flatten(tree)
+    paths = leaf_paths(model)
+    want = {path for path, _ in paths.values()}
+    missing, extra = sorted(want - set(flat)), sorted(set(flat) - want)
+    if missing or extra:
+        raise ValueError(f"JAX tree does not fit {model.cfg.name}: missing {missing}, "
+                         f"unexpected {extra}")
+    stacked = Counter(path for path, i in paths.values() if i is not None)
+    out = {}
+    for name, p in model.named_parameters():
+        path, i = paths[name]
+        arr = np.asarray(flat[path], dtype=np.float32)
+        if i is not None and arr.shape[:1] != (stacked[path],):
+            raise ValueError(f"{path}: shape {arr.shape}, need {stacked[path]} stacked layers")
+        src = arr if i is None else arr[i]
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{path}: shape {arr.shape}, the port needs {tuple(p.shape)}"
+                             + ("" if i is None else " per stacked layer"))
+        out[name] = torch.from_numpy(np.ascontiguousarray(src)).to(p.device)
+    return out
+
+
 def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None) -> Model:
     """A ``Model`` of ``cfg`` holding the JAX model's parameters ``tree`` (its
     pytree with numpy leaves, nested or flat with "/" keys). Every leaf must
     be used and have the shape the port expects; the bf16 weight copies are
     made after loading."""
     model = Model(cfg, device=device)
-    flat = flatten(tree)
-    targets: dict[str, list[tuple[torch.Tensor, int | None]]] = {
-        "embed": [(model.embed, None)],
-        "final_norm": [(model.final_norm.scale, None)],
-    }
-    if not cfg.tie_embeddings:
-        targets["head"] = [(model.head, None)]
-    if cfg.enc_layers:
-        targets["enc_norm"] = [(model.enc_norm.scale, None)]
-    places = list(model.layout) + [("enc_blocks", None, i) for i in range(cfg.enc_layers)]
-    for blk, (group, key, i) in zip(list(model.blocks) + list(model.enc_blocks), places):
-        prefix = group if key is None else f"{group}/{key}"
-        for name, p in blk.named_parameters():
-            targets.setdefault(f"{prefix}/{jax_leaf(name)}", []).append((p, i))
-    missing = sorted(set(targets) - set(flat))
-    extra = sorted(set(flat) - set(targets))
-    if missing or extra:
-        raise ValueError(f"JAX tree does not fit {cfg.name}: missing {missing}, unexpected {extra}")
+    values = from_jax(model, tree)
     with torch.no_grad():
-        for name, dests in targets.items():
-            arr = np.asarray(flat[name], dtype=np.float32)
-            if dests[0][1] is not None and arr.shape[:1] != (len(dests),):
-                raise ValueError(f"{name}: shape {arr.shape}, need {len(dests)} stacked layers")
-            for p, layer in dests:
-                src = arr if layer is None else arr[layer]
-                if tuple(src.shape) != tuple(p.shape):
-                    raise ValueError(f"{name}: shape {src.shape}, the port needs {tuple(p.shape)}")
-                p.copy_(torch.from_numpy(np.ascontiguousarray(src)))
+        for name, p in model.named_parameters():
+            p.copy_(values[name])
     model.cast_weights()
     return model
+
+
+def opt_state_from_jax(state: Mapping, model: Model):
+    """The reference's ``OptState`` (``count``, and fp32 moments ``m``/``v``
+    shaped like the parameters, as numpy) → the port's ``optim.OptState``.
+    8-bit moments are cut into blocks per stacked leaf there and per layer
+    here, so they do not carry over."""
+    from repro_torch.optim.adamw import OptState
+
+    if isinstance(state["m"], (tuple, list)) or any(
+            isinstance(v, (tuple, list)) for v in flatten(state["m"]).values()):
+        raise ValueError("8-bit moments do not carry over: the reference cuts their blocks "
+                         "from stacked leaves, the port from each layer")
+    return OptState(count=int(np.asarray(state["count"])), m=from_jax(model, state["m"]),
+                    v=from_jax(model, state["v"]))
 
 
 def cache_to_jax(cache: Mapping, mesh_dims: int = 0) -> dict:

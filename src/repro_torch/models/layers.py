@@ -17,19 +17,30 @@ from repro_torch.models.parallel import COMPUTE_DTYPE, col_parallel, row_paralle
 
 class CastOnce(nn.Module):
     """A module with fp32 parameters (the config's ``param_dtype``) whose
-    matmul weights, named in ``compute``, also live as bf16 copies
-    (``<name>_c``, buffers kept out of the state dict). The JAX model casts
-    each fp32 weight to bf16 at every use (``w.astype(compute_dtype)``);
-    casting once, when the parameters are set, gives the same numbers
-    without the per-call cast. ``Model.cast_weights`` remakes the copies and
-    must run after any change to the parameters."""
+    matmul weights, named in ``compute``, are read in bf16 through ``cw``.
+    The JAX model casts each fp32 weight to bf16 at every use
+    (``w.astype(compute_dtype)``). While autograd records and the weight
+    requires a gradient (training), ``cw`` casts it so too, inside the graph;
+    otherwise it returns a bf16 copy made once (``<name>_c``, a buffer kept
+    out of the state dict), the same numbers without the per-call cast.
+    Parameters are made with ``requires_grad=False``, so a served model keeps
+    no autograd state; a trainer turns them on (``requires_grad_()``).
+    ``Model.cast_weights`` remakes the copies and must run after any change
+    to the parameters."""
 
     compute: tuple[str, ...] = ()
 
     def param(self, shape, law: str, generator, device, scale: float = 0.02) -> nn.Parameter:
-        # serving only: no gradients (training comes with the port of optim/)
         return nn.Parameter(init_tensor(shape, law, generator, device, scale),
                             requires_grad=False)
+
+    def cw(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` in bf16: cast in the graph while training, else
+        the cached copy."""
+        p = getattr(self, name)
+        if p.requires_grad and torch.is_grad_enabled():
+            return p.to(COMPUTE_DTYPE)
+        return getattr(self, f"{name}_c")
 
     @torch.no_grad()
     def cast_weights(self) -> None:
@@ -115,9 +126,9 @@ class MLP(CastOnce):
         self.act = cfg.act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = col_parallel(x, self.wi_gate_c)
-        u = col_parallel(x, self.wi_up_c)
-        return row_parallel(act_fn(self.act)(g) * u, self.wo_c)
+        g = col_parallel(x, self.cw("wi_gate"))
+        u = col_parallel(x, self.cw("wi_up"))
+        return row_parallel(act_fn(self.act)(g) * u, self.cw("wo"))
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = None):

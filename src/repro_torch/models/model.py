@@ -9,7 +9,10 @@ order they run, and ``Model.layout`` names each layer's place in the JAX
 tree: ("blocks", "<pos>_<kind>", superblock) or ("tail", "<i>_<kind>",
 None). Enc-dec models add ``enc_blocks`` and ``enc_norm``.
 
-A cache mirrors the JAX cache tree without its mesh dims: ``{"blocks":
+Training (``Model.train_loss``) runs the layers with autograd recording,
+each layer under ``torch.utils.checkpoint`` when the config asks for remat
+(the JAX model's ``jax.checkpoint``), and adds the MoE layers' load-balance
+loss. A cache mirrors the JAX cache tree without its mesh dims: ``{"blocks":
 {"<pos>_<kind>": {...}}, "tail": {"<i>_<kind>": {...}}}``, each block with
 ``attn`` ({"k", "v"}, or MLA's {"c_kv", "k_rope"}), ``cross`` ({"k", "v"}
 over the encoder's memory), ``ssm`` ({"conv_x", "conv_bc", "ssm"}) or
@@ -21,14 +24,16 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.mesh import resolve_device
-from repro_torch.models.attention import GQAAttention, MLAAttention
+from repro_torch.models.attention import TRAIN_IMPLS, GQAAttention, MLAAttention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import MLP, CastOnce, RMSNorm, mrope_angles, rope_angles
 from repro_torch.models.moe import MoE
-from repro_torch.models.parallel import argmax_logits, embed_lookup, logits, pad_vocab
+from repro_torch.models.parallel import (argmax_logits, embed_lookup, logits, pad_vocab,
+                                         sharded_xent)
 from repro_torch.models.rglru import CONV_WIDTH, RGLRU
 from repro_torch.models.ssm import SSM, ssm_dims
 
@@ -102,9 +107,10 @@ class Block(nn.Module):
 def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = None,
                 prefill_cache: dict | None = None) -> torch.Tensor:
     """Apply one layer. ctx: rope, impl, cache_len (decode), enc_out (the
-    encoder's memory at an enc-dec prefill). ``cache``: the layer's cache
-    (decode, written in place at ``cache_len``); ``prefill_cache``: the
-    layer's cache that a prefill fills in place."""
+    encoder's memory at an enc-dec prefill), aux (training: a list that an
+    MoE layer appends its load-balance loss to). ``cache``: the layer's
+    cache (decode, written in place at ``cache_len``); ``prefill_cache``:
+    the layer's cache that a prefill fills in place."""
     kind = block.kind
     cfg = block.attn.cfg if kind in ATTN_KINDS else None
 
@@ -131,14 +137,26 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
                                impl="masked" if impl == "flash" else impl)
             x = x + y
         h = block.ln2(x)
-        return x + (block.moe(h, decode=cache is not None) if kind == "attn_moe"
-                    else block.mlp(h))
+        if kind != "attn_moe":
+            return x + block.mlp(h)
+        if "aux" in ctx:
+            ctx["aux"].append(block.moe.aux_loss(h.reshape(-1, h.shape[-1])))
+        return x + block.moe(h, decode=cache is not None)
     if kind == "ssm":
         return x + block.ssm(block.ln1(x), state=sub(cache, "ssm"),
                              prefill_state=sub(prefill_cache, "ssm"))
     x = x + block.rec(block.ln1(x), state=sub(cache, "rec"),
                       prefill_state=sub(prefill_cache, "rec"))
     return x + block.mlp(block.ln2(x))
+
+
+def check_train_impl(impl: str) -> None:
+    """Raise unless training can run sequence mixing ``impl``: ``flash`` has
+    no backward (neither the kernel nor the reference's Pallas kernel)."""
+    if impl not in TRAIN_IMPLS:
+        raise ValueError(f"training takes impl in {TRAIN_IMPLS}, got {impl!r}"
+                         + (": the flash_attention kernel has no backward"
+                            if impl == "flash" else ""))
 
 
 def rope_dim(cfg: ModelConfig) -> int:
@@ -152,6 +170,14 @@ def rope_for(cfg: ModelConfig, positions: torch.Tensor, dim: int):
             return mrope_angles(positions, dim, cfg.rope_theta, cfg.mrope_sections)
         positions = positions[..., 0]
     return rope_angles(positions, dim, cfg.rope_theta)
+
+
+def _train_block(block: Block, x: torch.Tensor, ctx: dict):
+    """One layer of a training forward: (x, its load-balance loss, 0.0 for
+    a layer without experts)."""
+    c = dict(ctx, aux=[])
+    x = block_apply(block, x, c)
+    return x, sum(c["aux"], 0.0)
 
 
 def _layer_view(tree: dict, i: int | None) -> dict:
@@ -168,12 +194,14 @@ class Model(CastOnce):
     head tied to the embedding (or its own). Parameters are made on
     ``device`` (``None``: the card) by the init law of the JAX model
     (``common.init_tensor``) from a ``torch.Generator`` seeded with
-    ``seed``; ``convert.params_from_jax`` loads the JAX model's instead."""
+    ``seed`` (``device="meta"``: the layout alone); ``convert.params_from_jax``
+    loads the JAX model's instead."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
         device = resolve_device(device, "Model()")
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # on the meta device (shapes only, no memory) there are no numbers to draw
+        gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab)
         self.embed = self.param((self.vocab_padded, cfg.d_model), "normal", gen, device)
@@ -206,7 +234,14 @@ class Model(CastOnce):
                 CastOnce.cast_weights(m)
 
     def head_table(self) -> torch.Tensor:
-        return self.embed_c if self.cfg.tie_embeddings else self.head_c
+        return self.cw("embed") if self.cfg.tie_embeddings else self.cw("head")
+
+    def embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
+        """bf16 embedding rows of ``ids``: gathered from the fp32 table and
+        then cast while training (the JAX lookup's order, so the gradients
+        of a repeated id add in fp32), from the bf16 copy otherwise."""
+        training = self.embed.requires_grad and torch.is_grad_enabled()
+        return embed_lookup(ids, self.embed if training else self.embed_c)
 
     def init_cache(self, batch: int, seq_max: int, enc_len: int | None = None) -> dict:
         """An empty cache for ``batch`` sequences of up to ``seq_max``
@@ -262,13 +297,56 @@ class Model(CastOnce):
             x = block_apply(block, x, ctx, cache=c, prefill_cache=pc)
         return x
 
+    def stack(self, blocks, x: torch.Tensor, ctx: dict):
+        """Run ``blocks`` over x without caches: (x, the sum of their
+        load-balance losses). While autograd records, each layer runs under
+        ``torch.utils.checkpoint`` (non-reentrant) when ``cfg.remat``: its
+        activations are recomputed in the backward, with the same numbers."""
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        aux = 0.0
+        for block in blocks:
+            if remat:
+                x, a = checkpoint(_train_block, block, x, ctx, use_reentrant=False)
+            else:
+                x, a = _train_block(block, x, ctx)
+            aux = aux + a
+        return x, aux
+
     def encode(self, embeds: torch.Tensor, positions: torch.Tensor, impl: str) -> torch.Tensor:
         """The encoder stack (enc-dec): embeds (b, s_enc, d) → memory."""
         ctx = {"rope": rope_for(self.cfg, positions, rope_dim(self.cfg)), "impl": impl}
-        x = embeds.to(getattr(torch, self.cfg.compute_dtype))
-        for block in self.enc_blocks:
-            x = block_apply(block, x, ctx)
+        x, _ = self.stack(self.enc_blocks, embeds.to(getattr(torch, self.cfg.compute_dtype)), ctx)
         return self.enc_norm(x)
+
+    def train_loss(self, batch: dict, *, impl: str = "masked"):
+        """The JAX model's ``train_loss`` on one rank's batch: ``tokens`` (or
+        ``embeds`` (b, s, d) for an embedding-input model) and ``labels`` (b,
+        s) int (< 0: padding), optional ``positions`` ((b, s), or (b, s, 3)
+        for M-RoPE), and for enc-dec ``enc_embeds``/``enc_positions``.
+        Returns (Σ nll + the MoE layers' load-balance loss, {"nll_sum",
+        "ntok"}). Autograd records it once the parameters require grad.
+        ``impl`` is the sequence mixing; ``flash`` raises: neither the
+        ``flash_attention`` kernel nor the reference's Pallas kernel has a
+        backward."""
+        check_train_impl(impl)
+        cfg = self.cfg
+        if cfg.embed_input and not cfg.enc_layers:
+            x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
+        else:  # enc-dec: the decoder reads tokens
+            x = self.embed_rows(batch["tokens"])
+        b, s = x.shape[:2]
+        pos = batch.get("positions")
+        if pos is None:
+            pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl}
+        if cfg.enc_layers:
+            ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl)
+        x, aux = self.stack(self.blocks, x, ctx)
+        head = self.embed if cfg.tie_embeddings else self.head
+        labels = batch["labels"]
+        nll = sharded_xent(self.final_norm(x), head, labels, cfg.vocab)
+        nll_sum = nll.sum()
+        return nll_sum + aux, {"nll_sum": nll_sum.detach(), "ntok": (labels >= 0).sum()}
 
     def prefill_hidden(self, batch, *, impl: str = "masked",
                        cache: dict | None = None) -> tuple[dict, torch.Tensor]:
@@ -287,7 +365,7 @@ class Model(CastOnce):
         if cfg.embed_input and not cfg.enc_layers:
             x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
         else:  # enc-dec: the decoder reads tokens
-            x = embed_lookup(batch["tokens"], self.embed_c)
+            x = self.embed_rows(batch["tokens"])
         b, s = x.shape[:2]
         pos = batch.get("positions")
         if pos is None:
@@ -306,7 +384,7 @@ class Model(CastOnce):
         """One-token decode: tokens (b,) at position ``cache_len``, written
         into the cache in place. Returns the final-normed hidden state (b, d)."""
         cfg = self.cfg
-        x = embed_lookup(tokens[:, None], self.embed_c)  # (b, 1, d)
+        x = self.embed_rows(tokens[:, None])  # (b, 1, d)
         shape = (x.shape[0], 1, 3) if cfg.mrope_sections is not None else (x.shape[0], 1)
         pos = torch.full(shape, cache_len, device=x.device)
         ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": "masked",

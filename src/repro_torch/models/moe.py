@@ -41,23 +41,40 @@ class MoE(CastOnce):
         self.wi_up = self.param((m.n_experts, d, m.d_expert), "normal", generator, device)
         self.wo = self.param((m.n_experts, m.d_expert, d), "normal", generator, device)
 
+    def probs(self, x: torch.Tensor) -> torch.Tensor:
+        """x (n, d) → the router's fp32 softmax (n, E)."""
+        return torch.softmax(x.to(torch.float32) @ self.router, dim=-1)
+
     def route(self, x: torch.Tensor):
         """x (n, d) → (gates (n, k) in x's dtype, experts (n, k) int64):
-        ``_router``'s fp32 softmax, top-k and renormalisation (its
-        load-balance loss is training's, not served)."""
-        probs = torch.softmax(x.to(torch.float32) @ self.router, dim=-1)
-        gates, experts = torch.topk(probs, self.cfg.moe.top_k, dim=-1)
+        ``_router``'s fp32 softmax, top-k and renormalisation."""
+        gates, experts = torch.topk(self.probs(x), self.cfg.moe.top_k, dim=-1)
         gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
         return gates.to(x.dtype), experts
 
-    def expert(self, x: torch.Tensor, e: int) -> torch.Tensor:
-        """Expert ``e``'s gated MLP on rows x (m, d), bf16."""
-        h = act_fn(self.cfg.act)(x @ self.wi_gate_c[e]) * (x @ self.wi_up_c[e])
-        return h @ self.wo_c[e]
+    def aux_loss(self, x: torch.Tensor) -> torch.Tensor:
+        """``_router``'s third output, the switch-style load-balance loss of
+        tokens x (n, d): E · Σ_e mean(probs)_e · count_e / (n·k) ·
+        ``router_aux_weight``, fp32. The counts of top-k choices carry no
+        gradient; the mean probabilities do. Training adds it to the loss;
+        serving does not compute it."""
+        m = self.cfg.moe
+        probs = self.probs(x)
+        experts = torch.topk(probs, m.top_k, dim=-1).indices.reshape(-1)
+        ce = torch.bincount(experts, minlength=m.n_experts).to(torch.float32) / max(
+            1, experts.numel())
+        return m.n_experts * torch.sum(probs.mean(0) * ce) * m.router_aux_weight
+
+    def expert(self, x: torch.Tensor, w: tuple[torch.Tensor, ...], e: int) -> torch.Tensor:
+        """Expert ``e``'s gated MLP on rows x (m, d), bf16; ``w``: the bf16
+        (wi_gate, wi_up, wo) of every expert."""
+        wg, wu, wo = w
+        h = act_fn(self.cfg.act)(x @ wg[e]) * (x @ wu[e])
+        return h @ wo[e]
 
     def forward(self, x: torch.Tensor, *, decode: bool = False) -> torch.Tensor:
-        """x (b, s, d) bf16 → (b, s, d): dispatched (prefill) or replicated
-        (``decode``)."""
+        """x (b, s, d) bf16 → (b, s, d): dispatched (prefill and training) or
+        replicated (``decode``)."""
         b, s, d = x.shape
         flat = x.reshape(-1, d)
         gates, experts = self.route(flat)
@@ -74,27 +91,31 @@ class MoE(CastOnce):
         loop's launches, not the products, would set the step's time."""
         ids = torch.arange(self.cfg.moe.n_experts, device=flat.device)[:, None, None]
         w = torch.where(experts[None] == ids, gates.to(torch.float32)[None], 0.0).sum(-1)  # (E, n)
-        h = act_fn(self.cfg.act)(torch.einsum("nd,edf->enf", flat, self.wi_gate_c)) * \
-            torch.einsum("nd,edf->enf", flat, self.wi_up_c)
-        y = torch.bmm(h, self.wo_c)  # (E, n, d)
+        h = act_fn(self.cfg.act)(torch.einsum("nd,edf->enf", flat, self.cw("wi_gate"))) * \
+            torch.einsum("nd,edf->enf", flat, self.cw("wi_up"))
+        y = torch.bmm(h, self.cw("wo"))  # (E, n, d)
         return (y * w[..., None].to(y.dtype)).sum(0)
 
     def dispatched(self, flat, gates, experts) -> torch.Tensor:
         """Map: the router's (token, expert) pairs. Shuffle: a stable sort by
         expert puts each expert's rows together. Reduce: each row's expert
-        output times its gate, summed into its token by ``segment_reduce``.
-        The group sizes reach the host (one sync) to slice the sorted rows."""
+        output times its gate, summed into its token by ``segment_reduce``
+        (differentiable: its gradient gathers each token's gradient back to
+        its rows). The group sizes reach the host (one sync) to slice the
+        sorted rows."""
         n, k = experts.shape
         order = torch.argsort(experts.reshape(-1), stable=True)
         tok = torch.div(order, k, rounding_mode="floor")
         sizes = torch.bincount(experts.reshape(-1), minlength=self.cfg.moe.n_experts).tolist()
         rows = flat[tok]
         g = gates.reshape(-1)[order, None]
-        y = torch.empty_like(rows)
+        w = (self.cw("wi_gate"), self.cw("wi_up"), self.cw("wo"))
+        parts = []
         start = 0
         for e, size in enumerate(sizes):
             if size:
                 sl = slice(start, start + size)
-                y[sl] = self.expert(rows[sl], e) * g[sl]
+                parts.append(self.expert(rows[sl], w, e) * g[sl])
                 start += size
+        y = torch.cat(parts) if parts else rows[:0]
         return ops.segment_reduce(y, tok.to(torch.int32), n).to(flat.dtype)

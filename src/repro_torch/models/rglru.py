@@ -51,8 +51,8 @@ class RGLRU(CastOnce):
         b, s, _ = x.shape
         if state is not None and s != 1:
             raise ValueError(f"an RG-LRU decode step takes one position, got {s}")
-        gate = x @ self.w_gate_c
-        xin, conv = causal_conv1d(x @ self.w_in_c, self.conv,
+        gate = x @ self.cw("w_gate")
+        xin, conv = causal_conv1d(x @ self.cw("w_in"), self.conv,
                                   None if state is None else state["conv"])
         xf = xin.to(torch.float32)
         r = torch.sigmoid(xf * self.gate_a_w + self.gate_a_b)
@@ -69,4 +69,4 @@ class RGLRU(CastOnce):
             out_state["conv"].copy_(conv)
             out_state["h"].copy_(y[:, -1])
         y = (y * F.gelu(gate.to(torch.float32), approximate="tanh")).to(x.dtype)
-        return y @ self.w_out_c
+        return y @ self.cw("w_out")

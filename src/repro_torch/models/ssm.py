@@ -105,11 +105,11 @@ class SSM(CastOnce):
         if state is not None and s != 1:
             raise ValueError(f"an SSM decode step takes one position, got {s}")
         st = state or {}
-        z = x @ self.w_z_c
-        xin, conv_x = causal_conv1d(x @ self.w_x_c, self.conv_x, st.get("conv_x"))
-        bc, conv_bc = causal_conv1d(x @ self.w_bc_c, self.conv_bc, st.get("conv_bc"))
+        z = x @ self.cw("w_z")
+        xin, conv_x = causal_conv1d(x @ self.cw("w_x"), self.conv_x, st.get("conv_x"))
+        bc, conv_bc = causal_conv1d(x @ self.cw("w_bc"), self.conv_bc, st.get("conv_bc"))
         A = -torch.exp(self.A_log)
-        dt = torch.clamp(F.softplus((x @ self.w_dt_c).to(torch.float32) + self.dt_bias),
+        dt = torch.clamp(F.softplus((x @ self.cw("w_dt")).to(torch.float32) + self.dt_bias),
                          sc.dt_min, sc.dt_max * 100)
         xh = xin.view(b, s, heads, hd)
         gidx = (torch.arange(heads, device=x.device) * G) // heads  # head → group
@@ -135,4 +135,4 @@ class SSM(CastOnce):
         y = y.reshape(b, s, d_in).to(x.dtype)
         z = z.to(torch.float32)
         y = rms_norm(y * (z * torch.sigmoid(z)).to(y.dtype), self.out_norm, cfg.norm_eps)
-        return y @ self.w_out_c
+        return y @ self.cw("w_out")
