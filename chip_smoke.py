@@ -111,6 +111,25 @@
    (``MOE_TRAIN_TOL``): the loss of one batch, and layer 0's output and
    gradients on its own input.
 
+8. Restarts and dry-runs. Through ``launch/train.py``'s ``run``: Qwen1.5-0.5B
+   as in 7 under S3 on 8 ranks for ``RESTART_STEPS`` steps with a
+   checkpoint every ``RESTART_EVERY`` (in a temporary directory, deleted
+   after), a simulated failure at step ``RESTART_FAIL`` and the elastic
+   restart on ``RESTART_SHRINK`` ranks from the step-``RESTART_AT``
+   checkpoint: the restored parameters and moments bitwise equal to a
+   device copy taken at the save, the first loss after the restart within
+   ``RESTART_LOSS_TOL`` of world 8's loss at that step, ``ring_fused_step``
+   launched (W - 1) per FSDP leaf a step at each world; save (asynchronous
+   and blocking), restore and restart times are logged. Then granite-moe at
+   W = 1, cut to ``MOE_CKPT_LAYERS`` layers: a step, a save, a step; the
+   checkpoint restored into a model of another seed gives that second
+   step's loss bitwise, ``segment_reduce`` on its kernel route. Then
+   ``launch/dryrun.py``'s 40 cells on the meta device (``DRYRUN_JOBS``
+   worker processes; each a record or the reference's skip), and every
+   cell the dry run says fits one H100 run for real on the card: its peak
+   memory within ``DRYRUN_PEAK_TOL`` of the dry run's and its FLOPs within
+   ``DRYRUN_FLOP_TOL``.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that last line. Needs one CUDA device.
@@ -247,6 +266,21 @@ MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = "granite-moe-1b-a400m", 4, 10
 # The limits leave two orders of magnitude over that for the backward
 MOE_TRAIN_TOL = {"loss": 1e-4, "layer0": 1e-3}
 TRAIN_PHASES = ("rank_gradients", "aggregate", "apply")
+# restart and dry run (phase 8): qwen1.5 as in phase 7 through train.run with
+# a checkpoint every RESTART_EVERY steps, the failure at step RESTART_FAIL and
+# the restart on RESTART_SHRINK ranks from the step-RESTART_AT checkpoint. The
+# first loss after it is the same step on the same parameters and global
+# batch, only the ranks' sum in another order: RESTART_LOSS_TOL relative
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_SHRINK, RESTART_AT = 6, 2, 5, 4, 4
+RESTART_FLAGS = ("--ckpt-every", str(RESTART_EVERY), "--fail-step", str(RESTART_FAIL),
+                 "--shrink-to", str(RESTART_SHRINK))
+RESTART_LOSS_TOL = 1e-5
+# granite-moe's save/restore on the kernel route at 4 of its 24 layers: a
+# checkpoint of all 24 (fp32 parameters and moments) is 16 GB
+MOE_CKPT_LAYERS = 4
+# the dry run against the card, on the cells it says fit: the peak within
+# 25% of the card's (the allocator rounds and caches), the FLOPs within 1e-6
+DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL, DRYRUN_JOBS = 0.25, 1e-6, 8
 
 
 def log(msg: str) -> None:
@@ -997,16 +1031,17 @@ def cache_consistency(model, batch, impl: str) -> dict:
             "finite": bool(torch.isfinite(h_dec).all())}
 
 
-def train_args(arch: str, scenario: str, mesh: str, global_batch: int, steps: int = 1):
+def train_args(arch: str, scenario: str, mesh: str, global_batch: int, steps: int = 1,
+               *extra: str):
     """``python -m repro_torch.launch.train``'s arguments for ``arch`` at full
     width on the card: random weights from ``SEED``, ``TRAIN_SEQ`` tokens a
-    sequence, a step's loss logged each step."""
+    sequence, a step's loss logged each step; ``extra``: more flags."""
     from repro_torch.launch import train
 
     return train.parser().parse_args([
         "--arch", arch, "--scenario", scenario, "--mesh", mesh, "--global-batch",
         str(global_batch), "--seq", str(TRAIN_SEQ), "--seed", str(SEED), "--steps", str(steps),
-        "--device", "cuda", "--log-every", "1"])
+        "--device", "cuda", "--log-every", "1", *extra])
 
 
 def train_inputs(arch: str, scenario: str, mesh: str, global_batch: int, model=None):
@@ -1015,12 +1050,13 @@ def train_inputs(arch: str, scenario: str, mesh: str, global_batch: int, model=N
     parameters are not reset); else ``arch`` from ``SEED`` on the card."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.model import Model
 
     args = train_args(arch, scenario, mesh, global_batch)
     model = model or Model(get_config(arch), device="cuda", seed=SEED)
-    step, pipe = train.build(model, train.make_mesh(
-        tuple(int(x) for x in mesh.split(",")), "cuda"), args)
+    step, pipe = train.build(model, make_mesh(
+        tuple(int(x) for x in mesh.split(",")), device="cuda"), args)
     return step, step.init_state(), pipe
 
 
@@ -1252,6 +1288,292 @@ def train_phase(launches: dict) -> dict:
             v > MOE_TRAIN_TOL["layer0"] for k, v in checks.items() if k.startswith("layer0")):
         raise AssertionError(f"{cfg.name}: the training route differs from its plain route: "
                              f"{checks}")
+    return res
+
+
+def flat_tensors(tree) -> dict:
+    """A checkpoint tree → {path: leaf}, as the store flattens it."""
+    from repro_torch.checkpoint import store
+
+    return store._flatten(tree)
+
+
+def restart_run(count) -> dict:
+    """Phase 8 (a): the elastic restart at full width through ``train.run``
+    (``RESTART_FLAGS``): qwen1.5 on 8 ranks under S3, a checkpoint every
+    ``RESTART_EVERY`` steps, the failure at step ``RESTART_FAIL``, the
+    restart on ``RESTART_SHRINK`` ranks from the latest checkpoint. Observed
+    through wrappers of ``CheckpointStore.save`` (a device copy of the
+    step-``RESTART_AT`` tree), ``train.restore`` (the restored tree against
+    that copy, bitwise) and ``TrainStep.__call__`` (each step's ms, world
+    and ``ring_fused_step`` launches)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamW
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    seen, saved, log_steps = {}, {}, []
+    real_save, real_restore = CheckpointStore.save, train.restore
+    real_call = steps_lib.TrainStep.__call__
+
+    def save(store, step, tree, **kw):
+        seen["store"] = store
+        if step == RESTART_AT:
+            saved.update({k: v.clone() if isinstance(v, torch.Tensor) else int(v)
+                          for k, v in flat_tensors(tree).items()})
+        return real_save(store, step, tree, **kw)
+
+    def restore(step, store, at=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, k = real_restore(step, store, at)
+        torch.cuda.synchronize()
+        seen["restore_ms"] = (time.perf_counter() - t) * 1e3
+        got = flat_tensors(train.checkpoint_tree(step, state))
+        seen["restored_step"] = k
+        seen["restored_bitwise"] = got.keys() == saved.keys() and all(
+            torch.equal(v, saved[n]) if isinstance(v, torch.Tensor) else int(v) == saved[n]
+            for n, v in got.items())
+        del got
+        return state, k
+
+    def call(step, state, batch):
+        before = dict(ops.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_call(step, state, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        log_steps.append({"world": step.world, "ms": (t1 - t0) * 1e3, "t0": t0, "t1": t1,
+                          "ring_fused_step": ops.LAUNCHES["ring_fused_step"]
+                          - before["ring_fused_step"]})
+        seen["last"] = (step, out[0])
+        return out
+
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        args = train_args(TRAIN_ARCH, "s3_in_net_map", "8,1", TRAIN_BATCH, RESTART_STEPS,
+                          "--ckpt", tmp, *RESTART_FLAGS)
+        t = time.perf_counter()
+        with mock.patch.object(CheckpointStore, "save", save), \
+                mock.patch.object(train, "restore", restore), \
+                mock.patch.object(steps_lib.TrainStep, "__call__", call):
+            losses = train.run(args, optimizer=AdamW(**TRAIN_OPT))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        count()
+        step, state = seen.pop("last")
+        n_fsdp = sum(d is not None for d in step.dims.values())
+        stats = list(seen["store"].stats)
+        # a blocking save of the last state, timed on its own
+        blocking = CheckpointStore(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"), keep=1)
+        t = time.perf_counter()
+        blocking.save(RESTART_STEPS, train.checkpoint_tree(step, state), blocking=True)
+        blocking_ms = (time.perf_counter() - t) * 1e3
+        shutil.rmtree(blocking.directory)
+        del step, state
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worlds = [s["world"] for s in log_steps]
+    cut = worlds.index(RESTART_SHRINK)
+    gb = stats[0]["bytes"] / 1e9
+    res = {"losses": losses, "worlds": worlds, "step_ms": [s["ms"] for s in log_steps],
+           "ring_fused_step_per_step": [s["ring_fused_step"] for s in log_steps],
+           "saves": stats,
+           "gb_per_save": gb, "blocking_save_ms": blocking_ms,
+           "blocking_snapshot_ms": blocking.stats[0]["snapshot_ms"],
+           "blocking_gb_per_s": gb / blocking_ms * 1e3,
+           "restore_ms": seen["restore_ms"], "restore_gb_per_s": gb / seen["restore_ms"] * 1e3,
+           "restart_ms": (log_steps[cut]["t0"] - log_steps[cut - 1]["t1"]) * 1e3,
+           "restored_step": seen["restored_step"], "restored_bitwise": seen["restored_bitwise"],
+           "first_loss_after_restart": losses[cut],
+           "same_step_at_world_8": losses[RESTART_AT],
+           "rel_diff": abs(losses[cut] - losses[RESTART_AT]) / abs(losses[RESTART_AT]),
+           "wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"restart {TRAIN_ARCH} s3_in_net_map 8 -> {RESTART_SHRINK} ranks "
+        f"({' '.join(RESTART_FLAGS)}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens): {json.dumps(res)}")
+    log(f"  saves: {gb:.2f} GB each; async snapshot "
+        f"{np.mean([s['snapshot_ms'] for s in stats]):.1f} ms, write "
+        f"{np.mean([s['write_ms'] for s in stats]):.1f} ms; blocking {blocking_ms:.1f} ms "
+        f"(snapshot {res['blocking_snapshot_ms']:.1f}); restore {seen['restore_ms']:.1f} ms; "
+        f"restart {res['restart_ms']:.1f} ms; step ms at world 8 "
+        f"{np.median(res['step_ms'][:cut]):.1f}, at world {RESTART_SHRINK} "
+        f"{np.median(res['step_ms'][cut:]):.1f}")
+    want_worlds = [8] * RESTART_FAIL + [RESTART_SHRINK] * (RESTART_STEPS - RESTART_AT)
+    if worlds != want_worlds or not np.isfinite(losses).all():
+        raise AssertionError(f"restart: steps on worlds {worlds} (want {want_worlds}), "
+                             f"losses {losses}")
+    if res["restored_step"] != RESTART_AT or not res["restored_bitwise"]:
+        raise AssertionError(f"restart: restored step {res['restored_step']}, bitwise "
+                             f"{res['restored_bitwise']} against the device copy at the save")
+    if res["rel_diff"] > RESTART_LOSS_TOL:
+        raise AssertionError(f"restart: the first loss after the restart {losses[cut]} is "
+                             f"{res['rel_diff']:.3g} from world 8's {losses[RESTART_AT]}")
+    want_ring = [(w - 1) * n_fsdp for w in worlds]
+    if res["ring_fused_step_per_step"] != want_ring:
+        raise AssertionError(f"restart: ring_fused_step launches a step "
+                             f"{res['ring_fused_step_per_step']}, not {want_ring}")
+    return res
+
+
+def moe_restore(count) -> dict:
+    """Phase 8 (b): granite-moe at W = 1, cut to ``MOE_CKPT_LAYERS`` layers:
+    a step, a blocking save, a second step; then the checkpoint restored
+    into a model from another seed, and the second step again. Its loss must
+    equal the uninterrupted one bitwise, with ``segment_reduce`` on its
+    kernel route."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(MOE_TRAIN_ARCH), n_layers=MOE_CKPT_LAYERS)
+    args = train_args(MOE_TRAIN_ARCH, "native", "1,1", MOE_TRAIN_BATCH)
+    mesh = make_mesh((1, 1), device="cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ops.reset_launches()
+        step, pipe = train.build(Model(cfg, device="cuda", seed=SEED), mesh, args)
+        state, _ = step(step.init_state(), pipe.batch_at(0))
+        store = CheckpointStore(tmp)
+        store.save(1, train.checkpoint_tree(step, state), meta={"world": 1}, blocking=True)
+        _, m1 = step(state, pipe.batch_at(1))
+        del step, state
+        step2, _ = train.build(Model(cfg, device="cuda", seed=SEED + 1), mesh, args)
+        state2, at = train.restore(step2, store)
+        _, r1 = step2(state2, pipe.batch_at(1))
+        got = count()
+        del step2, state2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"layers": MOE_CKPT_LAYERS, "restored_step": at, "loss": float(m1["loss"]),
+           "loss_after_restore": float(r1["loss"]),
+           "bitwise": bool(torch.equal(m1["loss"], r1["loss"])),
+           "gb": store.stats[0]["bytes"] / 1e9,
+           "segment_reduce": got["segment_reduce"]}
+    log(f"restore {cfg.name} at W = 1, {MOE_CKPT_LAYERS} of 24 layers: {json.dumps(res)}")
+    fwd = 3 * MOE_CKPT_LAYERS * (2 if cfg.remat else 1)  # three steps, forward twice under remat
+    if at != 1 or not res["bitwise"] or got["segment_reduce"] != fwd:
+        raise AssertionError(f"{cfg.name}: the step after the restore {res} (segment_reduce "
+                             f"{got['segment_reduce']} launches, want {fwd})")
+    return res
+
+
+def dryrun_phase() -> dict:
+    """Phase 8 (c): ``launch/dryrun.py --all`` on the meta device, one line a
+    cell, then every cell it says fits one H100 held to the card: the real
+    step's peak memory (over what the process held before) within
+    ``DRYRUN_PEAK_TOL`` of ``peak_bytes``, and ``FlopCounterMode``'s count of
+    it equal to ``flops_per_dev`` within ``DRYRUN_FLOP_TOL``."""
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shp
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models.model import Model
+
+    cells = [(a, s) for a in ARCHS for s in shp.SHAPES]
+    t = time.perf_counter()
+    records = {}
+    for (arch, shape), rec in dryrun.run_cells(cells, DRYRUN_JOBS):
+        records[(arch, shape)] = rec
+        if "error" in rec:
+            log(rec["trace"])
+            raise AssertionError(f"dry run {arch} {shape}: {rec['error']}")
+        if "skipped" in rec:
+            want = shp.shape_applicable(get_config(arch), shape)
+            if want != (False, rec["skipped"]):
+                raise AssertionError(f"dry run {arch} {shape} skipped: {rec['skipped']}")
+            log(f"dryrun {arch} {shape}: skipped ({rec['skipped']})")
+            continue
+        log(f"dryrun {arch} {shape}: peak {rec['peak_bytes'] / 1e9:.2f} GB (held "
+            f"{rec['held_bytes'] / 1e9:.2f}) fits_80g {rec['fits_80g']}; "
+            f"{rec['flops_per_dev']:.4g} FLOP, {rec['hbm_bytes_per_dev']:.4g} B; "
+            f"t compute/memory/collective "
+            f"{rec['t_compute_s']:.4g}/{rec['t_memory_s']:.4g}/{rec['t_collective_s']:.4g} s "
+            f"({rec['bottleneck']}); useful {rec['useful_flops_ratio']:.3f}; meta "
+            f"{rec['meta_s']} s, probes {rec['probe_s']} s")
+    wall = time.perf_counter() - t
+    fits = [c for c, r in records.items() if r.get("fits_80g")]
+    log(f"dry run: {len(records)} cells in {wall:.1f} s ({DRYRUN_JOBS} workers), "
+        f"{sum('skipped' in r for r in records.values())} skipped, fit one H100: {fits}")
+    if len(records) != 40 or not {("mamba2_1_3b", "long_500k"),
+                                  ("recurrentgemma_2b", "long_500k")} <= set(fits):
+        raise AssertionError(f"dry run: {len(records)} cells, fit {fits}")
+    checks = {}
+    for arch, shape_name in fits:
+        rec, shape = records[(arch, shape_name)], shp.SHAPES[shape_name]
+        if shape.kind != "decode":
+            raise AssertionError(f"{arch} {shape_name} fits one card: no card check for "
+                                 f"{shape.kind} cells")
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        dec = shape.seq_len // 2 if cfg.enc_layers else shape.seq_len
+        model = Model(cfg, device="cuda", seed=SEED)
+        serve = steps_lib.make_serve_step(model, global_batch=shape.global_batch, seq_max=dec)
+        cache = model.init_cache(shape.global_batch, dec, enc_len=dec if cfg.enc_layers else None)
+        tokens = torch.zeros((shape.global_batch,), dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        serve(cache, tokens, dec - 1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        with FlopCounterMode(display=False) as fc:
+            serve(cache, tokens, dec - 1)
+        flops = fc.get_total_flops()
+        c = {"card_peak_bytes": peak, "dryrun_peak_bytes": rec["peak_bytes"],
+             "peak_rel": abs(rec["peak_bytes"] - peak) / peak, "card_flops": flops,
+             "dryrun_flops": rec["flops_per_dev"],
+             "flops_rel": abs(rec["flops_per_dev"] - flops) / flops}
+        checks[f"{arch}/{shape_name}"] = c
+        log(f"  card check {arch} {shape_name}: {json.dumps(c)}")
+        del model, serve, cache, tokens
+        if c["peak_rel"] > DRYRUN_PEAK_TOL or c["flops_rel"] > DRYRUN_FLOP_TOL:
+            raise AssertionError(f"dry run {arch} {shape_name} against the card: {c}")
+    return {"wall_s": wall, "jobs": DRYRUN_JOBS, "fit": [f"{a}/{s}" for a, s in fits],
+            "card_checks": checks,
+            "records": {f"{a}/{s}": {k: v for k, v in r.items() if k not in ("note", "trace")}
+                        for (a, s), r in records.items()}}
+
+
+def restart_phase(launches: dict) -> dict:
+    """Phase 8: the elastic restart, the MoE checkpoint on the kernel route
+    and the dry run. Adds its kernel launches to ``launches``."""
+    from repro_torch.kernels import ops
+
+    def count():
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        got = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        return got
+
+    res = {"restart": restart_run(count), "moe_restore": moe_restore(count)}
+    res["dryrun"] = dryrun_phase()
     return res
 
 
@@ -1844,6 +2166,12 @@ def main() -> int:
     training = train_phase(launches)
     training["wall_s"] = time.perf_counter() - t
     log(f"training phase: {training['wall_s']:.2f} s")
+
+    # 8. restart and dry run -----------------------------------------------------
+    t = time.perf_counter()
+    restart = restart_phase(launches)
+    restart["wall_s"] = time.perf_counter() - t
+    log(f"restart and dry run phase: {restart['wall_s']:.2f} s")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was never launched on the main paths")
@@ -1878,6 +2206,8 @@ def main() -> int:
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "family_checks": family_checks, "training": training,
+                    "restart": {k: v for k, v in restart.items() if k != "dryrun"},
+                    "dryrun": {k: v for k, v in restart["dryrun"].items() if k != "records"},
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,
                     "autotune": plans["plan_wordcount_autotuned"].tuning.summary(),
                     "schedule_ticks": schedule_ticks,

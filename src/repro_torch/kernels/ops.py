@@ -2,7 +2,9 @@
 
 A tensor on the CPU goes to the plain version in ``kernels.ref``; a tensor
 on a CUDA device goes to the Hopper kernel, which launches or raises. There
-is no fallback from one to the other. ``LAUNCHES`` counts, per kernel, the
+is no fallback from one to the other. A tensor on the ``meta`` device
+(shapes, no values: the dry run) goes to the plain version too, which gives
+the output's shape and dtype. ``LAUNCHES`` counts, per kernel, the
 kernel launches made through these wrappers (CPU calls do not count), so a
 run can show that its path went through the kernels.
 """
@@ -26,7 +28,9 @@ def reset_launches() -> None:
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
+    """True where the plain version runs (the CPU, and the meta device),
+    False on a CUDA device; any other device raises."""
+    if t.device.type in ("cpu", "meta"):
         return True
     if t.device.type == "cuda":
         return False

@@ -1,19 +1,65 @@
-"""Training input shapes on a data world: the training half of
-``repro/launch/shapes.py``.
+"""The assigned input shapes, which archs run them, and the input specs of
+each step on a data world: the port of ``repro/launch/shapes.py``.
+
+    train_4k    → the train step  (tokens + labels)
+    prefill_32k → the prefill step (a prompt)
+    decode_32k  → the serve step  (one new token, a cache of seq_len)
+    long_500k   → the serve step  (sub-quadratic archs only)
 
 Batched tensors are world-major: the mesh dims (``(W,)`` for ``("data",)``,
 ``(pod, data)`` for a two-level mesh), then each rank's ``(b_loc, ...)``.
 The reference's device-major layout carries a model dim too, which is 1 on
-one card (tp = 1, no rep groups): the same numbers without it. The serving
-shapes and the pod-scale shape table wait for the dry run (ROADMAP 5(c)).
+one card (tp = 1, no rep groups): the same numbers without it. A spec is
+{input name: (shape, dtype)}.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.parallel import local_batch
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+# the reference's microbatch counts for train_4k (activations per device
+# under remat)
+TRAIN_MICROBATCHES = {
+    "grok-1-314b": 16,
+    "phi3-medium-14b": 8,
+    "qwen2-vl-7b": 8,
+    "granite-8b": 8,
+    "minicpm3-4b": 4,
+    "recurrentgemma-2b": 4,
+    "mamba2-1.3b": 2,
+    "seamless-m4t-large-v2": 2,
+    "granite-moe-1b-a400m": 2,
+    "qwen1.5-0.5b": 1,
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
+    """(runs?, the reason where it is skipped): long_500k needs
+    sub-quadratic sequence mixing."""
+    if shape_name == "long_500k" and not cfg.subquadratic:
+        return False, "O(L^2) full attention at 524k ctx — skipped per assignment"
+    return True, ""
 
 
 def batch_layout(mesh: Mesh, global_batch: int) -> tuple[tuple[int, ...], int]:
@@ -40,3 +86,18 @@ def train_input_specs(cfg: ModelConfig, mesh: Mesh, seq: int, global_batch: int
     else:
         specs["tokens"] = (lead + (seq,), torch.int32)
     return specs
+
+
+def prefill_input_specs(cfg: ModelConfig, mesh: Mesh, seq: int, global_batch: int
+                        ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """The prefill's inputs: the training batch's without ``labels``."""
+    specs = train_input_specs(cfg, mesh, seq, global_batch)
+    specs.pop("labels")
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, mesh: Mesh, global_batch: int
+                       ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
+    """One decode step's inputs: a token a sequence and the cache length."""
+    dims, b_loc = batch_layout(mesh, global_batch)
+    return {"tokens": (dims + (b_loc,), torch.int32), "cache_len": ((), torch.int32)}

@@ -101,11 +101,13 @@ class TrainStep:
     def init_state(self) -> OptState:
         return self.optimizer.init(self.params, self.layout)
 
-    def rank_gradients(self, batch: dict):
+    def rank_gradients(self, batch: dict, ranks=None):
         """Each rank's forward and backward on its own ``b_loc`` rows, its
         microbatches' fp32 gradients accumulated as the reference's
         ``micro`` does. Returns ({name: (mesh dims, *leaf) fp32}, Σ nll, Σ
-        ntok)."""
+        ntok). ``ranks``: the (flat) ranks to run, all by default; the
+        others' gradients stay zero (the dry run counts one rank: they are
+        alike)."""
         mesh, dev, mb = self.mesh, self.model.device, self.microbatches
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         for k, v in batch.items():
@@ -118,7 +120,7 @@ class TrainStep:
         nll = torch.zeros((), dtype=torch.float32, device=dev)
         ntok = torch.zeros((), dtype=torch.int64, device=dev)
         rows = self.b_loc // mb
-        for r in range(self.world):
+        for r in range(self.world) if ranks is None else ranks:
             for i in range(mb):
                 part = {k: v.reshape((self.world, mb, rows) + v.shape[mesh.ndim + 1:])[r, i]
                         for k, v in batch.items()}

@@ -9,9 +9,14 @@ reference reads the same here with ``mesh`` passed along.
 
 ``Mesh(..., device=None)`` means the card; with no CUDA it raises rather
 than run on the CPU. The tests pass ``device="cpu"``.
+
+``count_collectives()`` counts, while it is open, the bytes that the
+collectives put out, by the XLA collective they stand for: every device's
+output, summed over the mesh (the roofline's collective term).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -19,6 +24,32 @@ import numpy as np
 import torch
 
 Perm = Sequence[tuple[int, int]]
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
+_COUNTERS: list[dict[str, int]] = []
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """Yields {collective: bytes}, which every collective run while the
+    context is open adds its output's bytes to (all devices')."""
+    counts = dict.fromkeys(COLLECTIVES, 0)
+    _COUNTERS.append(counts)
+    try:
+        yield counts
+    finally:
+        _COUNTERS.remove(counts)
+
+
+def note_collective(kind: str, nbytes: int) -> None:
+    """Add ``nbytes`` of collective ``kind`` to the open counters."""
+    for counts in _COUNTERS:
+        counts[kind] += int(nbytes)
+
+
+def _noted(kind: str, out: torch.Tensor) -> torch.Tensor:
+    note_collective(kind, out.numel() * out.element_size())
+    return out
 
 
 def resolve_device(device, who: str) -> torch.device:
@@ -114,7 +145,7 @@ class Mesh:
             out = torch.zeros_like(xs)
             if srcs:
                 out[torch.tensor(dsts, device=x.device)] = xs[torch.tensor(srcs, device=x.device)]
-        return out.movedim(0, a).contiguous()
+        return _noted("collective-permute", out.movedim(0, a).contiguous())
 
     def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int = 0,
                    concat_axis: int = 0, tiled: bool = False) -> torch.Tensor:
@@ -127,7 +158,7 @@ class Mesh:
         if not tiled:
             if x.shape[s] != p:
                 raise ValueError(f"split dim {x.shape[s]} != axis size {p}")
-            return x.transpose(a, s).movedim(s, nm + concat_axis).contiguous()
+            return _noted("all-to-all", x.transpose(a, s).movedim(s, nm + concat_axis).contiguous())
         n = x.shape[s]
         if n % p:
             raise ValueError(f"split dim {n} not divisible by axis size {p}")
@@ -137,7 +168,8 @@ class Mesh:
         c = nm + concat_axis + (1 if concat_axis >= split_axis else 0)
         j = c - 1 if c > s else c
         y = y.movedim(s, j)
-        return y.reshape(y.shape[:j] + (y.shape[j] * y.shape[j + 1],) + y.shape[j + 2:]).contiguous()
+        return _noted("all-to-all", y.reshape(y.shape[:j] + (y.shape[j] * y.shape[j + 1],)
+                                              + y.shape[j + 2:]).contiguous())
 
     def all_gather(self, x: torch.Tensor, axis: str, tiled: bool = False) -> torch.Tensor:
         """``lax.all_gather``: every device gets the (p, *local) stack of the
@@ -148,7 +180,7 @@ class Mesh:
         out = y.expand(y.shape[:a] + (p,) + y.shape[a + 1:]).contiguous()
         if tiled:
             out = out.reshape(out.shape[:nm] + (-1,) + out.shape[nm + 2:])
-        return out
+        return _noted("all-gather", out)
 
     def psum(self, x: torch.Tensor, axes, axis_index_groups: Sequence[Sequence[int]] | None = None
              ) -> torch.Tensor:
@@ -158,7 +190,7 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         dims = [self.dim(a) for a in axes]
         if axis_index_groups is None:
-            return x.sum(dim=dims, keepdim=True).expand(x.shape).contiguous()
+            return _noted("all-reduce", x.sum(dim=dims, keepdim=True).expand(x.shape).contiguous())
         if len(axes) != 1:
             raise ValueError("axis_index_groups needs exactly one axis")
         a, p = dims[0], self.shape[dims[0]]
@@ -170,7 +202,7 @@ class Mesh:
         for g in axis_index_groups:
             idx = torch.tensor([int(i) for i in g], device=x.device)
             out[idx] = xs[idx].sum(0, keepdim=True).expand((len(g),) + xs.shape[1:])
-        return out.movedim(0, a).contiguous()
+        return _noted("all-reduce", out.movedim(0, a).contiguous())
 
     # -- per-device indexing -----------------------------------------------
     def _per_device(self, index, n: int, size: int = 1) -> torch.Tensor:

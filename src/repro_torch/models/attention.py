@@ -349,8 +349,8 @@ class MLAAttention(CastOnce):
             cc[:, cache_len:cache_len + s] = c_kv.to(cc.dtype)
             cr[:, cache_len:cache_len + s] = k_rope.to(cr.dtype)
             new_cache = cache
-            w_kb = self.wkv_b.view(dc, H, dn + dv)
             f32 = torch.float32
+            w_kb = self.wkv_b.to(f32).view(dc, H, dn + dv)
             q_abs = torch.einsum("bshn,chn->bshc", q_nope.to(f32), w_kb[..., :dn])
             sc = torch.einsum("bshc,bSc->bhsS", q_abs, cc.to(f32))
             sc = sc + torch.einsum("bshr,bSr->bhsS", q_rope.to(f32), cr.to(f32))

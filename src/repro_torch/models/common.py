@@ -109,6 +109,16 @@ class ModelConfig:
         layers = L + self.enc_layers
         return emb + layers * per_layer
 
+    def active_param_count(self) -> int:
+        """Active per-token parameters (MoE: top_k of n_experts), as the
+        roofline's model FLOPs count them."""
+        if self.moe is None:
+            return self.param_count()
+        total = self.param_count()
+        expert = self.n_layers * self.moe.n_experts * 3 * self.d_model * self.moe.d_expert
+        active = expert * self.moe.top_k // self.moe.n_experts
+        return total - expert + active
+
 
 def init_tensor(shape, law: str, generator: torch.Generator, device,
                 scale: float = 0.02) -> torch.Tensor:

@@ -7,7 +7,11 @@ H·hd); ``blocks/2_attn_local/...`` is (n_superblocks, ...)), tail blocks
 unstacked (``tail/0_rec/...``) and encoder layers stacked
 (``enc_blocks/...``); the port keeps one module per layer with the same
 per-layer layout. ``leaf_paths`` maps one onto the other; the functions
-here work on numpy arrays, so neither package imports the other.
+here work on numpy arrays, so neither package imports the other. Leaves keep
+their dtype: numpy has no bf16 of its own, so a bf16 leaf comes out as
+``ml_dtypes.bfloat16`` (the type the JAX package's arrays convert to; it
+comes with JAX) and goes in from one, or as a tensor (``stack_leaves``,
+``unstack_leaves``).
 """
 from __future__ import annotations
 
@@ -62,31 +66,31 @@ def leaf_paths(model: Model) -> dict[str, tuple[str, int | None]]:
     return out
 
 
-def to_jax(model: Model, tensors: Mapping[str, torch.Tensor | None]) -> dict[str, np.ndarray]:
-    """Tensors keyed by port parameter name (the parameters, their
-    gradients, optimizer moments) → {JAX leaf path: float32 numpy}, the
-    layers of a stacked leaf stacked again. A missing or None tensor (a
-    parameter the loss does not reach) counts as zeros."""
+def stack_leaves(model: Model, tensors: Mapping[str, torch.Tensor | None],
+                 dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+    """Tensors keyed by port parameter name → {JAX leaf path: tensor}, the
+    layers of a stacked leaf stacked again (a new tensor on their device,
+    in their dtype), an unstacked leaf as it is. A missing or None tensor (a
+    parameter the loss does not reach) counts as zeros of ``dtype`` (the
+    parameter's by default)."""
     params = dict(model.named_parameters())
     layers: dict[str, dict] = {}
     for name, (path, i) in leaf_paths(model).items():
         t = tensors.get(name)
-        layers.setdefault(path, {})[i] = (
-            np.zeros(tuple(params[name].shape), np.float32) if t is None
-            else t.detach().to(torch.float32).cpu().numpy())
-    return {path: ls[None] if None in ls else np.stack([ls[i] for i in sorted(ls)])
+        if t is None:
+            p = params[name]
+            t = torch.zeros(p.shape, dtype=dtype or p.dtype, device=p.device)
+        layers.setdefault(path, {})[i] = t.detach()
+    return {path: ls[None] if None in ls else torch.stack([ls[i] for i in sorted(ls)])
             for path, ls in layers.items()}
 
 
-def params_to_jax(model: Model) -> dict[str, np.ndarray]:
-    """The model's parameters as the JAX tree's leaves ({path: numpy})."""
-    return to_jax(model, dict(model.named_parameters()))
-
-
-def from_jax(model: Model, tree: Mapping) -> dict[str, torch.Tensor]:
-    """A JAX tree shaped like the parameters (nested, or flat with "/"
-    keys; numpy leaves) → {port parameter name: fp32 tensor on the model's
-    device}: ``to_jax``'s inverse. Every leaf must be used and fit."""
+def unstack_leaves(model: Model, tree: Mapping[str, torch.Tensor],
+                   like: Mapping[str, tuple] | None = None) -> dict[str, torch.Tensor]:
+    """``stack_leaves``' inverse: {JAX leaf path: tensor} (flat, or nested)
+    → {port parameter name: a view of its layer}. Every leaf must be used
+    and fit: each layer shaped as its parameter, or as ``like`` says ({port
+    name: shape}, for leaves that are not shaped like the parameters)."""
     flat = flatten(tree)
     paths = leaf_paths(model)
     want = {path for path, _ in paths.values()}
@@ -98,22 +102,69 @@ def from_jax(model: Model, tree: Mapping) -> dict[str, torch.Tensor]:
     out = {}
     for name, p in model.named_parameters():
         path, i = paths[name]
-        arr = np.asarray(flat[path], dtype=np.float32)
-        if i is not None and arr.shape[:1] != (stacked[path],):
-            raise ValueError(f"{path}: shape {arr.shape}, need {stacked[path]} stacked layers")
-        src = arr if i is None else arr[i]
-        if tuple(src.shape) != tuple(p.shape):
-            raise ValueError(f"{path}: shape {arr.shape}, the port needs {tuple(p.shape)}"
+        t = flat[path]
+        if i is not None and tuple(t.shape[:1]) != (stacked[path],):
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, need {stacked[path]} stacked "
+                             "layers")
+        src = t if i is None else t[i]
+        shape = tuple(p.shape if like is None else like[name])
+        if tuple(src.shape) != shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, the port needs {shape}"
                              + ("" if i is None else " per stacked layer"))
-        out[name] = torch.from_numpy(np.ascontiguousarray(src)).to(p.device)
+        out[name] = src
     return out
+
+
+def numpy_leaf(t: torch.Tensor) -> np.ndarray:
+    """A tensor → numpy on the host in its dtype (bf16 as
+    ``ml_dtypes.bfloat16``)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def tensor_leaf(a) -> torch.Tensor:
+    """A numpy leaf → a host tensor: bf16 from ``ml_dtypes.bfloat16``
+    (bitwise), fp32 from any other float."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+
+
+def to_jax(model: Model, tensors: Mapping[str, torch.Tensor | None]) -> dict[str, np.ndarray]:
+    """Tensors keyed by port parameter name (the parameters, their
+    gradients, optimizer moments) → {JAX leaf path: numpy in the tensors'
+    dtype}, the layers of a stacked leaf stacked again. A missing or None
+    tensor (a parameter the loss does not reach) counts as fp32 zeros."""
+    return {path: numpy_leaf(t)
+            for path, t in stack_leaves(model, tensors, torch.float32).items()}
+
+
+def params_to_jax(model: Model) -> dict[str, np.ndarray]:
+    """The model's parameters as the JAX tree's leaves ({path: numpy})."""
+    return to_jax(model, dict(model.named_parameters()))
+
+
+def from_jax(model: Model, tree: Mapping) -> dict[str, torch.Tensor]:
+    """A JAX tree shaped like the parameters (nested, or flat with "/"
+    keys; numpy leaves) → {port parameter name: tensor on the model's
+    device, bf16 for a bf16 leaf and fp32 otherwise}: ``to_jax``'s inverse.
+    Every leaf must be used and fit."""
+    tensors = {path: tensor_leaf(a) for path, a in flatten(tree).items()}
+    return {name: t.contiguous().to(model.device)
+            for name, t in unstack_leaves(model, tensors).items()}
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None) -> Model:
     """A ``Model`` of ``cfg`` holding the JAX model's parameters ``tree`` (its
-    pytree with numpy leaves, nested or flat with "/" keys). Every leaf must
-    be used and have the shape the port expects; the bf16 weight copies are
-    made after loading."""
+    pytree with numpy leaves, nested or flat with "/" keys), stored in the
+    config's ``param_dtype`` (fp32 leaves are rounded to a bf16 one). Every
+    leaf must be used and have the shape the port expects; the bf16 weight
+    copies are made after loading."""
     model = Model(cfg, device=device)
     values = from_jax(model, tree)
     with torch.no_grad():

@@ -16,13 +16,16 @@ from repro_torch.models.parallel import COMPUTE_DTYPE, col_parallel, row_paralle
 
 
 class CastOnce(nn.Module):
-    """A module with fp32 parameters (the config's ``param_dtype``) whose
-    matmul weights, named in ``compute``, are read in bf16 through ``cw``.
+    """A module whose parameters are made in fp32 (``Model`` then stores them
+    in the config's ``param_dtype``) and whose matmul weights, named in
+    ``compute``, are read in bf16 through ``cw``.
     The JAX model casts each fp32 weight to bf16 at every use
     (``w.astype(compute_dtype)``). While autograd records and the weight
     requires a gradient (training), ``cw`` casts it so too, inside the graph;
     otherwise it returns a bf16 copy made once (``<name>_c``, a buffer kept
     out of the state dict), the same numbers without the per-call cast.
+    A parameter stored in bf16 is its own copy: ``<name>_c`` is the
+    parameter's storage, not a second tensor.
     Parameters are made with ``requires_grad=False``, so a served model keeps
     no autograd state; a trainer turns them on (``requires_grad_()``).
     ``Model.cast_weights`` remakes the copies and must run after any change
@@ -44,8 +47,8 @@ class CastOnce(nn.Module):
 
     @torch.no_grad()
     def cast_weights(self) -> None:
-        for name in self.compute:
-            self.register_buffer(f"{name}_c", getattr(self, name).to(COMPUTE_DTYPE),
+        for name in self.compute:  # detach: a bf16 parameter aliases, not copies
+            self.register_buffer(f"{name}_c", getattr(self, name).detach().to(COMPUTE_DTYPE),
                                  persistent=False)
 
 

@@ -1,8 +1,10 @@
 """Model assembly: every block kind of the LM, and its prefill and decode steps.
 
 The counterpart of ``repro/models/model.py`` on one card. ``Model`` owns the
-parameters (fp32, with bf16 copies of the matmul weights: ``layers.
-CastOnce``). The JAX model scans a superblock of layers (RecurrentGemma's
+parameters, stored in the config's ``param_dtype`` (fp32; bf16 for
+grok-1-314b), with bf16 copies of the fp32 matmul weights (``layers.
+CastOnce``; a bf16 weight is its own copy). The JAX model scans a
+superblock of layers (RecurrentGemma's
 (rec, rec, attn_local); one layer elsewhere) over stacked parameters and
 unrolls a tail; here ``Model.blocks`` is the flat list of layers in the
 order they run, and ``Model.layout`` names each layer's place in the JAX
@@ -193,9 +195,10 @@ class Model(CastOnce):
     ``block_pattern``, an encoder for enc-dec configs, the final norm and a
     head tied to the embedding (or its own). Parameters are made on
     ``device`` (``None``: the card) by the init law of the JAX model
-    (``common.init_tensor``) from a ``torch.Generator`` seeded with
-    ``seed`` (``device="meta"``: the layout alone); ``convert.params_from_jax``
-    loads the JAX model's instead."""
+    (``common.init_tensor``: fp32) from a ``torch.Generator`` seeded with
+    ``seed`` (``device="meta"``: the layout alone), then stored in the
+    config's ``param_dtype``, as ``init_params`` rounds them;
+    ``convert.params_from_jax`` loads the JAX model's instead."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
         super().__init__()
@@ -220,6 +223,10 @@ class Model(CastOnce):
                                         for _ in range(cfg.enc_layers))
         if cfg.enc_layers:
             self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, gen, device)
+        dtype = getattr(torch, cfg.param_dtype)
+        if dtype != torch.float32:
+            for p in self.parameters():
+                p.data = p.data.to(dtype)
         self.cast_weights()
 
     @property

@@ -25,9 +25,34 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import CastOnce, act_fn
 
 
+def expert_counts(experts: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """How many of the (token, choice) pairs ``experts`` each expert takes,
+    int64 (n_experts,). On the meta device, which holds shapes and no values
+    (the dry run), the result is shape only: see ``group_sizes``."""
+    if experts.device.type == "meta":
+        return torch.empty((n_experts,), dtype=torch.int64, device="meta")
+    return torch.bincount(experts.reshape(-1), minlength=n_experts)
+
+
+def group_sizes(experts: torch.Tensor, n_experts: int) -> list[int]:
+    """Each expert's row count on the host (one sync). On the meta device
+    there are no choices to count, and the dry run takes BALANCED routing:
+    top_k · tokens / n_experts rows an expert, the remainder one each to the
+    first experts."""
+    if experts.device.type == "meta":
+        q, r = divmod(experts.numel(), n_experts)
+        return [q + (e < r) for e in range(n_experts)]
+    return expert_counts(experts, n_experts).tolist()
+
+
+BALANCED = ("balanced routing on the meta device: top_k · tokens / n_experts rows an expert "
+            "(moe.group_sizes)")
+
+
 class MoE(CastOnce):
     """Top-k routed gated-MLP experts. Parameters as the JAX leaves (tp = 1):
-    router (d, E) fp32, wi_gate/wi_up (E, d, d_expert), wo (E, d_expert, d)."""
+    router (d, E), wi_gate/wi_up (E, d, d_expert), wo (E, d_expert, d), in the
+    config's ``param_dtype``."""
 
     compute = ("wi_gate", "wi_up", "wo")
 
@@ -43,7 +68,7 @@ class MoE(CastOnce):
 
     def probs(self, x: torch.Tensor) -> torch.Tensor:
         """x (n, d) → the router's fp32 softmax (n, E)."""
-        return torch.softmax(x.to(torch.float32) @ self.router, dim=-1)
+        return torch.softmax(x.to(torch.float32) @ self.router.to(torch.float32), dim=-1)
 
     def route(self, x: torch.Tensor):
         """x (n, d) → (gates (n, k) in x's dtype, experts (n, k) int64):
@@ -61,8 +86,7 @@ class MoE(CastOnce):
         m = self.cfg.moe
         probs = self.probs(x)
         experts = torch.topk(probs, m.top_k, dim=-1).indices.reshape(-1)
-        ce = torch.bincount(experts, minlength=m.n_experts).to(torch.float32) / max(
-            1, experts.numel())
+        ce = expert_counts(experts, m.n_experts).to(torch.float32) / max(1, experts.numel())
         return m.n_experts * torch.sum(probs.mean(0) * ce) * m.router_aux_weight
 
     def expert(self, x: torch.Tensor, w: tuple[torch.Tensor, ...], e: int) -> torch.Tensor:
@@ -106,7 +130,7 @@ class MoE(CastOnce):
         n, k = experts.shape
         order = torch.argsort(experts.reshape(-1), stable=True)
         tok = torch.div(order, k, rounding_mode="floor")
-        sizes = torch.bincount(experts.reshape(-1), minlength=self.cfg.moe.n_experts).tolist()
+        sizes = group_sizes(experts, self.cfg.moe.n_experts)
         rows = flat[tok]
         g = gates.reshape(-1)[order, None]
         w = (self.cw("wi_gate"), self.cw("wi_up"), self.cw("wo"))

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import collectives as coll
 from repro_torch.core.scenarios import Scenario
-from repro_torch.mesh import Mesh
+from repro_torch.mesh import Mesh, note_collective
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -107,16 +107,25 @@ def fsdp_aggregate(g: torch.Tensor, mesh: Mesh, dim: int | None,
     one ``ring_fused_step``. With ``dim`` None (a leaf that is not FSDP
     sharded) it is ``sync_gradients``' sum over the world. Returns the whole
     aggregated leaf: the ranks' chunks concatenated along ``dim``, which is
-    what the next step's all-gather of the updated weights amounts to."""
+    what the next step's all-gather of the updated weights amounts to.
+    ``mesh.count_collectives`` sees the collectives that the reference runs
+    here (the psum, the psum_scatter, S1's all-gathers, the rings'
+    ppermutes), with every rank's output bytes."""
     nm, world = mesh.ndim, mesh.size
     sc = Scenario(scenario)
     if dim is not None and g.shape[nm + dim] % world:
         raise ValueError(f"FSDP dim {dim} of a {tuple(g.shape[nm:])} gradient does not split "
                          f"over {world} ranks")
+    leaf_bytes = g.numel() // world * g.element_size()
     if dim is None or sc is Scenario.NATIVE:
+        note_collective("all-reduce" if dim is None else "reduce-scatter",
+                        leaf_bytes * (world if dim is None else 1))
         return g.reshape((world,) + g.shape[nm:]).sum(0)
     if sc is Scenario.S1_HOST:
-        for _ in mesh.axis_names:
+        per = leaf_bytes  # each rank gathers its axis' gradients, then keeps its chunk
+        for ax in mesh.axis_names:
+            note_collective("all-gather", world * mesh.axis_size(ax) * per)
+            per //= mesh.axis_size(ax)
             g = g.sum(0)
         return g
     wire = sc is Scenario.S3_IN_NET_MAP

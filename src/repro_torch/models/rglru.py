@@ -57,7 +57,7 @@ class RGLRU(CastOnce):
         xf = xin.to(torch.float32)
         r = torch.sigmoid(xf * self.gate_a_w + self.gate_a_b)
         i = torch.sigmoid(xf * self.gate_i_w + self.gate_i_b)
-        a = torch.exp(-RG_C * F.softplus(self.lam) * r)
+        a = torch.exp(-RG_C * F.softplus(self.lam.to(torch.float32)) * r)
         gated_x = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * xf)
         if state is not None:
             y = (a[:, 0] * state["h"] + gated_x[:, 0])[:, None]

@@ -108,8 +108,9 @@ class SSM(CastOnce):
         z = x @ self.cw("w_z")
         xin, conv_x = causal_conv1d(x @ self.cw("w_x"), self.conv_x, st.get("conv_x"))
         bc, conv_bc = causal_conv1d(x @ self.cw("w_bc"), self.conv_bc, st.get("conv_bc"))
-        A = -torch.exp(self.A_log)
-        dt = torch.clamp(F.softplus((x @ self.cw("w_dt")).to(torch.float32) + self.dt_bias),
+        A = -torch.exp(self.A_log.to(torch.float32))
+        dt = torch.clamp(F.softplus((x @ self.cw("w_dt")).to(torch.float32)
+                                    + self.dt_bias.to(torch.float32)),
                          sc.dt_min, sc.dt_max * 100)
         xh = xin.view(b, s, heads, hd)
         gidx = (torch.arange(heads, device=x.device) * G) // heads  # head → group
