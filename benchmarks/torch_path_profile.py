@@ -10,7 +10,10 @@ sharded scan and the pipeline), then the serving prefill (``serve_inputs`` and
 through ``flash_attention``) and each other block family's (``family_inputs``,
 ``family_prefill_paths``: 4 × 2,048 positions, attention through
 ``flash_attention`` where it applies, granite-moe's MoE combine through
-``segment_reduce``), then a train step of Qwen1.5-0.5B under S3 on 8 ranks
+``segment_reduce``), then the prefills served across a (data, model) mesh
+(``mesh_inputs``, ``mesh_prefill_paths``: Qwen1.5-0.5B at (2, 4),
+granite-moe at (1, 16) with its MoE on the all-to-all dispatch, mamba2 at
+(2, 2)), then a train step of Qwen1.5-0.5B under S3 on 8 ranks
 and of granite-moe-1b-a400m on one (``train_inputs``, ``train_paths``: 8 ×
 2,048 and 4 × 2,048 tokens), each once to warm up, then twice under ``torch.profiler``
 (CPU + CUDA activity), each call inside a ``record_function`` window that
@@ -78,6 +81,8 @@ def main() -> int:
         yield from chip_smoke.prefill_paths(*chip_smoke.serve_inputs()).items()
         for arch in chip_smoke.FAMILY_ARCHS:  # one model at a time: the loop drops each call
             yield from chip_smoke.family_prefill_paths(*chip_smoke.family_inputs(arch)).items()
+        for arch in chip_smoke.MESH_SERVE:  # the TP prefills over their meshes
+            yield from chip_smoke.mesh_prefill_paths(arch, *chip_smoke.mesh_inputs(arch)).items()
         for arch, sc, mesh, batch in (
                 (chip_smoke.TRAIN_ARCH, "s3_in_net_map", "8,1", chip_smoke.TRAIN_BATCH),
                 (chip_smoke.MOE_TRAIN_ARCH, "native", "1,1", chip_smoke.MOE_TRAIN_BATCH)):

@@ -130,6 +130,32 @@
    memory within ``DRYRUN_PEAK_TOL`` of the dry run's and its FLOPs within
    ``DRYRUN_FLOP_TOL``.
 
+9. Serves across a ("data", "model") mesh of world dims (``MESH_SERVE``),
+   at full width and depth, random weights from ``SEED``, through
+   ``launch.serve.generate`` over the mesh (the batch device-major, its rows
+   held once): Qwen1.5-0.5B at (2, 4) (tp 4; 8 × 4,096 tokens, 32 greedy
+   tokens), granite-moe-1b-a400m at (1, 16) (tp 16, kv 8 over 16 ranks:
+   dup span 2; 32 experts, 2 slots a rank; the prefill's MoE on the
+   all-to-all dispatch at capacity 1.25; 4 × 2,048, 16 tokens) and
+   mamba2-1.3b at (2, 2) (4 × 2,048, 16 tokens). Launches are held to
+   ``MESH_LAUNCHES``. Qwen1.5, sharpened as in 5: the TP prefill's
+   last-position logits against the tp = 1 route of the same model within
+   ``TP_TOL``, its first token equal wherever the tp = 1 route's top-two
+   margin exceeds twice their largest logit difference (on at least
+   ``DECISIVE_SHARE`` of the rows, and every row's token among that
+   route's top two), the greedy tokens' agreement over 32 printed; the
+   compute-at-data decode against the gather decode on one cache within
+   ``CAD_TOL``, tokens likewise.
+   granite-moe: every layer's a2a route against the replicated route on the
+   layer's own input, on every token none of whose assignments dropped,
+   within ``A2A_TOL`` (the dropped share printed); the a2a combine on
+   ``segment_reduce`` against its plain version within ``COMBINE_TOL``.
+   Every model's cache held consistent (``cache_consistency``;
+   granite-moe's a2a prefill at ``no_drop_capacity``, so that it computes
+   the dropless function of the longer prefill's route). Then
+   ``flash_attention`` and ``segment_reduce`` at the TP path's shapes
+   against their plain versions, timed.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that last line. Needs one CUDA device.
@@ -139,11 +165,13 @@ aggregation, compiled-plan and scheduler paths, ``recurrence_inputs`` and
 ``recurrence_paths`` of the scan and pipeline ones, ``serve_inputs``,
 ``serve_paths`` and ``prefill_paths`` of the serving ones, ``family_inputs``,
 ``family_paths`` and ``family_prefill_paths`` of the other block kinds',
-``train_inputs`` and ``train_paths`` of training's;
+``train_inputs`` and ``train_paths`` of training's, ``mesh_inputs``,
+``mesh_paths`` and ``mesh_prefill_paths`` of serving across a mesh;
 ``benchmarks/torch_path_profile.py`` profiles the same tables.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import subprocess
@@ -281,6 +309,42 @@ MOE_CKPT_LAYERS = 4
 # the dry run against the card, on the cells it says fit: the peak within
 # 25% of the card's (the allocator rounds and caches), the FLOPs within 1e-6
 DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL, DRYRUN_JOBS = 0.25, 1e-6, 8
+# serving across a (data, model) mesh (phase 9): arch → (mesh, global batch,
+# prompt, greedy tokens). qwen1.5 at (2, 4): tp 4, 2 data ranks × 4 rows;
+# granite-moe at (1, 16), the reference's production model axis: tp 16, kv 8
+# (dup span 2), 32 experts (2 slots a rank), the MoE prefill on the a2a
+# dispatch at the config's capacity 1.25; mamba2 at (2, 2), the mesh the
+# reference's own tests serve it on (tests/test_train_e2e.py:70-80)
+MESH_SERVE = {"qwen1.5-0.5b": ((2, 4), 8, 4096, 32),
+              "granite-moe-1b-a400m": ((1, 16), 4, 2048, 16),
+              "mamba2-1.3b": ((2, 2), 4, 2048, 16)}
+# launches of one served path over the mesh: (flash_attention, segment_reduce)
+MESH_LAUNCHES = {"qwen1.5-0.5b": (24, 0), "granite-moe-1b-a400m": (24, 24),
+                 "mamba2-1.3b": (0, 0)}
+# the warm TP prefills that benchmarks/torch_path_profile.py traces
+MESH_PREFILL_NAMES = {"qwen1.5-0.5b": "serve_prefill_tp_qwen1.5",
+                      "granite-moe-1b-a400m": "prefill_tp_granite_moe",
+                      "mamba2-1.3b": "prefill_tp_mamba2"}
+# TP prefill vs the tp = 1 route of the same weights, normwise relative over
+# the last position's logits: the TP route rounds each of the 48 row-parallel
+# products (attention's and the MLP's output projections) as 4 bf16 partials
+# before their sum, where tp = 1 rounds one product: a few 2**-9 a layer, a
+# random walk over 24 layers, as SERVE_TOL's flash-vs-masked roundings are
+TP_TOL = SERVE_TOL
+# compute-at-data vs gather decode, one step on one cache, normwise relative
+# logits: the MLP's column products sum two bf16 d-slice partials where the
+# gather route rounds one product, 2**-9 a product over 24 layers
+CAD_TOL = 2e-2
+# the least share of rows on which a token check compares (its top-two margin
+# clear of the routes' logit difference); every other row's token must be
+# among the reference route's top two
+DECISIVE_SHARE = 0.5
+# a2a vs replicated MoE on the same input, on tokens none of whose
+# assignments dropped (rtol = atol): the reference's own, tests/test_train_e2e.py:63
+A2A_TOL = 2e-2
+# the a2a combine on the kernel vs its plain version, relative to the largest
+# sum: fp32 sums of 8 bf16 rows a token in another order (atomics)
+COMBINE_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1029,6 +1093,321 @@ def cache_consistency(model, batch, impl: str) -> dict:
         h_ctl = model.decode_hidden(model.init_cache(b, s + 1, enc_len=enc_len), tok, s)
     return {"decode_vs_prefill": rel_err(h_dec, h_full), "control": rel_err(h_ctl, h_full),
             "finite": bool(torch.isfinite(h_dec).all())}
+
+
+def mesh_inputs(arch: str):
+    """``arch`` at full width and depth served over its ``MESH_SERVE`` mesh
+    on the card: (the model under the mesh's ``ShardEnv``, weights from a
+    ``torch.Generator`` seeded with ``SEED``; the mesh; the prompt rows held
+    once, ``launch.serve.prompt_batch`` from ``SEED``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, steps
+    from repro_torch.mesh import Mesh
+    from repro_torch.models.model import Model
+
+    dims, gb, prompt, _ = MESH_SERVE[arch]
+    cfg = get_config(arch)
+    mesh = Mesh(("data", "model"), dims, device="cuda")
+    model = Model(cfg, device="cuda", seed=SEED, env=steps.make_env(cfg, mesh))
+    rep, b_loc = model.env.row_groups(gb)
+    return model, mesh, serve.prompt_batch(model, model.env.fsdp_size * rep * b_loc, prompt,
+                                           seed=SEED)
+
+
+def mesh_paths(arch: str, model, mesh, batch, compute_at_data: bool = False) -> dict:
+    """The serving path over the mesh, name → call: what ``python -m
+    repro_torch.launch.serve --mesh d,m`` runs, the prefill's attention
+    through ``flash_attention``."""
+    from repro_torch.launch import serve
+
+    _, gb, _, gen = MESH_SERVE[arch]
+    name = f"serve_tp_{'cad_' if compute_at_data else ''}{arch}"
+    return {name: lambda: serve.generate(model, batch, gen, impl="flash", mesh=mesh,
+                                         global_batch=gb, compute_at_data=compute_at_data)}
+
+
+def mesh_prefill_paths(arch: str, model, mesh, batch) -> dict:
+    """That path's prefill alone, over the device-major batch, writing a
+    cache allocated once (the warm prefill)."""
+    from repro_torch.launch import steps
+
+    _, gb, prompt, gen = MESH_SERVE[arch]
+    step = steps.make_prefill_step(model, global_batch=gb, seq=prompt, impl="flash", mesh=mesh)
+    cache = model.init_cache(batch.shape[0], prompt + gen)
+    dm = steps.device_major(model.env, batch, gb)
+    return {MESH_PREFILL_NAMES[arch]: lambda: step(dm, cache)}
+
+
+def decisive_equal(got, want_logits, diff: float) -> tuple[bool, int, bool]:
+    """Greedy tokens ``got`` (b,) against the argmax of ``want_logits`` (b,
+    V) wherever its top-two margin exceeds twice ``diff``, the largest
+    logit difference between the two routes: (equal there, how many rows,
+    whether every row's token is among ``want_logits``' top two)."""
+    import torch
+
+    top2, top2_ids = torch.topk(want_logits, 2, dim=-1)
+    decisive = (top2[:, 0] - top2[:, 1]) > 2 * diff
+    want = torch.argmax(want_logits, dim=-1).to(got.dtype)
+    in_top2 = bool((got[:, None] == top2_ids.to(got.dtype)).any(-1).all())
+    return bool((got == want)[decisive].all()), int(decisive.sum()), in_top2
+
+
+def tp_checks(arch: str, model, mesh, batch) -> dict:
+    """Qwen1.5 over its mesh, sharpened: the TP prefill against the tp = 1
+    route of the same model (logits, first token, the greedy tokens'
+    agreement), and the compute-at-data decode step against the gather one
+    on the same cache."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.models.parallel import ONE
+
+    _, gb, prompt, gen = MESH_SERVE[arch]
+    vocab = model.cfg.vocab
+    sharpen(model)
+    (name, fn), = mesh_paths(arch, model, mesh, batch).items()
+    toks_tp = fn()["tokens"]
+    with torch.inference_mode():
+        cache = model.init_cache(batch.shape[0], prompt + gen)
+        cache, h1 = model.prefill_hidden(batch, impl="flash", cache=cache, env=ONE)
+        tok = model.greedy(h1)
+        toks_1 = [tok]
+        for i in range(gen - 1):
+            tok, cache = M.decode_step(model, cache, tok, prompt + i, ONE)
+            toks_1.append(tok)
+        del cache
+        toks_1 = torch.stack(toks_1, 1)
+        lg1 = model.logits(h1)[:, :vocab]
+        cache, htp = model.prefill_hidden(batch, impl="flash",
+                                          cache=model.init_cache(batch.shape[0], prompt + 1))
+        lgtp = model.logits(htp)[:, :vocab]
+        diff = float((lgtp - lg1).abs().max())
+        first_ok, first_rows, first_top2 = decisive_equal(model.greedy(htp), lg1, diff)
+        tok = model.greedy(htp)
+        hg = model.decode_hidden(cache, tok, prompt)
+        hc = model.decode_hidden(cache, tok, prompt,
+                                 dataclasses.replace(model.env, compute_at_data=True))
+        lgg, lgc = model.logits(hg)[:, :vocab], model.logits(hc)[:, :vocab]
+        cdiff = float((lgc - lgg).abs().max())
+        cad_ok, cad_rows, cad_top2 = decisive_equal(model.greedy(hc), lgg, cdiff)
+    return {"tp_vs_tp1_logits": rel_err(lgtp, lg1), "tp_vs_tp1_max_abs": diff,
+            "first_token_equal": first_ok, "first_token_rows_compared": first_rows,
+            "first_token_in_top_two": first_top2, "rows": int(batch.shape[0]),
+            "greedy_agreement": float((toks_tp == toks_1).float().mean()),
+            "cad_vs_gather_logits": rel_err(lgc, lgg), "cad_vs_gather_max_abs": cdiff,
+            "cad_token_equal": cad_ok, "cad_rows_compared": cad_rows, "cad_in_top_two": cad_top2,
+            "finite": bool(torch.isfinite(lgtp).all() and torch.isfinite(lgc).all())}
+
+
+def a2a_checks(model, batch) -> dict:
+    """granite-moe over its mesh: every MoE layer of a served prefill, on
+    the layer's own input, through the a2a route and the replicated route
+    with the same route: the worst difference over the tokens none of whose
+    assignments dropped (as ``np.allclose``'s rtol = atol: max |a - r| /
+    (1 + |r|)), and the dropped share."""
+    import torch
+
+    env = model.env
+    worst, dropped, layers = 0.0, [], 0
+
+    def hook(mod, args, kwargs, out):
+        nonlocal worst, layers
+        h = args[0]
+        flat = h.reshape(-1, h.shape[-1])
+        route = mod.route(flat)
+        y, info = mod.a2a(h, env, route=route)
+        rep = mod.replicated(flat, *route, env).reshape(h.shape)
+        kept = info["keep"].all(-1)
+        err = ((y.float() - rep.float()).abs() / (1 + rep.float().abs()))[kept]
+        worst = max(worst, float(err.max()))
+        dropped.append(float(1 - info["keep"].float().mean()))
+        layers += 1
+
+    handles = [b.moe.register_forward_hook(hook, with_kwargs=True) for b in model.blocks]
+    try:
+        with torch.inference_mode():
+            model.prefill_hidden(batch, impl="flash")
+    finally:
+        for h in handles:
+            h.remove()
+    return {"a2a_vs_replicated_worst": worst, "layers": layers,
+            "dropped_share_mean": sum(dropped) / len(dropped), "dropped_share_max": max(dropped)}
+
+
+def no_drop_capacity(model) -> float:
+    """The capacity factor at which no assignment of ``model``'s a2a MoE can
+    drop. A destination rank holds e_loc experts (or one replica of one),
+    and each token picks k distinct experts, so at most n · min(k, e_loc) of
+    a source rank's n·k assignments meet there; cap = n · k · factor / tp."""
+    m, tp = model.cfg.moe, model.env.tp
+    return tp * min(m.top_k, max(1, m.n_experts // tp)) / m.top_k
+
+
+def at_capacity(model, factor: float | None):
+    """A context in which every MoE layer of ``model`` runs at capacity
+    ``factor`` (None: as configured)."""
+    import dataclasses
+
+    stack = contextlib.ExitStack()
+    if factor is not None:
+        cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(model.cfg.moe,
+                                                                     capacity_factor=factor))
+        for b in model.blocks:
+            if getattr(b, "moe", None) is not None:
+                stack.enter_context(mock.patch.object(b.moe, "cfg", cfg))
+    return stack
+
+
+def mesh_phase(drive, launches: dict, rows: list) -> dict:
+    """Phase 9: serving across a mesh (see the module doc). Adds its
+    launches to ``launches`` and its two kernel rows to ``rows``; returns
+    the phase's readings and checks."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve
+
+    fa = importlib.import_module("repro_torch.kernels.flash_attention").flash_attention
+    sr = importlib.import_module("repro_torch.kernels.segment_reduce").segment_reduce
+    stats, checks, captured = {}, {}, {}
+    for arch, (dims, gb, prompt, gen) in MESH_SERVE.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        model, mesh, batch = mesh_inputs(arch)
+        torch.cuda.synchronize()
+        cfg, env = model.cfg, model.env
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        log(f"serve {arch} over a (data, model) = {dims} mesh: tp {env.tp}, rep {env.rep}, "
+            f"{cfg.n_layers} layers, d {cfg.d_model}, kv {cfg.n_kv_heads}, vocab {cfg.vocab} "
+            f"padded to {model.vocab_padded}, {held_gb:.3f} GB on the card, built in "
+            f"{time.perf_counter() - t:.2f} s; {gb} prompts x {prompt}, {gen} greedy tokens")
+        (name, fn), = mesh_paths(arch, model, mesh, batch).items()
+        res, got, _ = drive(name, fn)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = MESH_LAUNCHES[arch]
+        if (got["flash_attention"], got["segment_reduce"]) != want:
+            raise AssertionError(f"{name} made {got} launches, not {want[0]} flash_attention "
+                                 f"and {want[1]} segment_reduce")
+        toks = res["tokens"]
+        if toks.shape != (gb, gen) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"{name}: tokens {tuple(toks.shape)} out of shape or vocab")
+        cold = serve_walls(res, gb, gen)
+        cache_gb = sum(v.numel() * v.element_size() for v in
+                       importlib.import_module("repro_torch.models.convert").flatten(
+                           res["cache"]).values()) / 1e9
+        del res, toks
+        warm = serve_walls(serve.generate(model, batch, gen, impl="flash", mesh=mesh,
+                                          global_batch=gb), gb, gen)
+        st = {"cold": cold, "warm": warm, "held_gb": held_gb, "peak_gb": peak_gb,
+              "cache_gb": cache_gb}
+        if env.fsdp_size > 1 and cfg.d_ff:
+            (cname, cfn), = mesh_paths(arch, model, mesh, batch, compute_at_data=True).items()
+            cres, _, _ = drive(cname, cfn)
+            st["compute_at_data"] = serve_walls(cres, gb, gen)
+            del cres, cfn  # cfn's closure holds the model
+        stats[name] = st
+        log(f"  {json.dumps(st)}")
+        # the MoE's a2a prefill (s) at a capacity where nothing drops, so that
+        # it computes what the longer prefill's dropless route (s + 1) does
+        factor = no_drop_capacity(model) if want[1] else None
+        with at_capacity(model, factor):
+            c = {"consistency": cache_consistency(model, batch, "flash")}
+        cc = c["consistency"]
+        log(f"  cache consistency (limit {CONSIST_TOL}"
+            f"{'' if factor is None else f'; the MoE at capacity {factor}, no drops'}): "
+            f"{json.dumps(cc)}")
+        if (not cc["finite"] or cc["decode_vs_prefill"] > CONSIST_TOL
+                or cc["control"] <= CONSIST_TOL):
+            raise AssertionError(f"{name}: decode over the prefill's cache differs from the longer "
+                                 f"prefill, or the limit passes an empty cache: {cc}")
+        if want[0] and "flash" not in captured:  # the TP prefill's flash inputs, layer 0
+            real_fa = ops.flash_attention
+
+            def cap_fa(q, k, v, causal=True):
+                captured.setdefault("flash", (q.clone(), k.clone(), v.clone(), name))
+                return real_fa(q, k, v, causal=causal)
+
+            with mock.patch.object(ops, "flash_attention", cap_fa), torch.inference_mode():
+                model.prefill_hidden(batch, impl="flash")
+        if want[1]:
+            real_sr = ops.segment_reduce
+
+            def cap_sr(values, ids, n):
+                captured.setdefault("combine", (values.clone(), ids.clone(), n, name))
+                return real_sr(values, ids, n)
+
+            with mock.patch.object(ops, "segment_reduce", cap_sr), torch.inference_mode():
+                model.prefill_hidden(batch, impl="flash")
+            c["a2a"] = a2a_checks(model, batch)
+            log(f"  a2a vs replicated MoE, each layer on its own input (limit {A2A_TOL} on "
+                f"tokens with no dropped assignment): {json.dumps(c['a2a'])}")
+            if c["a2a"]["a2a_vs_replicated_worst"] > A2A_TOL or c["a2a"]["layers"] != cfg.n_layers:
+                raise AssertionError(f"{name}: the a2a MoE differs from the replicated: {c['a2a']}")
+        if arch == "qwen1.5-0.5b":
+            c["tp"] = tp_checks(arch, model, mesh, batch)
+            log(f"  TP vs tp = 1 (limit {TP_TOL}) and compute-at-data vs gather decode (limit "
+                f"{CAD_TOL}), sharpened weights, tokens compared on at least {DECISIVE_SHARE} "
+                f"of the rows: {json.dumps(c['tp'])}")
+            r = c["tp"]
+            floor = r["rows"] * DECISIVE_SHARE
+            if not (r["finite"] and r["tp_vs_tp1_logits"] <= TP_TOL and r["first_token_equal"]
+                    and r["first_token_rows_compared"] >= floor and r["first_token_in_top_two"]
+                    and r["cad_vs_gather_logits"] <= CAD_TOL and r["cad_token_equal"]
+                    and r["cad_rows_compared"] >= floor and r["cad_in_top_two"]):
+                raise AssertionError(f"{name}: TP or compute-at-data serving differs: {r}")
+        checks[name] = c
+        del model, batch, fn
+    # the two kernels at the TP paths' shapes: agreement and time
+    q, k, v, fpath = captured.pop("flash")
+    kout, pout = fa(q, k, v, causal=True), ref.flash_attention(q, k, v, causal=True)
+    row_err = row_rel_err(kout, pout)
+    if row_err > ROW_TOL[str(kout.dtype)]:
+        raise AssertionError(f"flash_attention at the TP prefill's shape: a row is {row_err} off")
+    fb, fh, fs, fd = q.shape
+    b_ms, b_by = bound_ms(4 * q.numel() * 2, 4 * fd * fb * fh * fs * (fs + 1) / 2,
+                          BF16_TC_OPS_PER_S)
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "launches": 0, "max_abs_err": max_abs_err([(kout, pout)]),
+        "ms": cuda_ms(lambda: fa(q, k, v, causal=True)),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, causal=True), iters=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True)),
+        "norm_rel_err": rel_err(kout, pout), "max_row_rel_err": row_err, "path": fpath,
+        "shape": f"q, k, v {tuple(q.shape)} bf16, causal: every tp rank's heads in one launch",
+    })
+    del q, k, v, kout, pout
+    values, ids, nseg, spath = captured.pop("combine")
+    ks, ps = sr(values, ids, nseg), ref.segment_reduce(values, ids, nseg)
+    comb_err = float((ks - ps).abs().max() / ps.abs().max())
+    if comb_err > COMBINE_TOL:
+        raise AssertionError(f"segment_reduce at the a2a combine: {comb_err} off (relative)")
+    ok = ids >= 0
+    vals32, ids64 = values[ok].float(), ids[ok].long()
+    lib_out = torch.zeros_like(ps)
+    kept = int(ok.sum())
+    b_ms, b_by = bound_ms(kept * values.shape[1] * values.element_size() + ids.numel() * 4
+                          + ps.numel() * 4, kept * values.shape[1])
+    rows.append({
+        "name": "segment_reduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_reduce.cu",
+        "replaces": "src/repro/kernels/segment_reduce.py:55",
+        "launches": 0, "max_abs_err": max_abs_err([(ks, ps)]), "rel_err": comb_err,
+        "ms": cuda_ms(lambda: sr(values, ids, nseg)),
+        "plain_ms": cuda_ms(lambda: ref.segment_reduce(values, ids, nseg)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, ids64, vals32)),
+        "path": spath,
+        "shape": f"values {tuple(values.shape)} bf16, ids ({ids.numel()},) int32 by rank and "
+                 f"token ({kept} kept), nseg={nseg}: the a2a combine of every rank at once",
+    })
+    return {"stats": stats, "checks": checks}
 
 
 def train_args(arch: str, scenario: str, mesh: str, global_batch: int, steps: int = 1,
@@ -2172,6 +2551,12 @@ def main() -> int:
     restart = restart_phase(launches)
     restart["wall_s"] = time.perf_counter() - t
     log(f"restart and dry run phase: {restart['wall_s']:.2f} s")
+
+    # 9. serving across a (data, model) mesh ------------------------------------
+    t = time.perf_counter()
+    mesh_serving = mesh_phase(drive, launches, rows)
+    mesh_serving["wall_s"] = time.perf_counter() - t
+    log(f"serving across a mesh phase: {mesh_serving['wall_s']:.2f} s")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was never launched on the main paths")
@@ -2206,6 +2591,7 @@ def main() -> int:
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "family_checks": family_checks, "training": training,
+                    "mesh_serving": mesh_serving,
                     "restart": {k: v for k, v in restart.items() if k != "dryrun"},
                     "dryrun": {k: v for k, v in restart["dryrun"].items() if k != "records"},
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,

@@ -4,6 +4,8 @@
         --batch 8 --prompt-len 4096 --gen 32
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --smoke \
         --batch 2 --prompt-len 32 --gen 8 --device cpu
+    python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke --mesh 2,4 \
+        --device cpu
 
 The port of ``repro/launch/serve.py`` on one device (``--device``, the card
 by default), for every arch of ``repro_torch.configs``. Every cache leaf is
@@ -18,7 +20,10 @@ embeddings of ``--enc-len`` positions and a token prompt. ``--impl flash``
 (the default on the card) runs the prefill self-attention through the
 ``flash_attention`` kernel where the kernel computes the layer's function
 (``models.model.attention_impl``), ``masked`` through the JAX model's
-chunked attention; decode is the same for both.
+chunked attention; decode is the same for both. ``--mesh d,m`` serves
+across a ``("data", "model")`` mesh of world dims (default 1,1): the
+model's tp ranks from ``cfg.resolve_tp(m)``, the batch in the device-major
+layout of ``launch.shapes.batch_layout`` and its distinct rows held once.
 """
 from __future__ import annotations
 
@@ -28,7 +33,9 @@ import time
 
 import torch
 
+from repro_torch.launch import shapes
 from repro_torch.launch import steps as steps_lib
+from repro_torch.mesh import Mesh
 from repro_torch.models.model import Model
 
 GRID_SIDE = 32  # a frame of 32 × 32 patches: 448 × 448 pixels at qwen2-vl's 14-pixel patch
@@ -75,20 +82,28 @@ def prompt_batch(model: Model, b: int, s: int, *, seed: int, enc_len: int | None
             "enc_positions": torch.arange(n, device=dev, dtype=torch.int32)[None].expand(b, n)}
 
 
-def generate(model: Model, batch, gen: int, *, impl: str) -> dict:
+def generate(model: Model, batch, gen: int, *, impl: str, mesh: Mesh | None = None,
+             global_batch: int | None = None, compute_at_data: bool = False) -> dict:
     """Prefill ``batch`` (tokens (b, s) or a dict of the model's inputs),
     then decode greedily to ``gen`` tokens in all (the prefill's next token
-    is the first). Returns ``{"tokens": (b, gen) int32 on the model's
-    device, "cache", "prefill_s", "decode_s"}``; times are host walls that
-    end in a device synchronise."""
+    is the first). With a ``mesh``, ``batch`` holds the distinct rows of a
+    ``global_batch`` (``steps.rows_of``) and the steps run over the mesh
+    in its device-major layout; ``compute_at_data`` takes the decode's
+    compute-at-data route. Returns ``{"tokens": (b, gen) int32 on the
+    model's device, "cache", "prefill_s", "decode_s"}``; times are host
+    walls that end in a device synchronise."""
     if gen < 1:
         raise ValueError(f"gen must be at least 1, got {gen}")
     b, s = steps_lib.batch_shape(batch)
-    pstep = steps_lib.make_prefill_step(model, global_batch=b, seq=s, impl=impl)
-    sstep = steps_lib.make_serve_step(model, global_batch=b, seq_max=s + gen)
+    gb = b if mesh is None else global_batch
+    pstep = steps_lib.make_prefill_step(model, global_batch=gb, seq=s, impl=impl, mesh=mesh)
+    sstep = steps_lib.make_serve_step(model, global_batch=gb, seq_max=s + gen, mesh=mesh,
+                                      compute_at_data=compute_at_data)
     dev = model.device
     enc = None if isinstance(batch, torch.Tensor) else batch.get("enc_embeds")
     cache = model.init_cache(b, s + gen, enc_len=None if enc is None else enc.shape[1])
+    if mesh is not None:
+        batch = steps_lib.map_batch(batch, lambda v: steps_lib.device_major(model.env, v, gb))
     _sync(dev)
     t0 = time.perf_counter()
     cache, toks = pstep(batch, cache)
@@ -101,22 +116,30 @@ def generate(model: Model, batch, gen: int, *, impl: str) -> dict:
         toks, cache = sstep(cache, toks, s + i)
         out.append(toks)
     _sync(dev)
+    t_decode = time.perf_counter() - t0
+    if mesh is not None:
+        out = [steps_lib.rows_of(model.env, t, gb) for t in out]
     return {"tokens": torch.stack(out, 1), "cache": cache, "prefill_s": t_prefill,
-            "decode_s": time.perf_counter() - t0}
+            "decode_s": t_decode}
 
 
 def run(args):
     from repro_torch.configs import get_config, get_smoke_config
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = Model(cfg, device=args.device, seed=args.seed)
+    mesh = Mesh(("data", "model"), tuple(int(x) for x in args.mesh.split(",")),
+                device=args.device)
+    env = steps_lib.make_env(cfg, mesh)
+    model = Model(cfg, device=mesh.device, seed=args.seed, env=env)
     impl = args.impl or ("flash" if model.device.type == "cuda" else "masked")
-    batch = prompt_batch(model, args.batch, args.prompt_len, seed=args.seed,
-                         enc_len=args.enc_len)
-    res = generate(model, batch, args.gen, impl=impl)
-    gen = res["tokens"].cpu().numpy()  # (batch, gen)
+    dims, b_loc = shapes.batch_layout(env, args.batch)
+    rows = b_loc * (dims[0] if dims[-1] == 1 else dims[0] * env.rep)
+    batch = prompt_batch(model, rows, args.prompt_len, seed=args.seed, enc_len=args.enc_len)
+    res = generate(model, batch, args.gen, impl=impl, mesh=mesh, global_batch=args.batch)
+    gen = res["tokens"].cpu().numpy()  # (rows, gen)
     n_tok = gen.size
-    print(f"[serve] {cfg.name} on {model.device} ({impl}): prefill {args.batch}x"
+    print(f"[serve] {cfg.name} on {model.device} ({impl}), mesh {mesh.shape} (tp {env.tp}, "
+          f"rep {env.rep}): prefill {rows}x"
           f"{args.prompt_len} in {res['prefill_s']:.2f}s; decoded {n_tok} tokens in "
           f"{res['decode_s']:.2f}s ({n_tok / max(res['decode_s'], 1e-9):.1f} tok/s)")
     print("[serve] sample:", gen[0][:16].tolist())
@@ -133,7 +156,8 @@ def parser():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--enc-len", type=int, default=None,
                     help="encoder input length of an enc-dec model (default: --prompt-len)")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="1,1", help="data,model: the serving mesh")
+    ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--impl", choices=("flash", "masked"), default=None,
                     help="prefill attention (default: flash on the card, masked on the CPU)")
     return ap

@@ -6,11 +6,13 @@ each step on a data world: the port of ``repro/launch/shapes.py``.
     decode_32k  → the serve step  (one new token, a cache of seq_len)
     long_500k   → the serve step  (sub-quadratic archs only)
 
-Batched tensors are world-major: the mesh dims (``(W,)`` for ``("data",)``,
-``(pod, data)`` for a two-level mesh), then each rank's ``(b_loc, ...)``.
-The reference's device-major layout carries a model dim too, which is 1 on
-one card (tp = 1, no rep groups): the same numbers without it. A spec is
-{input name: (shape, dtype)}.
+Batched tensors are world-major: the mesh dims, then each rank's ``(b_loc,
+...)``. A training world (a ``Mesh`` of ``("data",)`` or ``("pod",
+"data")``) leads with its own dims; the reference's device-major layout
+adds a model dim of 1 there (tp = 1, no rep groups). A serving world (a
+``ShardEnv``) leads with the reference's dims: (pod,) data, and a model dim
+that is the model axis when the batch also splits over the rep groups and
+1 otherwise. A spec is {input name: (shape, dtype)}.
 """
 from __future__ import annotations
 
@@ -20,7 +22,9 @@ import torch
 
 from repro_torch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.parallel import local_batch
+from repro_torch.models.parallel import ShardEnv, local_batch
+
+World = Mesh | ShardEnv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +66,20 @@ def shape_applicable(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
     return True, ""
 
 
-def batch_layout(mesh: Mesh, global_batch: int) -> tuple[tuple[int, ...], int]:
-    """(the batch's leading mesh dims, each rank's rows)."""
-    return mesh.shape, local_batch(global_batch, mesh.size)
+def batch_layout(world: World, global_batch: int) -> tuple[tuple[int, ...], int]:
+    """(the batch's leading mesh dims, each rank's rows). Over a
+    ``ShardEnv`` the model dim is the model axis when the batch splits over
+    the rep groups too, and tiny batches (fewer rows than the fsdp world)
+    replicate, one row a rank."""
+    if isinstance(world, Mesh):
+        return world.shape, local_batch(global_batch, world.size)
+    md = world.model_size if world.batch_split_rep(global_batch) else 1
+    dims = (world.data_size, md) if world.pod_axis is None else (
+        world.pod_size, world.data_size, md)
+    return dims, world.local_batch(global_batch)
 
 
-def train_input_specs(cfg: ModelConfig, mesh: Mesh, seq: int, global_batch: int
+def train_input_specs(cfg: ModelConfig, mesh: World, seq: int, global_batch: int
                       ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """{input name: (shape, dtype)} of one training batch; enc-dec splits
     ``seq`` between encoder frames and decoder tokens."""
@@ -88,7 +100,7 @@ def train_input_specs(cfg: ModelConfig, mesh: Mesh, seq: int, global_batch: int
     return specs
 
 
-def prefill_input_specs(cfg: ModelConfig, mesh: Mesh, seq: int, global_batch: int
+def prefill_input_specs(cfg: ModelConfig, mesh: World, seq: int, global_batch: int
                         ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """The prefill's inputs: the training batch's without ``labels``."""
     specs = train_input_specs(cfg, mesh, seq, global_batch)
@@ -96,7 +108,7 @@ def prefill_input_specs(cfg: ModelConfig, mesh: Mesh, seq: int, global_batch: in
     return specs
 
 
-def decode_input_specs(cfg: ModelConfig, mesh: Mesh, global_batch: int
+def decode_input_specs(cfg: ModelConfig, mesh: World, global_batch: int
                        ) -> dict[str, tuple[tuple[int, ...], torch.dtype]]:
     """One decode step's inputs: a token a sequence and the cache length."""
     dims, b_loc = batch_layout(mesh, global_batch)

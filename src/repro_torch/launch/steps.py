@@ -1,10 +1,16 @@
 """Step builders on one card: the train step over a data world, prefill and
-one-token decode.
+one-token decode over a ``("data", "model")`` serving mesh.
 
 The port of ``repro/launch/steps.py``. There the steps are
 ``jax.jit``-compiled ``shard_map``s over a mesh with fixed shapes; here they
 are plain callables over a ``Model`` that check the shapes they were built
-for. The serving steps run under ``torch.inference_mode``. The train step
+for. The serving steps run under ``torch.inference_mode``. Built with a
+``mesh`` (world dims on the card; the model made with ``make_env``'s
+env), they take and give batches in the reference's device-major layout
+(``shapes.batch_layout``), hold the distinct rows once (``rows_of``) and run
+the model's tp ranks folded; ``compute_at_data`` is the serve step's
+compute-at-data route. Without a mesh they take (global_batch, ...) rows,
+as before. The train step
 runs a data world of W ranks, the world dims of a ``Mesh`` on the card, as
 the reference's ``make_train_step`` runs it on W devices with a model axis
 of 1: each rank's forward and backward on its own rows (a loop over the
@@ -14,12 +20,15 @@ clip and the AdamW update.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core.scenarios import Scenario
+from repro_torch.launch import shapes
 from repro_torch.mesh import Mesh
 from repro_torch.models import model as M
-from repro_torch.models.parallel import local_batch, loss_normalizer
+from repro_torch.models.parallel import ShardEnv, local_batch, loss_normalizer
 from repro_torch.models.specs import fsdp_dims
 from repro_torch.optim import AdamW, OptState, clip_by_global_norm, sync_gradients
 
@@ -32,35 +41,110 @@ def batch_shape(batch) -> tuple[int, int]:
     return tuple((batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[:2])
 
 
-def make_prefill_step(model: M.Model, *, global_batch: int, seq: int, impl: str = "masked"):
-    """``step(batch, cache=None) → (cache, next tokens (global_batch,)
-    int32)``; ``batch`` is prompt tokens (global_batch, seq) or a dict of
-    the model's inputs (``Model.prefill_hidden``). A ``cache`` longer than
-    ``seq`` (from ``model.init_cache``) is filled in place."""
+def make_env(cfg, mesh: Mesh, scenario: Scenario | str = Scenario.NATIVE) -> ShardEnv:
+    """The ``ShardEnv`` of ``cfg`` on ``mesh`` (axes among "pod", "data",
+    "model"; a missing model axis is 1): tp is ``cfg.resolve_tp``."""
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    model = sizes.get("model", 1)
+    return ShardEnv(model_size=model, data_size=sizes["data"], pod_size=sizes.get("pod", 1),
+                    tp=cfg.resolve_tp(model), scenario=Scenario(scenario),
+                    pod_axis="pod" if "pod" in sizes else None)
+
+
+def rows_of(env: ShardEnv, x: torch.Tensor, global_batch: int) -> torch.Tensor:
+    """A device-major batch tensor (``batch_layout``'s dims, b_loc, ...) →
+    its distinct rows, held once: (fsdp · (rep when the batch splits over the
+    rep groups) · b_loc, ...). A split batch's model dim gives each rep
+    group's rows at every tp rank of the group; they must be equal (the
+    reference sums the ranks' partials), and this raises where they are not."""
+    dims, b_loc = shapes.batch_layout(env, global_batch)
+    nd = len(dims)
+    if tuple(x.shape[:nd + 1]) != dims + (b_loc,):
+        raise ValueError(f"batch {tuple(x.shape)} does not lead with {dims + (b_loc,)}")
+    if dims[-1] > 1:
+        x = x.unflatten(nd - 1, (env.tp, env.rep))
+        first = x.select(nd - 1, 0)
+        if not torch.equal(x, first.unsqueeze(nd - 1).expand_as(x)):
+            raise ValueError("the tp ranks of a rep group hold different rows")
+        x = first
+    return x.flatten(0, nd)
+
+
+def device_major(env: ShardEnv, rows: torch.Tensor, global_batch: int) -> torch.Tensor:
+    """``rows_of``'s inverse: rows held once → the device-major layout, each
+    rep group's rows at every tp rank of the group."""
+    dims, b_loc = shapes.batch_layout(env, global_batch)
+    rest = tuple(rows.shape[1:])
+    if dims[-1] > 1:
+        x = rows.reshape(dims[:-1] + (1, env.rep, b_loc) + rest)
+        return x.expand(dims[:-1] + (env.tp, env.rep, b_loc) + rest).reshape(
+            dims + (b_loc,) + rest)
+    return rows.reshape(dims + (b_loc,) + rest)
+
+
+def _serving_env(model: M.Model, mesh: Mesh | None) -> ShardEnv:
+    if mesh is None:
+        return model.env
+    env = make_env(model.cfg, mesh)
+    have = model.env
+    if (have.model_size, have.data_size, have.pod_size, have.tp) != (
+            env.model_size, env.data_size, env.pod_size, env.tp):
+        raise ValueError(f"model made for {have}, the mesh {mesh.shape} needs {env}: make it "
+                         "with Model(cfg, env=steps.make_env(cfg, mesh))")
+    return env
+
+
+def map_batch(batch, fn):
+    """``fn`` over a batch: a tensor, or each tensor of a dict of inputs."""
+    return fn(batch) if isinstance(batch, torch.Tensor) else {k: fn(v) for k, v in batch.items()}
+
+
+def make_prefill_step(model: M.Model, *, global_batch: int, seq: int, impl: str = "masked",
+                      mesh: Mesh | None = None):
+    """``step(batch, cache=None) → (cache, next tokens int32)``; ``batch``
+    is prompt tokens or a dict of the model's inputs
+    (``Model.prefill_hidden``): (global_batch, seq, ...) rows without a
+    ``mesh``, the device-major layout of ``shapes.prefill_input_specs``
+    with one, and the next tokens come in the same layout. A ``cache``
+    longer than ``seq`` (from ``model.init_cache`` over the rows held once)
+    is filled in place."""
+    env = _serving_env(model, mesh)
 
     @torch.inference_mode()
     def step(batch, cache: dict | None = None):
-        if batch_shape(batch) != (global_batch, seq):
-            raise ValueError(f"prefill step built for {(global_batch, seq)}, got "
-                             f"{batch_shape(batch)}")
-        return M.prefill(model, batch, impl=impl, cache=cache)
+        if mesh is not None:
+            batch = map_batch(batch, lambda v: rows_of(env, v, global_batch))
+        b, s = batch_shape(batch)
+        want = (global_batch if mesh is None else b, seq)
+        if (b, s) != want:
+            raise ValueError(f"prefill step built for {want}, got {(b, s)}")
+        cache, nxt = M.prefill(model, batch, impl=impl, cache=cache, env=env)
+        return cache, nxt if mesh is None else device_major(env, nxt, global_batch)
 
     return step
 
 
-def make_serve_step(model: M.Model, *, global_batch: int, seq_max: int):
-    """``step(cache, tokens (global_batch,), cache_len) → (next tokens,
-    cache)``: one greedy decode step at position ``cache_len`` of a cache
-    allocated for ``seq_max`` positions, written in place."""
+def make_serve_step(model: M.Model, *, global_batch: int, seq_max: int,
+                    mesh: Mesh | None = None, compute_at_data: bool = False):
+    """``step(cache, tokens, cache_len) → (next tokens, cache)``: one greedy
+    decode step at position ``cache_len`` of a cache allocated for
+    ``seq_max`` positions, written in place. Tokens: (global_batch,), or
+    the device-major layout of ``shapes.decode_input_specs`` with a
+    ``mesh``. ``compute_at_data`` routes the decode activations to the
+    weights' fsdp d-slices (``parallel.serve_col_matmul``)."""
+    env = dataclasses.replace(_serving_env(model, mesh), compute_at_data=compute_at_data)
 
     @torch.inference_mode()
     def step(cache: dict, tokens: torch.Tensor, cache_len: int):
-        if tuple(tokens.shape) != (global_batch,):
+        if mesh is not None:
+            tokens = rows_of(env, tokens, global_batch)
+        elif tuple(tokens.shape) != (global_batch,):
             raise ValueError(f"serve step built for batch {global_batch}, got "
                              f"{tuple(tokens.shape)}")
         if not 0 <= int(cache_len) < seq_max:
             raise ValueError(f"cache_len {cache_len} outside the cache of {seq_max}")
-        return M.decode_step(model, cache, tokens, cache_len)
+        nxt, cache = M.decode_step(model, cache, tokens, cache_len, env)
+        return (nxt if mesh is None else device_major(env, nxt, global_batch)), cache
 
     return step
 

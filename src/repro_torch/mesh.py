@@ -147,37 +147,81 @@ class Mesh:
                 out[torch.tensor(dsts, device=x.device)] = xs[torch.tensor(srcs, device=x.device)]
         return _noted("collective-permute", out.movedim(0, a).contiguous())
 
+    def _groups(self, axis: str, axis_index_groups) -> tuple[torch.Tensor, torch.Tensor]:
+        """``axis_index_groups`` along ``axis`` (None: the whole axis) as two
+        index tensors: (p, k) each device's group members in group order,
+        and (p,) its position in its group."""
+        p = self.axis_size(axis)
+        groups = [list(range(p))] if axis_index_groups is None else [
+            [int(i) for i in g] for g in axis_index_groups]
+        if sorted(i for g in groups for i in g) != list(range(p)):
+            raise ValueError(f"axis_index_groups {axis_index_groups} must partition range({p})")
+        k = len(groups[0])
+        if any(len(g) != k for g in groups):
+            raise ValueError(f"axis_index_groups {axis_index_groups} are not of one size")
+        members = [None] * p
+        pos = [0] * p
+        for g in groups:
+            for j, m in enumerate(g):
+                members[m], pos[m] = g, j
+        return (torch.tensor(members, device=self.device), torch.tensor(pos, device=self.device))
+
     def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int = 0,
-                   concat_axis: int = 0, tiled: bool = False) -> torch.Tensor:
+                   concat_axis: int = 0, tiled: bool = False,
+                   axis_index_groups: Sequence[Sequence[int]] | None = None) -> torch.Tensor:
         """``lax.all_to_all``: chunk ``d`` of local dim ``split_axis`` on
         device ``s`` lands as chunk ``s`` of local dim ``concat_axis`` on
-        device ``d``; untiled, ``recv[d][s] = send[s][d]``."""
+        device ``d``; untiled, ``recv[d][s] = send[s][d]``. With
+        ``axis_index_groups``, ``s`` and ``d`` are positions within each
+        group, and each group exchanges on its own."""
         nm = self._local(x)
         a, p = self.dim(axis), self.axis_size(axis)
         s = nm + split_axis
-        if not tiled:
+        if axis_index_groups is None and not tiled:
             if x.shape[s] != p:
                 raise ValueError(f"split dim {x.shape[s]} != axis size {p}")
             return _noted("all-to-all", x.transpose(a, s).movedim(s, nm + concat_axis).contiguous())
-        n = x.shape[s]
-        if n % p:
-            raise ValueError(f"split dim {n} not divisible by axis size {p}")
-        y = x.reshape(x.shape[:s] + (p, n // p) + x.shape[s + 1:]).transpose(a, s)
-        # y's local dims: the split dim became (source, chunk); gather the
-        # sources into the concat dim, in source order
-        c = nm + concat_axis + (1 if concat_axis >= split_axis else 0)
-        j = c - 1 if c > s else c
-        y = y.movedim(s, j)
-        return _noted("all-to-all", y.reshape(y.shape[:j] + (y.shape[j] * y.shape[j + 1],)
-                                              + y.shape[j + 2:]).contiguous())
+        if axis_index_groups is None:
+            n = x.shape[s]
+            if n % p:
+                raise ValueError(f"split dim {n} not divisible by axis size {p}")
+            y = x.reshape(x.shape[:s] + (p, n // p) + x.shape[s + 1:]).transpose(a, s)
+            # y's local dims: the split dim became (source, chunk); gather the
+            # sources into the concat dim, in source order
+            c = nm + concat_axis + (1 if concat_axis >= split_axis else 0)
+            j = c - 1 if c > s else c
+            y = y.movedim(s, j)
+            return _noted("all-to-all", y.reshape(y.shape[:j] + (y.shape[j] * y.shape[j + 1],)
+                                                  + y.shape[j + 2:]).contiguous())
+        members, pos = self._groups(axis, axis_index_groups)
+        k = members.shape[1]
+        xs = x.movedim(a, 0)  # (p, other mesh dims, local)
+        if tiled:
+            if xs.shape[s] % k:
+                raise ValueError(f"split dim {xs.shape[s]} not divisible by group size {k}")
+            xs = xs.unflatten(s, (k, -1))
+        elif xs.shape[s] != k:
+            raise ValueError(f"split dim {xs.shape[s]} != group size {k}")
+        # device m takes chunk pos[m] from each member of its group, in group order
+        y = xs.movedim(s, 1)[members, pos[:, None]]  # (p, k sources, ...)
+        y = y.movedim(1, nm + concat_axis)
+        if tiled:
+            y = y.flatten(nm + concat_axis, nm + concat_axis + 1)
+        return _noted("all-to-all", y.movedim(0, a).contiguous())
 
-    def all_gather(self, x: torch.Tensor, axis: str, tiled: bool = False) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis: str, tiled: bool = False,
+                   axis_index_groups: Sequence[Sequence[int]] | None = None) -> torch.Tensor:
         """``lax.all_gather``: every device gets the (p, *local) stack of the
-        shards along ``axis`` (tiled: concatenated along local dim 0)."""
+        shards along ``axis`` (of its group's members, in group order, with
+        ``axis_index_groups``); tiled, concatenated along local dim 0."""
         nm = self._local(x)
         a, p = self.dim(axis), self.axis_size(axis)
-        y = x.movedim(a, nm - 1).unsqueeze(a)
-        out = y.expand(y.shape[:a] + (p,) + y.shape[a + 1:]).contiguous()
+        if axis_index_groups is None:
+            y = x.movedim(a, nm - 1).unsqueeze(a)
+            out = y.expand(y.shape[:a] + (p,) + y.shape[a + 1:]).contiguous()
+        else:
+            members, _ = self._groups(axis, axis_index_groups)
+            out = x.movedim(a, 0)[members].movedim(1, nm).movedim(0, a).contiguous()  # (..., k, local)
         if tiled:
             out = out.reshape(out.shape[:nm] + (-1,) + out.shape[nm + 2:])
         return _noted("all-gather", out)
@@ -186,23 +230,51 @@ class Mesh:
              ) -> torch.Tensor:
         """``lax.psum`` over one axis or a tuple of axes; with
         ``axis_index_groups`` (one axis only), each group sums on its own."""
+        return _noted("all-reduce", self._reduce(x, axes, axis_index_groups, torch.sum))
+
+    def pmax(self, x: torch.Tensor, axes, axis_index_groups: Sequence[Sequence[int]] | None = None
+             ) -> torch.Tensor:
+        """``lax.pmax``, as ``psum`` with the maximum."""
+        return _noted("all-reduce", self._reduce(x, axes, axis_index_groups, torch.amax))
+
+    def pmin(self, x: torch.Tensor, axes, axis_index_groups: Sequence[Sequence[int]] | None = None
+             ) -> torch.Tensor:
+        """``lax.pmin``, as ``psum`` with the minimum."""
+        return _noted("all-reduce", self._reduce(x, axes, axis_index_groups, torch.amin))
+
+    def _reduce(self, x, axes, axis_index_groups, op) -> torch.Tensor:
         self._local(x)
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         dims = [self.dim(a) for a in axes]
         if axis_index_groups is None:
-            return _noted("all-reduce", x.sum(dim=dims, keepdim=True).expand(x.shape).contiguous())
+            return op(x, dim=dims, keepdim=True).expand(x.shape).contiguous()
         if len(axes) != 1:
             raise ValueError("axis_index_groups needs exactly one axis")
-        a, p = dims[0], self.shape[dims[0]]
-        members = sorted(int(i) for g in axis_index_groups for i in g)
-        if members != list(range(p)):
-            raise ValueError(f"axis_index_groups {axis_index_groups} must partition range({p})")
-        xs = x.movedim(a, 0)
-        out = torch.empty_like(xs)
-        for g in axis_index_groups:
-            idx = torch.tensor([int(i) for i in g], device=x.device)
-            out[idx] = xs[idx].sum(0, keepdim=True).expand((len(g),) + xs.shape[1:])
-        return _noted("all-reduce", out.movedim(0, a).contiguous())
+        members, _ = self._groups(axes[0], axis_index_groups)
+        return op(x.movedim(dims[0], 0)[members], dim=1).movedim(0, dims[0]).contiguous()
+
+    def psum_scatter(self, x: torch.Tensor, axis: str, scatter_dimension: int = 0,
+                     tiled: bool = False,
+                     axis_index_groups: Sequence[Sequence[int]] | None = None) -> torch.Tensor:
+        """``lax.psum_scatter``: the sum over ``axis`` (over each group with
+        ``axis_index_groups``), of which device ``i`` (position ``i`` in its
+        group) keeps chunk ``i`` of local dim ``scatter_dimension``; untiled,
+        that dim has the group's size and is dropped."""
+        nm = self._local(x)
+        a = self.dim(axis)
+        members, pos = self._groups(axis, axis_index_groups)
+        k = members.shape[1]
+        s = nm + scatter_dimension
+        total = x.movedim(a, 0)[members].sum(1)  # (p, other mesh dims, local)
+        if tiled:
+            if total.shape[s] % k:
+                raise ValueError(f"scatter dim {total.shape[s]} not divisible by group size {k}")
+            total = total.unflatten(s, (k, -1))
+        elif total.shape[s] != k:
+            raise ValueError(f"scatter dim {total.shape[s]} != group size {k}")
+        rows = torch.arange(total.shape[0], device=x.device)
+        out = total.movedim(s, 1)[rows, pos]
+        return _noted("reduce-scatter", out.movedim(0, a).contiguous())
 
     # -- per-device indexing -----------------------------------------------
     def _per_device(self, index, n: int, size: int = 1) -> torch.Tensor:

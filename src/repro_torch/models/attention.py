@@ -1,7 +1,12 @@
 """Attention: grouped-query attention with the chunked online-softmax core,
 and multi-head latent attention (MLA).
 
-The counterpart of ``repro/models/attention.py`` on one card (tp = 1).
+The counterpart of ``repro/models/attention.py``. Over tp ranks each rank
+holds H/tp query heads and its kv slots (``gqa_dims``); when kv < tp, rank
+t reads logical kv head t // (tp / kv), which is the head its queries read
+at tp = 1, so the ranks' attention folded together is the whole model's:
+one launch over every rank's heads. The output projection is row-parallel,
+its tp partials summed in bf16 (``parallel.row_parallel``).
 Sequence mixing is chosen per step, as in the JAX model:
   * ``masked``   — every (q-chunk, kv-chunk) block pair, causal by mask;
   * ``triangle`` — only the block pairs that meet the causal triangle;
@@ -27,17 +32,19 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import CastOnce, RMSNorm, apply_rope
-from repro_torch.models.parallel import COMPUTE_DTYPE
+from repro_torch.models.parallel import COMPUTE_DTYPE, ShardEnv, row_parallel
 
 NEG_INF = -1e30
 IMPLS = ("masked", "triangle", "direct", "flash")
 TRAIN_IMPLS = ("masked", "triangle", "direct")  # the flash kernel has no backward
 
 
-def gqa_dims(cfg: ModelConfig):
-    """(q heads, kv slots, group, q heads per kv slot) on one card (tp = 1)."""
-    group = cfg.n_heads // cfg.n_kv_heads
-    return cfg.n_heads, cfg.n_kv_heads, group, group
+def gqa_dims(cfg: ModelConfig, env: ShardEnv | None = None):
+    """(a rank's q heads, its kv slots, group, q heads per kv slot)."""
+    tp = 1 if env is None else env.tp
+    hq_loc = cfg.n_heads // tp
+    kv_loc = max(1, cfg.n_kv_heads // tp)
+    return hq_loc, kv_loc, cfg.n_heads // cfg.n_kv_heads, hq_loc // kv_loc
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +209,8 @@ class GQAAttention(CastOnce):
         self.compute = tuple(names)
 
     def forward(self, x, *, rope=None, cache=None, cache_len=None, prefill_cache=None,
-                causal=True, window=None, impl="masked", cross_kv=None, cross_cache=None):
+                causal=True, window=None, impl="masked", cross_kv=None, cross_cache=None,
+                env: ShardEnv | None = None):
         """x (b, s, d) → (y (b, s, d), new_cache).
 
         ``cache``: {"k", "v"} (b, S, KV, hd), written in place at
@@ -218,7 +226,9 @@ class GQAAttention(CastOnce):
         cache is kept (``new_cache`` is None). ``rope``: (cos, sin) for the
         q positions. Cross-attention: ``cross_kv`` (b, s_enc, d), the memory
         that k/v are projected from (into ``prefill_cache`` when given), or
-        ``cross_cache``, k/v built at prefill."""
+        ``cross_cache``, k/v built at prefill. ``env``: the tp ranks, whose
+        output projection partials are summed; the cache is held once, with
+        the logical kv heads."""
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r} not in {IMPLS}")
         cfg = self.cfg
@@ -293,6 +303,8 @@ class GQAAttention(CastOnce):
                                   scale=1.0 / math.sqrt(hd), causal=causal, q_offset=q_offset,
                                   window=window, impl=impl, kv_len=kv_valid)
         y = y.reshape(b, s, hq * hd)
+        if env is not None and env.tp > 1:
+            return row_parallel(y, self.cw("wo"), env), new_cache
         return torch.matmul(y, self.cw("wo").to(y.dtype)), new_cache
 
 

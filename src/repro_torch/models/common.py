@@ -1,10 +1,11 @@
 """Model configuration and the parameter init law, shared by the model zoo.
 
-The counterpart of ``repro/models/common.py`` on one card: tp = 1 and
-fsdp = 1, so the ``LeafSpec``/``PartitionSpec`` layout machinery has no
-work to do and is not carried over. Parameters are ``nn.Parameter``s of
-the modules in ``layers``, ``attention`` and ``model``, laid out as the JAX
-leaves are (``convert`` maps one onto the other).
+The counterpart of ``repro/models/common.py``. Parameters are
+``nn.Parameter``s of the modules in ``layers``, ``attention`` and ``model``,
+laid out as the JAX leaves of a (1, 1) mesh are, held whole on the card
+(``convert`` maps one onto the other). Each leaf's storage facts (FSDP dim,
+TP dim, the slot layout of duplicated kv heads and experts) are in
+``specs``.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ class ModelConfig:
     tie_embeddings: bool = True
     norm_eps: float = 1e-5
     act: str = "silu"
-    tp: int = 0  # preferred TP degree; one card runs tp = 1
+    tp: int = 0  # preferred TP degree; 0 → auto (max valid divisor)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: bool = True
@@ -79,6 +80,24 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    def resolve_tp(self, model_size: int) -> int:
+        """Largest valid tp ≤ model_size (heads/kv/width divisibility)."""
+        if self.tp:
+            return min(self.tp, model_size)
+        for tp in (16, 8, 4, 2, 1):
+            if tp > model_size or model_size % tp:
+                continue
+            if self.family == "ssm":
+                if ((self.d_model * self.ssm.expand) // self.ssm.head_dim) % tp == 0:
+                    return tp
+                continue
+            if self.n_heads % tp:
+                continue
+            kv = self.n_kv_heads
+            if self.mla is not None or kv == 0 or kv % tp == 0 or tp % kv == 0:
+                return tp
+        return 1
 
     def param_count(self) -> int:
         """Total logical parameters (approx; excludes dup copies)."""

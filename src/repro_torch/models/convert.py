@@ -12,6 +12,13 @@ their dtype: numpy has no bf16 of its own, so a bf16 leaf comes out as
 ``ml_dtypes.bfloat16`` (the type the JAX package's arrays convert to; it
 comes with JAX) and goes in from one, or as a tensor (``stack_leaves``,
 ``unstack_leaves``).
+
+Under a ``ShardEnv`` the reference lays kv heads and experts out in slots
+with duplicate copies (``specs``) and pads the vocab to its model axis:
+``params_from_jax(..., env=...)`` reads the logical leaves out of the slots
+(and refuses copies that differ), and ``cache_to_jax(..., env=...)`` lays
+the port's caches, held once, out device-major as the reference's serving
+steps return them.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import Model
+from repro_torch.models.parallel import ONE, ShardEnv
 
 
 def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -159,14 +167,44 @@ def from_jax(model: Model, tree: Mapping) -> dict[str, torch.Tensor]:
             for name, t in unstack_leaves(model, tensors).items()}
 
 
-def params_from_jax(tree: Mapping, cfg: ModelConfig, *, device=None) -> Model:
-    """A ``Model`` of ``cfg`` holding the JAX model's parameters ``tree`` (its
-    pytree with numpy leaves, nested or flat with "/" keys), stored in the
-    config's ``param_dtype`` (fp32 leaves are rounded to a bf16 one). Every
-    leaf must be used and have the shape the port expects; the bf16 weight
-    copies are made after loading."""
-    model = Model(cfg, device=device)
-    values = from_jax(model, tree)
+def logical_slots(a, dim: int, env: ShardEnv, n_logical: int, path: str) -> np.ndarray:
+    """A leaf whose ``dim`` holds ``n_logical`` kv heads or experts in the
+    slots of ``env.dup_map`` → the logical leaf, each entity once. Raises
+    where the duplicate copies of an entity are not equal."""
+    a = np.asarray(a)
+    dm = env.dup_map(n_logical)
+    if a.shape[dim] != len(dm):
+        raise ValueError(f"{path}: shape {tuple(a.shape)} holds {a.shape[dim]} slots along dim "
+                         f"{dim}; tp {env.tp} over a model axis of {env.model_size} lays "
+                         f"{n_logical} out in {len(dm)}")
+    logical = np.take(a, [dm.index(e) for e in range(n_logical)], axis=dim)
+    if not np.array_equal(np.take(logical, dm, axis=dim), a):
+        raise ValueError(f"{path}: the duplicate copies of a slot are not equal")
+    return logical
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig, *, env: ShardEnv | None = None,
+                    device=None) -> Model:
+    """A ``Model`` of ``cfg`` under ``env`` (a (1, 1) mesh by default)
+    holding the JAX model's parameters ``tree`` (its pytree with numpy
+    leaves, nested or flat with "/" keys) as ``init_params(param_specs(cfg,
+    env), ...)`` lays them out: kv heads and experts in slots (read back to
+    the logical leaves; their duplicate copies must be equal), the vocab
+    padded to the model axis. Stored in the config's ``param_dtype`` (fp32
+    leaves are rounded to a bf16 one). Every leaf must be used and have the
+    shape the port expects; the bf16 weight copies are made after loading."""
+    from repro_torch.models import specs
+
+    env = ONE if env is None else env
+    flat = flatten(tree)
+    for path in flat:
+        key = specs.layer_leaf(path)
+        n = specs.dup_of(key, cfg)
+        if n:
+            stacked = path.split("/")[0] in ("blocks", "enc_blocks")
+            flat[path] = logical_slots(flat[path], specs.TP_DIM[key] + stacked, env, n, path)
+    model = Model(cfg, device=device, env=env)
+    values = from_jax(model, flat)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(values[name])
@@ -189,13 +227,47 @@ def opt_state_from_jax(state: Mapping, model: Model):
                     v=from_jax(model, state["v"]))
 
 
-def cache_to_jax(cache: Mapping, mesh_dims: int = 0) -> dict:
+def cache_to_jax(cache: Mapping, mesh_dims: int = 0, *, env: ShardEnv | None = None) -> dict:
     """The port's cache → the JAX cache pytree (the same tree), as float32
     numpy (bf16 values are exact in it), each leaf behind ``mesh_dims``
-    leading dims of 1 (the device-major layout of a (1, 1) mesh has two)."""
-    def leaf(t: torch.Tensor) -> np.ndarray:
+    leading dims of 1 (the device-major layout of a (1, 1) mesh has two).
+    With ``env``: the device-major layout of the reference's serving steps
+    on that mesh, (pod,) data, model, then each device's leaf: its rows (of
+    the rows held once, ``ShardEnv.row_groups``), its kv slots (``dup_map``)
+    and its tp slice of the SSM's heads and x channels."""
+    def leaf(t: torch.Tensor, name: str, rows_dim: int) -> np.ndarray:
         a = t.detach().to(torch.float32).cpu().numpy()
-        return a.reshape((1,) * mesh_dims + a.shape)
+        if env is None:
+            return a.reshape((1,) * mesh_dims + a.shape)
+        return _device_major_leaf(a, name, rows_dim, env)
 
-    return {k: cache_to_jax(v, mesh_dims) if isinstance(v, Mapping) else leaf(v)
-            for k, v in cache.items()}
+    def walk(tree: Mapping, rows_dim: int) -> dict:
+        return {k: walk(v, rows_dim) if isinstance(v, Mapping) else leaf(v, k, rows_dim)
+                for k, v in tree.items()}
+
+    # superblock leaves lead with the stacked superblocks, tail leaves with the rows
+    return {k: walk(v, int(k == "blocks")) for k, v in cache.items()}
+
+
+def _device_major_leaf(a: np.ndarray, name: str, rows_dim: int, env: ShardEnv) -> np.ndarray:
+    rep, b_loc = env.row_groups(a.shape[rows_dim])
+    fsdp = (env.pod_size, env.data_size) if env.pod_axis else (env.data_size,)
+    a = a.reshape(a.shape[:rows_dim] + fsdp + (rep, b_loc) + a.shape[rows_dim + 1:])
+    nf = len(fsdp)
+    a = np.moveaxis(a, list(range(rows_dim, rows_dim + nf + 1)), list(range(nf + 1)))
+    tp = env.tp
+    per_device = []
+    for m in range(env.model_size):
+        t, r = divmod(m, env.rep)
+        x = a[(slice(None),) * nf + (r if rep > 1 else 0,)]
+        if name in ("k", "v"):  # the rank's kv slots
+            kv_loc = max(1, x.shape[-2] // tp)
+            x = x[..., list(env.dup_map(x.shape[-2])[m * kv_loc:(m + 1) * kv_loc]), :]
+        elif name == "conv_x":  # the rank's channels of x
+            c = x.shape[-1] // tp
+            x = x[..., t * c:(t + 1) * c]
+        elif name == "ssm":  # the rank's heads
+            h = x.shape[-3] // tp
+            x = x[..., t * h:(t + 1) * h, :, :]
+        per_device.append(x)
+    return np.stack(per_device, nf)

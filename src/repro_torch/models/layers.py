@@ -1,9 +1,11 @@
 """Shared neural layers: RMSNorm, RoPE and M-RoPE, activations, the gated
 MLP and the depthwise causal conv1d.
 
-The counterpart of ``repro/models/layers.py`` on one card (tp = 1). The
-arithmetic follows the JAX functions step by step, with bf16 where they
-compute in bf16 and fp32 where they upcast, so the two round alike.
+The counterpart of ``repro/models/layers.py``. The arithmetic follows the
+JAX functions step by step, with bf16 where they compute in bf16 and fp32
+where they upcast, so the two round alike. The MLP takes a ``ShardEnv``:
+column- then row-parallel over its tp ranks, or the compute-at-data route
+when serving asks for it over an fsdp world.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.models.common import ModelConfig, init_tensor
-from repro_torch.models.parallel import COMPUTE_DTYPE, col_parallel, row_parallel
+from repro_torch.models.parallel import (COMPUTE_DTYPE, ShardEnv, col_parallel, row_parallel,
+                                         serve_col_matmul)
 
 
 class CastOnce(nn.Module):
@@ -128,10 +131,17 @@ class MLP(CastOnce):
         self.wo = self.param((ff, d), "normal", generator, device)
         self.act = cfg.act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = col_parallel(x, self.cw("wi_gate"))
-        u = col_parallel(x, self.cw("wi_up"))
-        return row_parallel(act_fn(self.act)(g) * u, self.cw("wo"))
+    def forward(self, x: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
+        """``mlp_apply``: with ``env.compute_at_data`` over an fsdp world the
+        column products run at the weights' d-slices (``serve_col_matmul``);
+        the row product is row-parallel over the tp ranks either way."""
+        if env is not None and env.compute_at_data and env.fsdp_size > 1:
+            g = serve_col_matmul(x, self.cw("wi_gate"), env)
+            u = serve_col_matmul(x, self.cw("wi_up"), env)
+        else:
+            g = col_parallel(x, self.cw("wi_gate"))
+            u = col_parallel(x, self.cw("wi_up"))
+        return row_parallel(act_fn(self.act)(g) * u, self.cw("wo"), env)
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = None):

@@ -21,6 +21,15 @@ over the encoder's memory), ``ssm`` ({"conv_x", "conv_bc", "ssm"}) or
 ``rec`` ({"conv", "h"}); a superblock's leaves are stacked over the
 superblocks. ``init_cache`` allocates every leaf once, at its full size,
 and prefill and decode write it in place.
+
+Serving across a ``("data", "model")`` mesh takes a ``parallel.ShardEnv``
+(``Model(cfg, env=...)``; the vocab is padded to a multiple of the model
+axis). The rows of a batch are held once (the device-major batch's
+distinct rows, ``ShardEnv.row_groups``), and so are the parameters and
+caches; the tp ranks fold into the products (``parallel``), and the MoE
+prefill runs the all-to-all dispatch over the tp groups. Under tp > 1 the
+dense GQA + MLP, MoE and Mamba-2 blocks serve; the other block kinds raise
+``NotImplementedError`` (``check_tp_kinds``), and so does training.
 """
 from __future__ import annotations
 
@@ -34,8 +43,8 @@ from repro_torch.models.attention import TRAIN_IMPLS, GQAAttention, MLAAttention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import MLP, CastOnce, RMSNorm, mrope_angles, rope_angles
 from repro_torch.models.moe import MoE
-from repro_torch.models.parallel import (argmax_logits, embed_lookup, logits, pad_vocab,
-                                         sharded_xent)
+from repro_torch.models.parallel import (ONE, TP_TRAINING, ShardEnv, argmax_logits,
+                                         embed_lookup, logits, pad_vocab, sharded_xent)
 from repro_torch.models.rglru import CONV_WIDTH, RGLRU
 from repro_torch.models.ssm import SSM, ssm_dims
 
@@ -71,6 +80,25 @@ def attention_impl(cfg: ModelConfig, kind: str, impl: str) -> str:
         return impl
     ok = cfg.mla is None and kind != "attn_local" and cfg.hd in HEAD_DIMS
     return "flash" if ok else "masked"
+
+
+def check_tp_kinds(cfg: ModelConfig, env: ShardEnv) -> None:
+    """Raise ``NotImplementedError`` where ``cfg`` has a block kind or input
+    that does not serve under tp > 1 yet, naming the ROADMAP entry that
+    brings it."""
+    if env.tp == 1:
+        return
+    unit, tail, _ = block_pattern(cfg)
+    kinds = set(unit) | set(tail)
+    what = ("MLA (minicpm3)" if cfg.mla is not None
+            else "the RG-LRU hybrid with local attention (recurrentgemma)"
+            if kinds & {"rec", "attn_local"}
+            else "enc-dec cross attention (seamless)" if cfg.enc_layers or "dec" in kinds
+            else "the vision-embedding input with M-RoPE (qwen2-vl)"
+            if cfg.embed_input or cfg.mrope_sections is not None else None)
+    if what is not None:
+        raise NotImplementedError(f"{cfg.name} at tp={env.tp}: serving {what} under tensor "
+                                  "parallelism waits for ROADMAP.md §1 queue (a)")
 
 
 class Block(nn.Module):
@@ -110,11 +138,13 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
                 prefill_cache: dict | None = None) -> torch.Tensor:
     """Apply one layer. ctx: rope, impl, cache_len (decode), enc_out (the
     encoder's memory at an enc-dec prefill), aux (training: a list that an
-    MoE layer appends its load-balance loss to). ``cache``: the layer's
-    cache (decode, written in place at ``cache_len``); ``prefill_cache``:
-    the layer's cache that a prefill fills in place."""
+    MoE layer appends its load-balance loss to), env (a ``ShardEnv``).
+    ``cache``: the layer's cache (decode, written in place at
+    ``cache_len``); ``prefill_cache``: the layer's cache that a prefill
+    fills in place."""
     kind = block.kind
     cfg = block.attn.cfg if kind in ATTN_KINDS else None
+    env = ctx.get("env")
 
     def sub(c, name):
         return None if c is None else c[name]
@@ -130,7 +160,8 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
             y, _ = block.attn(h, rope=ctx["rope"], cache=sub(cache, "attn"),
                               cache_len=ctx.get("cache_len"),
                               prefill_cache=sub(prefill_cache, "attn"), causal=kind != "enc",
-                              window=cfg.window if kind == "attn_local" else None, impl=impl)
+                              window=cfg.window if kind == "attn_local" else None, impl=impl,
+                              env=env)
         x = x + y
         if kind == "dec":
             y, _ = block.cross(block.lnx(x), cross_kv=ctx.get("enc_out"),
@@ -140,16 +171,16 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
             x = x + y
         h = block.ln2(x)
         if kind != "attn_moe":
-            return x + block.mlp(h)
+            return x + block.mlp(h, env)
         if "aux" in ctx:
             ctx["aux"].append(block.moe.aux_loss(h.reshape(-1, h.shape[-1])))
-        return x + block.moe(h, decode=cache is not None)
+        return x + block.moe(h, decode=cache is not None, env=env)
     if kind == "ssm":
         return x + block.ssm(block.ln1(x), state=sub(cache, "ssm"),
-                             prefill_state=sub(prefill_cache, "ssm"))
+                             prefill_state=sub(prefill_cache, "ssm"), env=env)
     x = x + block.rec(block.ln1(x), state=sub(cache, "rec"),
                       prefill_state=sub(prefill_cache, "rec"))
-    return x + block.mlp(block.ln2(x))
+    return x + block.mlp(block.ln2(x), env)
 
 
 def check_train_impl(impl: str) -> None:
@@ -198,15 +229,20 @@ class Model(CastOnce):
     (``common.init_tensor``: fp32) from a ``torch.Generator`` seeded with
     ``seed`` (``device="meta"``: the layout alone), then stored in the
     config's ``param_dtype``, as ``init_params`` rounds them;
-    ``convert.params_from_jax`` loads the JAX model's instead."""
+    ``convert.params_from_jax`` loads the JAX model's instead. ``env``: the
+    ``ShardEnv`` it serves under (a (1, 1) mesh by default); the vocab is
+    padded to a multiple of its model axis."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
+                 env: ShardEnv | None = None):
         super().__init__()
+        self.env = env = ONE if env is None else env
+        check_tp_kinds(cfg, env)
         device = resolve_device(device, "Model()")
         # on the meta device (shapes only, no memory) there are no numbers to draw
         gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
         self.cfg = cfg
-        self.vocab_padded = pad_vocab(cfg.vocab)
+        self.vocab_padded = pad_vocab(cfg.vocab, env.model_size)
         self.embed = self.param((self.vocab_padded, cfg.d_model), "normal", gen, device)
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, gen, device)
         self.compute = ("embed",)
@@ -334,8 +370,10 @@ class Model(CastOnce):
         "ntok"}). Autograd records it once the parameters require grad.
         ``impl`` is the sequence mixing; ``flash`` raises: neither the
         ``flash_attention`` kernel nor the reference's Pallas kernel has a
-        backward."""
+        backward. Under tp > 1 it raises (the training slice)."""
         check_train_impl(impl)
+        if self.env.tp > 1:
+            raise NotImplementedError(TP_TRAINING)
         cfg = self.cfg
         if cfg.embed_input and not cfg.enc_layers:
             x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
@@ -355,8 +393,8 @@ class Model(CastOnce):
         nll_sum = nll.sum()
         return nll_sum + aux, {"nll_sum": nll_sum.detach(), "ntok": (labels >= 0).sum()}
 
-    def prefill_hidden(self, batch, *, impl: str = "masked",
-                       cache: dict | None = None) -> tuple[dict, torch.Tensor]:
+    def prefill_hidden(self, batch, *, impl: str = "masked", cache: dict | None = None,
+                       env: ShardEnv | None = None) -> tuple[dict, torch.Tensor]:
         """Fill a cache from a prompt batch. ``batch``: prompt tokens (b, s),
         or a dict as the JAX model's prefill takes it: ``tokens``, or
         ``embeds`` (b, s, d) for an embedding-input model, with optional
@@ -365,7 +403,8 @@ class Model(CastOnce):
         Returns (cache, final-normed hidden state at the last prompt
         position (b, d)). ``cache`` may be longer than s (room for
         decoding); it is filled in place, and one of length s is made when
-        none is given."""
+        none is given. ``env``: the ``ShardEnv`` to run under (the model's by
+        default); the rows are those it holds once."""
         cfg = self.cfg
         if isinstance(batch, torch.Tensor):
             batch = {"tokens": batch}
@@ -377,7 +416,7 @@ class Model(CastOnce):
         pos = batch.get("positions")
         if pos is None:
             pos = torch.arange(s, device=x.device)[None].expand(b, s)
-        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl}
+        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl, "env": env or self.env}
         enc_len = None
         if cfg.enc_layers:
             ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl)
@@ -387,15 +426,17 @@ class Model(CastOnce):
         x = self.backbone(x, ctx, prefill_cache=cache)
         return cache, self.final_norm(x[:, -1])
 
-    def decode_hidden(self, cache: dict, tokens: torch.Tensor, cache_len: int) -> torch.Tensor:
+    def decode_hidden(self, cache: dict, tokens: torch.Tensor, cache_len: int,
+                      env: ShardEnv | None = None) -> torch.Tensor:
         """One-token decode: tokens (b,) at position ``cache_len``, written
-        into the cache in place. Returns the final-normed hidden state (b, d)."""
+        into the cache in place, under ``env`` (the model's by default).
+        Returns the final-normed hidden state (b, d)."""
         cfg = self.cfg
         x = self.embed_rows(tokens[:, None])  # (b, 1, d)
         shape = (x.shape[0], 1, 3) if cfg.mrope_sections is not None else (x.shape[0], 1)
         pos = torch.full(shape, cache_len, device=x.device)
         ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": "masked",
-               "cache_len": cache_len}
+               "cache_len": cache_len, "env": env or self.env}
         return self.final_norm(self.backbone(x, ctx, caches=cache)[:, 0])
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
@@ -406,16 +447,16 @@ class Model(CastOnce):
         return argmax_logits(h, self.head_table(), self.cfg.vocab)
 
 
-def prefill(model: Model, batch, *, impl: str = "masked",
-            cache: dict | None = None) -> tuple[dict, torch.Tensor]:
+def prefill(model: Model, batch, *, impl: str = "masked", cache: dict | None = None,
+            env: ShardEnv | None = None) -> tuple[dict, torch.Tensor]:
     """Fill caches from a prompt batch (see ``Model.prefill_hidden``).
     Returns (cache, next tokens (b,) int32)."""
-    cache, h = model.prefill_hidden(batch, impl=impl, cache=cache)
+    cache, h = model.prefill_hidden(batch, impl=impl, cache=cache, env=env)
     return cache, model.greedy(h)
 
 
-def decode_step(model: Model, cache: dict, tokens: torch.Tensor,
-                cache_len: int) -> tuple[torch.Tensor, dict]:
+def decode_step(model: Model, cache: dict, tokens: torch.Tensor, cache_len: int,
+                env: ShardEnv | None = None) -> tuple[torch.Tensor, dict]:
     """One-token decode: tokens (b,) at position ``cache_len``, written into
     the cache in place. Returns (next tokens (b,) int32, cache)."""
-    return model.greedy(model.decode_hidden(cache, tokens, int(cache_len))), cache
+    return model.greedy(model.decode_hidden(cache, tokens, int(cache_len), env)), cache

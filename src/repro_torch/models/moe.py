@@ -1,28 +1,45 @@
-"""Mixture-of-Experts on one card: token → expert dispatch as the word
-count's map → shuffle → reduce.
+"""Mixture-of-Experts: token → expert dispatch as the word count's map →
+shuffle → reduce.
 
-The counterpart of ``repro/models/moe.py`` (tp = 1). The router is the
-mapper's hash, the shuffle brings each expert's tokens together, and the
+The counterpart of ``repro/models/moe.py``. The router is the mapper's
+hash, the shuffle brings each expert's tokens together, and the
 gate-weighted combine is the reducer: ``kernels.ops.segment_reduce`` sums the
 weighted expert rows into their tokens (the CUDA reducer on the card, its
 plain version on the CPU).
 
-On one device the JAX model's ``moe_apply_a2a`` falls through to
-``moe_apply_replicated`` (``moe.py:114-115``), which runs every expert on
-every token and masks by gate. The prefill here computes the same function
-dropless, each expert on its own tokens only; decode keeps the replicated
-form (a few tokens, plain ops). Both sum the experts' outputs in fp32 where
-the JAX model adds each expert's bf16 contribution to a bf16 total, so the
-two agree to bf16 rounding, and the kernel's fp32 atomics make the last
-bits depend on their order.
+Three routes compute it:
+  * ``replicated`` (decode): ``moe_apply_replicated``, every expert on every
+    token, weighted by its gate where chosen. Over tp ranks each rank
+    applies its own expert slots (when n_experts < tp, the replicas of an
+    expert split the tokens by index parity) and ``psum_tp`` adds the
+    ranks' outputs, so every (token, expert) product enters the sum once:
+    the port sums over the experts at once.
+  * ``dispatched`` (prefill at tp = 1, or when the sequence does not split
+    over tp): the same function dropless, each expert on its own tokens.
+  * ``a2a`` (prefill over tp ranks): ``moe_apply_a2a``, the paper's shuffle
+    inside the model. Each rank routes its slice of the sequence, places
+    each assignment in its destination rank's buffer of ``cap`` rows by a
+    stable sort (assignments over capacity are dropped, as in the
+    reference, bitwise), and three ``all_to_all``s over the tp groups of
+    a world-dim ``Mesh`` send the rows, their expert slots, and the results
+    back; the combine at the source runs every rank's assignments through
+    one ``segment_reduce`` (segment ids offset by rank × tokens), and the
+    tp group's all-gather of the sequence is a relabelling of the result,
+    held once.
+The routes sum the experts' outputs in fp32 where the JAX model adds each
+expert's bf16 contribution to a bf16 total, so they agree with it to bf16
+rounding, and the kernel's fp32 atomics make the last bits depend on their
+order.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import CastOnce, act_fn
+from repro_torch.models.parallel import ShardEnv, serve_col_matmul, tp_groups
 
 
 def expert_counts(experts: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -89,24 +106,37 @@ class MoE(CastOnce):
         ce = expert_counts(experts, m.n_experts).to(torch.float32) / max(1, experts.numel())
         return m.n_experts * torch.sum(probs.mean(0) * ce) * m.router_aux_weight
 
-    def expert(self, x: torch.Tensor, w: tuple[torch.Tensor, ...], e: int) -> torch.Tensor:
+    def expert(self, x: torch.Tensor, w: tuple[torch.Tensor, ...], e: int,
+               env: ShardEnv | None = None) -> torch.Tensor:
         """Expert ``e``'s gated MLP on rows x (m, d), bf16; ``w``: the bf16
-        (wi_gate, wi_up, wo) of every expert."""
+        (wi_gate, wi_up, wo) of every expert. ``env.compute_at_data`` over
+        an fsdp world: the column products at the weights' d-slices."""
         wg, wu, wo = w
-        h = act_fn(self.cfg.act)(x @ wg[e]) * (x @ wu[e])
-        return h @ wo[e]
+        if env is not None and env.compute_at_data and env.fsdp_size > 1:
+            g, u = serve_col_matmul(x, wg[e], env), serve_col_matmul(x, wu[e], env)
+        else:
+            g, u = x @ wg[e], x @ wu[e]
+        return (act_fn(self.cfg.act)(g) * u) @ wo[e]
 
-    def forward(self, x: torch.Tensor, *, decode: bool = False) -> torch.Tensor:
-        """x (b, s, d) bf16 → (b, s, d): dispatched (prefill and training) or
-        replicated (``decode``)."""
+    def weights(self) -> tuple[torch.Tensor, ...]:
+        return self.cw("wi_gate"), self.cw("wi_up"), self.cw("wo")
+
+    def forward(self, x: torch.Tensor, *, decode: bool = False,
+                env: ShardEnv | None = None) -> torch.Tensor:
+        """x (b, s, d) bf16 → (b, s, d): replicated (``decode``), over the
+        tp groups' all-to-all (prefill over tp ranks when the sequence
+        splits over them), or dispatched dropless."""
         b, s, d = x.shape
+        tp = 1 if env is None else env.tp
+        if not decode and tp > 1 and s % tp == 0 and self.cfg.moe.dispatch == "a2a":
+            return self.a2a(x, env)[0]
         flat = x.reshape(-1, d)
         gates, experts = self.route(flat)
-        out = self.replicated(flat, gates, experts) if decode else self.dispatched(
-            flat, gates, experts)
+        out = self.replicated(flat, gates, experts, env) if decode else self.dispatched(
+            flat, gates, experts, env)
         return out.reshape(b, s, d)
 
-    def replicated(self, flat, gates, experts) -> torch.Tensor:
+    def replicated(self, flat, gates, experts, env: ShardEnv | None = None) -> torch.Tensor:
         """``moe_apply_replicated``: every expert on every token, weighted by
         its gate where chosen (0 elsewhere). The experts run as one batched
         product per weight and their weighted outputs are summed at once
@@ -115,12 +145,33 @@ class MoE(CastOnce):
         loop's launches, not the products, would set the step's time."""
         ids = torch.arange(self.cfg.moe.n_experts, device=flat.device)[:, None, None]
         w = torch.where(experts[None] == ids, gates.to(torch.float32)[None], 0.0).sum(-1)  # (E, n)
-        h = act_fn(self.cfg.act)(torch.einsum("nd,edf->enf", flat, self.cw("wi_gate"))) * \
-            torch.einsum("nd,edf->enf", flat, self.cw("wi_up"))
-        y = torch.bmm(h, self.cw("wo"))  # (E, n, d)
+        wg, wu, wo = self.weights()
+        if env is not None and env.compute_at_data and env.fsdp_size > 1:
+            n = env.fsdp_size  # each fsdp rank's d-slice, then the sum of the bf16 partials
+            xs, cols = flat.unflatten(-1, (n, -1)), "njd,ejdf->jenf"
+            g = torch.einsum(cols, xs, wg.unflatten(1, (n, -1))).sum(0)
+            u = torch.einsum(cols, xs, wu.unflatten(1, (n, -1))).sum(0)
+        else:
+            g, u = torch.einsum("nd,edf->enf", flat, wg), torch.einsum("nd,edf->enf", flat, wu)
+        y = torch.bmm(act_fn(self.cfg.act)(g) * u, wo)  # (E, n, d)
         return (y * w[..., None].to(y.dtype)).sum(0)
 
-    def dispatched(self, flat, gates, experts) -> torch.Tensor:
+    def grouped(self, rows: torch.Tensor, sizes: list[int],
+                env: ShardEnv | None = None) -> torch.Tensor:
+        """Rows (m, d) sorted by expert, ``sizes[e]`` of them for expert e
+        (and, past the experts, rows for none, which give zeros) → each
+        row through its expert, in the same order."""
+        w = self.weights()
+        n_exp = self.cfg.moe.n_experts
+        parts, start = [], 0
+        for e, size in enumerate(sizes):
+            if size:
+                sl = rows[start:start + size]
+                parts.append(self.expert(sl, w, e, env) if e < n_exp else torch.zeros_like(sl))
+                start += size
+        return torch.cat(parts) if parts else rows[:0]
+
+    def dispatched(self, flat, gates, experts, env: ShardEnv | None = None) -> torch.Tensor:
         """Map: the router's (token, expert) pairs. Shuffle: a stable sort by
         expert puts each expert's rows together. Reduce: each row's expert
         output times its gate, summed into its token by ``segment_reduce``
@@ -130,16 +181,86 @@ class MoE(CastOnce):
         n, k = experts.shape
         order = torch.argsort(experts.reshape(-1), stable=True)
         tok = torch.div(order, k, rounding_mode="floor")
-        sizes = group_sizes(experts, self.cfg.moe.n_experts)
-        rows = flat[tok]
-        g = gates.reshape(-1)[order, None]
-        w = (self.cw("wi_gate"), self.cw("wi_up"), self.cw("wo"))
-        parts = []
-        start = 0
-        for e, size in enumerate(sizes):
-            if size:
-                sl = slice(start, start + size)
-                parts.append(self.expert(rows[sl], w, e) * g[sl])
-                start += size
-        y = torch.cat(parts) if parts else rows[:0]
+        y = self.grouped(flat[tok], group_sizes(experts, self.cfg.moe.n_experts), env)
+        y = y * gates.reshape(-1)[order, None]
         return ops.segment_reduce(y, tok.to(torch.int32), n).to(flat.dtype)
+
+    def a2a(self, x: torch.Tensor, env: ShardEnv, route=None):
+        """``moe_apply_a2a`` over the tp groups. x (R, s, d) bf16: the rows
+        held once (``ShardEnv.row_groups``), s divisible by tp. ``route``:
+        (gates, experts) (R·s, k) in x's row order to replay, else the
+        router's. Returns (out (R, s, d), {"keep": (R, s, k) bool, whether
+        each assignment fitted in its destination's capacity;
+        "send_meta": (D, M, tp, cap, 2) int32, the (expert slot + 1, token)
+        of each row a rank sends, 0 where empty, with the ranks laid out as
+        the world dims (data, model) of the rows' distinct groups})."""
+        m = self.cfg.moe
+        tp, n_exp, k = env.tp, m.n_experts, m.top_k
+        R, s, d = x.shape
+        rep, b_loc = env.row_groups(R)
+        D, s_loc, dev = R // (rep * b_loc), s // tp, x.device
+        mw, n = tp * rep, b_loc * s // tp  # model-axis width, tokens a rank
+        ranks = D * mw
+        mesh = Mesh((env.data_axis, env.model_axis), (D, mw), device=dev)
+        groups = tp_groups(tp, rep)
+
+        def per_rank(t):  # rows (R, s, ...) → rank (d, t·rep + r) takes slice t of group (d, r)
+            t = t.reshape((D, rep, b_loc, tp, s_loc) + t.shape[2:])
+            return t.permute(0, 3, 1, 2, 4, *range(5, t.dim())).reshape((D, mw, n) + t.shape[5:])
+
+        tok = per_rank(x)  # (D, M, n, d)
+        gates, experts = self.route(x.reshape(-1, d)) if route is None else route
+        gates = per_rank(gates.reshape(R, s, k)).reshape(D, mw, n * k)
+        experts = per_rank(experts.reshape(R, s, k)).reshape(D, mw, n * k)
+        e_loc, span = max(1, n_exp // tp), max(1, tp // n_exp)
+        cap = int(-(-n * k * m.capacity_factor // tp))  # per-destination-rank capacity
+        tok_id = torch.arange(n, device=dev).repeat_interleave(k)  # (n·k,)
+        if n_exp % tp == 0:
+            dst, e_slot = experts // e_loc, experts % e_loc
+        else:  # the replica by token parity
+            dst, e_slot = experts * span + tok_id % span, torch.zeros_like(experts)
+        # position within the destination: a stable sort by dst, rank within its run
+        dst_sorted, order = torch.sort(dst, dim=-1, stable=True)
+        pos_sorted = torch.arange(n * k, device=dev) - torch.searchsorted(
+            dst_sorted, dst_sorted, side="left")
+        pos = torch.empty_like(pos_sorted).scatter_(-1, order, pos_sorted)
+        keep = pos < cap
+        rank = torch.arange(ranks, device=dev).view(D, mw, 1)
+        # the send buffers, a dump row past each rank's end for the dropped
+        at = (rank * (tp * cap + 1) + torch.where(keep, dst * cap + pos, tp * cap)).reshape(-1)
+        send_x = x.new_zeros((ranks * (tp * cap + 1), d))
+        send_x[at] = tok[:, :, tok_id].reshape(-1, d)
+        meta = torch.stack([e_slot + 1, tok_id.expand_as(e_slot)], -1).to(torch.int32)
+        send_meta = torch.zeros((ranks * (tp * cap + 1), 2), dtype=torch.int32, device=dev)
+        send_meta[at] = meta.reshape(-1, 2)
+
+        def cut(t):  # (ranks · (tp·cap + 1), ...) → (D, M, tp, cap, ...), the dump rows cut
+            t = t.view((D, mw, tp * cap + 1) + t.shape[1:])[:, :, :-1]
+            return t.reshape((D, mw, tp, cap) + t.shape[3:])
+
+        def exchange(t):  # chunk j of rank i's dim 2 → chunk i on rank j, in each tp group
+            return mesh.all_to_all(t, env.model_axis, 0, 0, axis_index_groups=groups)
+
+        send_meta = cut(send_meta)
+        recv_x, recv_meta = exchange(cut(send_x)), exchange(send_meta)
+        # the reducers: each rank's expert slots on the rows it received
+        slot_id = recv_meta[..., 0].long() - 1  # (D, M, tp, cap); -1: empty
+        t = (mesh.axis_index(env.model_axis) // rep)[..., None, None]  # tp rank
+        e_glob = t * e_loc + slot_id if n_exp % tp == 0 else (t // span).expand_as(slot_id)
+        e_glob = torch.where(slot_id >= 0, e_glob, n_exp).reshape(-1)
+        order = torch.argsort(e_glob, stable=True)
+        y = torch.empty_like(recv_x.reshape(-1, d))
+        y[order] = self.grouped(recv_x.reshape(-1, d)[order], group_sizes(e_glob, n_exp + 1), env)
+        back = exchange(y.view(D, mw, tp, cap, d)).reshape(ranks * tp * cap, d)
+        # the combine at the source: kept rows × their gates, summed into their tokens
+        src = (rank * (tp * cap) + torch.where(keep, dst * cap + pos, 0)).reshape(-1)
+        contrib = back[src] * (keep * gates).reshape(-1, 1).to(back.dtype)
+        seg = torch.where(keep, rank * n + tok_id, -1).reshape(-1).to(torch.int32)
+        out = ops.segment_reduce(contrib, seg, ranks * n).to(x.dtype)
+
+        def per_row(t):  # per_rank's inverse: the tp group's all-gather of the sequence, held once
+            t = t.reshape((D, tp, rep, b_loc, s_loc) + t.shape[3:])
+            return t.permute(0, 2, 3, 1, 4, *range(5, t.dim())).reshape((R, s) + t.shape[5:])
+
+        return per_row(out.view(D, mw, n, d)), {"keep": per_row(keep.view(D, mw, n, k)),
+                                                "send_meta": send_meta}

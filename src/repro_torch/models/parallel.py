@@ -1,16 +1,32 @@
-"""The single-device part of ``repro/models/parallel.py``, and its data world.
+"""Sharding: the reference's ``ShardEnv`` over a ``("data", "model")``
+mesh of world dims on one card, the tensor-parallel products, the sharded
+vocab, and the data world's gradient aggregation.
 
-On one card tp = 1: a column- or row-parallel product is one bf16 matmul,
-the vocab is padded to a multiple of 1, and the sharded embedding, logits,
-cross-entropy and argmax see the whole vocab. Training runs a data world of
-W ranks as the world dims of a ``Mesh`` on the card (``("data",)``, or
-``("pod", "data")``): ``local_batch``/``loss_normalizer`` are ``ShardEnv``'s,
-and ``fsdp_aggregate`` is the backward of ``scenario_all_gather``
-(``_sag_bwd``), the paper's S1/S2/S3 gradient aggregation. The TP and rep
-groups and the compute-at-data variants wait until the port runs across
-cards.
+The counterpart of ``repro/models/parallel.py``. ``ShardEnv`` carries every
+field and derived group of the reference's: a model axis of ``model_size``
+devices runs ``tp`` tensor-parallel ranks and ``rep = model_size / tp``
+replica groups (model index m ↦ tp rank m // rep, rep rank m % rep), the
+data axis (and pod) is the FSDP world.
+
+Serving folds the ranks into the ops rather than looping over them. A
+value that the reference holds equal on every rank of a group is held once:
+the parameters (logical, without the duplicate slots of kv heads and
+experts; ``fetch_weight`` gives the ranks' working slices as a view), the
+residual stream after ``psum_tp``, the caches, the rows that
+the tp ranks of a group share. What differs between ranks carries a rank
+dim: a column-parallel product is one matmul whose output dim reads as
+(tp, F/tp), a row-parallel product is a batched product over tp whose bf16
+partials ``psum_tp`` sums, and the compute-at-data route's column product
+sums the bf16 partials of the fsdp d-slices. The logits of the tp vocab
+shards are held side by side, so ``argmax_logits``'s first maximum is the
+reference's pmax/pmin tie-break toward the smallest id. Training runs at tp = 1 on a data world of W
+ranks (``local_batch``, ``loss_normalizer``, ``fsdp_aggregate``, the
+backward of ``scenario_all_gather``); under tp > 1 it raises until the
+training slice.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -19,15 +35,184 @@ from repro_torch.core.scenarios import Scenario
 from repro_torch.mesh import Mesh, note_collective
 
 COMPUTE_DTYPE = torch.bfloat16
+TP_TRAINING = "training under tensor parallelism waits for ROADMAP.md §1 queue (b)"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardEnv:
+    """Static sharding context: ``ShardEnv`` of ``repro/models/parallel.py``."""
+
+    model_size: int  # size of the 'model' mesh axis
+    data_size: int
+    pod_size: int = 1
+    tp: int = 1  # tensor-parallel degree (divides model_size)
+    scenario: Scenario = Scenario.NATIVE
+    model_axis: str = "model"
+    data_axis: str = "data"
+    pod_axis: str | None = None  # None on single-pod meshes
+    # serving: route the decode activations to the weights' fsdp shards
+    # (serve_col_matmul) instead of gathering the weights
+    compute_at_data: bool = False
+
+    def __post_init__(self):
+        if self.model_size % self.tp:
+            raise ValueError(f"tp={self.tp} must divide model axis {self.model_size}")
+
+    @property
+    def rep(self) -> int:
+        return self.model_size // self.tp
+
+    @property
+    def fsdp_axes(self) -> tuple[str, ...]:
+        return (self.pod_axis, self.data_axis) if self.pod_axis else (self.data_axis,)
+
+    @property
+    def fsdp_size(self) -> int:
+        return self.pod_size * self.data_size
+
+    @property
+    def dp_world(self) -> int:
+        """Total gradient-averaging world (pod × data × rep)."""
+        return self.fsdp_size * self.rep
+
+    @property
+    def tp_groups(self) -> list[list[int]] | None:
+        """Groups of model-axis indices forming each TP domain (fixed r)."""
+        return tp_groups(self.tp, self.rep)
+
+    @property
+    def rep_groups(self) -> list[list[int]] | None:
+        """Replica groups (fixed t, contiguous): the ZeRO gather domain."""
+        if self.rep == 1:
+            return None
+        return [[t * self.rep + r for r in range(self.rep)] for t in range(self.tp)]
+
+    def dup_sync_groups(self, n_logical: int) -> list[list[int]] | None:
+        """Model-axis groups holding identical copies of a parameter that is
+        logically split into ``n_logical`` entities (kv heads, experts):
+        copies from the rep replicas and from tp > n_logical spans. None when
+        there are none (n_logical % tp == 0 and rep == 1)."""
+        if n_logical <= 0:
+            return None
+        if n_logical % self.tp == 0:
+            return self.rep_groups
+        if self.tp % n_logical:
+            raise ValueError(f"n_logical={n_logical} incompatible with tp={self.tp}")
+        span = self.tp // n_logical
+        return [[(h * span + i) * self.rep + r for i in range(span) for r in range(self.rep)]
+                for h in range(n_logical)]
+
+    def dup_map(self, n_logical: int) -> tuple[int, ...]:
+        """The logical entity stored in each slot of a storage dim of
+        model_size · per_rank slots that shards ``n_logical`` entities."""
+        per_rank = max(1, n_logical // self.tp)
+        out = []
+        for j in range(self.model_size * per_rank):
+            t = (j // per_rank) // self.rep
+            if n_logical % self.tp == 0:
+                out.append(t * per_rank + j % per_rank)
+            else:
+                out.append(t // (self.tp // n_logical))
+        return tuple(out)
+
+    def tp_rank(self, mesh: Mesh) -> torch.Tensor:
+        """Every device's tp rank: an index tensor of the mesh's shape."""
+        return mesh.axis_index(self.model_axis) // self.rep
+
+    def rep_rank(self, mesh: Mesh) -> torch.Tensor:
+        return mesh.axis_index(self.model_axis) % self.rep
+
+    def psum_tp(self, parts: torch.Tensor) -> torch.Tensor:
+        """The sum over the TP domain of the tp ranks' partials, which lie
+        along dim 0: the row-parallel combine, held once for the group."""
+        return parts.sum(0)
+
+    def batch_split_rep(self, global_batch: int) -> bool:
+        """Does the batch additionally split across rep groups?"""
+        return self.rep > 1 and global_batch % (self.fsdp_size * self.rep) == 0
+
+    def local_batch(self, global_batch: int) -> int:
+        dp = self.fsdp_size * (self.rep if self.batch_split_rep(global_batch) else 1)
+        if global_batch % self.fsdp_size:
+            if global_batch >= self.fsdp_size:
+                raise ValueError(f"batch {global_batch} not divisible by dp {self.fsdp_size}")
+            return 1  # tiny batches replicate
+        return max(1, global_batch // dp)
+
+    def loss_normalizer(self, global_batch: int, seq: int) -> float:
+        """1 / (sum over all devices of the locally counted tokens)."""
+        return 1.0 / (self.local_batch(global_batch) * seq * self.fsdp_size * self.model_size)
+
+    def row_groups(self, rows: int) -> tuple[int, int]:
+        """Rows held once (the distinct rows of the device-major batch: fsdp ×
+        (rep when the batch splits over it) × b_loc) → (how many rep groups
+        hold rows of their own: rep or 1, b_loc)."""
+        rep = self.rep if self.batch_split_rep(rows) else 1
+        if rows % (self.fsdp_size * rep):
+            raise ValueError(f"{rows} rows do not lay out over fsdp {self.fsdp_size} × rep {rep}")
+        return rep, rows // (self.fsdp_size * rep)
+
+
+ONE = ShardEnv(1, 1)
+
+
+def tp_groups(tp: int, rep: int) -> list[list[int]] | None:
+    """The TP domains of a model axis of tp · rep indices (None: the whole axis)."""
+    if rep == 1:
+        return None
+    return [[t * rep + r for t in range(tp)] for r in range(rep)]
+
+
+def fetch_weight(w: torch.Tensor, env: ShardEnv, *, tp_dim: int) -> torch.Tensor:
+    """A weight held whole → the tp ranks' working slices stacked on a new
+    dim 0, a view: ``fetch_weight``'s forward, whose FSDP gather and
+    rep-group gather give rank t the contiguous slice t of ``tp_dim``. (A
+    slot layout's working set is its logical kv heads or experts, which the
+    port holds: ``convert`` reads them out of the slots.) Under autograd
+    with tp > 1 it raises: the backward of the rep gather is the training
+    slice's."""
+    if env.tp > 1 and w.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(TP_TRAINING)
+    return w.unflatten(tp_dim, (env.tp, -1)).movedim(tp_dim, 0)
 
 
 def col_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (..., d_in) @ w (d_in, d_out) in bf16, bf16 out."""
+    """x (..., d_in) @ w (d_in, d_out) in bf16, bf16 out: the tp ranks'
+    column-parallel products at once (output dim t · F/tp + f is rank t's)."""
     return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
 
 
-# x (..., f) @ w (f, d) in bf16: the psum over a tp group of one is the identity
-row_parallel = col_parallel
+def serve_row_matmul(h: torch.Tensor, w: torch.Tensor, env: ShardEnv) -> torch.Tensor:
+    """h (..., F) @ w (F, d) with F split over the tp ranks: each rank's
+    bf16 product over its F/tp, stacked on dim 0 (tp, ..., d), what each
+    rank holds before the caller's ``psum_tp``. In the reference's serving
+    form the fsdp all-gather of the rows and the all-to-all back only move
+    whole rows and columns, so folded it is the same product."""
+    wt = fetch_weight(w.to(COMPUTE_DTYPE), env, tp_dim=0)  # (tp, F/tp, d)
+    ht = h.to(COMPUTE_DTYPE).unflatten(-1, (env.tp, -1)).movedim(-2, 0)  # (tp, ..., F/tp)
+    return torch.matmul(ht.flatten(1, -2), wt).unflatten(1, ht.shape[1:-1])
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
+    """x (..., f) @ w (f, d) in bf16 with the input dim TP-sharded: at tp = 1
+    one product; above, the tp ranks' bf16 partials summed by ``psum_tp``."""
+    if env is None or env.tp == 1:
+        return col_parallel(x, w)
+    return env.psum_tp(serve_row_matmul(x, w, env))
+
+
+def serve_col_matmul(x: torch.Tensor, w: torch.Tensor, env: ShardEnv) -> torch.Tensor:
+    """x (..., d) @ w (d, F), compute at data: each fsdp rank contracts the
+    rows sent to it over its d-slice of d/fsdp (its resident weight shard)
+    into a bf16 partial, and the reduce-scatter sums the fsdp partials:
+    folded, a batched product over the d-slices and a bf16 sum."""
+    x, w = x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
+    n = env.fsdp_size
+    if n == 1:
+        return torch.matmul(x, w)
+    xs = x.unflatten(-1, (n, -1)).movedim(-2, 0)  # (fsdp, ..., d/fsdp)
+    parts = torch.matmul(xs.flatten(1, -2), w.unflatten(0, (n, -1)))  # (fsdp, rows, F)
+    return parts.sum(0).unflatten(0, xs.shape[1:-1])
 
 
 def pad_vocab(vocab: int, model_size: int = 1) -> int:
@@ -36,7 +221,9 @@ def pad_vocab(vocab: int, model_size: int = 1) -> int:
 
 def embed_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """ids (...) int → (..., d) bf16 rows of ``table`` (V_pad, d); ids
-    outside ``[0, V_pad)`` give zero rows, as the sharded lookup does."""
+    outside ``[0, V_pad)`` give zero rows, as the sharded lookup does. Over
+    tp ranks each id's row comes from the one shard that holds it and the
+    others add zeros, so the lookup held once is the same."""
     per = table.shape[0]
     ok = (ids >= 0) & (ids < per)
     emb = table[ids.clamp(0, per - 1).long()]
@@ -46,7 +233,8 @@ def embed_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def logits(x: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Tensor:
     """x (..., d) → fp32 logits (..., V_pad) from a bf16 product with the
-    tied table, vocab padding columns set to -inf."""
+    tied table, vocab padding columns set to -inf: the tp ranks'
+    ``sharded_logits`` side by side, masked as ``argmax_logits`` masks them."""
     out = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).to(torch.float32)
     if out.shape[-1] > vocab:
         out[..., vocab:] = float("-inf")
@@ -54,17 +242,21 @@ def logits(x: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Tensor:
 
 
 def argmax_logits(x: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Greedy next token (..., ) int32 over the vocab; ties go to the
-    smallest index (``torch.argmax`` returns the first maximum)."""
+    """Greedy next token (...,) int32 over the vocab. The logits are held
+    whole, and ``torch.argmax`` returns the first maximum: the smallest-id
+    tie-break of the reference's pmax/pmin over the tp vocab shards."""
     return torch.argmax(logits(x, table, vocab), dim=-1).to(torch.int32)
 
 
 def sharded_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
-                 vocab: int) -> torch.Tensor:
+                 vocab: int, env: ShardEnv | None = None) -> torch.Tensor:
     """``sharded_xent`` at tp = 1: per-position nll (...) in fp32 of labels
     under the logits of x (..., d) against ``table`` (V_pad, d), from a bf16
     product: vocab-padding columns at -inf, a max stabiliser that carries no
-    gradient, and labels < 0 (padding) at 0 loss."""
+    gradient, and labels < 0 (padding) at 0 loss. Above tp = 1 it raises
+    (the training slice)."""
+    if env is not None and env.tp > 1:
+        raise NotImplementedError(TP_TRAINING)
     lg = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).to(torch.float32)
     per = lg.shape[-1]
     col = torch.arange(per, device=lg.device)

@@ -1,6 +1,6 @@
 """Mamba-2 (SSD, state-space duality) block on one card.
 
-The counterpart of ``repro/models/ssm.py`` (tp = 1). The prefill runs the
+The counterpart of ``repro/models/ssm.py``. The prefill runs the
 chunked SSD algorithm (arXiv:2405.21060): within a chunk the recurrence is a
 causal-masked quadratic form, across chunks the (N × P) states propagate
 through a linear scan; decode takes one step of the recurrence over the
@@ -8,6 +8,13 @@ cached state. Every step follows the JAX function with its dtypes (bf16
 projections, fp32 decays, states and scan). The inter-chunk scan is
 ``core.ring_scan.inclusive_linear_scan``, a doubling scan in place of
 ``lax.associative_scan``, so its fp32 sums round in another order.
+
+Over tp ranks each rank holds heads/tp of the heads (and their d_in/tp
+channels of z, x and the conv); B/C are per group and every rank computes
+them whole. The ranks' heads run as one, except two steps that see the
+rank: the gated RMSNorm normalises over the rank's d_in/tp features (so at
+tp > 1 the function differs from tp = 1's), and the down projection is
+row-parallel, its tp partials summed in bf16.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from torch.nn import functional as F
 from repro_torch.core.ring_scan import inclusive_linear_scan
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import CastOnce, causal_conv1d, rms_norm
+from repro_torch.models.parallel import ShardEnv, row_parallel
 
 
 def ssm_dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -92,11 +100,12 @@ class SSM(CastOnce):
         self.w_out = self.param((d_in, d), "normal", generator, device)
 
     def forward(self, x: torch.Tensor, *, state: dict | None = None,
-                prefill_state: dict | None = None) -> torch.Tensor:
+                prefill_state: dict | None = None, env: ShardEnv | None = None) -> torch.Tensor:
         """x (b, s, d) → (b, s, d). ``state`` {"conv_x", "conv_bc", "ssm"}:
         one decode step (s = 1) from the state, which is then overwritten in
         place. ``prefill_state``: a state of that form that takes the
-        prompt's final conv inputs and SSM state in place."""
+        prompt's final conv inputs and SSM state in place. ``env``: the tp
+        ranks (states held once, all heads)."""
         cfg = self.cfg
         sc = cfg.ssm
         b, s, _ = x.shape
@@ -135,5 +144,10 @@ class SSM(CastOnce):
         y = y + xh.to(torch.float32) * self.D[None, None, :, None]
         y = y.reshape(b, s, d_in).to(x.dtype)
         z = z.to(torch.float32)
-        y = rms_norm(y * (z * torch.sigmoid(z)).to(y.dtype), self.out_norm, cfg.norm_eps)
-        return y @ self.cw("w_out")
+        y = y * (z * torch.sigmoid(z)).to(y.dtype)
+        tp = 1 if env is None else env.tp
+        if tp == 1:
+            return rms_norm(y, self.out_norm, cfg.norm_eps) @ self.cw("w_out")
+        # each rank's gated norm over its own d_in/tp features
+        y = rms_norm(y.unflatten(-1, (tp, -1)), self.out_norm.view(tp, -1), cfg.norm_eps)
+        return row_parallel(y.flatten(-2), self.cw("w_out"), env)
