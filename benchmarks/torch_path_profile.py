@@ -13,7 +13,8 @@ through ``flash_attention``) and each other block family's (``family_inputs``,
 ``segment_reduce``), then the prefills served across a (data, model) mesh
 (``mesh_inputs``, ``mesh_prefill_paths``: Qwen1.5-0.5B at (2, 4),
 granite-moe at (1, 16) with its MoE on the all-to-all dispatch, mamba2 at
-(2, 2)), then a train step of Qwen1.5-0.5B under S3 on 8 ranks
+(2, 2), minicpm3 at (1, 8), recurrentgemma at (2, 2), qwen2-vl at (1, 8),
+seamless at (1, 16)), then a train step of Qwen1.5-0.5B under S3 on 8 ranks
 and of granite-moe-1b-a400m on one (``train_inputs``, ``train_paths``: 8 ×
 2,048 and 4 × 2,048 tokens), each once to warm up, then twice under ``torch.profiler``
 (CPU + CUDA activity), each call inside a ``record_function`` window that
@@ -51,17 +52,6 @@ def kind_of(name: str) -> str:
         if any(k.lower() in low for k in keys):
             return kind
     return "other"
-
-
-def busy_us(intervals: list[tuple[float, float]]) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        total += e - max(s, end)
-        end = e
-    return total
 
 
 def main() -> int:
@@ -117,7 +107,7 @@ def main() -> int:
             del fn
             continue
         spans = [(e.time_range.start, e.time_range.end) for e in device]
-        busy = busy_us(spans)
+        busy = chip_smoke.busy_us(spans)
         d0, d1 = min(s for s, _ in spans), max(e for _, e in spans)
         if busy > w1 - w0:
             raise RuntimeError(f"{name}: device busy {busy:.1f} us exceeds the window "
@@ -146,7 +136,7 @@ def main() -> int:
                           ((e.time_range.start, e.time_range.end) for e in device)
                           if e > p0 and s < p1]
                 print(f"   phase {phase}: window {(p1 - p0) / 1e3:.3f} ms, device busy "
-                      f"{busy_us(inside) / 1e3:.3f} ms")
+                      f"{chip_smoke.busy_us(inside) / 1e3:.3f} ms")
         del fn  # the call's closure holds its inputs (a model for the serving paths)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

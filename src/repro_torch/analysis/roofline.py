@@ -168,10 +168,12 @@ def analytic_attn_area(cfg, seq: int, impl: str, *, chunk: int = 512,
     return float(area_sched), float(seq * seq)
 
 
-def attn_flops_adjustment(cfg, shape, world: int, impl: str, *, train: bool) -> float:
-    """Per-rank FLOP delta on a data world of ``world`` ranks (tp 1):
-    replace the direct-attention probe FLOPs with the block schedule's
-    FLOPs. 0 for decode (no pair scan)."""
+def attn_flops_adjustment(cfg, shape, world: int, impl: str, *, train: bool,
+                          rows: int | None = None) -> float:
+    """Per-rank FLOP delta on a data world of ``world`` ranks (tp 1), or
+    with ``rows`` for a serving step that runs that many rows with every tp
+    rank's heads folded: replace the direct-attention probe FLOPs with the
+    block schedule's FLOPs. 0 for decode (no pair scan)."""
     if shape.kind == "decode":
         return 0.0
     seq = shape.seq_len // (2 if cfg.enc_layers else 1)
@@ -181,12 +183,13 @@ def attn_flops_adjustment(cfg, shape, world: int, impl: str, *, train: bool) -> 
         mm_dims = (m.qk_nope_head_dim + m.qk_rope_head_dim) + m.v_head_dim
     else:
         mm_dims = 2 * cfg.hd
-    heads_loc = cfg.n_heads  # tp 1
+    heads_loc = cfg.n_heads  # tp 1, or every tp rank's heads folded
     from repro_torch.models.model import block_pattern
     unit, tail, n_sb = block_pattern(cfg)
     n_attn = per_unit * n_sb + tail_n + (cfg.enc_layers if cfg.enc_layers else 0)
     area_impl, area_direct = analytic_attn_area(cfg, seq, impl)
-    b_loc = local_batch(shape.global_batch, world)  # summed over microbatches
+    # summed over microbatches
+    b_loc = local_batch(shape.global_batch, world) if rows is None else rows
     # per (b, head): 2 matmuls (qk^T, pv) over the block area
     delta_per_layer = 2.0 * mm_dims * (area_impl - area_direct) * heads_loc * b_loc
     factor = 4.0 if train else 1.0  # fwd + remat-recompute + 2×bwd

@@ -27,14 +27,22 @@ numbers. Per cell:
    reference scales the superblock's cost by |tail| / |unit|: so the FLOPs
    are exact, and the card's count of the real step checks them.
 
-What a record is: one H100 holding the reference's data extent (data 16,
-or pod 2 × data 16) as the world dims of one tensor, tp 1, and every count
-a per-card total. Training runs the world's ranks one after another and
-they are alike, so one rank is counted and its costs are scaled by W;
-serving runs the global batch at once. MoE dispatch reads its group sizes
-on the host, which the meta device does not have: the count takes balanced
-routing (``moe.BALANCED``), named in the record. The numbers are not
-comparable with the reference's 256-chip TPU records.
+What a record is: one H100 holding the reference's production mesh as the
+world dims of one tensor, and every count a per-card total. Serving runs on
+the whole (data 16, model 16) mesh (pod 2 × data 16 × model 16 with
+``--multi-pod``): tp is ``cfg.resolve_tp(16)`` with its rep groups, as the
+reference's cells run, the tp ranks folded into the ops and the batch's
+distinct rows (``steps.held_rows``) served at once; the count includes
+what folding costs, the (tp, rows, d) bf16 partials of every row-parallel
+product. ``--impl serve_opt`` takes the compute-at-data decode (its
+prefill and training attention run ``masked``, as the reference's do).
+Training runs the data extent at tp 1: training under tensor parallelism
+is ROADMAP.md §1 item 2, and the record says so. The world's ranks run one
+after another and are alike, so one rank is counted and its costs are
+scaled by W. MoE dispatch reads its group sizes on the host, which the meta
+device does not have: the count takes balanced routing (``moe.BALANCED``),
+named in the record. The numbers are not comparable with the reference's
+256-chip TPU records.
 """
 from __future__ import annotations
 
@@ -56,16 +64,27 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.scenarios import Scenario
 from repro_torch.launch import shapes as shp
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import data_extent, make_production_mesh
 from repro_torch.mesh import Mesh
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.model import Model, block_pattern
 from repro_torch.models.parallel import local_batch
 
 META = torch.device("meta")
-NOTE = ("one H100: the reference's data extent held as a world on the card, tp 1, per-card "
-        "totals counted on the meta device; not comparable with the reference's 256-chip "
-        "TPU records")
+NOTE = ("one H100: the reference's production mesh held as world dims on the card (training: "
+        "its data extent at tp 1), per-card totals counted on the meta device; not comparable "
+        "with the reference's 256-chip TPU records")
+TRAIN_TP = ("training under tensor parallelism is ROADMAP.md §1 item 2: the train step runs the "
+            "mesh's data extent at model 1")
+IMPLS = ("masked", "triangle", "serve_opt")
+
+
+def attention_impl(impl: str) -> str:
+    """The sequence mixing a cell's step runs: ``serve_opt`` is the
+    reference's compute-at-data decode, whose prefill and training attention
+    run the whole block schedule (``masked``)."""
+    return "masked" if impl == "serve_opt" else impl
+
 
 
 class LiveBytes(TorchDispatchMode):
@@ -134,14 +153,19 @@ class Cell:
     """A cell's step on the meta device: ``memory()`` runs it at full depth
     with its live bytes counted over ``held`` (what the step holds before it
     runs); ``cost()`` counts its FLOPs, bytes and collectives (the whole
-    card: train's one rank scaled by W)."""
+    card: train's one rank scaled by W). ``mesh``: a production mesh (or a
+    data world): training runs its data extent at tp 1, serving the
+    ``ShardEnv`` of the whole mesh."""
 
     def __init__(self, cfg, shape: shp.ShapeSpec, mesh: Mesh, *, scenario: str, impl: str,
                  microbatches: int, one_micro: bool = False):
         self.kind = shape.kind
-        self.model = Model(cfg, device=META)
         seq, gb = shape.seq_len, shape.global_batch
+        serve_opt, impl = impl == "serve_opt", attention_impl(impl)
         if self.kind == "train":
+            mesh = data_extent(mesh)  # tp 1 (ROADMAP.md §1 item 2)
+            self.env = None
+            self.model = Model(cfg, device=META)
             self.batch = _meta_batch(shp.train_input_specs(cfg, mesh, seq, gb))
             self.microbatches = micro_count(gb, mesh.size, microbatches)
             held_batch = self.batch
@@ -155,17 +179,22 @@ class Cell:
             self.world = self.step.world
             self.held = (self.model, held_batch, self.state)
             return
-        one = Mesh(("data",), (1,), device=META)  # serving: the global batch at once
+        # serving: the mesh's tp ranks folded, the batch's distinct rows at once
+        self.env = steps.make_env(cfg, mesh, scenario)
+        self.model = Model(cfg, device=META, env=self.env)
+        self.rows = rows = steps.held_rows(self.env, gb)
+        one = Mesh(("data",), (1,), device=META)
         self.world, self.microbatches = 1, 1
         dec = seq // 2 if cfg.enc_layers else seq  # enc-dec splits seq in halves
         if self.kind == "prefill":
-            self.step = steps.make_prefill_step(self.model, global_batch=gb, seq=dec, impl=impl)
-            self.batch = _meta_batch(shp.prefill_input_specs(cfg, one, seq, gb), lead=1)
+            self.step = steps.make_prefill_step(self.model, global_batch=rows, seq=dec, impl=impl)
+            self.batch = _meta_batch(shp.prefill_input_specs(cfg, one, seq, rows), lead=1)
             self.held = (self.model, self.batch)
             return
-        self.step = steps.make_serve_step(self.model, global_batch=gb, seq_max=dec)
-        self.cache = self.model.init_cache(gb, dec, enc_len=dec if cfg.enc_layers else None)
-        self.tokens = _meta_batch(shp.decode_input_specs(cfg, one, gb), lead=1)["tokens"]
+        self.step = steps.make_serve_step(self.model, global_batch=rows, seq_max=dec,
+                                          compute_at_data=serve_opt)
+        self.cache = self.model.init_cache(rows, dec, enc_len=dec if cfg.enc_layers else None)
+        self.tokens = _meta_batch(shp.decode_input_specs(cfg, one, rows), lead=1)["tokens"]
         self.cache_len = dec - 1
         self.held = (self.model, self.cache, self.tokens)
 
@@ -261,24 +290,33 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if not ok:
         return {"arch": cfg.name, "shape": shape_name, "skipped": reason}
     mesh = make_production_mesh(multi_pod=multi_pod, device=META)
-    mb = (microbatches or shp.TRAIN_MICROBATCHES.get(cfg.name, 4)) if shape.kind == "train" else 1
+    train = shape.kind == "train"
+    mb = (microbatches or shp.TRAIN_MICROBATCHES.get(cfg.name, 4)) if train else 1
 
     # 1) the full-depth proof and its memory
     t0 = time.time()
     cell = Cell(cfg, shape, mesh, scenario=scenario, impl=impl, microbatches=mb, one_micro=True)
     mem = cell.memory()
+    env = cell.env
     rec = {
         "arch": cfg.name, "shape": shape_name,
-        "mesh": ("2x16" if multi_pod else "16") + " data extent, model 1",
-        "scenario": scenario, "impl": impl, "tp": 1, "rep": 1,
+        "mesh": ("x".join(map(str, mesh.shape[:-1])) + " data extent, model 1" if train
+                 else "x".join(map(str, mesh.shape))),
+        "scenario": scenario, "impl": impl, "tp": 1 if train else env.tp,
+        "rep": 1 if train else env.rep,
         "microbatches": cell.microbatches,
         "world": cell.world,
         "ranks": ("one rank counted, costs x W (the ranks run one after another and are alike)"
-                  if shape.kind == "train" else "the global batch served at once"),
+                  if train else f"the batch's {cell.rows} distinct rows served at once, the tp "
+                                f"ranks folded"),
         "param_dtype": cfg.param_dtype, "meta_s": 0.0, **mem,
         "fits_80g": mem["peak_bytes"] < card_memory(),
         "device": "H100 (meta-device count)", "note": NOTE,
     }
+    if train:
+        rec["model_axis"] = TRAIN_TP
+    else:
+        rec["rows"] = cell.rows
     if cfg.moe is not None:
         rec["moe_routing"] = moe_lib.BALANCED
     del cell
@@ -293,11 +331,15 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     rec["probe_s"] = round(time.time() - t0, 1)
     costs = rl.ExactCosts.from_vector(np.maximum(total, 0.0))
     # the block schedule back in (probes ran dense), the whole world's
-    world = mesh.size if shape.kind == "train" else 1
-    adj = rl.attn_flops_adjustment(cfg, shape, world, impl, train=shape.kind == "train") * world
+    world = rec["world"]
+    adj = rl.attn_flops_adjustment(cfg, shape, world, attention_impl(impl), train=train,
+                                   rows=None if train else rec["rows"]) * world
     costs.flops = max(0.0, costs.flops + adj)
     rec["attn_flops_adjustment"] = adj
-    terms = rl.wire_and_terms(costs, world_hint=mesh.size, pod_fraction=0.0)
+    # the ring factor of the collectives' domain: the data world's for
+    # training, the tp groups' (row-parallel all-reduces, the MoE all-to-all)
+    # for serving
+    terms = rl.wire_and_terms(costs, world_hint=world if train else rec["tp"], pod_fraction=0.0)
     mf = rl.model_flops(cfg, shape, 1)
     rec.update({
         "devices": 1,
@@ -351,7 +393,8 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--scenario", default="native", choices=[s.value for s in Scenario])
-    ap.add_argument("--impl", default="masked", choices=["masked", "triangle"])
+    ap.add_argument("--impl", default="masked", choices=list(IMPLS),
+                    help="serve_opt: the compute-at-data decode")
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--no-probes", action="store_true")
     ap.add_argument("--jobs", type=int, default=min(8, os.cpu_count() or 1),

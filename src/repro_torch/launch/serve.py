@@ -20,10 +20,12 @@ embeddings of ``--enc-len`` positions and a token prompt. ``--impl flash``
 (the default on the card) runs the prefill self-attention through the
 ``flash_attention`` kernel where the kernel computes the layer's function
 (``models.model.attention_impl``), ``masked`` through the JAX model's
-chunked attention; decode is the same for both. ``--mesh d,m`` serves
-across a ``("data", "model")`` mesh of world dims (default 1,1): the
-model's tp ranks from ``cfg.resolve_tp(m)``, the batch in the device-major
-layout of ``launch.shapes.batch_layout`` and its distinct rows held once.
+chunked attention; decode is the same for both. ``--mesh d,m`` (or
+``p,d,m``) serves across a ``("data", "model")`` (or ``("pod", "data",
+"model")``) mesh of world dims, ``launch.mesh.make_mesh``'s (default 1,1):
+the model's tp ranks from ``cfg.resolve_tp(m)``, the batch in the
+device-major layout of ``launch.shapes.batch_layout`` and its distinct rows
+held once (``launch.steps.held_rows``).
 """
 from __future__ import annotations
 
@@ -33,8 +35,8 @@ import time
 
 import torch
 
-from repro_torch.launch import shapes
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.mesh import Mesh
 from repro_torch.models.model import Model
 
@@ -127,13 +129,11 @@ def run(args):
     from repro_torch.configs import get_config, get_smoke_config
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    mesh = Mesh(("data", "model"), tuple(int(x) for x in args.mesh.split(",")),
-                device=args.device)
+    mesh = make_mesh([int(x) for x in args.mesh.split(",")], device=args.device)
     env = steps_lib.make_env(cfg, mesh)
     model = Model(cfg, device=mesh.device, seed=args.seed, env=env)
     impl = args.impl or ("flash" if model.device.type == "cuda" else "masked")
-    dims, b_loc = shapes.batch_layout(env, args.batch)
-    rows = b_loc * (dims[0] if dims[-1] == 1 else dims[0] * env.rep)
+    rows = steps_lib.held_rows(env, args.batch)
     batch = prompt_batch(model, rows, args.prompt_len, seed=args.seed, enc_len=args.enc_len)
     res = generate(model, batch, args.gen, impl=impl, mesh=mesh, global_batch=args.batch)
     gen = res["tokens"].cpu().numpy()  # (rows, gen)
@@ -156,7 +156,8 @@ def parser():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--enc-len", type=int, default=None,
                     help="encoder input length of an enc-dec model (default: --prompt-len)")
-    ap.add_argument("--mesh", default="1,1", help="data,model: the serving mesh")
+    ap.add_argument("--mesh", default="1,1",
+                    help="data,model or pod,data,model: the serving mesh")
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--impl", choices=("flash", "masked"), default=None,
                     help="prefill attention (default: flash on the card, masked on the CPU)")

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.scenarios import Scenario
 from repro_torch.launch import shapes
+from repro_torch.launch.mesh import data_world
 from repro_torch.mesh import Mesh
 from repro_torch.models import model as M
 from repro_torch.models.parallel import ShardEnv, local_batch, loss_normalizer
@@ -68,6 +69,14 @@ def rows_of(env: ShardEnv, x: torch.Tensor, global_batch: int) -> torch.Tensor:
             raise ValueError("the tp ranks of a rep group hold different rows")
         x = first
     return x.flatten(0, nd)
+
+
+def held_rows(env: ShardEnv, global_batch: int) -> int:
+    """How many distinct rows a device-major batch of ``global_batch`` holds
+    (``rows_of``'s): fsdp · (rep when the batch splits over the rep groups)
+    · b_loc."""
+    dims, b_loc = shapes.batch_layout(env, global_batch)
+    return env.fsdp_size * (env.rep if dims[-1] > 1 else 1) * b_loc
 
 
 def device_major(env: ShardEnv, rows: torch.Tensor, global_batch: int) -> torch.Tensor:
@@ -164,6 +173,7 @@ class TrainStep:
                  microbatches: int, global_batch: int, seq: int, impl: str, clip_norm: float):
         cfg = model.cfg
         M.check_train_impl(impl)
+        mesh = data_world(mesh)
         if mesh.device.type != model.device.type:
             raise ValueError(f"mesh on {mesh.device}, model on {model.device}")
         self.model, self.mesh = model, mesh
@@ -248,7 +258,8 @@ def make_train_step(model: M.Model, mesh: Mesh, *, scenario: Scenario | str = Sc
                     optimizer: AdamW | None = None, microbatches: int = 1, global_batch: int = 8,
                     seq: int = 128, impl: str = "masked", clip_norm: float = 1.0) -> TrainStep:
     """The train step of ``model`` on the data world ``mesh`` (``("data",)``
-    or ``("pod", "data")``, on the model's device), aggregating gradients
+    or ``("pod", "data")``, on the model's device; a launcher's mesh with a
+    model axis of 1 gives its ``launch.mesh.data_world``), aggregating gradients
     under ``scenario``; ``optimizer`` defaults to ``AdamW`` with the
     config's 8-bit moments setting. Turns the model's parameters'
     gradients on."""

@@ -14,7 +14,7 @@ written in the background; the latest restores at start unless
 ``--fresh``). ``--mesh data,model`` or ``pod,data,model`` as in the
 reference; the data world is the world dims of a ``Mesh`` on one device
 (``--device``, the card by default), and a model axis above 1 raises:
-tensor parallelism waits for more than one card.
+training under tensor parallelism is ROADMAP.md §1 item 2.
 
 Elastic restart: ``--fail-step K --shrink-to N`` simulates losing devices at
 step K. The run waits for its writes, takes ``elastic_mesh_plan(N,
@@ -41,7 +41,7 @@ import torch
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.data.pipeline import TrainPipeline
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import data_world, make_mesh
 from repro_torch.mesh import Mesh
 from repro_torch.models import convert
 from repro_torch.models.model import Model
@@ -50,8 +50,10 @@ from repro_torch.runtime.fault_tolerance import elastic_mesh_plan
 
 
 def build(model: Model, mesh: Mesh, args, optimizer=None):
-    """(train step, data pipeline) for ``model`` on ``mesh`` as ``args`` ask
-    (``optimizer``: an ``AdamW`` other than the default)."""
+    """(train step, data pipeline) for ``model`` on ``mesh``'s data world
+    (``launch.mesh.data_world``) as ``args`` ask (``optimizer``: an
+    ``AdamW`` other than the default)."""
+    mesh = data_world(mesh)
     step = steps_lib.make_train_step(
         model, mesh, scenario=args.scenario, optimizer=optimizer,
         microbatches=args.microbatches, global_batch=args.global_batch, seq=args.seq,
@@ -148,7 +150,7 @@ def run(args, optimizer=None) -> list[float]:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.moe_dispatch:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.moe_dispatch))
-    mesh = make_mesh([int(x) for x in args.mesh.split(",")], device=args.device)
+    mesh = data_world(make_mesh([int(x) for x in args.mesh.split(",")], device=args.device))
     store = CheckpointStore(args.ckpt) if args.ckpt else None
     model = Model(cfg, device=args.device, seed=args.seed)
     step, pipe = build(model, mesh, args, optimizer)

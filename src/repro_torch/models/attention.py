@@ -6,7 +6,9 @@ holds H/tp query heads and its kv slots (``gqa_dims``); when kv < tp, rank
 t reads logical kv head t // (tp / kv), which is the head its queries read
 at tp = 1, so the ranks' attention folded together is the whole model's:
 one launch over every rank's heads. The output projection is row-parallel,
-its tp partials summed in bf16 (``parallel.row_parallel``).
+its tp partials summed in bf16 (``parallel.row_parallel``). The same holds
+for cross-attention, for the local-attention rolling cache and for MLA's
+heads.
 Sequence mixing is chosen per step, as in the JAX model:
   * ``masked``   — every (q-chunk, kv-chunk) block pair, causal by mask;
   * ``triangle`` — only the block pairs that meet the causal triangle;
@@ -303,9 +305,7 @@ class GQAAttention(CastOnce):
                                   scale=1.0 / math.sqrt(hd), causal=causal, q_offset=q_offset,
                                   window=window, impl=impl, kv_len=kv_valid)
         y = y.reshape(b, s, hq * hd)
-        if env is not None and env.tp > 1:
-            return row_parallel(y, self.cw("wo"), env), new_cache
-        return torch.matmul(y, self.cw("wo").to(y.dtype)), new_cache
+        return row_parallel(y, self.cw("wo"), env), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -339,11 +339,16 @@ class MLAAttention(CastOnce):
         self.wo = self.param((H * m.v_head_dim, d), "normal", generator, device)
 
     def forward(self, x, *, rope, cache=None, cache_len=None, prefill_cache=None,
-                impl="masked"):
+                impl="masked", env: ShardEnv | None = None):
         """x (b, s, d) → (y (b, s, d), new_cache). ``cache``, ``cache_len``
         and ``prefill_cache`` as for ``GQAAttention``, over the latent cache;
         ``impl`` is the prefill's chunked attention (the kernel takes no
-        96/64 head dims)."""
+        96/64 head dims). ``env``: the tp ranks, each with H/tp heads. Their
+        q and kv up-projections (``wq_b``, ``wkv_b``) are column-parallel
+        and their attention is per head, so folded these are the tp = 1
+        computation; the output projection is row-parallel, its partials
+        summed. The latent cache, which every rank holds alike, is held
+        once."""
         m = self.cfg.mla
         b, s, _ = x.shape
         H = self.cfg.n_heads
@@ -385,4 +390,4 @@ class MLAAttention(CastOnce):
                 prefill_cache["k_rope"][:, :s] = k_rope.to(prefill_cache["k_rope"].dtype)
                 new_cache = prefill_cache
         y = y.reshape(b, s, H * dv).to(x.dtype)
-        return y @ self.cw("wo"), new_cache
+        return row_parallel(y, self.cw("wo"), env), new_cache

@@ -234,7 +234,8 @@ def cache_to_jax(cache: Mapping, mesh_dims: int = 0, *, env: ShardEnv | None = N
     With ``env``: the device-major layout of the reference's serving steps
     on that mesh, (pod,) data, model, then each device's leaf: its rows (of
     the rows held once, ``ShardEnv.row_groups``), its kv slots (``dup_map``)
-    and its tp slice of the SSM's heads and x channels."""
+    its tp slice of the SSM's heads and x channels and of the RG-LRU's
+    channels; MLA's latent cache is every rank's alike."""
     def leaf(t: torch.Tensor, name: str, rows_dim: int) -> np.ndarray:
         a = t.detach().to(torch.float32).cpu().numpy()
         if env is None:
@@ -263,7 +264,7 @@ def _device_major_leaf(a: np.ndarray, name: str, rows_dim: int, env: ShardEnv) -
         if name in ("k", "v"):  # the rank's kv slots
             kv_loc = max(1, x.shape[-2] // tp)
             x = x[..., list(env.dup_map(x.shape[-2])[m * kv_loc:(m + 1) * kv_loc]), :]
-        elif name == "conv_x":  # the rank's channels of x
+        elif name in ("conv_x", "conv", "h"):  # the rank's channels (SSM's x, the RG-LRU's)
             c = x.shape[-1] // tp
             x = x[..., t * c:(t + 1) * c]
         elif name == "ssm":  # the rank's heads

@@ -27,9 +27,9 @@ Serving across a ``("data", "model")`` mesh takes a ``parallel.ShardEnv``
 axis). The rows of a batch are held once (the device-major batch's
 distinct rows, ``ShardEnv.row_groups``), and so are the parameters and
 caches; the tp ranks fold into the products (``parallel``), and the MoE
-prefill runs the all-to-all dispatch over the tp groups. Under tp > 1 the
-dense GQA + MLP, MoE and Mamba-2 blocks serve; the other block kinds raise
-``NotImplementedError`` (``check_tp_kinds``), and so does training.
+prefill runs the all-to-all dispatch over the tp groups. Every block kind
+serves under tp > 1, the encoder of an enc-dec model included; training
+under tp > 1 raises ``NotImplementedError`` (ROADMAP.md §1 item 2).
 """
 from __future__ import annotations
 
@@ -80,25 +80,6 @@ def attention_impl(cfg: ModelConfig, kind: str, impl: str) -> str:
         return impl
     ok = cfg.mla is None and kind != "attn_local" and cfg.hd in HEAD_DIMS
     return "flash" if ok else "masked"
-
-
-def check_tp_kinds(cfg: ModelConfig, env: ShardEnv) -> None:
-    """Raise ``NotImplementedError`` where ``cfg`` has a block kind or input
-    that does not serve under tp > 1 yet, naming the ROADMAP entry that
-    brings it."""
-    if env.tp == 1:
-        return
-    unit, tail, _ = block_pattern(cfg)
-    kinds = set(unit) | set(tail)
-    what = ("MLA (minicpm3)" if cfg.mla is not None
-            else "the RG-LRU hybrid with local attention (recurrentgemma)"
-            if kinds & {"rec", "attn_local"}
-            else "enc-dec cross attention (seamless)" if cfg.enc_layers or "dec" in kinds
-            else "the vision-embedding input with M-RoPE (qwen2-vl)"
-            if cfg.embed_input or cfg.mrope_sections is not None else None)
-    if what is not None:
-        raise NotImplementedError(f"{cfg.name} at tp={env.tp}: serving {what} under tensor "
-                                  "parallelism waits for ROADMAP.md §1 queue (a)")
 
 
 class Block(nn.Module):
@@ -155,7 +136,7 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
         if cfg.mla is not None:
             y, _ = block.attn(h, rope=ctx["rope"], cache=sub(cache, "attn"),
                               cache_len=ctx.get("cache_len"),
-                              prefill_cache=sub(prefill_cache, "attn"), impl=impl)
+                              prefill_cache=sub(prefill_cache, "attn"), impl=impl, env=env)
         else:
             y, _ = block.attn(h, rope=ctx["rope"], cache=sub(cache, "attn"),
                               cache_len=ctx.get("cache_len"),
@@ -167,7 +148,7 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
             y, _ = block.cross(block.lnx(x), cross_kv=ctx.get("enc_out"),
                                cross_cache=sub(cache, "cross"),
                                prefill_cache=sub(prefill_cache, "cross"),
-                               impl="masked" if impl == "flash" else impl)
+                               impl="masked" if impl == "flash" else impl, env=env)
             x = x + y
         h = block.ln2(x)
         if kind != "attn_moe":
@@ -179,7 +160,7 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
         return x + block.ssm(block.ln1(x), state=sub(cache, "ssm"),
                              prefill_state=sub(prefill_cache, "ssm"), env=env)
     x = x + block.rec(block.ln1(x), state=sub(cache, "rec"),
-                      prefill_state=sub(prefill_cache, "rec"))
+                      prefill_state=sub(prefill_cache, "rec"), env=env)
     return x + block.mlp(block.ln2(x), env)
 
 
@@ -197,11 +178,15 @@ def rope_dim(cfg: ModelConfig) -> int:
 
 
 def rope_for(cfg: ModelConfig, positions: torch.Tensor, dim: int):
-    """positions (b, s), or (b, s, 3) for M-RoPE → (cos, sin) (b, s, dim/2)."""
-    if positions.dim() == 3:
+    """positions (..., b, s), or an M-RoPE grid (..., b, s, 3) → (cos, sin)
+    (..., b, s, dim/2): the tables broadcast over any leading dims (a
+    device-major batch's world dims). A config without M-RoPE reads a grid's
+    first (temporal) position, as the reference does."""
+    if positions.dim() >= 3 and positions.shape[-1] == 3:
         if cfg.mrope_sections is not None:
             return mrope_angles(positions, dim, cfg.rope_theta, cfg.mrope_sections)
-        positions = positions[..., 0]
+        if positions.dim() == 3:
+            positions = positions[..., 0]
     return rope_angles(positions, dim, cfg.rope_theta)
 
 
@@ -237,7 +222,6 @@ class Model(CastOnce):
                  env: ShardEnv | None = None):
         super().__init__()
         self.env = env = ONE if env is None else env
-        check_tp_kinds(cfg, env)
         device = resolve_device(device, "Model()")
         # on the meta device (shapes only, no memory) there are no numbers to draw
         gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
@@ -355,9 +339,12 @@ class Model(CastOnce):
             aux = aux + a
         return x, aux
 
-    def encode(self, embeds: torch.Tensor, positions: torch.Tensor, impl: str) -> torch.Tensor:
-        """The encoder stack (enc-dec): embeds (b, s_enc, d) → memory."""
-        ctx = {"rope": rope_for(self.cfg, positions, rope_dim(self.cfg)), "impl": impl}
+    def encode(self, embeds: torch.Tensor, positions: torch.Tensor, impl: str,
+               env: ShardEnv | None = None) -> torch.Tensor:
+        """The encoder stack (enc-dec): embeds (b, s_enc, d) → memory, under
+        ``env`` (tp = 1 by default)."""
+        ctx = {"rope": rope_for(self.cfg, positions, rope_dim(self.cfg)), "impl": impl,
+               "env": env}
         x, _ = self.stack(self.enc_blocks, embeds.to(getattr(torch, self.cfg.compute_dtype)), ctx)
         return self.enc_norm(x)
 
@@ -419,7 +406,8 @@ class Model(CastOnce):
         ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl, "env": env or self.env}
         enc_len = None
         if cfg.enc_layers:
-            ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl)
+            ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl,
+                                         ctx["env"])
             enc_len = ctx["enc_out"].shape[1]
         if cache is None:
             cache = self.init_cache(b, s, enc_len=enc_len)

@@ -35,7 +35,7 @@ from repro_torch.core.scenarios import Scenario
 from repro_torch.mesh import Mesh, note_collective
 
 COMPUTE_DTYPE = torch.bfloat16
-TP_TRAINING = "training under tensor parallelism waits for ROADMAP.md §1 queue (b)"
+TP_TRAINING = "training under tensor parallelism waits for ROADMAP.md §1 item 2"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,8 +124,12 @@ class ShardEnv:
 
     def psum_tp(self, parts: torch.Tensor) -> torch.Tensor:
         """The sum over the TP domain of the tp ranks' partials, which lie
-        along dim 0: the row-parallel combine, held once for the group."""
-        return parts.sum(0)
+        along dim 0: the row-parallel combine, held once for the group. It
+        counts as the reference's all-reduce, every tp rank's output
+        (``mesh.count_collectives``)."""
+        out = parts.sum(0)
+        note_collective("all-reduce", out.numel() * out.element_size() * parts.shape[0])
+        return out
 
     def batch_split_rep(self, global_batch: int) -> bool:
         """Does the batch additionally split across rep groups?"""

@@ -1,13 +1,16 @@
 """RG-LRU recurrent block (RecurrentGemma / Griffin) on one card.
 
-The counterpart of ``repro/models/rglru.py`` (tp = 1):
+The counterpart of ``repro/models/rglru.py``:
 h_t = a_t ⊙ h_{t−1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ x_t),
 a_t = exp(−c · softplus(Λ) · r_t), r/i = σ(diagonal gates on x_t), with the
 JAX model's diagonal gates. The prefill scans the sequence with
 ``core.ring_scan.inclusive_linear_scan`` (log₂ s doubling steps of
 whole-tensor ops, where the JAX model calls ``lax.associative_scan``; the
 fp32 sums round in another order); decode carries the (b, lru) state one
-step.
+step. Over tp ranks each rank holds lru/tp channels; the gates, the conv
+and the scan are per channel, so folded they are the tp = 1 computation, and
+the output projection is row-parallel, its partials summed
+(``parallel.row_parallel``). The state is held once.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from torch.nn import functional as F
 from repro_torch.core.ring_scan import inclusive_linear_scan
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import CastOnce, causal_conv1d
+from repro_torch.models.parallel import ShardEnv, row_parallel
 
 RG_C = 8.0
 CONV_WIDTH = 4
@@ -43,11 +47,12 @@ class RGLRU(CastOnce):
         self.w_out = self.param((lru, d), "normal", generator, device)
 
     def forward(self, x: torch.Tensor, *, state: dict | None = None,
-                prefill_state: dict | None = None) -> torch.Tensor:
+                prefill_state: dict | None = None,
+                env: ShardEnv | None = None) -> torch.Tensor:
         """x (b, s, d) → (b, s, d). ``state`` {"conv", "h"}: one decode step
         (s = 1) from the state, which is then overwritten in place.
         ``prefill_state``: a state of that form that takes the prompt's last
-        conv inputs and hidden state in place."""
+        conv inputs and hidden state in place. ``env``: the tp ranks."""
         b, s, _ = x.shape
         if state is not None and s != 1:
             raise ValueError(f"an RG-LRU decode step takes one position, got {s}")
@@ -69,4 +74,4 @@ class RGLRU(CastOnce):
             out_state["conv"].copy_(conv)
             out_state["h"].copy_(y[:, -1])
         y = (y * F.gelu(gate.to(torch.float32), approximate="tanh")).to(x.dtype)
-        return y @ self.cw("w_out")
+        return row_parallel(y, self.cw("w_out"), env)

@@ -23,7 +23,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.analysis import roofline as rl  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch import dryrun, shapes  # noqa: E402
-from repro_torch.launch.mesh import make_mesh, make_production_mesh, mesh_axis_sizes  # noqa: E402
+from repro_torch.launch.mesh import (data_world, make_mesh, make_production_mesh,  # noqa: E402
+                                     mesh_axis_sizes)
 from repro_torch.mesh import Mesh  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 
@@ -160,14 +161,17 @@ def test_cost_vector_counts_flops_bytes_and_collectives():
 
 
 def test_production_mesh_and_mesh_helpers():
+    """The reference's production meshes, model axis included; training's
+    data world drops a model axis of 1 and refuses a larger one."""
     m = make_production_mesh(device=META)
-    assert m.axis_names == ("data",) and m.shape == (16,)
+    assert m.axis_names == ("data", "model") and m.shape == (16, 16)
     m2 = make_production_mesh(multi_pod=True, device=META)
-    assert m2.axis_names == ("pod", "data") and m2.shape == (2, 16)
-    assert mesh_axis_sizes(m2) == {"pod": 2, "data": 16, "model": 1}
-    assert make_mesh((4, 1), ("data", "model"), device="cpu").shape == (4,)
-    with pytest.raises(ValueError, match="model axis"):
-        make_mesh((16, 16), device=META)
+    assert m2.axis_names == ("pod", "data", "model") and m2.shape == (2, 16, 16)
+    assert mesh_axis_sizes(m2) == {"pod": 2, "data": 16, "model": 16}
+    w = data_world(make_mesh((4, 1), ("data", "model"), device="cpu"))
+    assert (w.axis_names, w.shape) == (("data",), (4,))
+    with pytest.raises(NotImplementedError, match="§1 item 2"):
+        data_world(m)
     with pytest.raises(ValueError, match="axes"):
         make_mesh((4, 1), ("x", "model"), device="cpu")
 
@@ -196,7 +200,10 @@ def test_probe_solve_predicts_a_direct_count_exactly(arch, kind):
 def test_lower_cell_records(tmp_path):
     """A dense train cell, an MoE prefill (balanced routing, named), an
     enc-dec decode (each cut to two layers) and a skip: the reference's
-    record keys, one card, tp 1, the peak the held state plus the step's."""
+    record keys, one card, the peak the held state plus the step's. The
+    serve cells run on the production mesh at the reference's tp
+    (``resolve_tp(16)``) and rep; the train cell on its data extent at tp
+    1, the record saying why; ``serve_opt`` is the compute-at-data decode."""
     from repro.launch.shapes import shape_applicable as ref_applicable
     from repro.configs import get_config as ref_config
 
@@ -207,11 +214,25 @@ def test_lower_cell_records(tmp_path):
                                cfg_overrides={"n_layers": 2, "enc_layers": 2})
     for rec in (dense, moe_rec, encdec):
         assert SAME_KEYS <= set(rec), SAME_KEYS - set(rec)
-        assert rec["tp"] == 1 and rec["devices"] == 1 and "not comparable" in rec["note"]
+        assert rec["devices"] == 1 and "not comparable" in rec["note"]
         assert rec["peak_bytes"] == rec["held_bytes"] + rec["transient_bytes"]
         assert rec["fits_80g"] == (rec["peak_bytes"] < 80e9)
         assert rec["flops_per_dev"] >= rec["model_flops_per_dev"] * 0.5 > 0
     assert dense["world"] == 16 and dense["microbatches"] == 1
+    assert (dense["tp"], dense["rep"], dense["mesh"]) == (1, 1, "16 data extent, model 1")
+    assert "ROADMAP.md §1 item 2" in dense["model_axis"] and "rows" not in dense
+    for rec, arch in ((moe_rec, "granite-moe-1b-a400m"), (encdec, "seamless-m4t-large-v2"),
+                      (dryrun.lower_cell("qwen2-vl-7b", "decode_32k", cfg_overrides=cut,
+                                         probes=False), "qwen2-vl-7b")):
+        tp = ref_config(arch).resolve_tp(16)
+        assert (rec["tp"], rec["rep"], rec["mesh"]) == (tp, 16 // tp, "16x16"), arch
+        assert "model_axis" not in rec and rec["rows"] == shapes.SHAPES[rec["shape"]].global_batch
+    assert moe_rec["tp"] == 16 and moe_rec["collectives"]["all-to-all"] > 0  # the a2a dispatch
+    assert moe_rec["collectives"]["all-reduce"] > 0  # the row-parallel products' psum_tp
+    opt = dryrun.lower_cell("qwen1.5-0.5b", "decode_32k", impl="serve_opt", cfg_overrides=cut)
+    plain = dryrun.lower_cell("qwen1.5-0.5b", "decode_32k", cfg_overrides=cut)
+    assert opt["impl"] == "serve_opt" and opt["tp"] == plain["tp"] == 16
+    assert opt["hbm_bytes_per_dev"] > plain["hbm_bytes_per_dev"]  # the MLP's d-slice partials
     assert dense["collectives"]["reduce-scatter"] > 0  # native: each FSDP leaf's psum_scatter
     assert moe_rec["moe_routing"] == moe.BALANCED and "moe_routing" not in dense
     # a decode cell holds its cache: 2 layers of self and cross k/v, bf16

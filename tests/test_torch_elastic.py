@@ -31,7 +31,7 @@ from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import TrainPipeline  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import data_world, make_mesh  # noqa: E402
 from repro_torch.models.convert import params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.optim import AdamW, OptState  # noqa: E402
 from repro_torch.runtime import fault_tolerance as ft  # noqa: E402
@@ -358,7 +358,7 @@ def test_grok_trains_in_bf16_in_step_with_the_reference(jax_out):
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
     assert model.blocks[0].moe.wo_c.untyped_storage().data_ptr() == \
         model.blocks[0].moe.wo.untyped_storage().data_ptr()  # its own compute copy
-    mesh = make_mesh((1, 1), device="cpu")
+    mesh = data_world(make_mesh((1, 1), device="cpu"))
     step = steps.make_train_step(model, mesh, optimizer=AdamW(lr=GROK_LR, warmup_steps=1),
                                  global_batch=GB, seq=SEQ)
     state = step.init_state()

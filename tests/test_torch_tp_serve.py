@@ -721,22 +721,11 @@ def test_expert_ffn_compute_at_data_matches_reference(jax_out):
 # ---------------------------------------------------------------------------
 # what waits, and the entry points
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "recurrentgemma-2b", "seamless-m4t-large-v2",
-                                  "qwen2-vl-7b"])
-def test_kinds_left_for_later_raise_under_tp(arch):
-    cfg = get_smoke_config(arch)
-    env = _env(arch, (1, 2))
-    assert env.tp == 2
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 queue \(a\)"):
-        M.Model(cfg, device="cpu", env=env)
-    M.Model(cfg, device="cpu", env=_env(arch, (2, 1)))  # tp 1 over a data world serves
-
-
 def test_training_under_tp_raises():
     cfg = get_smoke_config("qwen1.5-0.5b")
     model = M.Model(cfg, device="cpu", env=_env("qwen1.5-0.5b", (1, 4)))
     toks = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=r"queue \(b\)"):
+    with pytest.raises(NotImplementedError, match="§1 item 2"):
         model.train_loss({"tokens": toks, "labels": toks})
 
 

@@ -36,7 +36,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import Prefetcher, TrainPipeline, markov_tokens, _rng  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve, shapes, steps, train  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import data_world, make_mesh  # noqa: E402
 from repro_torch.mesh import Mesh  # noqa: E402
 from repro_torch.models.convert import (from_jax, opt_state_from_jax, params_from_jax,  # noqa: E402
                                         params_to_jax, to_jax)
@@ -115,7 +115,7 @@ def subtree(jax_out, prefix: str) -> dict:
 
 def data_mesh(shape) -> Mesh:
     """(4, 1) → ("data",) = 4; (2, 2, 1) → ("pod", "data") = (2, 2), on the CPU."""
-    return make_mesh(shape, device="cpu")
+    return data_world(make_mesh(shape, device="cpu"))
 
 
 def rel(a, b) -> float:
@@ -239,13 +239,18 @@ def test_train_cli_loss_falls(capsys):
 
 
 def test_training_refuses_what_it_cannot_run():
-    """``impl="flash"`` (no backward), a model axis above 1 (TP needs more
-    cards), and the elastic restart without a checkpoint directory raise."""
+    """``impl="flash"`` (no backward), a model axis above 1 (training under
+    TP is ROADMAP.md §1 item 2: the CLI's ``--mesh 4,2``, and a mesh with
+    that axis given to the train step), and the elastic restart without a
+    checkpoint directory raise."""
     model = Model(get_smoke_config(ARCH), device="cpu")
     with pytest.raises(ValueError, match="no backward"):
         steps.make_train_step(model, data_mesh((4, 1)), impl="flash")
-    with pytest.raises(ValueError, match="model axis"):
-        make_mesh((2, 2), device="cpu")
+    with pytest.raises(NotImplementedError, match="§1 item 2"):
+        train.run(train.parser().parse_args(["--arch", "qwen1.5-0.5b", "--smoke", "--device",
+                                             "cpu", "--mesh", "4,2"]))
+    with pytest.raises(NotImplementedError, match="model axis of 2"):
+        steps.make_train_step(model, make_mesh((2, 2), device="cpu"))
     with pytest.raises(ValueError, match="needs --ckpt"):
         train.run(train.parser().parse_args(["--arch", "qwen1.5-0.5b", "--smoke", "--device",
                                              "cpu", "--fail-step", "3", "--shrink-to", "2"]))
@@ -277,7 +282,7 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     models["cuda"] = Model(cfg, device="cpu", seed=0).to(cuda)
     out = {}
     for where, model in models.items():
-        mesh = make_mesh((2, 1), device=model.device)
+        mesh = data_world(make_mesh((2, 1), device=model.device))
         step = steps.make_train_step(model, mesh, scenario="s3_in_net_map",
                                      global_batch=4, seq=SEQ)
         ops.reset_launches()
