@@ -125,9 +125,10 @@
    checkpoint restored into a model of another seed gives that second
    step's loss bitwise, ``segment_reduce`` on its kernel route. Then
    ``launch/dryrun.py``'s 40 cells on the meta device (``DRYRUN_JOBS``
-   worker processes; each a record or the reference's skip; the serve cells
-   on the reference's (16, 16) production mesh at ``resolve_tp(16)`` and its
-   rep groups, the train cells on its data extent at tp 1), and every cell
+   worker processes; each a record or the reference's skip; every cell on
+   the reference's (16, 16) production mesh at ``resolve_tp(16)`` and its
+   rep groups, a train cell's one data-parallel rank scaled by the
+   data-parallel world), and every cell
    the dry run says fits one H100 run for real on the card at that mesh: its
    peak memory within ``DRYRUN_PEAK_TOL`` of the dry run's and its FLOPs
    within ``DRYRUN_FLOP_TOL``.
@@ -166,6 +167,27 @@
    and decoder launch shapes) and ``segment_reduce`` at the TP paths'
    shapes against their plain versions, timed.
 
+10. Trains under tensor parallelism at full width through
+   ``launch/train.py``'s ``build`` and ``run``, random weights from
+   ``SEED``: (a) Qwen1.5-0.5B on the reference's e2e mesh (4, 2) (tp 2;
+   global batch 8 × 2,048), one step under each of NATIVE, S1, S2 and S3,
+   and HIERARCHICAL on (2, 2, 2), from the same parameters, phase by phase:
+   each aggregated gradient against NATIVE's fp32 sum of the same ranks'
+   gradients within ``AGG_TOL``, S3's launches the step's ring hops and its
+   result bitwise the ring run with ``ref.ring_fused_step``; the TP loss
+   against the tp = 1 step on the same parameters and rows within
+   ``TP_LOSS_TOL``; then ``TP_RESTART`` through ``run``: S3 on (4, 2), a
+   checkpoint, a failure and the restart on 4 devices, (2, 2), the
+   restored state bitwise and the first loss after it held as in 8.
+   (b) recurrentgemma-2b on (1, 4) (tp 2, rep 2: the rep groups' S3 rings),
+   cut to the deepest depth the card holds (``rec_tp_depth``), 3 × 2,048
+   rows, two S3 steps held to NATIVE and bitwise to the plain ring.
+   (c) granite-moe-1b-a400m on (1, 16) (tp 16, the a2a dispatch at capacity
+   1.25), 4 layers, two steps: ``segment_reduce`` once a layer a forward
+   (twice under remat), and the loss on the kernel route against the plain
+   route. Each step's phases, tokens/s, peak and launches are printed, and
+   for (a)'s S3 step, (b) and (c) the device's busy time and idle share.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that last line. Needs one CUDA device.
@@ -175,7 +197,8 @@ aggregation, compiled-plan and scheduler paths, ``recurrence_inputs`` and
 ``recurrence_paths`` of the scan and pipeline ones, ``serve_inputs``,
 ``serve_paths`` and ``prefill_paths`` of the serving ones, ``family_inputs``,
 ``family_paths`` and ``family_prefill_paths`` of the other block kinds',
-``train_inputs`` and ``train_paths`` of training's, ``mesh_inputs``,
+``train_inputs`` and ``train_paths`` of training's (and, with
+``tp_model``, of training under tensor parallelism), ``mesh_inputs``,
 ``mesh_paths`` and ``mesh_prefill_paths`` of serving across a mesh;
 ``benchmarks/torch_path_profile.py`` profiles the same tables.
 """
@@ -403,6 +426,49 @@ A2A_TOL = 2e-2
 # the a2a combine on the kernel vs its plain version, relative to the largest
 # sum: fp32 sums of 8 bf16 rows a token in another order (atomics)
 COMBINE_TOL = 1e-4
+
+
+# training under tensor parallelism (phase 10). (a) qwen1.5 at full width
+# and depth on the reference's e2e mesh (tests/test_train_e2e.py:5-22):
+# (4, 2) is tp 2, 4 data ranks × 2 of the 8 × 2,048 rows; one step a
+# scenario (HIERARCHICAL on (2, 2, 2)) from the same parameters, each
+# aggregated gradient against NATIVE's fp32 sum of the same ranks'
+# gradients within AGG_TOL, and the TP step's loss against the tp = 1 step on
+# the same parameters and rows within TP_LOSS_TOL: the two differ in the
+# row-parallel products' bf16 partials (two a product, summed in fp32, where
+# tp = 1 rounds one product) and in the cross-entropy's sum of the two vocab
+# shards' exponentials; at the smoke width on the CPU they agree within
+# test_torch_train's LOSS_TOL (tests/test_torch_tp_train.py), and a mean over
+# 16,384 tokens averages a random walk of such roundings, so the limit
+# leaves room for 24 layers. Then TP_RESTART through train.run: a
+# checkpoint, the failure, the restart on 4 devices, which keep the model
+# axis: (2, 2)
+TP_TRAIN_MESHES = {"native": "4,2", "s1_host": "4,2", "s2_in_net": "4,2",
+                   "s3_in_net_map": "4,2", "hierarchical": "2,2,2"}
+TP_LOSS_TOL = 1e-3
+TP_RESTART = {"mesh": "4,2", "steps": 4, "every": 2, "fail": 3, "shrink": 4, "at": 2}
+# (b) recurrentgemma-2b on (1, 4): its config's tp 2, so rep 2 (its one kv
+# head over span 2 × rep 2), and the rep groups' S3 rings; 3 × 2,048 rows,
+# which do not split over the rep groups. Its depth is cut only as far as
+# the card's memory forces (rec_tp_depth): the deepest cut of whole
+# superblocks and the 2-layer tail whose train step the dry run's
+# meta-device count (dryrun.Cell.memory: fp32 parameters, bf16 copies,
+# moments and the batch held; the ranks' gradients, the aggregated ones,
+# activations and the update's temporaries) puts within REC_TP_MARGIN of
+# the card's memory, searched from the last element's layers. The margin
+# is for what the count does not see: the CUDA context, the caching
+# allocator's rounding and the checks' per-leaf copies. Two S3 steps, each
+# aggregated gradient held against NATIVE and bitwise against the ring run
+# with ref.ring_fused_step
+REC_TP = ("recurrentgemma-2b", "1,4", 3, 17)
+REC_TP_MARGIN = 0.04
+# (c) granite-moe-1b-a400m on (1, 16): tp 16, its 8 kv heads over span 2, 32
+# experts 2 slots a rank, the a2a dispatch at the config's capacity 1.25;
+# phase 8's cut of 4 layers, MOE_TRAIN_BATCH × 2,048 rows, two S3 steps (a
+# data world of 1 and rep 1: no ring hops). The loss of one batch on the
+# kernel route against the plain route (ref.segment_reduce, the expert
+# choices replayed) within MOE_TRAIN_TOL["loss"]
+MOE_TP = ("granite-moe-1b-a400m", "1,16", MOE_TRAIN_BATCH, MOE_CKPT_LAYERS)
 
 
 def log(msg: str) -> None:
@@ -1855,7 +1921,7 @@ def train_phase(launches: dict) -> dict:
                              f"{MOE_TRAIN_STEPS} steps x {fwd} forward combines")
     # the kernel route against the plain route, uncounted: the loss of one
     # batch, then layer 0 on its own input
-    part = {k: torch.as_tensor(v[0], device="cuda") for k, v in batches[0].items()}
+    part = {k: v[0, 0] for k, v in step.rank_rows(batches[0]).items()}  # rank 0's rows
     seen = {}
 
     def keep_input(mod, args, out):  # returns None: the layer's output stands
@@ -1898,15 +1964,18 @@ def flat_tensors(tree) -> dict:
     return store._flatten(tree)
 
 
-def restart_run(count) -> dict:
-    """Phase 8 (a): the elastic restart at full width through ``train.run``
-    (``RESTART_FLAGS``): qwen1.5 on 8 ranks under S3, a checkpoint every
-    ``RESTART_EVERY`` steps, the failure at step ``RESTART_FAIL``, the
-    restart on ``RESTART_SHRINK`` ranks from the latest checkpoint. Observed
-    through wrappers of ``CheckpointStore.save`` (a device copy of the
-    step-``RESTART_AT`` tree), ``train.restore`` (the restored tree against
-    that copy, bitwise) and ``TrainStep.__call__`` (each step's ms, world
-    and ``ring_fused_step`` launches)."""
+def restart_run(count, mesh: str = "8,1", steps: int = RESTART_STEPS,
+                every: int = RESTART_EVERY, fail: int = RESTART_FAIL, shrink: int = RESTART_SHRINK,
+                at: int = RESTART_AT) -> dict:
+    """Phase 8 (a), and phase 10's TP restart: the elastic restart at full
+    width through ``train.run``: qwen1.5 on ``mesh`` under S3 for ``steps``
+    steps, a checkpoint every ``every`` steps, the failure at step ``fail``,
+    the restart on ``shrink`` devices (``elastic_mesh_plan``, the model axis
+    kept) from the latest checkpoint, the step-``at`` one. Observed through
+    wrappers of ``CheckpointStore.save`` (a device copy of the step-``at``
+    tree), ``train.restore`` (the restored tree against that copy, bitwise)
+    and ``TrainStep.__call__`` (each step's ms, mesh, world, expected ring
+    hops and ``ring_fused_step`` launches)."""
     import shutil
     import tempfile
 
@@ -1918,18 +1987,21 @@ def restart_run(count) -> dict:
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch import train
     from repro_torch.optim import AdamW
+    from repro_torch.runtime.fault_tolerance import elastic_mesh_plan
 
+    shape = tuple(int(x) for x in mesh.split(","))
+    flags = ("--ckpt-every", str(every), "--fail-step", str(fail), "--shrink-to", str(shrink))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     seen, saved, log_steps = {}, {}, []
     real_save, real_restore = CheckpointStore.save, train.restore
     real_call = steps_lib.TrainStep.__call__
 
-    def save(store, step, tree, **kw):
+    def save(store, k, tree, **kw):
         seen["store"] = store
-        if step == RESTART_AT:
-            saved.update({k: v.clone() if isinstance(v, torch.Tensor) else int(v)
-                          for k, v in flat_tensors(tree).items()})
-        return real_save(store, step, tree, **kw)
+        if k == at:
+            saved.update({n: v.clone() if isinstance(v, torch.Tensor) else int(v)
+                          for n, v in flat_tensors(tree).items()})
+        return real_save(store, k, tree, **kw)
 
     def restore(step, store, at=None):
         torch.cuda.synchronize()
@@ -1952,7 +2024,8 @@ def restart_run(count) -> dict:
         out = real_call(step, state, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        log_steps.append({"world": step.world, "ms": (t1 - t0) * 1e3, "t0": t0, "t1": t1,
+        log_steps.append({"mesh": list(step.mesh_shape), "world": step.world,
+                          "ms": (t1 - t0) * 1e3, "t0": t0, "t1": t1, "hops": step.ring_hops(),
                           "ring_fused_step": ops.LAUNCHES["ring_fused_step"]
                           - before["ring_fused_step"]})
         seen["last"] = (step, out[0])
@@ -1962,8 +2035,8 @@ def restart_run(count) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
-        args = train_args(TRAIN_ARCH, "s3_in_net_map", "8,1", TRAIN_BATCH, RESTART_STEPS,
-                          "--ckpt", tmp, *RESTART_FLAGS)
+        args = train_args(TRAIN_ARCH, "s3_in_net_map", mesh, TRAIN_BATCH, steps,
+                          "--ckpt", tmp, *flags)
         t = time.perf_counter()
         with mock.patch.object(CheckpointStore, "save", save), \
                 mock.patch.object(train, "restore", restore), \
@@ -1971,25 +2044,26 @@ def restart_run(count) -> dict:
             losses = train.run(args, optimizer=AdamW(**TRAIN_OPT))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        count()
+        launched = count()
         step, state = seen.pop("last")
-        n_fsdp = sum(d is not None for d in step.dims.values())
         stats = list(seen["store"].stats)
         # a blocking save of the last state, timed on its own
         blocking = CheckpointStore(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"), keep=1)
         t = time.perf_counter()
-        blocking.save(RESTART_STEPS, train.checkpoint_tree(step, state), blocking=True)
+        blocking.save(steps, train.checkpoint_tree(step, state), blocking=True)
         blocking_ms = (time.perf_counter() - t) * 1e3
         shutil.rmtree(blocking.directory)
         del step, state
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    worlds = [s["world"] for s in log_steps]
-    cut = worlds.index(RESTART_SHRINK)
+    meshes = [s["mesh"] for s in log_steps]
+    cut = fail
     gb = stats[0]["bytes"] / 1e9
-    res = {"losses": losses, "worlds": worlds, "step_ms": [s["ms"] for s in log_steps],
+    res = {"mesh": mesh, "losses": losses, "meshes": meshes,
+           "worlds": [s["world"] for s in log_steps], "step_ms": [s["ms"] for s in log_steps],
            "ring_fused_step_per_step": [s["ring_fused_step"] for s in log_steps],
-           "saves": stats,
+           "ring_hops_per_step": [s["hops"] for s in log_steps],
+           "launches": launched, "saves": stats,
            "gb_per_save": gb, "blocking_save_ms": blocking_ms,
            "blocking_snapshot_ms": blocking.stats[0]["snapshot_ms"],
            "blocking_gb_per_s": gb / blocking_ms * 1e3,
@@ -1997,32 +2071,33 @@ def restart_run(count) -> dict:
            "restart_ms": (log_steps[cut]["t0"] - log_steps[cut - 1]["t1"]) * 1e3,
            "restored_step": seen["restored_step"], "restored_bitwise": seen["restored_bitwise"],
            "first_loss_after_restart": losses[cut],
-           "same_step_at_world_8": losses[RESTART_AT],
-           "rel_diff": abs(losses[cut] - losses[RESTART_AT]) / abs(losses[RESTART_AT]),
+           "same_step_before_restart": losses[at],
+           "rel_diff": abs(losses[cut] - losses[at]) / abs(losses[at]),
            "wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"restart {TRAIN_ARCH} s3_in_net_map 8 -> {RESTART_SHRINK} ranks "
-        f"({' '.join(RESTART_FLAGS)}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens): {json.dumps(res)}")
+    after = list(elastic_mesh_plan(shrink, model_size=shape[-1]).shape)
+    log(f"restart {TRAIN_ARCH} s3_in_net_map {mesh} -> {after} ({' '.join(flags)}, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens): {json.dumps(res)}")
     log(f"  saves: {gb:.2f} GB each; async snapshot "
         f"{np.mean([s['snapshot_ms'] for s in stats]):.1f} ms, write "
         f"{np.mean([s['write_ms'] for s in stats]):.1f} ms; blocking {blocking_ms:.1f} ms "
         f"(snapshot {res['blocking_snapshot_ms']:.1f}); restore {seen['restore_ms']:.1f} ms; "
-        f"restart {res['restart_ms']:.1f} ms; step ms at world 8 "
-        f"{np.median(res['step_ms'][:cut]):.1f}, at world {RESTART_SHRINK} "
+        f"restart {res['restart_ms']:.1f} ms; step ms on {mesh} "
+        f"{np.median(res['step_ms'][:cut]):.1f}, on {after} "
         f"{np.median(res['step_ms'][cut:]):.1f}")
-    want_worlds = [8] * RESTART_FAIL + [RESTART_SHRINK] * (RESTART_STEPS - RESTART_AT)
-    if worlds != want_worlds or not np.isfinite(losses).all():
-        raise AssertionError(f"restart: steps on worlds {worlds} (want {want_worlds}), "
+    want_meshes = [list(shape)] * fail + [after] * (steps - at)
+    if meshes != want_meshes or not np.isfinite(losses).all():
+        raise AssertionError(f"restart: steps on meshes {meshes} (want {want_meshes}), "
                              f"losses {losses}")
-    if res["restored_step"] != RESTART_AT or not res["restored_bitwise"]:
+    if res["restored_step"] != at or not res["restored_bitwise"]:
         raise AssertionError(f"restart: restored step {res['restored_step']}, bitwise "
                              f"{res['restored_bitwise']} against the device copy at the save")
     if res["rel_diff"] > RESTART_LOSS_TOL:
         raise AssertionError(f"restart: the first loss after the restart {losses[cut]} is "
-                             f"{res['rel_diff']:.3g} from world 8's {losses[RESTART_AT]}")
-    want_ring = [(w - 1) * n_fsdp for w in worlds]
-    if res["ring_fused_step_per_step"] != want_ring:
+                             f"{res['rel_diff']:.3g} from the same step's {losses[at]} before it")
+    if res["ring_fused_step_per_step"] != res["ring_hops_per_step"]:
         raise AssertionError(f"restart: ring_fused_step launches a step "
-                             f"{res['ring_fused_step_per_step']}, not {want_ring}")
+                             f"{res['ring_fused_step_per_step']}, not the steps' ring hops "
+                             f"{res['ring_hops_per_step']}")
     return res
 
 
@@ -2184,6 +2259,343 @@ def restart_phase(launches: dict) -> dict:
 
     res = {"restart": restart_run(count), "moe_restore": moe_restore(count)}
     res["dryrun"] = dryrun_phase()
+    return res
+
+
+def tp_model(arch: str, mesh: str, layers: int | None = None):
+    """``arch`` at full width (``layers`` of its depth, all by default) from
+    ``SEED`` on the card, made for ``mesh``: its vocab padded to the model
+    axis."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    env = steps_lib.make_env(cfg, make_mesh(tuple(int(x) for x in mesh.split(",")),
+                                            device="cuda"))
+    return Model(cfg, device="cuda", seed=SEED, env=env)
+
+
+def rec_tp_depth(arch: str, mesh: str, rows: int, layers: int) -> dict:
+    """``arch``'s deepest cut (whole superblocks and its tail, its full
+    depth at most) whose S3 train step on ``mesh`` over ``rows`` ×
+    ``TRAIN_SEQ`` tokens fits the card: the dry run's meta-device count of
+    the step's peak (``dryrun.Cell.memory``) within ``1 - REC_TP_MARGIN``
+    of ``dryrun.card_memory()``. The search starts at ``layers`` and moves
+    a superblock at a time. Returns {"layers", "limit_gb", "peak_gb":
+    {layers counted: peak GB}}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shp
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import block_pattern
+
+    cfg = get_config(arch)
+    unit = len(block_pattern(cfg)[0])
+    world = make_mesh(tuple(int(x) for x in mesh.split(",")), device="meta")
+    shape = shp.ShapeSpec("phase10", TRAIN_SEQ, rows, "train")
+    limit = (1 - REC_TP_MARGIN) * dryrun.card_memory()
+    peak: dict[int, float] = {}
+
+    def fits(n: int) -> bool:
+        if n not in peak:
+            cell = dryrun.Cell(dataclasses.replace(cfg, n_layers=n), shape, world,
+                               scenario="s3_in_net_map", impl="masked", microbatches=1)
+            peak[n] = cell.memory()["peak_bytes"]
+            del cell
+        return peak[n] <= limit
+
+    n = layers
+    while not fits(n):
+        if n <= unit:
+            raise AssertionError(f"{arch} on {mesh}: no cut fits the card: {peak}")
+        n -= unit
+    while n + unit <= cfg.n_layers and fits(n + unit):
+        n += unit
+    return {"layers": n, "limit_gb": limit / 1e9,
+            "peak_gb": {k: v / 1e9 for k, v in sorted(peak.items())}}
+
+
+def plain_ring_equal(step, rank: dict, grads: dict) -> bool:
+    """Whether the aggregated gradient is bitwise the same aggregation with
+    every S3 hop on ``ref.ring_fused_step`` (leaf by leaf, so that only one
+    leaf's extra copy is held)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.parallel import aggregate_leaf
+
+    same = True
+    with mock.patch.object(ops, "ring_fused_step", ref.ring_fused_step):
+        for k, g in rank.items():
+            pl = step.places[k]
+            plain = aggregate_leaf(g, step.grad_mesh, step.scenario, fsdp_dim=pl.fsdp_dim,
+                                   tp_dim=pl.tp_dim, dup_of=pl.dup_of, tp=step.env.tp)
+            same = same and torch.equal(grads[k], plain)
+            del plain
+    return same
+
+
+def native_error(step, rank: dict, grads: dict) -> tuple[float, str, float]:
+    """The aggregated gradient against NATIVE's fp32 sum of the same ranks'
+    gradients (``aggregate_leaf`` under ``native``, leaf by leaf, so that
+    only one leaf's extra copy is held), Frobenius over all leaves:
+    (normwise relative difference, the worst leaf, its own)."""
+    from repro_torch.models.parallel import aggregate_leaf
+
+    num = den = 0.0
+    worst = ("", -1.0)
+    for k, g in rank.items():
+        pl = step.places[k]
+        want = aggregate_leaf(g, step.grad_mesh, "native", fsdp_dim=pl.fsdp_dim,
+                              tp_dim=pl.tp_dim, dup_of=pl.dup_of, tp=step.env.tp)
+        d, w = float((grads[k] - want).norm()) ** 2, float(want.norm()) ** 2
+        num, den = num + d, den + w
+        if w and (d / w) ** 0.5 > worst[1]:
+            worst = (k, (d / w) ** 0.5)
+        del want
+    return (num / den) ** 0.5, worst[0], worst[1]
+
+
+def tp_step_record(step, out: dict, got: dict, base_gb: float, rows: int) -> dict:
+    """A TP train step's numbers: each phase's ms, the step's, tokens/s, the
+    peak over what was held, loss and gradient norm, launches and the ring
+    hops that S3 launches ``ring_fused_step`` for."""
+    import torch
+
+    step_ms = sum(out["ms"].values())
+    return {**{f"{p}_ms": v for p, v in out["ms"].items()}, "step_ms": step_ms,
+            "tokens_per_s": rows * TRAIN_SEQ / step_ms * 1e3, "held_gb": base_gb,
+            "peak_gb_over_held": torch.cuda.max_memory_allocated() / 1e9 - base_gb,
+            "loss": float(out["nll"]) * step.norm, "grad_norm": float(out["grad_norm"]),
+            "mesh": list(step.mesh_shape), "tp": step.env.tp, "rep": step.env.rep,
+            "dp_world": step.world, "ring_hops": step.ring_hops(), "launches": got}
+
+
+def tp_busy(step, batch) -> dict:
+    """The window (host clock to the end of ``torch.cuda.synchronize()``),
+    the device's busy time (the union of its intervals, from a
+    ``torch.profiler`` trace of CUDA activity alone: a train step's ~10^5
+    host-side ops would cost the trace more than the step) and the idle
+    share of one call of a step's gradients and their aggregation, the
+    parameters left as they are; its launches not counted. None where the
+    profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step.aggregate(step.rank_gradients(batch)[0])
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t) * 1e3
+    ops.reset_launches()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
+    if not spans:
+        return None
+    busy = busy_us(spans) / 1e3
+    return {"window_ms": window, "busy_ms": busy, "idle": 1 - busy / window}
+
+
+def tp_train_phase(launches: dict) -> dict:
+    """Phase 10: training under tensor parallelism at full width, paths (a)
+    to (c) (``TP_TRAIN_MESHES``, ``TP_RESTART``, ``REC_TP``, ``MOE_TP``).
+    Returns its numbers for the JSON line; adds its main paths' kernel
+    launches to ``launches``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_mesh
+
+    res: dict = {"scenarios": {}, "section_s": {}}
+    t_section = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        res["section_s"][name] = now - t_section[0]
+        t_section[0] = now
+
+    def count():
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        got = dict(ops.LAUNCHES)
+        ops.reset_launches()
+        return got
+
+    def measured(step, state, batch):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        out = timed_step(step, state, batch)
+        return out, count(), base_gb
+
+    # (a) qwen1.5 on (4, 2): one step a scenario from the same parameters
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    model = tp_model(TRAIN_ARCH, TP_TRAIN_MESHES["native"])
+    init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    cfg = model.cfg
+    step, state, pipe = train_inputs(TRAIN_ARCH, "native", TP_TRAIN_MESHES["native"],
+                                     TRAIN_BATCH, model=model)
+    log(f"tp train {cfg.name}: {cfg.n_layers} layers, tp {step.env.tp} on "
+        f"{TP_TRAIN_MESHES['native']}, global batch {TRAIN_BATCH} x {TRAIN_SEQ}; built in "
+        f"{time.perf_counter() - t:.2f} s")
+    step.rank_gradients(pipe.batch_at(0))  # warm-up: cuBLAS at the tp partials' shapes
+    ops.reset_launches()
+    del step, state
+    native_loss = None
+    for sc, mesh in TP_TRAIN_MESHES.items():
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(init[k])
+        model.cast_weights()
+        step, state, pipe = train_inputs(TRAIN_ARCH, sc, mesh, TRAIN_BATCH, model=model)
+        batch = pipe.batch_at(0)
+        out, got, base_gb = measured(step, state, batch)
+        r = tp_step_record(step, out, got, base_gb, TRAIN_BATCH)
+        err, leaf, leaf_err = native_error(step, out["rank"], out["grads"])
+        r.update({"agg_err_vs_native": err, "worst_leaf": leaf, "worst_leaf_err": leaf_err})
+        hops = step.ring_hops() if sc == "s3_in_net_map" else 0
+        if sc == "s3_in_net_map":
+            r["bitwise_vs_plain_ring"] = plain_ring_equal(step, out["rank"], out["grads"])
+            r["busy"] = tp_busy(step, batch)
+        if sc == "native":
+            native_loss = r["loss"]
+        res["scenarios"][sc] = r
+        log(f"tp train step {cfg.name} {sc} on {mesh}: {json.dumps(r)}")
+        if not (np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])):
+            raise AssertionError(f"tp train step under {sc}: loss {r['loss']}, grad norm "
+                                 f"{r['grad_norm']}")
+        if err > AGG_TOL[sc]:
+            raise AssertionError(f"tp train step under {sc}: aggregated gradient {err} from "
+                                 f"NATIVE's (limit {AGG_TOL[sc]})")
+        if got["ring_fused_step"] != hops:
+            raise AssertionError(f"tp train step under {sc}: {got['ring_fused_step']} "
+                                 f"ring_fused_step launches, not the {hops} ring hops")
+        if sc == "s3_in_net_map" and not r["bitwise_vs_plain_ring"]:
+            raise AssertionError("TP S3's aggregated gradient differs from the ring run with "
+                                 "ref.ring_fused_step")
+        del out, step, state
+    # the tp = 1 step on the same parameters and rows
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(init[k])
+    model.cast_weights()
+    step1, _, pipe1 = train_inputs(TRAIN_ARCH, "native", "4,1", TRAIN_BATCH, model=model)
+    _, nll1, _ = step1.rank_gradients(pipe1.batch_at(0))
+    loss1 = float(nll1) * step1.norm
+    res["tp1"] = {"loss": loss1, "tp2_loss": native_loss,
+                  "rel_diff": abs(native_loss - loss1) / abs(loss1)}
+    log(f"  TP (4, 2) against tp = 1 (4, 1), same parameters and rows: "
+        f"{json.dumps(res['tp1'])} (limit {TP_LOSS_TOL})")
+    if res["tp1"]["rel_diff"] > TP_LOSS_TOL:
+        raise AssertionError(f"the TP step's loss {native_loss} is {res['tp1']['rel_diff']:.3g} "
+                             f"from the tp = 1 step's {loss1}")
+    ops.reset_launches()
+    del step1, pipe1, model, init
+    section("a_scenarios_and_tp1")
+    res["restart"] = restart_run(count, **TP_RESTART)
+    section("a_restart")
+
+    # (b) recurrentgemma on (1, 4): rep 2, the rep groups' rings
+    arch, mesh, rows, layers = REC_TP
+    torch.cuda.empty_cache()
+    depth = rec_tp_depth(arch, mesh, rows, layers)
+    layers = depth["layers"]
+    log(f"  {arch} on {mesh}: {layers} layers, the deepest whose step fits "
+        f"{depth['limit_gb']:.2f} GB (meta-device peak GB by layers: "
+        f"{json.dumps(depth['peak_gb'])})")
+    section("b_depth")
+    model = tp_model(arch, mesh, layers)
+    step, state, pipe = train_inputs(arch, "s3_in_net_map", mesh, rows, model=model)
+    cfg, recs = model.cfg, []
+    for k in range(2):
+        batch = pipe.batch_at(k)
+        out, got, base_gb = measured(step, state, batch)
+        r = tp_step_record(step, out, got, base_gb, rows)
+        err, leaf, leaf_err = native_error(step, out["rank"], out["grads"])
+        r.update({"agg_err_vs_native": err, "worst_leaf": leaf, "worst_leaf_err": leaf_err,
+                  "rep_split": step.split_rep,
+                  "bitwise_vs_plain_ring": plain_ring_equal(step, out["rank"], out["grads"])})
+        state = out["state"]
+        recs.append(r)
+        log(f"tp train step {k} {cfg.name} ({layers} of 26 layers) s3_in_net_map on {mesh}: "
+            f"{json.dumps(r)}")
+        if not np.isfinite(r["loss"]) or err > AGG_TOL["s3_in_net_map"]:
+            raise AssertionError(f"{cfg.name} on {mesh}: loss {r['loss']}, aggregated gradient "
+                                 f"{err} from NATIVE's")
+        if not r["bitwise_vs_plain_ring"]:
+            raise AssertionError(f"{cfg.name} on {mesh}: the S3 aggregated gradient differs "
+                                 "from the ring run with ref.ring_fused_step")
+        if step.env.rep != 2 or got["ring_fused_step"] != r["ring_hops"] or not r["ring_hops"]:
+            raise AssertionError(f"{cfg.name} on {mesh}: rep {step.env.rep}, "
+                                 f"{got['ring_fused_step']} ring_fused_step launches for "
+                                 f"{r['ring_hops']} rep-ring hops")
+        del out
+    res["recurrentgemma"] = {"steps": recs, "layers": layers, "depth": depth,
+                             "busy": tp_busy(step, batch)}
+    log(f"  {cfg.name} on {mesh}: window / busy / idle {json.dumps(res['recurrentgemma']['busy'])}")
+    del model, step, state, pipe
+    section("b_recurrentgemma")
+
+    # (c) granite-moe on (1, 16): tp 16, the a2a dispatch
+    arch, mesh, rows, layers = MOE_TP
+    torch.cuda.empty_cache()
+    model = tp_model(arch, mesh, layers)
+    step, state, pipe = train_inputs(arch, "s3_in_net_map", mesh, rows, model=model)
+    cfg, recs = model.cfg, []
+    fwd = layers * (2 if cfg.remat else 1)  # remat runs each layer's forward twice
+    for k in range(2):
+        batch = pipe.batch_at(k)
+        out, got, base_gb = measured(step, state, batch)
+        r = tp_step_record(step, out, got, base_gb, rows)
+        state = out["state"]
+        recs.append(r)
+        log(f"tp train step {k} {cfg.name} ({layers} of 24 layers) s3_in_net_map on {mesh}: "
+            f"{json.dumps(r)}")
+        if not np.isfinite(r["loss"]) or got["segment_reduce"] != fwd or got["ring_fused_step"]:
+            raise AssertionError(f"{cfg.name} on {mesh}: loss {r['loss']}, launches {got} (want "
+                                 f"{fwd} segment_reduce: {layers} layers' forward combines, no "
+                                 "ring hops)")
+        del out
+    busy = tp_busy(step, batch)
+    part = {k: v[0, 0] for k, v in step.rank_rows(batch).items()}  # the one rank's rows
+    group = step.env.tp_group()
+    routes, flips = [], []
+    with torch.no_grad():
+        with recorded_routes(routes):
+            got_loss = float(model.train_loss(part, env=group)[0])
+        with mock.patch.object(ops, "segment_reduce", ref.segment_reduce), \
+                replayed_routes(routes, flips):
+            want_loss = float(model.train_loss(part, env=group)[0])
+    ops.reset_launches()
+    checks = {"loss": abs(got_loss - want_loss) / abs(want_loss), "router_flips": sum(flips)}
+    res["granite_moe"] = {"steps": recs, "layers": layers, "busy": busy,
+                          "kernel_vs_plain": checks, "tp": step.env.tp,
+                          "kv_span": step.env.tp // cfg.n_kv_heads}
+    log(f"  {cfg.name} on {mesh}: window / busy / idle {json.dumps(busy)}; kernel route vs "
+        f"plain route (ref.segment_reduce, choices replayed): {json.dumps(checks)} (limit "
+        f"{MOE_TRAIN_TOL['loss']})")
+    if checks["loss"] > MOE_TRAIN_TOL["loss"]:
+        raise AssertionError(f"{cfg.name} on {mesh}: the TP training route differs from its "
+                             f"plain route: {checks}")
+    del model, step, state, pipe
+    section("c_granite_moe")
+    log(f"  phase 10 sections (s): {json.dumps(res['section_s'])}")
     return res
 
 
@@ -2788,6 +3200,12 @@ def main() -> int:
     mesh_serving = mesh_phase(drive, launches, rows)
     mesh_serving["wall_s"] = time.perf_counter() - t
     log(f"serving across a mesh phase: {mesh_serving['wall_s']:.2f} s")
+
+    # 10. training under tensor parallelism ---------------------------------------
+    t = time.perf_counter()
+    tp_training = tp_train_phase(launches)
+    tp_training["wall_s"] = time.perf_counter() - t
+    log(f"training under tensor parallelism phase: {tp_training['wall_s']:.2f} s")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was never launched on the main paths")
@@ -2822,7 +3240,7 @@ def main() -> int:
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "family_checks": family_checks, "training": training,
-                    "mesh_serving": mesh_serving,
+                    "mesh_serving": mesh_serving, "tp_training": tp_training,
                     "restart": {k: v for k, v in restart.items() if k != "dryrun"},
                     "dryrun": {k: v for k, v in restart["dryrun"].items() if k != "records"},
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,

@@ -170,10 +170,11 @@ def analytic_attn_area(cfg, seq: int, impl: str, *, chunk: int = 512,
 
 def attn_flops_adjustment(cfg, shape, world: int, impl: str, *, train: bool,
                           rows: int | None = None) -> float:
-    """Per-rank FLOP delta on a data world of ``world`` ranks (tp 1), or
-    with ``rows`` for a serving step that runs that many rows with every tp
-    rank's heads folded: replace the direct-attention probe FLOPs with the
-    block schedule's FLOPs. 0 for decode (no pair scan)."""
+    """Per-rank FLOP delta of ``rows`` rows a rank (a train rank's local
+    batch, or a serving step's rows) with every tp rank's heads folded, or
+    without ``rows`` of a data world of ``world`` ranks at tp 1: replace the
+    direct-attention probe FLOPs with the block schedule's FLOPs. 0 for
+    decode (no pair scan)."""
     if shape.kind == "decode":
         return 0.0
     seq = shape.seq_len // (2 if cfg.enc_layers else 1)

@@ -4,8 +4,8 @@ lists of the paper's Word-Count experiments (§2/§4).
 The port of ``repro/data/pipeline.py``, numpy only: the same seed gives the
 same batches and shards, bit for bit, in both packages. Every batch is a
 pure function of (seed, step), so a restart at step k sees batch k.
-Training batches are laid out world-major (``launch.shapes.batch_layout``):
-the reference's device-major layout without its model dim of 1.
+Training batches take the reference's device-major layout of a
+``ShardEnv`` (``launch.shapes.batch_layout``), bit for bit.
 """
 from __future__ import annotations
 
@@ -16,8 +16,8 @@ from typing import Iterator
 
 import numpy as np
 
-from repro_torch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.parallel import ShardEnv
 
 
 def _rng(seed: int, step: int) -> np.random.Generator:
@@ -46,13 +46,14 @@ def markov_tokens(rng, vocab: int, batch: int, seq: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class TrainPipeline:
-    """Yields world-major batches matching ``launch.shapes.train_input_specs``
-    (numpy): Markov tokens and next-token labels; seeded embeddings (and an
-    M-RoPE position grid) for an embedding-input model; for enc-dec, half
-    the sequence as encoder frames and half as decoder tokens."""
+    """Yields batches matching ``launch.shapes.train_input_specs`` of
+    ``env`` (numpy; the train step's ``step.env``): Markov tokens and next-token labels; seeded
+    embeddings (and an M-RoPE position grid) for an embedding-input model;
+    for enc-dec, half the sequence as encoder frames and half as decoder
+    tokens."""
 
     cfg: ModelConfig
-    mesh: Mesh
+    env: ShardEnv
     global_batch: int
     seq: int
     seed: int = 0
@@ -61,7 +62,7 @@ class TrainPipeline:
         from repro_torch.launch.shapes import batch_layout
 
         rng = _rng(self.seed, step)
-        dims, b_loc = batch_layout(self.mesh, self.global_batch)
+        dims, b_loc = batch_layout(self.env, self.global_batch)
         cfg = self.cfg
         n = int(np.prod(dims)) * b_loc
         if cfg.enc_layers:

@@ -28,18 +28,20 @@ numbers. Per cell:
    are exact, and the card's count of the real step checks them.
 
 What a record is: one H100 holding the reference's production mesh as the
-world dims of one tensor, and every count a per-card total. Serving runs on
-the whole (data 16, model 16) mesh (pod 2 × data 16 × model 16 with
+world dims of one tensor, and every count a per-card total. Every cell runs
+on the whole (data 16, model 16) mesh (pod 2 × data 16 × model 16 with
 ``--multi-pod``): tp is ``cfg.resolve_tp(16)`` with its rep groups, as the
-reference's cells run, the tp ranks folded into the ops and the batch's
-distinct rows (``steps.held_rows``) served at once; the count includes
+reference's cells run, the tp ranks folded into the ops; the count includes
 what folding costs, the (tp, rows, d) bf16 partials of every row-parallel
-product. ``--impl serve_opt`` takes the compute-at-data decode (its
-prefill and training attention run ``masked``, as the reference's do).
-Training runs the data extent at tp 1: training under tensor parallelism
-is ROADMAP.md §1 item 2, and the record says so. The world's ranks run one
-after another and are alike, so one rank is counted and its costs are
-scaled by W. MoE dispatch reads its group sizes on the host, which the meta
+product. Serving serves the batch's distinct rows (``steps.held_rows``) at
+once. Training runs the data-parallel ranks, (pod ×) data × rep, one after
+another; they are alike, so one rank is counted and its costs are scaled by
+the ``dp_world``. train_4k's batch splits over the rep groups wherever rep
+> 1, where the reference's tp ranks would mix rows (ROADMAP.md §3): the
+meta device has no rows, and the count is the step's as the reference runs
+it. ``--impl serve_opt`` takes the compute-at-data decode (its prefill and
+training attention run ``masked``, as the reference's do). MoE dispatch
+reads its group sizes on the host, which the meta
 device does not have: the count takes balanced routing (``moe.BALANCED``),
 named in the record. The numbers are not comparable with the reference's
 256-chip TPU records.
@@ -64,18 +66,16 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.scenarios import Scenario
 from repro_torch.launch import shapes as shp
 from repro_torch.launch import steps
-from repro_torch.launch.mesh import data_extent, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.mesh import Mesh
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.model import Model, block_pattern
-from repro_torch.models.parallel import local_batch
+from repro_torch.models.parallel import ShardEnv
 
 META = torch.device("meta")
-NOTE = ("one H100: the reference's production mesh held as world dims on the card (training: "
-        "its data extent at tp 1), per-card totals counted on the meta device; not comparable "
-        "with the reference's 256-chip TPU records")
-TRAIN_TP = ("training under tensor parallelism is ROADMAP.md §1 item 2: the train step runs the "
-            "mesh's data extent at model 1")
+NOTE = ("one H100: the reference's production mesh held as world dims on the card, per-card "
+        "totals counted on the meta device; not comparable with the reference's 256-chip TPU "
+        "records")
 IMPLS = ("masked", "triangle", "serve_opt")
 
 
@@ -153,9 +153,9 @@ class Cell:
     """A cell's step on the meta device: ``memory()`` runs it at full depth
     with its live bytes counted over ``held`` (what the step holds before it
     runs); ``cost()`` counts its FLOPs, bytes and collectives (the whole
-    card: train's one rank scaled by W). ``mesh``: a production mesh (or a
-    data world): training runs its data extent at tp 1, serving the
-    ``ShardEnv`` of the whole mesh."""
+    card: train's one rank scaled by the data-parallel world). ``mesh``: a
+    launcher's mesh (``launch.mesh.make_mesh``; the production mesh for a
+    cell's record), whose ``ShardEnv`` the step runs under."""
 
     def __init__(self, cfg, shape: shp.ShapeSpec, mesh: Mesh, *, scenario: str, impl: str,
                  microbatches: int, one_micro: bool = False):
@@ -163,15 +163,14 @@ class Cell:
         seq, gb = shape.seq_len, shape.global_batch
         serve_opt, impl = impl == "serve_opt", attention_impl(impl)
         if self.kind == "train":
-            mesh = data_extent(mesh)  # tp 1 (ROADMAP.md §1 item 2)
-            self.env = None
-            self.model = Model(cfg, device=META)
-            self.batch = _meta_batch(shp.train_input_specs(cfg, mesh, seq, gb))
-            self.microbatches = micro_count(gb, mesh.size, microbatches)
+            self.env = env = steps.make_env(cfg, mesh, scenario)
+            self.model = Model(cfg, device=META, env=env)
+            self.batch = _meta_batch(shp.train_input_specs(cfg, env, seq, gb))
+            self.microbatches = micro_count(gb, env, microbatches)
             held_batch = self.batch
             if one_micro:  # the step on one microbatch's rows, the whole batch held
                 gb //= self.microbatches
-                self.batch = _meta_batch(shp.train_input_specs(cfg, mesh, seq, gb))
+                self.batch = _meta_batch(shp.train_input_specs(cfg, env, seq, gb))
             self.step = steps.make_train_step(self.model, mesh, scenario=scenario,
                                               microbatches=1 if one_micro else microbatches,
                                               global_batch=gb, seq=seq, impl=impl)
@@ -228,10 +227,10 @@ class Cell:
         return fixed + self.world * (one - fixed) + rest
 
 
-def micro_count(global_batch: int, world: int, microbatches: int) -> int:
+def micro_count(global_batch: int, env: ShardEnv, microbatches: int) -> int:
     """The microbatches a train step takes: the largest count up to
     ``microbatches`` that divides a rank's rows (``TrainStep``'s rule)."""
-    b_loc = local_batch(global_batch, world)
+    b_loc = env.local_batch(global_batch)
     while b_loc % microbatches:
         microbatches -= 1
     return microbatches
@@ -299,22 +298,20 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     mem = cell.memory()
     env = cell.env
     rec = {
-        "arch": cfg.name, "shape": shape_name,
-        "mesh": ("x".join(map(str, mesh.shape[:-1])) + " data extent, model 1" if train
-                 else "x".join(map(str, mesh.shape))),
-        "scenario": scenario, "impl": impl, "tp": 1 if train else env.tp,
-        "rep": 1 if train else env.rep,
+        "arch": cfg.name, "shape": shape_name, "mesh": "x".join(map(str, mesh.shape)),
+        "scenario": scenario, "impl": impl, "tp": env.tp, "rep": env.rep,
         "microbatches": cell.microbatches,
         "world": cell.world,
-        "ranks": ("one rank counted, costs x W (the ranks run one after another and are alike)"
-                  if train else f"the batch's {cell.rows} distinct rows served at once, the tp "
-                                f"ranks folded"),
+        "ranks": ("one (pod, data, rep) rank counted, costs x the data-parallel world (the "
+                  "ranks run one after another and are alike), the tp ranks folded" if train
+                  else f"the batch's {cell.rows} distinct rows served at once, the tp "
+                       f"ranks folded"),
         "param_dtype": cfg.param_dtype, "meta_s": 0.0, **mem,
         "fits_80g": mem["peak_bytes"] < card_memory(),
         "device": "H100 (meta-device count)", "note": NOTE,
     }
     if train:
-        rec["model_axis"] = TRAIN_TP
+        rec["rep_split"] = env.batch_split_rep(shape.global_batch)
     else:
         rec["rows"] = cell.rows
     if cfg.moe is not None:
@@ -332,13 +329,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     costs = rl.ExactCosts.from_vector(np.maximum(total, 0.0))
     # the block schedule back in (probes ran dense), the whole world's
     world = rec["world"]
+    rows = env.local_batch(shape.global_batch) if train else rec["rows"]
     adj = rl.attn_flops_adjustment(cfg, shape, world, attention_impl(impl), train=train,
-                                   rows=None if train else rec["rows"]) * world
+                                   rows=rows) * world
     costs.flops = max(0.0, costs.flops + adj)
     rec["attn_flops_adjustment"] = adj
-    # the ring factor of the collectives' domain: the data world's for
-    # training, the tp groups' (row-parallel all-reduces, the MoE all-to-all)
-    # for serving
+    # the ring factor of the collectives' domain: the data-parallel world's
+    # for training, the tp groups' (row-parallel all-reduces, the MoE
+    # all-to-all) for serving
     terms = rl.wire_and_terms(costs, world_hint=world if train else rec["tp"], pod_fraction=0.0)
     mf = rl.model_flops(cfg, shape, 1)
     rec.update({

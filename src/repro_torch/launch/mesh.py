@@ -2,15 +2,13 @@
 
 A shape is the reference's: (data, model) or (pod, data, model), and the
 mesh is the world dims of a ``repro_torch.mesh.Mesh`` on one device, the
-model axis included: serving runs the model's tp ranks folded over it
-(``launch.steps.make_env``). Training runs a data world at tp 1
-(``data_world``): training under tensor parallelism waits for ROADMAP.md §1
-item 2.
+model axis included: serving and training run the model's tp ranks folded
+over it (``launch.steps.make_env``), training its data-parallel ranks over
+the data extent (``data_extent``) and the rep groups.
 """
 from __future__ import annotations
 
 from repro_torch.mesh import Mesh
-from repro_torch.models.parallel import TP_TRAINING
 
 AXES = ("pod", "data", "model")
 
@@ -36,22 +34,12 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
 
 def data_extent(mesh: Mesh) -> Mesh:
     """``mesh``'s axes before its model axis (all of them without one), on
-    its device."""
+    its device: training's FSDP world, whose ranks each hold the model
+    axis's rep groups too (``TrainStep.grad_mesh``)."""
     if "model" not in mesh.axis_names:
         return mesh
     m = mesh.dim("model")
     return Mesh(mesh.axis_names[:m], mesh.shape[:m], device=mesh.device)
-
-
-def data_world(mesh: Mesh) -> Mesh:
-    """The data world that training runs on: ``data_extent(mesh)``. A model
-    axis above 1 raises ``NotImplementedError``: training under TP is
-    ROADMAP.md §1 item 2."""
-    if mesh_axis_sizes(mesh).get("model", 1) != 1:
-        raise NotImplementedError(f"mesh {mesh.shape} has a model axis of "
-                                  f"{mesh.axis_size('model')}: {TP_TRAINING}; train on a model "
-                                  "axis of 1")
-    return data_extent(mesh)
 
 
 def mesh_axis_sizes(mesh: Mesh) -> dict[str, int]:

@@ -6,13 +6,13 @@ each step on a data world: the port of ``repro/launch/shapes.py``.
     decode_32k  → the serve step  (one new token, a cache of seq_len)
     long_500k   → the serve step  (sub-quadratic archs only)
 
-Batched tensors are world-major: the mesh dims, then each rank's ``(b_loc,
-...)``. A training world (a ``Mesh`` of ``("data",)`` or ``("pod",
-"data")``) leads with its own dims; the reference's device-major layout
-adds a model dim of 1 there (tp = 1, no rep groups). A serving world (a
-``ShardEnv``) leads with the reference's dims: (pod,) data, and a model dim
-that is the model axis when the batch also splits over the rep groups and
-1 otherwise. A spec is {input name: (shape, dtype)}.
+Batched tensors lead with the mesh dims, then each rank's ``(b_loc, ...)``.
+A ``ShardEnv`` (training, and serving on a launcher's mesh) leads with the
+reference's device-major dims: (pod,) data, and a model dim that is the
+model axis when the batch also splits over the rep groups and 1 otherwise.
+A data world (a ``Mesh`` of ``("data",)`` or ``("pod", "data")``, which the
+dry run's serving cells take) leads with its own dims, the device-major
+layout without its model dim of 1. A spec is {input name: (shape, dtype)}.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Step builders on one card: the train step over a data world, prefill and
-one-token decode over a ``("data", "model")`` serving mesh.
+"""Step builders on one card: the train step, prefill and one-token decode
+over a launcher's ``("data", "model")`` or ``("pod", "data", "model")`` mesh.
 
 The port of ``repro/launch/steps.py``. There the steps are
 ``jax.jit``-compiled ``shard_map``s over a mesh with fixed shapes; here they
@@ -10,12 +10,13 @@ env), they take and give batches in the reference's device-major layout
 (``shapes.batch_layout``), hold the distinct rows once (``rows_of``) and run
 the model's tp ranks folded; ``compute_at_data`` is the serve step's
 compute-at-data route. Without a mesh they take (global_batch, ...) rows,
-as before. The train step
-runs a data world of W ranks, the world dims of a ``Mesh`` on the card, as
-the reference's ``make_train_step`` runs it on W devices with a model axis
-of 1: each rank's forward and backward on its own rows (a loop over the
-ranks), the scenario-selected aggregation of every leaf along its FSDP dim
-(S1/S2/S3/NATIVE/HIERARCHICAL: ``models.parallel.fsdp_aggregate``), the
+as before. The train step runs the reference's ``make_train_step`` on a
+launcher's mesh (``launch.mesh.make_mesh``), its batches always
+device-major: the data-parallel ranks, (pod ×) data × rep, one after another, each rank's forward and backward on its own rows
+under its tp group, folded (``ShardEnv.tp_group``), then the scenario's
+aggregation of every leaf (S1/S2/S3/NATIVE/HIERARCHICAL:
+``models.parallel.aggregate_leaf``: over the rep groups along the TP dim,
+then over (pod, data) along the FSDP dim, and the model axis's sums), the
 clip and the AdamW update.
 """
 from __future__ import annotations
@@ -26,11 +27,13 @@ import torch
 
 from repro_torch.core.scenarios import Scenario
 from repro_torch.launch import shapes
-from repro_torch.launch.mesh import data_world
+from repro_torch.launch.mesh import data_extent
 from repro_torch.mesh import Mesh
+from repro_torch.models import convert
 from repro_torch.models import model as M
-from repro_torch.models.parallel import ShardEnv, local_batch, loss_normalizer
-from repro_torch.models.specs import fsdp_dims
+from repro_torch.models.convert import leaf_paths
+from repro_torch.models.parallel import ShardEnv, pad_vocab
+from repro_torch.models.specs import leaf_places
 from repro_torch.optim import AdamW, OptState, clip_by_global_norm, sync_gradients
 
 
@@ -46,6 +49,8 @@ def make_env(cfg, mesh: Mesh, scenario: Scenario | str = Scenario.NATIVE) -> Sha
     """The ``ShardEnv`` of ``cfg`` on ``mesh`` (axes among "pod", "data",
     "model"; a missing model axis is 1): tp is ``cfg.resolve_tp``."""
     sizes = dict(zip(mesh.axis_names, mesh.shape))
+    if "data" not in sizes:
+        raise ValueError(f"mesh axes {mesh.axis_names}: a mesh needs a data axis")
     model = sizes.get("model", 1)
     return ShardEnv(model_size=model, data_size=sizes["data"], pod_size=sizes.get("pod", 1),
                     tp=cfg.resolve_tp(model), scenario=Scenario(scenario),
@@ -158,80 +163,165 @@ def make_serve_step(model: M.Model, *, global_batch: int, seq_max: int,
     return step
 
 
+REP_SPLIT = ("the batch splits over the rep groups, and the reference's data pipeline gives "
+             "every model index rows of its own: the tp ranks of a rep group compute on "
+             "different rows and psum_tp mixes their partials (a breakage of the reference, "
+             "ROADMAP.md §3). Train on a global batch that does not split over fsdp x rep, "
+             "or give each rep group's rows at every tp rank of the group")
+
+
 class TrainStep:
     """``make_train_step``'s step: ``step(state, batch) → (state, metrics)``
     updates the model's parameters in place (and its bf16 copies, so that
     serving reads the new weights) and returns the new optimizer state and
-    the reference's metrics: ``loss`` (Σ nll · norm over the world, the
-    load-balance loss left out), ``ntok``, ``grad_norm`` (before the clip)
-    and ``lr``. ``batch``: world-major arrays or tensors
-    (``launch.shapes.train_input_specs``). Its phases are methods of their
-    own, so that a caller can time or check each: ``rank_gradients``,
-    ``aggregate``, ``apply``."""
+    the reference's metrics, summed over every device of the mesh as its
+    psum sums them: ``loss`` (Σ nll · norm, the load-balance loss left
+    out), ``ntok`` (each tp rank counts its rows' tokens), ``grad_norm``
+    (before the clip) and ``lr``. ``batch``: arrays or tensors in the
+    reference's device-major layout (``shapes.train_input_specs`` of
+    ``step.env``, ``TrainPipeline(cfg, step.env, ...)``). Its phases are
+    methods of their own, so that a caller can time or check each:
+    ``rank_gradients``, ``aggregate``, ``apply``."""
 
     def __init__(self, model: M.Model, mesh: Mesh, *, scenario, optimizer: AdamW,
                  microbatches: int, global_batch: int, seq: int, impl: str, clip_norm: float):
         cfg = model.cfg
         M.check_train_impl(impl)
-        mesh = data_world(mesh)
+        if "model" not in mesh.axis_names:
+            raise ValueError(f"mesh axes {mesh.axis_names}: training takes a launcher's mesh "
+                             "(launch.mesh.make_mesh), model axis included")
         if mesh.device.type != model.device.type:
             raise ValueError(f"mesh on {mesh.device}, model on {model.device}")
-        self.model, self.mesh = model, mesh
+        self.env = env = make_env(cfg, mesh, scenario)
+        if model.vocab_padded != pad_vocab(cfg.vocab, env.model_size):
+            raise ValueError(f"model made with a vocab of {model.vocab_padded} rows, the mesh "
+                             f"{mesh.shape} pads it to {pad_vocab(cfg.vocab, env.model_size)}: "
+                             "make it with Model(cfg, env=steps.make_env(cfg, mesh))")
+        self.model, self.mesh, self.mesh_shape = model, data_extent(mesh), mesh.shape
+        # the ranks' gradients: the data world's dims, then the rep ranks
+        self.grad_mesh = Mesh(self.mesh.axis_names + ("model",), self.mesh.shape + (env.rep,),
+                              device=mesh.device)
         self.scenario = Scenario(scenario)
         self.optimizer, self.impl, self.clip_norm = optimizer, impl, clip_norm
-        self.world = mesh.size
-        self.b_loc = local_batch(global_batch, self.world)
-        # microbatches must divide the local batch
+        self.global_batch = global_batch
+        self.specs = shapes.train_input_specs(cfg, env, seq, global_batch)
+        self.world = env.dp_world
+        self.split_rep = env.batch_split_rep(global_batch)
+        self.b_loc = env.local_batch(global_batch)
+        # microbatches must divide the local batch (rep splitting shrinks it)
         while self.b_loc % microbatches:
             microbatches -= 1
         self.microbatches = microbatches
         # enc-dec shapes split seq between encoder frames and decoder labels
-        self.norm = loss_normalizer(global_batch, seq // 2 if cfg.enc_layers else seq, self.world)
-        self.dims = fsdp_dims(model)
-        self.layout = {k: (d, self.world) for k, d in self.dims.items() if d is not None}
+        self.norm = env.loss_normalizer(global_batch, seq // 2 if cfg.enc_layers else seq)
+        self.places = leaf_places(model)
+        self.dims = {k: pl.fsdp_dim for k, pl in self.places.items()}
+        # 8-bit moments run on the reference's stacked leaves ({JAX leaf path:
+        # the layers stacked}), their blocks cut from each device's shard of
+        # them; fp32 moments (elementwise) on the port's parameters
+        self.stacked = optimizer.eightbit
+        paths = leaf_paths(model)
+        lead = {k: int(self.stacked and i is not None) for k, (_, i) in paths.items()}
+        self.layout = {(paths[k][0] if self.stacked else k): tuple(
+            (d + lead[k], n) for d, n in ((pl.fsdp_dim, env.fsdp_size),
+                                          (pl.tp_dim, pl.tp_chunks(env)))
+            if d is not None and n > 1) or None for k, pl in self.places.items()}
         model.requires_grad_(True)
         self.params = dict(model.named_parameters())
 
+    def opt_tree(self, tensors: dict) -> dict:
+        """Tensors keyed by parameter name → the tree the optimizer runs on:
+        the same, or with 8-bit moments the stacked leaves (new tensors)."""
+        return convert.stack_leaves(self.model, tensors) if self.stacked else tensors
+
+    def ring_hops(self) -> int:
+        """The ring hops of one aggregation under S2, S3 and HIERARCHICAL,
+        each one ``ring_fused_step`` launch under S3: per leaf, rep - 1 on
+        the rep groups' rings where the weight fetch gathers over them, and
+        p - 1 on each data axis of p ranks where it has an FSDP dim."""
+        data = sum(p - 1 for p in self.mesh.shape)
+        return sum((self.env.rep - 1) * (pl.tp_dim is not None and not pl.dup_of)
+                   + data * (pl.fsdp_dim is not None) for pl in self.places.values())
+
     def init_state(self) -> OptState:
-        return self.optimizer.init(self.params, self.layout)
+        return self.optimizer.init(self.opt_tree(self.params), self.layout)
+
+    def rank_rows(self, batch: dict) -> dict:
+        """A batch → {name: (fsdp ranks, rep ranks with rows of their own,
+        b_loc, ...)} on the model's device: rep rank r's rows are those of
+        every tp rank of its group (the same on every rank of the group,
+        checked), or, where the batch does not split over the rep groups, one
+        set of rows that every rep rank shares."""
+        env, dev = self.env, self.model.device
+        dims, _ = shapes.batch_layout(env, self.global_batch)
+        nd = len(dims)
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(v, device=dev)
+            if k not in self.specs:
+                raise ValueError(f"batch input {k!r}: the step takes {sorted(self.specs)}")
+            want = self.specs[k][0]
+            if tuple(v.shape) != want:
+                raise ValueError(f"batch {k!r} {tuple(v.shape)} does not lead with the world "
+                                 f"{dims} and {want[nd]} rows a rank (the step takes {want})")
+            v = v.flatten(0, nd - 2)  # (fsdp ranks, model dim, b_loc, ...)
+            if dims[-1] > 1:
+                v = v.unflatten(1, (env.tp, env.rep))
+                first = v[:, 0]
+                if v.device.type != "meta" and not torch.equal(
+                        v, first.unsqueeze(1).expand_as(v)):
+                    raise ValueError(REP_SPLIT)
+                v = first
+            out[k] = v
+        return out
 
     def rank_gradients(self, batch: dict, ranks=None):
-        """Each rank's forward and backward on its own ``b_loc`` rows, its
-        microbatches' fp32 gradients accumulated as the reference's
-        ``micro`` does. Returns ({name: (mesh dims, *leaf) fp32}, Σ nll, Σ
-        ntok). ``ranks``: the (flat) ranks to run, all by default; the
-        others' gradients stay zero (the dry run counts one rank: they are
-        alike)."""
-        mesh, dev, mb = self.mesh, self.model.device, self.microbatches
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        for k, v in batch.items():
-            if v.shape[:mesh.ndim + 1] != mesh.shape + (self.b_loc,):
-                raise ValueError(f"batch {k!r} {tuple(v.shape)} does not lead with the world "
-                                 f"{mesh.shape} and {self.b_loc} rows a rank")
+        """Each data-parallel rank's forward and backward on its own
+        ``b_loc`` rows, under its tp group, its microbatches' fp32 gradients
+        accumulated as the reference's ``micro`` does; a rank's loss is the
+        sum of its tp ranks' (``Model.train_loss`` × tp) scaled by
+        ``env.loss_normalizer``. Returns ({name: (data world dims, rep,
+        *leaf) fp32}, Σ nll, Σ ntok), the sums over every device of the
+        mesh. Rep ranks that share their rows share one backward, their
+        gradients one tensor (an expanded view). ``ranks``: the (flat)
+        data-parallel ranks to run, all by default; the others' gradients
+        stay zero (the dry run counts one rank: they are alike)."""
+        env, mb, dev = self.env, self.microbatches, self.model.device
+        rows = self.rank_rows(batch)
+        held = env.rep if self.split_rep else 1
         names = list(self.params)
-        grads = {k: torch.zeros(mesh.shape + tuple(p.shape), dtype=torch.float32, device=dev)
+        lead = self.mesh.shape + (held,)
+        grads = {k: torch.zeros(lead + tuple(p.shape), dtype=torch.float32, device=dev)
                  for k, p in self.params.items()}
         nll = torch.zeros((), dtype=torch.float32, device=dev)
         ntok = torch.zeros((), dtype=torch.int64, device=dev)
-        rows = self.b_loc // mb
-        for r in range(self.world) if ranks is None else ranks:
+        n = self.b_loc // mb
+        copies = env.tp * (env.rep // held)  # devices that compute each rank's loss
+        group = env.tp_group()
+        todo = range(self.world) if ranks is None else ranks
+        for rank in sorted({(f, r % held) for f, r in (divmod(x, env.rep) for x in todo)}):
+            f, r = rank
             for i in range(mb):
-                part = {k: v.reshape((self.world, mb, rows) + v.shape[mesh.ndim + 1:])[r, i]
-                        for k, v in batch.items()}
-                loss, aux = self.model.train_loss(part, impl=self.impl)
-                gs = torch.autograd.grad(loss * self.norm * mb, [self.params[k] for k in names],
-                                         allow_unused=True)
+                part = {k: v[f, r].unflatten(0, (mb, n))[i] for k, v in rows.items()}
+                loss, aux = self.model.train_loss(part, impl=self.impl, env=group)
+                gs = torch.autograd.grad(loss * (self.norm * mb * env.tp),
+                                         [self.params[k] for k in names], allow_unused=True)
                 for k, g in zip(names, gs):
                     if g is not None:
-                        grads[k].view((self.world,) + g.shape)[r].add_(g.to(torch.float32) / mb)
-                nll += aux["nll_sum"]
-                ntok += aux["ntok"]
+                        grads[k].view((-1,) + g.shape)[f * held + r].add_(
+                            g.to(torch.float32) / mb)
+                nll += aux["nll_sum"] * copies
+                ntok += aux["ntok"] * copies
+        if held < env.rep:
+            grads = {k: g.expand(self.mesh.shape + (env.rep,) + g.shape[len(lead):])
+                     for k, g in grads.items()}
         return grads, nll, ntok
 
     def aggregate(self, rank_grads: dict) -> dict:
-        """The scenario's aggregation of every leaf over the world
+        """The scenario's aggregation of every leaf over the mesh
         (``optim.sync_gradients``): {name: the whole aggregated gradient}."""
-        return sync_gradients(rank_grads, self.dims, self.mesh, self.scenario)
+        return sync_gradients(rank_grads, self.places, self.grad_mesh, self.scenario,
+                              tp=self.env.tp)
 
     @torch.no_grad()
     def apply(self, state: OptState, grads: dict) -> tuple[OptState, torch.Tensor]:
@@ -239,7 +329,10 @@ class TrainStep:
         parameters, then its bf16 copies remade. Returns (new state, the
         gradient's norm before the clip)."""
         grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
-        new, state = self.optimizer.update(grads, state, self.params, self.layout)
+        new, state = self.optimizer.update(self.opt_tree(grads), state,
+                                           self.opt_tree(self.params), self.layout)
+        if self.stacked:
+            new = convert.unstack_leaves(self.model, new)
         for k, p in self.params.items():
             p.copy_(new[k])
         self.model.cast_weights()
@@ -257,12 +350,12 @@ class TrainStep:
 def make_train_step(model: M.Model, mesh: Mesh, *, scenario: Scenario | str = Scenario.NATIVE,
                     optimizer: AdamW | None = None, microbatches: int = 1, global_batch: int = 8,
                     seq: int = 128, impl: str = "masked", clip_norm: float = 1.0) -> TrainStep:
-    """The train step of ``model`` on the data world ``mesh`` (``("data",)``
-    or ``("pod", "data")``, on the model's device; a launcher's mesh with a
-    model axis of 1 gives its ``launch.mesh.data_world``), aggregating gradients
-    under ``scenario``; ``optimizer`` defaults to ``AdamW`` with the
-    config's 8-bit moments setting. Turns the model's parameters'
-    gradients on."""
+    """The train step of ``model`` on ``mesh`` (a launcher's ("data",
+    "model") or ("pod", "data", "model"), ``launch.mesh.make_mesh``; on the
+    model's device, which must be made with
+    ``make_env(cfg, mesh)``'s padded vocab), aggregating gradients under
+    ``scenario``; ``optimizer`` defaults to ``AdamW`` with the config's
+    8-bit moments setting. Turns the model's parameters' gradients on."""
     return TrainStep(model, mesh, scenario=scenario,
                      optimizer=optimizer or AdamW(eightbit=model.cfg.opt_state_8bit),
                      microbatches=microbatches, global_batch=global_batch, seq=seq, impl=impl,

@@ -18,7 +18,9 @@ with duplicate copies (``specs``) and pads the vocab to its model axis:
 ``params_from_jax(..., env=...)`` reads the logical leaves out of the slots
 (and refuses copies that differ), and ``cache_to_jax(..., env=...)`` lays
 the port's caches, held once, out device-major as the reference's serving
-steps return them.
+steps return them. ``to_slots``/``from_slots`` do the same for a stacked
+tree of tensors (parameters, gradients, fp32 moments: the reference's
+checkpoint tree on a mesh).
 """
 from __future__ import annotations
 
@@ -167,20 +169,49 @@ def from_jax(model: Model, tree: Mapping) -> dict[str, torch.Tensor]:
             for name, t in unstack_leaves(model, tensors).items()}
 
 
-def logical_slots(a, dim: int, env: ShardEnv, n_logical: int, path: str) -> np.ndarray:
-    """A leaf whose ``dim`` holds ``n_logical`` kv heads or experts in the
-    slots of ``env.dup_map`` → the logical leaf, each entity once. Raises
-    where the duplicate copies of an entity are not equal."""
-    a = np.asarray(a)
-    dm = env.dup_map(n_logical)
-    if a.shape[dim] != len(dm):
-        raise ValueError(f"{path}: shape {tuple(a.shape)} holds {a.shape[dim]} slots along dim "
-                         f"{dim}; tp {env.tp} over a model axis of {env.model_size} lays "
-                         f"{n_logical} out in {len(dm)}")
-    logical = np.take(a, [dm.index(e) for e in range(n_logical)], axis=dim)
-    if not np.array_equal(np.take(logical, dm, axis=dim), a):
-        raise ValueError(f"{path}: the duplicate copies of a slot are not equal")
-    return logical
+def _slot_dims(tree: Mapping, cfg: ModelConfig):
+    """(path, slot dim, logical entities) of each slot-laid leaf of a
+    stacked tree."""
+    from repro_torch.models import specs
+
+    for path in tree:
+        key = specs.layer_leaf(path)
+        n = specs.dup_of(key, cfg)
+        if n:
+            yield path, specs.TP_DIM[key] + (path.split("/")[0] in ("blocks", "enc_blocks")), n
+
+
+def to_slots(tree: Mapping[str, torch.Tensor], cfg: ModelConfig, env: ShardEnv
+             ) -> dict[str, torch.Tensor]:
+    """A stacked tree of logical tensors ({JAX leaf path: tensor},
+    ``stack_leaves``') → the reference's storage under ``env``: kv heads and
+    experts copied into their slots (``dup_map``); other leaves as they
+    are."""
+    out = dict(tree)
+    for path, dim, n in _slot_dims(tree, cfg):
+        t = tree[path]
+        out[path] = t.index_select(dim, torch.tensor(env.dup_map(n), device=t.device))
+    return out
+
+
+def from_slots(tree: Mapping[str, torch.Tensor], cfg: ModelConfig, env: ShardEnv
+               ) -> dict[str, torch.Tensor]:
+    """``to_slots``' inverse: each entity's first slot, where every copy of
+    it must be equal (else it raises)."""
+    out = dict(tree)
+    for path, dim, n in _slot_dims(tree, cfg):
+        t = tree[path]
+        dm = env.dup_map(n)
+        if t.shape[dim] != len(dm):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} holds {t.shape[dim]} slots along "
+                             f"dim {dim}; tp {env.tp} over a model axis of {env.model_size} "
+                             f"lays {n} out in {len(dm)}")
+        logical = t.index_select(dim, torch.tensor([dm.index(e) for e in range(n)],
+                                                   device=t.device))
+        if not torch.equal(logical.index_select(dim, torch.tensor(dm, device=t.device)), t):
+            raise ValueError(f"{path}: the duplicate copies of a slot are not equal")
+        out[path] = logical
+    return out
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig, *, env: ShardEnv | None = None,
@@ -193,18 +224,10 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, env: ShardEnv | None = N
     padded to the model axis. Stored in the config's ``param_dtype`` (fp32
     leaves are rounded to a bf16 one). Every leaf must be used and have the
     shape the port expects; the bf16 weight copies are made after loading."""
-    from repro_torch.models import specs
-
     env = ONE if env is None else env
-    flat = flatten(tree)
-    for path in flat:
-        key = specs.layer_leaf(path)
-        n = specs.dup_of(key, cfg)
-        if n:
-            stacked = path.split("/")[0] in ("blocks", "enc_blocks")
-            flat[path] = logical_slots(flat[path], specs.TP_DIM[key] + stacked, env, n, path)
+    flat = from_slots({path: tensor_leaf(a) for path, a in flatten(tree).items()}, cfg, env)
     model = Model(cfg, device=device, env=env)
-    values = from_jax(model, flat)
+    values = unstack_leaves(model, flat)
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(values[name])

@@ -28,8 +28,9 @@ axis). The rows of a batch are held once (the device-major batch's
 distinct rows, ``ShardEnv.row_groups``), and so are the parameters and
 caches; the tp ranks fold into the products (``parallel``), and the MoE
 prefill runs the all-to-all dispatch over the tp groups. Every block kind
-serves under tp > 1, the encoder of an enc-dec model included; training
-under tp > 1 raises ``NotImplementedError`` (ROADMAP.md §1 item 2).
+serves under tp > 1, the encoder of an enc-dec model included, and trains:
+``train_loss`` runs one data-parallel rank's rows under its tp group
+(``ShardEnv.tp_group``), folded as serving is, with autograd recording.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ from repro_torch.models.attention import TRAIN_IMPLS, GQAAttention, MLAAttention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import MLP, CastOnce, RMSNorm, mrope_angles, rope_angles
 from repro_torch.models.moe import MoE
-from repro_torch.models.parallel import (ONE, TP_TRAINING, ShardEnv, argmax_logits,
-                                         embed_lookup, logits, pad_vocab, sharded_xent)
+from repro_torch.models.parallel import (ONE, ShardEnv, argmax_logits, embed_lookup, logits,
+                                         pad_vocab, sharded_xent)
 from repro_torch.models.rglru import CONV_WIDTH, RGLRU
 from repro_torch.models.ssm import SSM, ssm_dims
 
@@ -154,7 +155,7 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
         if kind != "attn_moe":
             return x + block.mlp(h, env)
         if "aux" in ctx:
-            ctx["aux"].append(block.moe.aux_loss(h.reshape(-1, h.shape[-1])))
+            ctx["aux"].append(block.moe.rank_aux_loss(h, env))
         return x + block.moe(h, decode=cache is not None, env=env)
     if kind == "ssm":
         return x + block.ssm(block.ln1(x), state=sub(cache, "ssm"),
@@ -348,20 +349,28 @@ class Model(CastOnce):
         x, _ = self.stack(self.enc_blocks, embeds.to(getattr(torch, self.cfg.compute_dtype)), ctx)
         return self.enc_norm(x)
 
-    def train_loss(self, batch: dict, *, impl: str = "masked"):
+    def train_loss(self, batch: dict, *, impl: str = "masked", env: ShardEnv | None = None):
         """The JAX model's ``train_loss`` on one rank's batch: ``tokens`` (or
         ``embeds`` (b, s, d) for an embedding-input model) and ``labels`` (b,
         s) int (< 0: padding), optional ``positions`` ((b, s), or (b, s, 3)
         for M-RoPE), and for enc-dec ``enc_embeds``/``enc_positions``.
-        Returns (Σ nll + the MoE layers' load-balance loss, {"nll_sum",
-        "ntok"}). Autograd records it once the parameters require grad.
-        ``impl`` is the sequence mixing; ``flash`` raises: neither the
-        ``flash_attention`` kernel nor the reference's Pallas kernel has a
-        backward. Under tp > 1 it raises (the training slice)."""
+        ``env``: the rank's tp group (``ShardEnv.tp_group``; tp = 1 by
+        default). Returns (Σ nll + the MoE layers' load-balance loss,
+        {"nll_sum", "ntok"}): the mean over the tp ranks of each rank's own
+        loss, which differ only where the MoE's all-to-all route has each
+        rank route (and balance) its slice of the sequence. Autograd records
+        it once the parameters require grad. ``impl`` is the sequence mixing;
+        ``flash`` raises: neither the ``flash_attention`` kernel nor the
+        reference's Pallas kernel has a backward."""
         check_train_impl(impl)
-        if self.env.tp > 1:
-            raise NotImplementedError(TP_TRAINING)
         cfg = self.cfg
+        env = ONE if env is None else env
+        if env.fsdp_size != 1 or env.rep != 1:
+            raise ValueError(f"train_loss runs one rank's rows under its tp group, got {env}: "
+                             "pass env.tp_group()")
+        if self.vocab_padded % env.tp:
+            raise ValueError(f"the model's vocab of {self.vocab_padded} rows does not split over "
+                             f"tp {env.tp}: make it with Model(cfg, env=...) on the mesh")
         if cfg.embed_input and not cfg.enc_layers:
             x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
         else:  # enc-dec: the decoder reads tokens
@@ -370,13 +379,13 @@ class Model(CastOnce):
         pos = batch.get("positions")
         if pos is None:
             pos = torch.arange(s, device=x.device)[None].expand(b, s)
-        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl}
+        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl, "env": env}
         if cfg.enc_layers:
-            ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl)
+            ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl, env)
         x, aux = self.stack(self.blocks, x, ctx)
         head = self.embed if cfg.tie_embeddings else self.head
         labels = batch["labels"]
-        nll = sharded_xent(self.final_norm(x), head, labels, cfg.vocab)
+        nll = sharded_xent(self.final_norm(x), head, labels, cfg.vocab, env)
         nll_sum = nll.sum()
         return nll_sum + aux, {"nll_sum": nll_sum.detach(), "ntok": (labels >= 0).sum()}
 

@@ -106,6 +106,25 @@ class MoE(CastOnce):
         ce = expert_counts(experts, m.n_experts).to(torch.float32) / max(1, experts.numel())
         return m.n_experts * torch.sum(probs.mean(0) * ce) * m.router_aux_weight
 
+    def a2a_route(self, s: int, env: ShardEnv | None, decode: bool = False) -> bool:
+        """Does a forward of sequence length ``s`` under ``env`` take the
+        all-to-all dispatch (prefill and training over tp ranks, the
+        sequence split over them)?"""
+        tp = 1 if env is None else env.tp
+        return not decode and tp > 1 and s % tp == 0 and self.cfg.moe.dispatch == "a2a"
+
+    def rank_aux_loss(self, h: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
+        """The load-balance loss of a training forward on h (b, s, d), as the
+        mean over the tp ranks of each rank's own: on the all-to-all route
+        rank t routes its slice t of the sequence (every row's) and balances
+        it alone, elsewhere every rank routes every token."""
+        b, s, d = h.shape
+        if not self.a2a_route(s, env):
+            return self.aux_loss(h.reshape(-1, d))
+        tp = env.tp
+        parts = h.unflatten(1, (tp, s // tp)).movedim(1, 0).reshape(tp, -1, d)
+        return sum(self.aux_loss(p) for p in parts) / tp
+
     def expert(self, x: torch.Tensor, w: tuple[torch.Tensor, ...], e: int,
                env: ShardEnv | None = None) -> torch.Tensor:
         """Expert ``e``'s gated MLP on rows x (m, d), bf16; ``w``: the bf16
@@ -127,8 +146,7 @@ class MoE(CastOnce):
         tp groups' all-to-all (prefill over tp ranks when the sequence
         splits over them), or dispatched dropless."""
         b, s, d = x.shape
-        tp = 1 if env is None else env.tp
-        if not decode and tp > 1 and s % tp == 0 and self.cfg.moe.dispatch == "a2a":
+        if self.a2a_route(s, env, decode):
             return self.a2a(x, env)[0]
         flat = x.reshape(-1, d)
         gates, experts = self.route(flat)

@@ -1,6 +1,6 @@
 """Sharding: the reference's ``ShardEnv`` over a ``("data", "model")``
 mesh of world dims on one card, the tensor-parallel products, the sharded
-vocab, and the data world's gradient aggregation.
+vocab, and the gradient aggregation of training.
 
 The counterpart of ``repro/models/parallel.py``. ``ShardEnv`` carries every
 field and derived group of the reference's: a model axis of ``model_size``
@@ -8,7 +8,7 @@ devices runs ``tp`` tensor-parallel ranks and ``rep = model_size / tp``
 replica groups (model index m ↦ tp rank m // rep, rep rank m % rep), the
 data axis (and pod) is the FSDP world.
 
-Serving folds the ranks into the ops rather than looping over them. A
+The port folds the tp ranks into the ops rather than looping over them. A
 value that the reference holds equal on every rank of a group is held once:
 the parameters (logical, without the duplicate slots of kv heads and
 experts; ``fetch_weight`` gives the ranks' working slices as a view), the
@@ -19,10 +19,18 @@ dim: a column-parallel product is one matmul whose output dim reads as
 partials ``psum_tp`` sums, and the compute-at-data route's column product
 sums the bf16 partials of the fsdp d-slices. The logits of the tp vocab
 shards are held side by side, so ``argmax_logits``'s first maximum is the
-reference's pmax/pmin tie-break toward the smallest id. Training runs at tp = 1 on a data world of W
-ranks (``local_batch``, ``loss_normalizer``, ``fsdp_aggregate``, the
-backward of ``scenario_all_gather``); under tp > 1 it raises until the
-training slice.
+reference's pmax/pmin tie-break toward the smallest id.
+
+Training runs the same folded forward under autograd, one data-parallel
+rank (pod × data × rep) at a time, and the backward gives the logical
+gradient of the rank's loss. What the reference's weight fetch does in its
+backward is then run leaf by leaf on every rank's gradient
+(``aggregate_leaf``): the rep-group reduce-scatter along the TP dim
+(``rep_aggregate``), then the FSDP reduce-scatter along the FSDP dim over
+(pod, data) (``fsdp_aggregate``), each as the scenario says, and the sums of
+``sync_gradients`` for the leaves the fetch does not gather (``fsdp_dim``
+None: over the data world; ``tp_dim`` None or kv/expert slots: over the
+model axis).
 """
 from __future__ import annotations
 
@@ -35,7 +43,6 @@ from repro_torch.core.scenarios import Scenario
 from repro_torch.mesh import Mesh, note_collective
 
 COMPUTE_DTYPE = torch.bfloat16
-TP_TRAINING = "training under tensor parallelism waits for ROADMAP.md §1 item 2"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +154,11 @@ class ShardEnv:
         """1 / (sum over all devices of the locally counted tokens)."""
         return 1.0 / (self.local_batch(global_batch) * seq * self.fsdp_size * self.model_size)
 
+    def tp_group(self) -> "ShardEnv":
+        """One data-parallel rank's env: its tp group alone (data 1, rep 1),
+        which a training forward runs under (its rows are one rank's)."""
+        return ShardEnv(self.tp, 1, tp=self.tp, scenario=self.scenario)
+
     def row_groups(self, rows: int) -> tuple[int, int]:
         """Rows held once (the distinct rows of the device-major batch: fsdp ×
         (rep when the batch splits over it) × b_loc) → (how many rep groups
@@ -172,11 +184,10 @@ def fetch_weight(w: torch.Tensor, env: ShardEnv, *, tp_dim: int) -> torch.Tensor
     dim 0, a view: ``fetch_weight``'s forward, whose FSDP gather and
     rep-group gather give rank t the contiguous slice t of ``tp_dim``. (A
     slot layout's working set is its logical kv heads or experts, which the
-    port holds: ``convert`` reads them out of the slots.) Under autograd
-    with tp > 1 it raises: the backward of the rep gather is the training
-    slice's."""
-    if env.tp > 1 and w.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(TP_TRAINING)
+    port holds: ``convert`` reads them out of the slots.) Under autograd the
+    view's backward puts each rank's slice of the gradient in its place; the
+    reduce-scatters of the fetch's backward run after the backward
+    (``aggregate_leaf``)."""
     return w.unflatten(tp_dim, (env.tp, -1)).movedim(tp_dim, 0)
 
 
@@ -254,19 +265,25 @@ def argmax_logits(x: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Ten
 
 def sharded_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
                  vocab: int, env: ShardEnv | None = None) -> torch.Tensor:
-    """``sharded_xent`` at tp = 1: per-position nll (...) in fp32 of labels
-    under the logits of x (..., d) against ``table`` (V_pad, d), from a bf16
-    product: vocab-padding columns at -inf, a max stabiliser that carries no
-    gradient, and labels < 0 (padding) at 0 loss. Above tp = 1 it raises
-    (the training slice)."""
-    if env is not None and env.tp > 1:
-        raise NotImplementedError(TP_TRAINING)
+    """``sharded_xent``: per-position nll (...) in fp32 of labels under the
+    logits of x (..., d) against ``table`` (V_pad, d), from a bf16 product:
+    vocab-padding columns at -inf, a max stabiliser that carries no gradient
+    (the reference's pmax has no transpose), and labels < 0 (padding) at 0
+    loss. Over tp ranks each rank holds V_pad / tp columns: its sum of
+    exponentials is summed over the ranks (``psum_tp``) as the reference
+    sums them, and the label's logit comes from the one rank that holds
+    it."""
+    tp = 1 if env is None else env.tp
     lg = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).to(torch.float32)
     per = lg.shape[-1]
+    if per % tp:
+        raise ValueError(f"a vocab of {per} rows does not split over tp {tp}: pad it to the "
+                         "model axis (Model(cfg, env=...))")
     col = torch.arange(per, device=lg.device)
     lg = torch.where(col < vocab, lg, float("-inf"))
     mx = torch.amax(lg, dim=-1).detach()
-    lse = torch.log(torch.sum(torch.exp(lg - mx[..., None]), dim=-1)) + mx
+    se = torch.sum(torch.exp(lg - mx[..., None]).unflatten(-1, (tp, -1)), dim=-1)
+    lse = torch.log(se.sum(-1) if tp > 1 else se[..., 0]) + mx
     ok = (labels >= 0) & (labels < per)
     tl = torch.gather(lg, -1, labels.clamp(0, per - 1).long()[..., None])[..., 0]
     nll = lse - torch.where(ok, tl, 0.0)
@@ -274,7 +291,7 @@ def sharded_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the data world (tp = 1): batch split and the scenario-selected aggregation
+# training: the batch split and the scenario-selected aggregation
 # ---------------------------------------------------------------------------
 def local_batch(global_batch: int, world: int) -> int:
     """``ShardEnv.local_batch`` with rep = 1: each of ``world`` ranks' rows."""
@@ -283,11 +300,6 @@ def local_batch(global_batch: int, world: int) -> int:
             raise ValueError(f"batch {global_batch} not divisible by dp {world}")
         return 1  # tiny batches replicate
     return max(1, global_batch // world)
-
-
-def loss_normalizer(global_batch: int, seq: int, world: int) -> float:
-    """``ShardEnv.loss_normalizer``: 1 / (the tokens counted on all ranks)."""
-    return 1.0 / (local_batch(global_batch, world) * seq * world)
 
 
 def fsdp_aggregate(g: torch.Tensor, mesh: Mesh, dim: int | None,
@@ -335,3 +347,73 @@ def fsdp_aggregate(g: torch.Tensor, mesh: Mesh, dim: int | None,
         g = red.movedim(nm, nm + dim)
     flat = g.reshape((world,) + g.shape[nm:])
     return flat.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def rep_aggregate(g: torch.Tensor, mesh: Mesh, dim: int, tp: int,
+                  scenario: Scenario | str) -> torch.Tensor:
+    """The backward of ``fetch_weight``'s rep-group gather for one leaf:
+    ``g`` holds every rank's gradient, (mesh dims, *leaf), whose last mesh
+    axis is the model axis's rep ranks (the tp ranks folded: a rank's
+    gradient is the whole leaf, tp rank t's working slice at slice t of the
+    TP ``dim``). Rank (t, r) keeps chunk t·rep + r of ``dim`` summed over
+    its rep group, as ``_sag_bwd`` computes it under ``scenario``: NATIVE
+    (``psum_scatter``) and S1_HOST (gather, sum, slice) the sum;
+    S2_IN_NET and HIERARCHICAL ``ring_reduce_scatter`` over the group;
+    S3_IN_NET_MAP the same ring with bf16 on the wire, each hop one
+    ``ring_fused_step`` over every tp group's ring at once. Returns (the
+    other mesh dims, *leaf), the chunks in their places. A model axis of
+    one rank returns ``g`` without it."""
+    nm, ax, rep = mesh.ndim, mesh.axis_names[-1], mesh.shape[-1]
+    if rep == 1:
+        return g.select(nm - 1, 0)
+    x = g.shape[nm + dim]
+    if x % (tp * rep):
+        raise ValueError(f"TP dim {dim} of a {tuple(g.shape[nm:])} gradient does not split over "
+                         f"tp {tp} x rep {rep}")
+    sc = Scenario(scenario)
+    out_bytes = g.numel() // rep * g.element_size()  # every device's chunk, summed
+    if sc in (Scenario.NATIVE, Scenario.S1_HOST):
+        if sc is Scenario.NATIVE:
+            note_collective("reduce-scatter", out_bytes)
+        else:  # each device gathers its group's working slices
+            note_collective("all-gather", out_bytes * rep * rep)
+        return g.sum(nm - 1)
+    wire = sc is Scenario.S3_IN_NET_MAP
+    gm = g.movedim(nm + dim, nm)  # (mesh dims, X, rest)
+    chunks = gm.reshape(gm.shape[:nm] + (tp, rep, x // (tp * rep)) + gm.shape[nm + 1:])
+    red = coll.ring_reduce_scatter(chunks.movedim(nm + 1, nm), mesh, ax,
+                                   wire_map=coll.bf16_wire if wire else None,
+                                   unmap=coll.fp32_unwire if wire else None)
+    # (other dims, rep rank r, tp, chunk, rest): rank r holds chunk r of each tp slice
+    whole = red.movedim(nm - 1, nm).flatten(nm - 1, nm + 1)
+    return whole.movedim(nm - 1, nm - 1 + dim)
+
+
+def aggregate_leaf(g: torch.Tensor, mesh: Mesh, scenario: Scenario | str, *,
+                   fsdp_dim: int | None, tp_dim: int | None = None, dup_of: int = 0,
+                   tp: int = 1) -> torch.Tensor:
+    """One leaf's aggregation on every rank's gradient ``g`` (mesh dims,
+    *leaf): the reference's backward of ``fetch_weight`` and
+    ``sync_gradients``' sums. ``mesh``: the data world, ("data",) or
+    ("pod", "data"), optionally followed by the model axis's rep ranks
+    ("model"). A leaf the fetch gathers over the rep groups (a TP dim, not
+    kv/expert slots: ``dup_of`` 0) is reduce-scattered over them first
+    (``rep_aggregate``), then over the data world along its FSDP dim
+    (``fsdp_aggregate``; ``fsdp_dim`` None: summed). A leaf it does not
+    gather (``tp_dim`` None, or slots whose copies sit on the model axis)
+    has each rep rank's FSDP reduce-scatter, then the model axis's sum (the
+    reference's psum over the axis, or over ``dup_sync_groups``), in fp32.
+    Returns the whole aggregated leaf."""
+    if "model" not in mesh.axis_names:
+        return fsdp_aggregate(g, mesh, fsdp_dim, scenario)
+    m = mesh.dim("model")
+    if m != mesh.ndim - 1:
+        raise ValueError(f"the model axis must come last, mesh axes {mesh.axis_names}")
+    data = Mesh(mesh.axis_names[:m], mesh.shape[:m], device=mesh.device)
+    if tp_dim is not None and not dup_of:
+        return fsdp_aggregate(rep_aggregate(g, mesh, tp_dim, tp, scenario), data, fsdp_dim,
+                              scenario)
+    g = fsdp_aggregate(g, data, None if fsdp_dim is None else fsdp_dim + 1, scenario)
+    if mesh.shape[m] * tp > 1:
+        note_collective("all-reduce", g.numel() * g.element_size() * tp)
+    return g.sum(0)

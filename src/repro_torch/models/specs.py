@@ -21,6 +21,8 @@ logical leaves; ``convert`` lays them out in slots and back.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 from repro_torch.models.convert import leaf_paths
 from repro_torch.models.model import Model
 
@@ -86,6 +88,29 @@ def layer_leaf(path: str) -> str:
     return path
 
 
-def fsdp_dims(model: Model) -> dict[str, int | None]:
-    """{port parameter name: its FSDP dim, or None}, in parameter order."""
-    return {name: FSDP_DIM[layer_leaf(path)] for name, (path, _) in leaf_paths(model).items()}
+class LeafPlace(NamedTuple):
+    """A port parameter's ``LeafSpec`` facts (dims within one layer)."""
+
+    fsdp_dim: int | None
+    tp_dim: int | None
+    dup_of: int  # logical kv heads or experts in slots; 0 for a plain leaf
+
+    def tp_chunks(self, env) -> int:
+        """Along how many distinct device shards the TP dim is cut: the
+        model axis for a plain TP leaf, the logical entities over their
+        per-rank slots for kv heads and experts (their copies are equal),
+        1 for a leaf without a TP dim."""
+        if self.tp_dim is None:
+            return 1
+        if self.dup_of:
+            return self.dup_of // max(1, self.dup_of // env.tp)
+        return env.model_size
+
+
+def leaf_places(model: Model) -> dict[str, LeafPlace]:
+    """{port parameter name: its ``LeafPlace``}, in parameter order."""
+    out = {}
+    for name, (path, _) in leaf_paths(model).items():
+        key = layer_leaf(path)
+        out[name] = LeafPlace(FSDP_DIM[key], TP_DIM[key], dup_of(key, model.cfg))
+    return out

@@ -4,11 +4,15 @@ The port of ``repro/optim/adamw.py``. Parameters, gradients and moments are
 dicts keyed by parameter name. The reference's moments are shaped like each
 device's storage shard; the port holds each leaf whole, and the update is
 elementwise, so only the 8-bit moments notice the shards: their blocks
-(the trailing 256 elements, padded with zeros) are cut from each rank's
-FSDP shard, as the reference's device-major moments are, when ``init`` and
-``update`` get a ``layout`` ({name: (fsdp dim, world)} for a sharded leaf;
-absent or None for a leaf every rank holds whole). Scalars (the schedule,
-the bias corrections) are computed in fp32, as the reference's are.
+(the trailing 256 elements, padded with zeros) are cut from each device's
+shard, as the reference's device-major moments are, when ``init`` and
+``update`` get a ``layout``: {name: the cuts of its device shard}, each cut
+a (dim, count) pair: the FSDP dim over the data world and, over a model
+axis, the TP dim over its distinct shards (a leaf's copies on the model
+axis hold equal moments and are quantized once); absent or None for a leaf
+every device holds whole. A shard's rows are in device order, the FSDP
+cut's index major. Scalars (the schedule, the bias corrections) are
+computed in fp32, as the reference's are.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 
 BLOCK = 256
 
-Layout = dict[str, "tuple[int, int] | None"]
+Cut = tuple[int, int]  # (dim, count): the leaf's dim split into count device shards
+Layout = dict[str, "tuple[Cut, ...] | None"]
 
 
 def quantize_block8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -41,23 +46,27 @@ def dequantize_block8(codes: torch.Tensor, scale: torch.Tensor, n: int) -> torch
     return out[..., :n]
 
 
-def shard_rows(x: torch.Tensor, place: tuple[int, int] | None) -> torch.Tensor:
-    """A leaf → (world, n) rows, row r the flat rank-r FSDP shard along
-    ``place = (dim, world)``; one row, the whole leaf, for ``place`` None."""
-    if place is None:
-        return x.reshape(1, -1)
-    dim, world = place
-    return x.unflatten(dim, (world, -1)).movedim(dim, 0).reshape(world, -1)
+def shard_rows(x: torch.Tensor, place) -> torch.Tensor:
+    """A leaf → (shards, n) rows, row i the flat i-th device shard of the
+    layout entry ``place`` (its cuts, the first one's index major); one row,
+    the whole leaf, without cuts."""
+    cuts = place or ()
+    for k, (dim, count) in enumerate(cuts):
+        x = x.unflatten(dim + k, (count, -1)).movedim(dim + k, k)
+    return x.reshape(math.prod(c for _, c in cuts), -1)
 
 
-def unshard_rows(rows: torch.Tensor, shape, place: tuple[int, int] | None) -> torch.Tensor:
-    """``shard_rows``' inverse: (world, n) rows → the leaf of ``shape``."""
-    if place is None:
-        return rows.reshape(shape)
-    dim, world = place
+def unshard_rows(rows: torch.Tensor, shape, place) -> torch.Tensor:
+    """``shard_rows``' inverse: (shards, n) rows → the leaf of ``shape``."""
+    cuts = place or ()
     local = list(shape)
-    local[dim] //= world
-    return rows.reshape((world,) + tuple(local)).movedim(0, dim).reshape(shape)
+    for dim, count in cuts:
+        local[dim] //= count
+    x = rows.reshape(tuple(c for _, c in cuts) + tuple(local))
+    for k in reversed(range(len(cuts))):
+        dim = cuts[k][0]
+        x = x.movedim(k, dim + k).flatten(dim + k, dim + k + 1)
+    return x
 
 
 class OptState(NamedTuple):

@@ -1,13 +1,17 @@
-"""Gradient synchronisation and norms over a data world on one card.
+"""Gradient synchronisation and norms over the mesh's ranks on one card.
 
-The port of ``repro/optim/distributed.py`` at tp = 1. In the reference most
-gradients leave the backward already aggregated (the scenario-selected
-transpose of the FSDP weight fetch) and ``sync_gradients`` sums the rest
-over (pod, data); here every rank's gradient is held in one tensor (the
-mesh dims, then the leaf) and ``sync_gradients`` runs both, leaf by leaf,
-through ``models.parallel.fsdp_aggregate``. The norm and the clip are over
-the aggregated gradient: the reference weights each stored element by
-1 / its copies, which counts every logical element once, as this does.
+The port of ``repro/optim/distributed.py``. In the reference most gradients
+leave the backward already aggregated (the scenario-selected transpose of
+the weight fetch: the rep-group reduce-scatter along the TP dim, then the
+FSDP one over (pod, data)) and ``sync_gradients`` sums the rest: leaves
+without an FSDP dim over (pod, data), leaves without a TP dim over the
+model axis, kv heads and experts over their copies (``dup_sync_groups``).
+Here every rank's gradient is held in one tensor (the mesh dims, then the
+leaf) and ``sync_gradients`` runs both, leaf by leaf, through
+``models.parallel.aggregate_leaf``. The norm and the clip are over the
+aggregated logical gradient: the reference weights each stored element by
+1 / its copies (``LeafPlace.copies``), which counts every logical element
+once, as this does.
 """
 from __future__ import annotations
 
@@ -15,15 +19,21 @@ import torch
 
 from repro_torch.core.scenarios import Scenario
 from repro_torch.mesh import Mesh
-from repro_torch.models.parallel import fsdp_aggregate
+from repro_torch.models.parallel import aggregate_leaf
 
 
-def sync_gradients(rank_grads: dict[str, torch.Tensor], dims: dict[str, int | None],
-                   mesh: Mesh, scenario: Scenario | str) -> dict[str, torch.Tensor]:
-    """Every rank's gradients ({name: (mesh dims, *leaf)}) → the aggregated
-    gradient of each leaf along its FSDP dim under ``scenario`` (``dims``;
-    None: summed over the world)."""
-    return {k: fsdp_aggregate(g, mesh, dims[k], scenario) for k, g in rank_grads.items()}
+def sync_gradients(rank_grads: dict[str, torch.Tensor], places: dict, mesh: Mesh,
+                   scenario: Scenario | str, tp: int = 1) -> dict[str, torch.Tensor]:
+    """Every rank's gradients ({name: (mesh dims, *leaf)}) → each leaf's
+    aggregated gradient under ``scenario``. ``mesh``: the data world, with
+    the model axis's rep ranks last when there is one; ``tp``: the tp ranks
+    folded into each. ``places``: {name: ``specs.LeafPlace``}."""
+    out = {}
+    for k, g in rank_grads.items():
+        pl = places[k]
+        out[k] = aggregate_leaf(g, mesh, scenario, fsdp_dim=pl.fsdp_dim, tp_dim=pl.tp_dim,
+                                dup_of=pl.dup_of, tp=tp)
+    return out
 
 
 def global_grad_norm(grads: dict[str, torch.Tensor]) -> torch.Tensor:

@@ -9,7 +9,7 @@
 * ``elastic_mesh_plan``: given the surviving device count, the largest
   valid mesh: the data axis shrinks to a power of two and the model (TP)
   axis is kept, since TP is part of the checkpointed layout. On one card the
-  data world is the world dims of a ``Mesh`` and the model axis is 1.
+  mesh is the world dims of a ``Mesh``, its model axis included.
 * ``FleetSimulator``: scripted failures and recoveries for tests.
 
 The restart itself is ``launch/train.py``'s: on a failure it restores the

@@ -23,7 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.analysis import roofline as rl  # noqa: E402
 from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.launch import dryrun, shapes  # noqa: E402
-from repro_torch.launch.mesh import (data_world, make_mesh, make_production_mesh,  # noqa: E402
+from repro_torch.launch.mesh import (data_extent, make_mesh, make_production_mesh,  # noqa: E402
                                      mesh_axis_sizes)
 from repro_torch.mesh import Mesh  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -162,16 +162,16 @@ def test_cost_vector_counts_flops_bytes_and_collectives():
 
 def test_production_mesh_and_mesh_helpers():
     """The reference's production meshes, model axis included; training's
-    data world drops a model axis of 1 and refuses a larger one."""
+    data world is the mesh's data extent, whatever its model axis."""
     m = make_production_mesh(device=META)
     assert m.axis_names == ("data", "model") and m.shape == (16, 16)
     m2 = make_production_mesh(multi_pod=True, device=META)
     assert m2.axis_names == ("pod", "data", "model") and m2.shape == (2, 16, 16)
     assert mesh_axis_sizes(m2) == {"pod": 2, "data": 16, "model": 16}
-    w = data_world(make_mesh((4, 1), ("data", "model"), device="cpu"))
+    w = data_extent(make_mesh((4, 1), ("data", "model"), device="cpu"))
     assert (w.axis_names, w.shape) == (("data",), (4,))
-    with pytest.raises(NotImplementedError, match="§1 item 2"):
-        data_world(m)
+    w16 = data_extent(m)
+    assert (w16.axis_names, w16.shape) == (("data",), (16,))
     with pytest.raises(ValueError, match="axes"):
         make_mesh((4, 1), ("x", "model"), device="cpu")
 
@@ -189,7 +189,7 @@ def test_probe_solve_predicts_a_direct_count_exactly(arch, kind):
     unit = len(cfg.pattern or (1,))
     cfg = dataclasses.replace(cfg, n_layers=3 * unit + len(cfg.pattern_tail))
     shape = shapes.ShapeSpec("probe", 64, 8, kind)
-    mesh = Mesh(("data",), (2,), device=META)
+    mesh = make_mesh((2, 1), device=META)
     total, _ = dryrun.probe_costs(cfg, shape, mesh, scenario="s2_in_net", impl="direct", mb=2)
     direct = dryrun.Cell(cfg, shape, mesh, scenario="s2_in_net", impl="direct",
                          microbatches=2).cost()
@@ -201,9 +201,9 @@ def test_lower_cell_records(tmp_path):
     """A dense train cell, an MoE prefill (balanced routing, named), an
     enc-dec decode (each cut to two layers) and a skip: the reference's
     record keys, one card, the peak the held state plus the step's. The
-    serve cells run on the production mesh at the reference's tp
-    (``resolve_tp(16)``) and rep; the train cell on its data extent at tp
-    1, the record saying why; ``serve_opt`` is the compute-at-data decode."""
+    cells run on the production mesh at the reference's tp
+    (``resolve_tp(16)``) and rep, the train cell's one rank scaled by the
+    data-parallel world; ``serve_opt`` is the compute-at-data decode."""
     from repro.launch.shapes import shape_applicable as ref_applicable
     from repro.configs import get_config as ref_config
 
@@ -219,8 +219,9 @@ def test_lower_cell_records(tmp_path):
         assert rec["fits_80g"] == (rec["peak_bytes"] < 80e9)
         assert rec["flops_per_dev"] >= rec["model_flops_per_dev"] * 0.5 > 0
     assert dense["world"] == 16 and dense["microbatches"] == 1
-    assert (dense["tp"], dense["rep"], dense["mesh"]) == (1, 1, "16 data extent, model 1")
-    assert "ROADMAP.md §1 item 2" in dense["model_axis"] and "rows" not in dense
+    assert (dense["tp"], dense["rep"], dense["mesh"]) == (ref_config("qwen1.5-0.5b").resolve_tp(16),
+                                                          1, "16x16")
+    assert "model_axis" not in dense and "rows" not in dense and dense["rep_split"] is False
     for rec, arch in ((moe_rec, "granite-moe-1b-a400m"), (encdec, "seamless-m4t-large-v2"),
                       (dryrun.lower_cell("qwen2-vl-7b", "decode_32k", cfg_overrides=cut,
                                          probes=False), "qwen2-vl-7b")):

@@ -31,7 +31,7 @@ from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import TrainPipeline  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
-from repro_torch.launch.mesh import data_world, make_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models.convert import params_from_jax, params_to_jax  # noqa: E402
 from repro_torch.optim import AdamW, OptState  # noqa: E402
 from repro_torch.runtime import fault_tolerance as ft  # noqa: E402
@@ -307,7 +307,7 @@ def test_restored_state_equals_the_saved_state(tmp_path):
     model = train.Model(cfg, device="cpu", seed=1)
     step = steps.make_train_step(model, make_mesh((4, 1), device="cpu"), global_batch=8, seq=16)
     state = step.init_state()
-    state, _ = step(state, TrainPipeline(cfg, step.mesh, 8, 16, seed=1).batch_at(0))
+    state, _ = step(state, TrainPipeline(cfg, step.env, 8, 16, seed=1).batch_at(0))
     saved = {k: p.detach().clone() for k, p in step.params.items()}
     store = CheckpointStore(str(tmp_path))
     store.save(1, train.checkpoint_tree(step, state), meta={"world": 4})
@@ -358,11 +358,11 @@ def test_grok_trains_in_bf16_in_step_with_the_reference(jax_out):
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
     assert model.blocks[0].moe.wo_c.untyped_storage().data_ptr() == \
         model.blocks[0].moe.wo.untyped_storage().data_ptr()  # its own compute copy
-    mesh = data_world(make_mesh((1, 1), device="cpu"))
+    mesh = make_mesh((1, 1), device="cpu")
     step = steps.make_train_step(model, mesh, optimizer=AdamW(lr=GROK_LR, warmup_steps=1),
                                  global_batch=GB, seq=SEQ)
     state = step.init_state()
-    pipe = TrainPipeline(cfg, mesh, GB, SEQ, seed=SEED)
+    pipe = TrainPipeline(cfg, step.env, GB, SEQ, seed=SEED)
     lrs = []
     for k in range(STEPS):
         state, m = step(state, pipe.batch_at(k))

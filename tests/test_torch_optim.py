@@ -29,7 +29,7 @@ from repro_torch.mesh import Mesh  # noqa: E402
 from repro_torch.models.attention import chunked_attention  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.models.parallel import fsdp_aggregate  # noqa: E402
-from repro_torch.models.specs import fsdp_dims  # noqa: E402
+from repro_torch.models.specs import LeafPlace, leaf_places  # noqa: E402
 from repro_torch.optim import AdamW, clip_by_global_norm, global_grad_norm, sync_gradients  # noqa: E402
 from repro_torch.optim.adamw import (dequantize_block8, quantize_block8, shard_rows,  # noqa: E402
                                      unshard_rows)
@@ -169,14 +169,14 @@ def test_eightbit_blocks_are_cut_from_each_shard(jax_out):
     codes of that shard, and the rows map back onto the leaf."""
     name, dim, world = SHARD
     x = torch.from_numpy(tree(0)[name])
-    rows = shard_rows(x, (dim, world))
+    rows = shard_rows(x, ((dim, world),))
     codes, scale = quantize_block8(rows)
     for r in range(world):
         np.testing.assert_array_equal(codes[r].numpy(), jax_out[f"shard/{r}/codes"])
         np.testing.assert_array_equal(scale[r].numpy(), jax_out[f"shard/{r}/scale"])
-    assert torch.equal(unshard_rows(rows, x.shape, (dim, world)), x)
+    assert torch.equal(unshard_rows(rows, x.shape, ((dim, world),)), x)
     opt = AdamW(eightbit=True)
-    state = opt.init({name: x}, {name: (dim, world)})
+    state = opt.init({name: x}, {name: ((dim, world),)})
     assert state.m[name][0].shape == (world, 1, 256)  # 8 × 16 elements a shard: one block
 
 
@@ -191,7 +191,8 @@ def test_fsdp_dims_match_param_specs(jax_out, arch):
     want = {k.split("/", 2)[2]: int(v) for k, v in jax_out.items()
             if k.startswith(f"fsdp/{arch}/")}
     got = {}
-    for name, dim in fsdp_dims(model).items():
+    for name, pl in leaf_places(model).items():
+        dim = pl.fsdp_dim
         got.setdefault(paths[name][0], set()).add(-1 if dim is None else dim)
     assert set(got) == set(want)
     for path, dims in got.items():
@@ -230,7 +231,8 @@ def test_sync_and_clip_by_global_norm():
     mesh = Mesh(("data",), (4,), device="cpu")
     rank = {"w": torch.from_numpy(_grads((8, 4), (4,), 1)),
             "b": torch.from_numpy(_grads((3,), (4,), 2))}
-    grads = sync_gradients(rank, {"w": 1, "b": None}, mesh, "s2_in_net")
+    places = {"w": LeafPlace(1, None, 0), "b": LeafPlace(None, None, 0)}
+    grads = sync_gradients(rank, places, mesh, "s2_in_net")
     whole = {k: v.numpy().astype(np.float64).sum(0) for k, v in rank.items()}
     for k in rank:
         np.testing.assert_allclose(grads[k].numpy(), whole[k], rtol=AGG_TOL, atol=AGG_TOL)

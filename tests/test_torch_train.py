@@ -36,7 +36,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.data.pipeline import Prefetcher, TrainPipeline, markov_tokens, _rng  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve, shapes, steps, train  # noqa: E402
-from repro_torch.launch.mesh import data_world, make_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.mesh import Mesh  # noqa: E402
 from repro_torch.models.convert import (from_jax, opt_state_from_jax, params_from_jax,  # noqa: E402
                                         params_to_jax, to_jax)
@@ -114,8 +114,9 @@ def subtree(jax_out, prefix: str) -> dict:
 
 
 def data_mesh(shape) -> Mesh:
-    """(4, 1) → ("data",) = 4; (2, 2, 1) → ("pod", "data") = (2, 2), on the CPU."""
-    return data_world(make_mesh(shape, device="cpu"))
+    """A launcher's mesh on the CPU: (4, 1) → data 4 × model 1; (2, 2, 1) →
+    pod 2 × data 2 × model 1."""
+    return make_mesh(shape, device="cpu")
 
 
 def rel(a, b) -> float:
@@ -133,7 +134,7 @@ def test_train_step_matches_jax(jax_out, scenario):
                                  global_batch=GB, seq=SEQ)
     assert step.microbatches == mb and step.world == 4
     state = step.init_state()
-    pipe = TrainPipeline(cfg, mesh, GB, SEQ, seed=SEED)
+    pipe = TrainPipeline(cfg, step.env, GB, SEQ, seed=SEED)
     lrs = []
     for k in range(STEPS):
         state, m = step(state, pipe.batch_at(k))
@@ -180,13 +181,13 @@ def test_opt_state_round_trip(jax_out):
 @pytest.mark.parametrize("arch", PIPE_ARCHS)
 @pytest.mark.parametrize("shape", [(4, 1), (2, 2, 1)])
 def test_train_pipeline_matches_jax(jax_out, arch, shape):
-    """World-major batches: the reference's device-major batch without its
-    model dim of 1, bitwise; shapes as ``train_input_specs`` says."""
+    """Device-major batches: the reference's, bitwise; shapes as
+    ``train_input_specs`` says."""
     cfg = get_smoke_config(arch)
-    mesh = data_mesh(shape)
-    got = TrainPipeline(cfg, mesh, GB, SEQ, seed=SEED).batch_at(5)
+    env = steps.make_env(cfg, data_mesh(shape))
+    got = TrainPipeline(cfg, env, GB, SEQ, seed=SEED).batch_at(5)
     want = subtree(jax_out, f"pipe/{arch}/{len(shape)}/")
-    specs = shapes.train_input_specs(cfg, mesh, SEQ, GB)
+    specs = shapes.train_input_specs(cfg, env, SEQ, GB)
     assert set(got) == set(want) == set(specs)
     for k, w in want.items():
         assert got[k].shape == specs[k][0]
@@ -196,7 +197,8 @@ def test_train_pipeline_matches_jax(jax_out, arch, shape):
 
 def test_markov_tokens_and_prefetcher(jax_out):
     np.testing.assert_array_equal(markov_tokens(_rng(7, 2), 1000, 3, 50), jax_out["markov"])
-    pipe = TrainPipeline(get_smoke_config(ARCH), data_mesh((4, 1)), GB, SEQ, seed=SEED)
+    cfg = get_smoke_config(ARCH)
+    pipe = TrainPipeline(cfg, steps.make_env(cfg, data_mesh((4, 1))), GB, SEQ, seed=SEED)
     fetched = Prefetcher(iter(pipe), depth=2)
     for k in range(4):
         b = next(fetched)
@@ -214,7 +216,7 @@ def test_serving_after_a_train_step_reads_the_new_weights():
                                  optimizer=AdamW(lr=1e-2, warmup_steps=1),
                                  global_batch=GB, seq=SEQ)
     before = serve.generate(model, serve.prompt_batch(model, 2, 16, seed=1), 4, impl="masked")
-    step(step.init_state(), TrainPipeline(cfg, mesh, GB, SEQ, seed=SEED).batch_at(0))
+    step(step.init_state(), TrainPipeline(cfg, step.env, GB, SEQ, seed=SEED).batch_at(0))
     fresh = params_from_jax(params_to_jax(model), cfg, device="cpu")
     prompts = serve.prompt_batch(model, 2, 16, seed=1)
     got = serve.generate(model, prompts, 4, impl="masked")
@@ -239,24 +241,28 @@ def test_train_cli_loss_falls(capsys):
 
 
 def test_training_refuses_what_it_cannot_run():
-    """``impl="flash"`` (no backward), a model axis above 1 (training under
-    TP is ROADMAP.md §1 item 2: the CLI's ``--mesh 4,2``, and a mesh with
-    that axis given to the train step), and the elastic restart without a
-    checkpoint directory raise."""
+    """``impl="flash"`` (no backward), a mesh without the launcher's model
+    axis, the elastic restart without a checkpoint directory and a batch
+    laid out for another world raise. A model axis above 1 no longer does:
+    the CLI's ``--mesh 4,2`` trains, and a mesh with that axis given to the
+    train step runs its tp ranks."""
     model = Model(get_smoke_config(ARCH), device="cpu")
     with pytest.raises(ValueError, match="no backward"):
         steps.make_train_step(model, data_mesh((4, 1)), impl="flash")
-    with pytest.raises(NotImplementedError, match="§1 item 2"):
-        train.run(train.parser().parse_args(["--arch", "qwen1.5-0.5b", "--smoke", "--device",
-                                             "cpu", "--mesh", "4,2"]))
-    with pytest.raises(NotImplementedError, match="model axis of 2"):
-        steps.make_train_step(model, make_mesh((2, 2), device="cpu"))
+    with pytest.raises(ValueError, match="launcher's mesh"):
+        steps.make_train_step(model, Mesh(("data",), (4,), device="cpu"))
+    losses = train.run(train.parser().parse_args(["--arch", "qwen1.5-0.5b", "--smoke", "--device",
+                                                  "cpu", "--mesh", "4,2", "--steps", "2"]))
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    tp_step = steps.make_train_step(model, make_mesh((2, 2), device="cpu"))
+    assert (tp_step.env.tp, tp_step.env.rep, tp_step.world) == (2, 1, 2)
     with pytest.raises(ValueError, match="needs --ckpt"):
         train.run(train.parser().parse_args(["--arch", "qwen1.5-0.5b", "--smoke", "--device",
                                              "cpu", "--fail-step", "3", "--shrink-to", "2"]))
     with pytest.raises(ValueError, match="does not lead with the world"):
         step = steps.make_train_step(model, data_mesh((4, 1)), global_batch=GB, seq=SEQ)
-        step(step.init_state(), TrainPipeline(model.cfg, data_mesh((2, 1)), GB, SEQ).batch_at(0))
+        other = steps.make_env(model.cfg, data_mesh((2, 1)))
+        step(step.init_state(), TrainPipeline(model.cfg, other, GB, SEQ).batch_at(0))
 
 
 @pytest.fixture
@@ -282,11 +288,11 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch):
     models["cuda"] = Model(cfg, device="cpu", seed=0).to(cuda)
     out = {}
     for where, model in models.items():
-        mesh = data_world(make_mesh((2, 1), device=model.device))
+        mesh = make_mesh((2, 1), device=model.device)
         step = steps.make_train_step(model, mesh, scenario="s3_in_net_map",
                                      global_batch=4, seq=SEQ)
         ops.reset_launches()
-        _, m = step(step.init_state(), TrainPipeline(cfg, mesh, 4, SEQ, seed=SEED).batch_at(0))
+        _, m = step(step.init_state(), TrainPipeline(cfg, step.env, 4, SEQ, seed=SEED).batch_at(0))
         out[where] = (m, dict(ops.LAUNCHES), params_to_jax(model))
         if where == "cuda":
             n_fsdp = sum(d is not None for d in step.dims.values())
