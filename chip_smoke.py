@@ -188,6 +188,21 @@
    route. Each step's phases, tokens/s, peak and launches are printed, and
    for (a)'s S3 step, (b) and (c) the device's busy time and idle share.
 
+11. Runs the paper's data plane on a process mesh: ``PROCS_WORLD`` = 8 gloo
+   ranks spawned on the one card (``launch.procs.spawn``; the kernels were
+   built in 1, so the ranks only load them), each holding only its own
+   shard of 3's inputs (2**24 words, 25,557,032 / 8 gradients), its
+   collectives staged through pinned host memory. 3's word count
+   (histogram, token shuffle, S1 host), aggregation (S1, S2, S3, NATIVE on
+   8; HIERARCHICAL on (2, 4)) and the rebalanced word-count plan on the
+   8-ring, each once to warm up and once timed: every rank's outputs held to
+   its row of 3's world-dim run (bitwise; NATIVE and HIERARCHICAL within
+   ``PROCS_TOL``), S3 also bitwise to the plain ring, each rank's launches
+   to ``PROCS_LAUNCHES``. Prints each path's wall, its host copies and
+   their share of the wall, and a rank's peak memory; the kernels line gets
+   the three data-plane kernels at a rank's shapes (timed in 4, alone on
+   the card), with phase 11's launches summed over the ranks.
+
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that last line. Needs one CUDA device.
@@ -469,6 +484,24 @@ REC_TP_MARGIN = 0.04
 # kernel route against the plain route (ref.segment_reduce, the expert
 # choices replayed) within MOE_TRAIN_TOL["loss"]
 MOE_TP = ("granite-moe-1b-a400m", "1,16", MOE_TRAIN_BATCH, MOE_CKPT_LAYERS)
+# the data plane on a process mesh (phase 11): PROCS_WORLD gloo ranks
+# spawned on the one card, each holding only its own shard of phase 3's
+# inputs, run phase 3's paths of PROCS_PATHS (a warm-up call, then one timed
+# between barriers). Each rank's outputs are held to phase 3's world-dim run
+# on the same card: bitwise, or for PROCS_CLOSE within PROCS_TOL (gloo's
+# all-reduce adds in its own order); each path's kernel launches in every
+# rank to PROCS_LAUNCHES (none where it names none).
+PROCS_WORLD = N_MAPPERS
+PROCS_TIMEOUT_S = 300
+PROCS_PATHS = ("wordcount_histogram", "wordcount_token", "wordcount_s1_host",
+               "aggregate_s1_host", "aggregate_s2_in_net", "aggregate_s3_in_net_map",
+               "aggregate_native", "aggregate_hierarchical", "plan_wordcount_tree")
+PROCS_CLOSE = ("aggregate_native", "aggregate_hierarchical")
+PROCS_TOL = 1e-5
+PROCS_LAUNCHES = {"wordcount_histogram": {"segment_reduce": 1},
+                  "wordcount_token": {"hash_partition": 2, "segment_reduce": 1},
+                  "aggregate_s3_in_net_map": {"ring_fused_step": N_MAPPERS - 1},
+                  "plan_wordcount_tree": {"segment_reduce": 1}}
 
 
 def log(msg: str) -> None:
@@ -516,6 +549,97 @@ def bare_launchers():
     mods = [importlib.import_module(f"repro_torch.kernels.{n}")
             for n in ("hash_partition", "segment_reduce", "ring_fused_step")]
     return mods[0].hash_partition, mods[1].segment_reduce, mods[2].ring_fused_step
+
+
+def data_plane_rows(words, recv, hop: int, prefix: str = "") -> list:
+    """The kernels line's rows of the three data-plane kernels: each held
+    against its plain version and timed on the card at the shapes given,
+    ``words`` (mappers, n) int32 for ``hash_partition`` and the histogram
+    path's ``segment_reduce``, ``recv`` (reducers, m) the token path's
+    received words, and one S3 hop of ``hop`` elements for
+    ``ring_fused_step``. ``prefix`` goes before each row's path; the
+    launch counts are the caller's to fill."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    hp, sr, rf = bare_launchers()
+    seg_mod = importlib.import_module("repro_torch.kernels.segment_reduce")
+    rows = []
+    n_tok, mappers = words.numel(), words.shape[0]
+    kout, pout = hp(words, N_MAPPERS), ref.hash_partition(words, N_MAPPERS)
+    if not all(equal(k, p) for k, p in zip(kout, pout)):
+        raise AssertionError(f"hash_partition differs at {tuple(words.shape)}")
+    b, b_by = bound_ms(n_tok * 8 + mappers * N_MAPPERS * 4, 3 * n_tok)
+    rows.append({
+        "name": "hash_partition", "route": "cuda",
+        "source": "src/repro_torch/csrc/hash_partition.cu",
+        "replaces": "src/repro/kernels/hash_partition.py:47",
+        "launches": 0, "max_abs_err": max_abs_err(zip(kout, pout)),
+        "ms": cuda_ms(lambda: hp(words, N_MAPPERS)),
+        "plain_ms": cuda_ms(lambda: ref.hash_partition(words, N_MAPPERS)),
+        "bound_ms": b, "bound_by": b_by, "library_ms": None,
+        "path": prefix + "wordcount_token",
+        "shape": f"tokens {tuple(words.shape)} int32, B={N_MAPPERS}",
+    })
+    del kout, pout
+
+    # segment_reduce at both of its shapes: the histogram path's mapper
+    # counts and the token path's reducer counts of received words
+    for path, ids in (("wordcount_histogram", words), ("wordcount_token", recv)):
+        ones = torch.ones((1, 1, 1), device="cuda").expand(ids.shape + (1,))
+        ks, ps = sr(ones, ids, VOCAB), ref.segment_reduce(ones, ids, VOCAB)
+        if not equal(ks, ps):
+            raise AssertionError(f"segment_reduce counts differ at the {prefix}{path} shape")
+        w = ids.shape[0]
+        dump = w * VOCAB
+        offs = torch.arange(w, device="cuda")[:, None] * VOCAB
+        flat_idx = torch.where(ids >= 0, ids.long() + offs, dump).reshape(-1)
+        src = torch.ones((1,), device="cuda").expand(flat_idx.shape)
+        lib_out = torch.zeros((dump + 1,), device="cuda")
+        n_ids = int((ids >= 0).sum())
+        # two one-call yardsticks for the same counts; the row keeps the faster
+        index_add_ms = cuda_ms(lambda: lib_out.index_add_(0, flat_idx, src))
+        bincount_ms = cuda_ms(lambda: torch.bincount(flat_idx, minlength=dump + 1))
+        b, b_by = bound_ms(ids.numel() * 4 + 4 + w * VOCAB * 4, n_ids)
+        rows.append({
+            "name": "segment_reduce", "route": "cuda",
+            "source": "src/repro_torch/csrc/segment_reduce.cu",
+            "replaces": "src/repro/kernels/segment_reduce.py:55",
+            "launches": 0, "max_abs_err": max_abs_err([(ks, ps)]),
+            "ms": cuda_ms(lambda: sr(ones, ids, VOCAB)),
+            "plain_ms": cuda_ms(lambda: ref.segment_reduce(ones, ids, VOCAB)),
+            "bound_ms": b, "bound_by": b_by,
+            "library_ms": min(index_add_ms, bincount_ms),
+            "index_add_ms": index_add_ms, "bincount_ms": bincount_ms,
+            "branch": ("shared-memory histogram" if VOCAB * 4 <= seg_mod.max_bin_bytes()
+                       else "global atomics"),
+            "path": prefix + path,
+            "shape": f"ids {tuple(ids.shape)} int32 ({n_ids} valid), broadcast ones, "
+                     f"nseg={VOCAB} per row",
+        })
+        del ks, ps, flat_idx, src, lib_out
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    acc = torch.randn((hop,), generator=g, device="cuda")
+    wire = torch.randn((hop,), generator=g, device="cuda").to(torch.bfloat16)
+    kout, pout = rf(acc, wire), ref.ring_fused_step(acc, wire)
+    if not all(equal(k, p) for k, p in zip(kout, pout)):
+        raise AssertionError(f"ring_fused_step differs at ({hop},)")
+    b, b_by = bound_ms(hop * 12, hop)
+    rows.append({
+        "name": "ring_fused_step", "route": "cuda",
+        "source": "src/repro_torch/csrc/ring_fused_step.cu",
+        "replaces": "src/repro/kernels/ring_fused_step.py:41",
+        "launches": 0, "max_abs_err": max_abs_err(zip(kout, pout)),
+        "ms": cuda_ms(lambda: rf(acc, wire)),
+        "plain_ms": cuda_ms(lambda: ref.ring_fused_step(acc, wire)),
+        "bound_ms": b, "bound_by": b_by, "library_ms": None,
+        "path": prefix + "aggregate_s3_in_net_map",
+        "shape": f"acc ({hop},) fp32 + wire bf16: one S3 hop "
+                 + ("over 8 ranks" if hop == GRAD_SIZE else "of one rank"),
+    })
+    return rows
 
 
 def inputs():
@@ -2599,6 +2723,201 @@ def tp_train_phase(launches: dict) -> dict:
     return res
 
 
+def digest(x) -> str:
+    """The dtype and the sha256 of the bytes of a tensor or array: equal
+    digests, equal bits."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        x = x.detach().contiguous().cpu().numpy()
+    a = np.ascontiguousarray(x)
+    return f"{a.dtype}:{hashlib.sha256(a.reshape(-1).view(np.uint8)).hexdigest()}"
+
+
+def procs_record(name: str, out, devices: int) -> list:
+    """What phase 11 holds a path's outputs by, for each of ``devices``
+    devices in rank order: the digests of its outputs, or for
+    ``PROCS_CLOSE`` its values on the host; for a plan one digest of the
+    collected counts, which every rank returns."""
+    if name.startswith("plan_"):
+        return [digest(out["OUT"])]
+    parts = out if isinstance(out, tuple) else (out,)
+    rows = [[p.reshape(devices, -1)[r] for p in parts] for r in range(devices)]
+    if name in PROCS_CLOSE:
+        return [r[0].cpu().numpy() for r in rows]
+    return [[digest(x) for x in r] for r in rows]
+
+
+def procs_paths(meshes: dict, words, grads, grads24, plan) -> dict:
+    """Phase 3's paths of ``PROCS_PATHS`` on one rank's process meshes
+    (``meshes``: "all" and "data" of 8, "pod_data" of (2, 4)) over its
+    shards, through the same entry points: name → call."""
+    import torch
+
+    from repro_torch.core import scenarios
+    from repro_torch.core import wordcount as wc
+
+    m, d8, d24 = meshes["all"], meshes["data"], meshes["pod_data"]
+
+    def hist_path():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            return wc.wordcount_step(words, VOCAB, m, "all", histogram_fn=wc.kernel_histogram)
+
+    def plan_path():
+        # the plan reads a rank's inputs only for the Store on its own switch
+        hist = wc.kernel_histogram(words, VOCAB)[0]
+        other = torch.zeros_like(hist)
+        return plan.run({f"s{i}": hist if int(plan.placement.switch_of(f"s{i}")) == m.rank
+                         else other for i in range(N_MAPPERS)})
+
+    paths = {
+        "wordcount_histogram": hist_path,
+        "wordcount_token": lambda: wc.wordcount_token_shuffle(words, VOCAB, m, "all"),
+        "wordcount_s1_host": lambda: wc.wordcount_host_baseline(words, VOCAB, m, "all"),
+    }
+    for sc in ("s1_host", "s2_in_net", "s3_in_net_map", "native"):
+        paths[f"aggregate_{sc}"] = lambda sc=sc: scenarios.aggregate(
+            grads, d8, sc, data_axis="data")
+    paths["aggregate_hierarchical"] = lambda: scenarios.aggregate(
+        grads24, d24, "hierarchical", data_axis="data", pod_axis="pod")
+    paths["plan_wordcount_tree"] = plan_path
+    return paths
+
+
+def procs_rank(device) -> dict:
+    """Phase 11 in one rank (``launch.procs.spawn``): its shards of phase 3's
+    inputs, made from ``SEED`` as ``inputs()`` makes them; every path of
+    ``procs_paths`` once to warm up, then once timed between barriers (its
+    wall, kernel launches and staged host copies) with its outputs'
+    ``procs_record``; S3 against the plain ring; the rank's peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import compiler
+    from repro_torch.core import collectives as coll
+    from repro_torch.core import wordcount as wc
+    from repro_torch.core.topology import TorusTopology
+    from repro_torch.data.pipeline import wordcount_shards
+    from repro_torch.kernels import ops
+    from repro_torch.mesh import ProcessMesh, count_staging
+
+    t = time.perf_counter()
+    meshes = {"all": ProcessMesh(("all",), (N_MAPPERS,), device=device),
+              "data": ProcessMesh(("data",), (8,), device=device),
+              "pod_data": ProcessMesh(("pod", "data"), (2, 4), device=device)}
+    shards = wordcount_shards(N_MAPPERS * TOKENS_PER_MAPPER, N_MAPPERS, VOCAB, seed=SEED)
+    shards[3][-5:] = -1
+    words = meshes["all"].shard(shards)
+    grads_np = np.random.default_rng(SEED).standard_normal((8, GRAD_SIZE), dtype=np.float32)
+    grads = meshes["data"].shard(grads_np)
+    grads24 = meshes["pod_data"].shard(grads_np.reshape(2, 4, GRAD_SIZE))
+    del shards, grads_np
+    plan = compiler.compile(wc.wordcount_program(N_MAPPERS, VOCAB),
+                            TorusTopology(dims=(PLAN_RING,)), passes=PLAN_PASSES)
+    res = {"transport": meshes["all"].transport, "setup_s": time.perf_counter() - t, "paths": {}}
+    torch.cuda.reset_peak_memory_stats()
+    for name, fn in procs_paths(meshes, words, grads, grads24, plan).items():
+        fn()  # the warm-up: groups, pinned buffers, the allocator's blocks
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        with count_staging() as staged:
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        rec = {"wall_s": wall, "launches": dict(ops.LAUNCHES), "staged": dict(staged),
+               "out": procs_record(name, out, 1)}
+        if name == "aggregate_s3_in_net_map":
+            plain = coll.ring_all_reduce(grads, meshes["data"], "data",
+                                         wire_map=lambda a: a.to(torch.bfloat16),
+                                         unmap=lambda a: a.to(torch.float32)) * (1.0 / 8)
+            rec["plain_ring_equal"] = bool(torch.equal(out, plain))
+            del plain
+        res["paths"][name] = rec
+        del out
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def procs_phase(ref: dict) -> dict:
+    """Phase 11: ``PROCS_WORLD`` gloo ranks spawned on the one card
+    (``procs_rank``); each path's outputs in every rank held to phase 3's
+    world-dim run (``ref``, from ``procs_record``) and its launches to
+    ``PROCS_LAUNCHES``. Returns the readings: per path the wall (the
+    slowest rank), the bytes staged through host memory (all ranks), the
+    staging seconds and their share of the wall (the rank where it is
+    largest), the launches per rank; the largest peak memory of a rank;
+    the launches summed over ranks and paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import procs
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = procs.spawn(procs_rank, PROCS_WORLD, backend="gloo", store_path=Path(tmp) / "store",
+                            timeout_s=PROCS_TIMEOUT_S)
+    res = {"ranks": PROCS_WORLD, "transport": sorted({r["transport"] for r in ranks}),
+           "spawn_s": time.perf_counter() - t, "setup_s": max(r["setup_s"] for r in ranks),
+           "peak_gb_per_rank": max(r["peak_gb"] for r in ranks),
+           "launches": dict.fromkeys(ops.LAUNCHES, 0), "paths": {}}
+    log(f"process mesh: {PROCS_WORLD} ranks on one card, {' / '.join(res['transport'])}; spawned, "
+        f"run and joined in {res['spawn_s']:.2f} s (a rank's setup, its shards made from seed "
+        f"{SEED} and the plan compiled: {res['setup_s']:.2f} s at most)")
+    for name in PROCS_PATHS:
+        recs = [r["paths"][name] for r in ranks]
+        want = {k: PROCS_LAUNCHES.get(name, {}).get(k, 0) for k in ops.LAUNCHES}
+        for r, rec in enumerate(recs):
+            if rec["launches"] != want:
+                raise AssertionError(f"procs_{name}: rank {r} made launches {rec['launches']}, "
+                                     f"not {want}")
+            for k, v in rec["launches"].items():
+                res["launches"][k] += v
+        if name in PROCS_CLOSE:
+            got = [(rec["out"][0], ref[name][r]) for r, rec in enumerate(recs)]
+            err = max(float(np.abs(g.astype(np.float64) - w).max()) for g, w in got)
+            same = all(np.allclose(g, w, rtol=PROCS_TOL, atol=PROCS_TOL) for g, w in got)
+            held = f"within rtol=atol={PROCS_TOL} of the world-dim run (max abs diff {err!r})"
+        elif name.startswith("plan_"):
+            same = all(rec["out"] == ref[name] for rec in recs)
+            held = "every rank's counts bitwise == the world-dim run's"
+        else:
+            same = all(rec["out"][0] == ref[name][r] for r, rec in enumerate(recs))
+            held = "every rank's outputs bitwise == its row of the world-dim run"
+        if name == "aggregate_s3_in_net_map":
+            same = same and all(rec["plain_ring_equal"] for rec in recs)
+            held += ", and == the plain ring (bf16 maps as separate steps)"
+        if not same:
+            raise AssertionError(f"procs_{name}: a rank's outputs differ from the world-dim run "
+                                 f"(or S3 from the plain ring)")
+        wall = max(rec["wall_s"] for rec in recs)
+        share = max(rec["staged"]["seconds"] / rec["wall_s"] for rec in recs)
+        res["paths"][name] = {
+            "wall_s": wall, "staged_bytes": sum(rec["staged"]["bytes"] for rec in recs),
+            "staged_copies": sum(rec["staged"]["copies"] for rec in recs),
+            "staging_s": max(rec["staged"]["seconds"] for rec in recs), "staging_share": share,
+            "launches_per_rank": recs[0]["launches"]}
+        p = res["paths"][name]
+        log(f"path procs_{name}: {wall * 1e3:.3f} ms wall (the slowest rank), {p['staged_copies']} "
+            f"host copies of {p['staged_bytes'] / 1e9:.3f} GB, staging {p['staging_s'] * 1e3:.3f} ms "
+            f"in a rank ({share:.1%} of its wall at most), launches per rank "
+            f"{ {k: v for k, v in p['launches_per_rank'].items() if v} }; {held}")
+    log(f"  peak device memory of a rank {res['peak_gb_per_rank']:.3f} GB; launches summed over "
+        f"the ranks {res['launches']}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2733,8 +3052,11 @@ def main() -> int:
 
     # the phase's peak so far: each path below resets the counter to read its own
     pre_paths_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    procs_ref = {}  # what phase 11's process mesh is held to
     for name, fn in paths.items():
         out, got, torch_steps = drive(name, fn)
+        if name in PROCS_PATHS:
+            procs_ref[name] = procs_record(name, out, N_MAPPERS)
 
         if name == "wordcount_token":
             reducer_counts, recv = out
@@ -2847,86 +3169,17 @@ def main() -> int:
         del out
 
     # 4. kernels at their main-path shapes: agreement and time ---------------
-    hp, sr, rf = bare_launchers()
-    rows = []
-
-    n_tok = words.numel()
-    kout, pout = hp(words, N_MAPPERS), ref.hash_partition(words, N_MAPPERS)
-    if not all(equal(k, p) for k, p in zip(kout, pout)):
-        raise AssertionError("hash_partition differs at the main-path shape")
-    b, b_by = bound_ms(n_tok * 8 + N_MAPPERS * N_MAPPERS * 4, 3 * n_tok)
-    rows.append({
-        "name": "hash_partition", "route": "cuda",
-        "source": "src/repro_torch/csrc/hash_partition.cu",
-        "replaces": "src/repro/kernels/hash_partition.py:47",
-        "launches": launches["hash_partition"], "max_abs_err": max_abs_err(zip(kout, pout)),
-        "ms": cuda_ms(lambda: hp(words, N_MAPPERS)),
-        "plain_ms": cuda_ms(lambda: ref.hash_partition(words, N_MAPPERS)),
-        "bound_ms": b, "bound_by": b_by, "library_ms": None,
-        "path": "wordcount_token",
-        "shape": f"tokens ({N_MAPPERS}, {TOKENS_PER_MAPPER}) int32, B={N_MAPPERS}",
-    })
-    del kout, pout
-
-    # segment_reduce at both of its main-path shapes: the histogram path's
-    # mapper counts and the token path's reducer counts of received words
+    rows = data_plane_rows(words, outs["recv"], GRAD_SIZE)
+    # and at one rank's shapes of phase 11: rank 0's shard, its received
+    # words, one hop's chunk (launch counts from phase 11)
+    procs_rows = data_plane_rows(words[:1], outs.pop("recv")[:1], GRAD_SIZE // N_MAPPERS,
+                                 "procs_")
     seg_mod = importlib.import_module("repro_torch.kernels.segment_reduce")
-    for path, ids in (("wordcount_histogram", words), ("wordcount_token", outs.pop("recv"))):
-        ones = torch.ones((1, 1, 1), device="cuda").expand(ids.shape + (1,))
-        ks, ps = sr(ones, ids, VOCAB), ref.segment_reduce(ones, ids, VOCAB)
-        if not equal(ks, ps):
-            raise AssertionError(f"segment_reduce counts differ at the {path} shape")
-        w = ids.shape[0]
-        dump = w * VOCAB
-        offs = torch.arange(w, device="cuda")[:, None] * VOCAB
-        flat_idx = torch.where(ids >= 0, ids.long() + offs, dump).reshape(-1)
-        src = torch.ones((1,), device="cuda").expand(flat_idx.shape)
-        lib_out = torch.zeros((dump + 1,), device="cuda")
-        n_ids = int((ids >= 0).sum())
-        # two one-call yardsticks for the same counts; the row keeps the faster
-        index_add_ms = cuda_ms(lambda: lib_out.index_add_(0, flat_idx, src))
-        bincount_ms = cuda_ms(lambda: torch.bincount(flat_idx, minlength=dump + 1))
-        b, b_by = bound_ms(ids.numel() * 4 + 4 + w * VOCAB * 4, n_ids)
-        rows.append({
-            "name": "segment_reduce", "route": "cuda",
-            "source": "src/repro_torch/csrc/segment_reduce.cu",
-            "replaces": "src/repro/kernels/segment_reduce.py:55",
-            "launches": launches["segment_reduce"], "max_abs_err": max_abs_err([(ks, ps)]),
-            "ms": cuda_ms(lambda: sr(ones, ids, VOCAB)),
-            "plain_ms": cuda_ms(lambda: ref.segment_reduce(ones, ids, VOCAB)),
-            "bound_ms": b, "bound_by": b_by,
-            "library_ms": min(index_add_ms, bincount_ms),
-            "index_add_ms": index_add_ms, "bincount_ms": bincount_ms,
-            "branch": ("shared-memory histogram" if VOCAB * 4 <= seg_mod.max_bin_bytes()
-                       else "global atomics"),
-            "path": path,
-            "shape": f"ids {tuple(ids.shape)} int32 ({n_ids} valid), broadcast ones, "
-                     f"nseg={VOCAB} per row",
-        })
-        del ks, ps, flat_idx, src, lib_out, ids
-
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    acc = torch.randn((GRAD_SIZE,), generator=g, device="cuda")
-    wire = torch.randn((GRAD_SIZE,), generator=g, device="cuda").to(torch.bfloat16)
-    kout, pout = rf(acc, wire), ref.ring_fused_step(acc, wire)
-    if not all(equal(k, p) for k, p in zip(kout, pout)):
-        raise AssertionError("ring_fused_step differs at the main-path shape")
-    b, b_by = bound_ms(GRAD_SIZE * 12, GRAD_SIZE)
-    rows.append({
-        "name": "ring_fused_step", "route": "cuda",
-        "source": "src/repro_torch/csrc/ring_fused_step.cu",
-        "replaces": "src/repro/kernels/ring_fused_step.py:41",
-        "launches": launches["ring_fused_step"], "max_abs_err": max_abs_err(zip(kout, pout)),
-        "ms": cuda_ms(lambda: rf(acc, wire)),
-        "plain_ms": cuda_ms(lambda: ref.ring_fused_step(acc, wire)),
-        "bound_ms": b, "bound_by": b_by, "library_ms": None,
-        "path": "aggregate_s3_in_net_map",
-        "shape": f"acc ({GRAD_SIZE},) fp32 + wire bf16: one S3 hop over 8 ranks",
-    })
+    sr = bare_launchers()[1]  # the MoE combine's row, after phase 10
 
     peak_wc_gb = max(pre_paths_peak_gb, torch.cuda.max_memory_allocated() / 1e9,
                      *path_peak_gb.values())
-    del words, grads, acc, wire, kout, pout, outs, shards, want_counts, want_mean, want_sum
+    del words, grads, outs, shards, want_counts, want_mean, want_sum
     # the paths' closures hold the corpus, the gradients and the plans; the
     # checks left the token path's buffers and a float64 error tensor
     del paths, schedule, tenant_plans, recv, reducer_counts, err
@@ -3206,6 +3459,14 @@ def main() -> int:
     tp_training = tp_train_phase(launches)
     tp_training["wall_s"] = time.perf_counter() - t
     log(f"training under tensor parallelism phase: {tp_training['wall_s']:.2f} s")
+
+    # 11. the data plane on a process mesh: one process per device ---------------
+    t = time.perf_counter()
+    procs = procs_phase(procs_ref)
+    procs["wall_s"] = time.perf_counter() - t
+    for k in launches:
+        launches[k] += procs["launches"][k]
+    log(f"process mesh phase: {procs['wall_s']:.2f} s")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was never launched on the main paths")
@@ -3237,10 +3498,13 @@ def main() -> int:
     del values, ids, ks, ps, vals32, ids64, lib_out
     for row in rows:  # launches over every main path, the later phases' included
         row["launches"] = launches[row["name"]]
+    for row in procs_rows:  # the process mesh's launches, summed over its ranks
+        row["launches"] = procs["launches"][row["name"]]
+    rows += procs_rows
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "family_checks": family_checks, "training": training,
-                    "mesh_serving": mesh_serving, "tp_training": tp_training,
+                    "mesh_serving": mesh_serving, "tp_training": tp_training, "procs": procs,
                     "restart": {k: v for k, v in restart.items() if k != "dryrun"},
                     "dryrun": {k: v for k, v in restart["dryrun"].items() if k != "records"},
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,

@@ -171,7 +171,11 @@ class CompiledPlan:
           world-dim ``Mesh`` with one row per topology switch, on the card
           unless ``device`` says otherwise (``device="cpu"``); inputs are
           numpy arrays or tensors, which may already lie on the card;
-          float64 outputs;
+          float64 outputs. In a process whose ``torch.distributed`` group
+          is initialized it runs on a ``ProcessMesh`` instead, one rank per
+          switch (the world size must be the switch count): each rank's
+          inputs are read only for the Stores placed on its own switch,
+          and every rank returns the same outputs;
         * ``"reference"`` — the oracle (``core.codelet.execute_reference``),
           on the host: it takes numpy arrays or CPU tensors and refuses a
           tensor on the card;
@@ -197,18 +201,25 @@ class CompiledPlan:
 
     def _run_torch(self, inputs, *, axis_name: str, item_dtype, device):
         import torch
+        import torch.distributed as dist
 
-        from repro_torch.mesh import Mesh
+        from repro_torch.mesh import Mesh, ProcessMesh
 
         n = self._mesh_devices()
-        mesh = Mesh((axis_name,), (n,), device=device)
+        if dist.is_available() and dist.is_initialized():
+            if dist.get_world_size() != n:
+                raise ValueError(f"the plan's {n} switches need {n} processes; "
+                                 f"the process group has {dist.get_world_size()}")
+            mesh = ProcessMesh((axis_name,), (n,), device=device)
+        else:
+            mesh = Mesh((axis_name,), (n,), device=device)
         step = self.torch_step(mesh, axis_name=axis_name, item_dtype=item_dtype)
 
         def on_mesh(v):
             t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
             t = torch.atleast_1d(t.to(mesh.device))
             # every row sees the Store's array; the step keeps the owner's
-            return t.unsqueeze(0).expand((n,) + tuple(t.shape))
+            return t.unsqueeze(0).expand(mesh.block + tuple(t.shape))
 
         out = step({k: on_mesh(v) for k, v in inputs.items()})
         # the "@all" copy is replicated: row 0 is the collected value

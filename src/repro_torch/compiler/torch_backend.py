@@ -3,9 +3,10 @@
 The paper's compiler emits one P4 codelet per switch. The reference runs
 one SPMD program on every device, each acting only on the packets
 addressed to it. Here every device is a row of the mesh's world dim
-(``repro_torch.mesh.Mesh``) on one card, and forwarding a value along a
-route's hop sequence is one ``Mesh.ppermute`` per hop with a single
-(src, dst) pair: rows off the pair receive zeros, i.e. no packet.
+(``repro_torch.mesh.Mesh``) on one card, or one process of a
+``ProcessMesh``, and forwarding a value along a route's hop sequence is
+one ``ppermute`` per hop with a single (src, dst) pair: devices off the
+pair receive zeros, i.e. no packet.
 
 Switch ids are mesh indices along ``axis_name`` (a ``TorusTopology`` or a
 ``SwitchTopology.as_indexed`` view guarantees this).
@@ -42,8 +43,9 @@ def emit_step(
     """Emit the step function.
 
     Returned ``step(inputs)``: ``inputs[label]`` is every Store's value on
-    the mesh, leading with the mesh dims (contents off the Store's own
-    switch are ignored, so an expanded view of one row will do). A float64
+    the mesh, leading with the mesh dims (on a ``ProcessMesh``, the block:
+    this device's value); contents off the Store's own switch are ignored,
+    so an expanded view of one row will do. A float64
     input is read as float32 first, as the reference's arrays are, then
     cast to ``item_dtype``. Returns ``{sink_label: value}`` where the value
     is valid on the sink's switch (zeros elsewhere), plus the sum over the
@@ -53,17 +55,13 @@ def emit_step(
     route_of = {(r.src_label, r.dst_label): r.path for r in routes.routes}
     order = list(program.toposort())
     sinks = program.sinks()
-    dim = mesh.dim(axis_name)
+    switch = mesh.axis_index(axis_name)
 
-    def row(label: str) -> tuple:
-        """Index of the mesh row of the switch ``label`` is placed on."""
-        return (slice(None),) * dim + (int(placement.switch_of(label)),)
-
-    def on_switch(label: str, shape, own: torch.Tensor, dtype) -> torch.Tensor:
-        """``own`` on the switch ``label`` is placed on, zeros elsewhere."""
-        out = torch.zeros(shape, dtype=dtype, device=own.device)
-        out[row(label)] = own
-        return out
+    def on_switch(label: str, value: torch.Tensor) -> torch.Tensor:
+        """``value`` on the switch ``label`` is placed on, zeros elsewhere."""
+        here = switch == int(placement.switch_of(label))
+        here = here.view(here.shape + (1,) * (value.ndim - mesh.ndim))
+        return torch.where(here, value, torch.zeros((), dtype=value.dtype, device=value.device))
 
     def step(inputs: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         values: dict[str, torch.Tensor] = {}
@@ -74,10 +72,9 @@ def emit_step(
         for node in order:
             if isinstance(node, prim.Store):
                 x = inputs[node.name]
-                own = x[row(node.name)]
-                if own.dtype == torch.float64:
-                    own = own.to(torch.float32)
-                values[node.name] = on_switch(node.name, x.shape, own, item_dtype)
+                if x.dtype == torch.float64:
+                    x = x.to(torch.float32)
+                values[node.name] = on_switch(node.name, x.to(item_dtype))
             elif isinstance(node, prim.MapFn):
                 values[node.name] = prim.MAP_FNS[node.fn_name](routed(node.src, node.name))
             elif isinstance(node, prim.KeyBy):
@@ -100,7 +97,7 @@ def emit_step(
                     v = routed(s, node.name)
                     acc = v if acc is None else node.kind.combine(acc, v)
                 # reducer state lives only on its own switch
-                values[node.name] = on_switch(node.name, acc.shape, acc[row(node.name)], acc.dtype)
+                values[node.name] = on_switch(node.name, acc)
             elif isinstance(node, prim.Collect):
                 values[node.name] = routed(node.src, node.name)
             else:  # pragma: no cover

@@ -8,7 +8,8 @@ transit, applied to model layers instead of word counts.
 ``pipeline_apply`` runs the classic fill-drain schedule (n_micro + p − 1
 ticks, bubble fraction (p−1)/(n_micro+p−1)) over the world-dim mesh
 (``repro_torch.mesh``): a tick is one stage application batched over
-every device, then one ``Mesh.ppermute`` to the next stage.
+every device, then one ``Mesh.ppermute`` to the next stage. On a
+``ProcessMesh`` each process applies its own stage.
 Forward-only (serving / encoder towers). ``pipeline_stats`` gives the
 analytic bubble/throughput model used when choosing pod-axis roles.
 """
@@ -39,18 +40,18 @@ def pipeline_apply(
     feeds microbatch t at tick t.
 
     Returns the mesh dims, then the (n, ...) outputs of the LAST stage,
-    broadcast to every device along ``axis_name`` (a view, not a copy).
+    on every device along ``axis_name`` (``Mesh.broadcast``: on the
+    world-dim mesh, views of one copy).
     """
     p = mesh.axis_size(axis_name)
-    a = mesh.dim(axis_name)
     n = microbatches.shape[0]
     local = tuple(microbatches.shape[1:])
     ticks = n + p - 1
     perm = [(i, i + 1) for i in range(p - 1)]  # forward chain (no wrap)
-    s = mesh.axis_index(axis_name).view(mesh.shape + (1,) * len(local))
+    s = mesh.axis_index(axis_name).view(mesh.block + (1,) * len(local))
 
-    buf = microbatches.new_zeros(mesh.shape + local)  # what my predecessor sent
-    emitted = []
+    buf = microbatches.new_zeros(mesh.block + local)  # what my predecessor sent
+    out = microbatches.new_zeros(mesh.block + (n,) + local)
     for t in range(ticks):
         x0 = microbatches[min(t, n - 1)]
         x = torch.where(s == 0, x0, buf)
@@ -58,11 +59,10 @@ def pipeline_apply(
         y = torch.where(active, stage_fn(stage_params, x), 0)
         buf = mesh.ppermute(y, axis_name, perm)  # packet to next switch
         if t >= p - 1:  # micro t - (p - 1) leaves the last stage this tick
-            emitted.append(y.select(a, p - 1))
-    # (other mesh dims, n, ...): the last stage's outputs in micro order
-    out = torch.stack(emitted, dim=mesh.ndim - 1)
-    # only the last stage emits, so the reference's psum is a broadcast
-    return out.unsqueeze(a).expand(mesh.shape + (n,) + local)
+            out.select(mesh.ndim, t - (p - 1)).copy_(y)
+    # only the last stage's outputs count, so the reference's psum of them
+    # and the other stages' zeros is a broadcast
+    return mesh.broadcast(out, axis_name, p - 1)
 
 
 @dataclasses.dataclass(frozen=True)

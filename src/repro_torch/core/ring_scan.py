@@ -11,7 +11,8 @@ itself is computed by the network, the purest form of the paper's idea.
 it is still in-transit compute — just a tree of switches rather than a
 chain); ``sequence_parallel_linear_scan`` applies it to a sharded
 recurrence. Tensors carry the mesh dims first (``repro_torch.mesh``), then
-each device's local shape; a hop is ``Mesh.ppermute`` over the world dim.
+each device's local shape; a hop is one ``ppermute``, over the world dim of
+a ``Mesh`` or between the processes of a ``ProcessMesh``.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ def _combine(left, right):
 def _device_index(mesh: Mesh, axis_name: str, x: torch.Tensor) -> torch.Tensor:
     """Each device's index along ``axis_name``, shaped to broadcast over ``x``."""
     r = mesh.axis_index(axis_name)
-    return r.view(mesh.shape + (1,) * (x.ndim - mesh.ndim))
+    return r.view(mesh.block + (1,) * (x.ndim - mesh.ndim))
 
 
 def ring_exclusive_scan(a_prod, s_sum, mesh: Mesh, axis_name: str):

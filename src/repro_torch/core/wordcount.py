@@ -91,7 +91,8 @@ def wordcount_token_shuffle(
     (``shuffle.spmd.token_shuffle``), and each reducer counts what it
     received with ``segment_reduce``.
 
-    The capacity is the largest bucket of any mapper, so no word is dropped.
+    The capacity is the largest bucket of any mapper (a ``pmax`` over the
+    mesh, which a ``ProcessMesh`` needs), so no word is dropped.
     Returns (each reducer's (vocab,) int32 counts, nonzero only for the
     words it owns; the received words, -1 padded). Counting in fp32 is exact
     below 2**24 a word; a count that reaches it raises.
@@ -99,7 +100,8 @@ def wordcount_token_shuffle(
     from repro_torch.shuffle.spmd import token_shuffle
 
     _, hist = ops.hash_partition(words, mesh.axis_size(axis_name))
-    recv, _ = token_shuffle(words, mesh, axis_name, capacity=max(1, int(hist.max())))
+    capacity = int(mesh.pmax(hist.amax(-1, keepdim=True), mesh.axis_names).max())
+    recv, _ = token_shuffle(words, mesh, axis_name, capacity=max(1, capacity))
     ones = torch.ones((1, 1), dtype=torch.float32, device=words.device)
     counts = ops.segment_reduce(ones.expand(recv.shape + (1,)), recv, vocab)[..., 0]
     if float(counts.max()) >= MAX_EXACT_COUNT:
@@ -264,7 +266,10 @@ def wordcount_via_plan(
     over the shards, padded with -1 to one length, then the plan's torch
     step in float64; the ``SimResult`` holds those counts and the plan's
     streamed timing (``plan.simulate_timing()``, which depends on the
-    traffic's shape only). ``backend="simulate"`` is the reference
+    traffic's shape only). In a process whose ``torch.distributed`` group is
+    initialized the plan runs on a ``ProcessMesh`` (``CompiledPlan.run``),
+    and each rank counts only the shards placed on its own switch.
+    ``backend="simulate"`` is the reference
     package's route and runs on the host alone: numpy histograms, then
     the packet simulator.
 
@@ -286,15 +291,24 @@ def wordcount_via_plan(
         }
         sim = plan.simulate(inputs)
         return sim.outputs["OUT"].astype(np.int64), sim
+    import torch.distributed as dist
+
     from repro_torch.compiler.simulator import SimResult
     from repro_torch.mesh import resolve_device
 
     dev = resolve_device(device, "wordcount_via_plan")
-    width = max(len(ws) for ws in word_shards)
-    words = torch.full((len(word_shards), width), -1, dtype=torch.int32)
-    for i, ws in enumerate(word_shards):
-        words[i, : len(ws)] = torch.from_numpy(np.asarray(ws, dtype=np.int32))
-    hist = kernel_histogram(words.to(dev), vocab)
-    out = plan.run({f"s{i}": hist[i] for i in range(len(word_shards))},
+    n = len(word_shards)
+    mine = list(range(n))
+    if dist.is_available() and dist.is_initialized():
+        mine = [i for i in mine if int(plan.placement.switch_of(f"s{i}")) == dist.get_rank()]
+    hist = torch.zeros((n, vocab), dtype=torch.int32, device=dev)
+    if mine:
+        width = max(len(word_shards[i]) for i in mine)
+        words = torch.full((len(mine), width), -1, dtype=torch.int32)
+        for j, i in enumerate(mine):
+            ws = np.asarray(word_shards[i], dtype=np.int32)
+            words[j, : len(ws)] = torch.from_numpy(ws)
+        hist[mine] = kernel_histogram(words.to(dev), vocab)
+    out = plan.run({f"s{i}": hist[i] for i in range(n)},
                    backend="torch", device=dev, item_dtype=torch.float64)
     return out["OUT"].astype(np.int64), SimResult(outputs=out, report=plan.simulate_timing())

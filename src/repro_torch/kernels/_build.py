@@ -9,10 +9,16 @@ whole package. Every source also links ``libcuda`` (``-lcuda``, through
 the toolkit's stub library where the system's own is not on the linker's
 path): ``flash_attention`` calls ``cuTensorMapEncodeTiled`` for its TMA
 descriptors.
+
+Processes that build at once (the ranks of a process mesh) take turns on a
+file lock under ``build/``: the first compiles, the others find nothing
+stale and only load. Build in the parent before spawning the ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -52,6 +58,20 @@ def _libcuda_link_flags(nvcc: str) -> list[str]:
     return ([f"-L{stubs}"] if stubs.is_dir() else []) + ["-lcuda"]
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """This process's turn to build: a thread lock, then an exclusive lock
+    on ``build/.lock`` that other processes wait on."""
+    with _lock:
+        BUILD.mkdir(parents=True, exist_ok=True)
+        with open(BUILD / ".lock", "w") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            try:
+                yield
+            finally:
+                fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _stale(name: str) -> bool:
     lib = BUILD / f"lib{name}.so"
     return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
@@ -62,12 +82,11 @@ def build_all() -> float:
     took. The compiler's report (``-Xptxas -v``: registers, shared memory,
     spills) is kept in ``build/<name>.log``. Raises, with every failing log,
     if any source does not compile."""
-    with _lock:
+    with _build_lock():
         todo = [n for n in NAMES if _stale(n)]
         if not todo:
             return 0.0
         nvcc = _nvcc()
-        BUILD.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
         procs = {}
         for name in todo:

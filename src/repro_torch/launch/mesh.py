@@ -4,7 +4,8 @@ A shape is the reference's: (data, model) or (pod, data, model), and the
 mesh is the world dims of a ``repro_torch.mesh.Mesh`` on one device, the
 model axis included: serving and training run the model's tp ranks folded
 over it (``launch.steps.make_env``), training its data-parallel ranks over
-the data extent (``data_extent``) and the rep groups.
+the data extent (``data_extent``) and the rep groups. One process per mesh
+device (``mesh.ProcessMesh``) is ``launch.procs``'s.
 """
 from __future__ import annotations
 

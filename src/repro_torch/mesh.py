@@ -13,15 +13,27 @@ than run on the CPU. The tests pass ``device="cpu"``.
 ``count_collectives()`` counts, while it is open, the bytes that the
 collectives put out, by the XLA collective they stand for: every device's
 output, summed over the mesh (the roofline's collective term).
+
+``ProcessMesh`` is the same interface over ``torch.distributed``: one
+process per mesh device, each holding only its own shard. Its tensors
+lead with one dim of size 1 per mesh axis (the process's block of the
+mesh), so the code above them reads the same on both meshes; its
+collectives are calls into process groups. ``count_collectives`` there
+counts this process's output, whose sum over the processes is what the
+world-dim mesh counts for the same program.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
+import os
+import time
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 Perm = Sequence[tuple[int, int]]
 
@@ -52,6 +64,30 @@ def _noted(kind: str, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _check_perm(perm: Perm, p: int) -> tuple[list[int], list[int]]:
+    """``perm``'s sources and destinations, checked: each device sends and
+    receives at most once, and every index lies on an axis of size ``p``."""
+    srcs = [int(s) for s, _ in perm]
+    dsts = [int(d) for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        raise ValueError(f"perm {list(perm)} sends from or to a device twice")
+    if any(not 0 <= i < p for i in srcs + dsts):
+        raise ValueError(f"perm {list(perm)} out of range for axis size {p}")
+    return srcs, dsts
+
+
+def _partition(p: int, axis_index_groups) -> list[list[int]]:
+    """``axis_index_groups`` of an axis of size ``p`` (None: the whole axis)
+    as lists, checked to partition ``range(p)`` into groups of one size."""
+    groups = [list(range(p))] if axis_index_groups is None else [
+        [int(i) for i in g] for g in axis_index_groups]
+    if sorted(i for g in groups for i in g) != list(range(p)):
+        raise ValueError(f"axis_index_groups {axis_index_groups} must partition range({p})")
+    if any(len(g) != len(groups[0]) for g in groups):
+        raise ValueError(f"axis_index_groups {axis_index_groups} are not of one size")
+    return groups
+
+
 def resolve_device(device, who: str) -> torch.device:
     """``None`` means the card; with no CUDA this raises rather than run on
     the CPU. ``who`` names the caller in the message."""
@@ -76,6 +112,8 @@ class Mesh:
         if any(s < 1 for s in self.shape):
             raise ValueError(f"axis sizes must be positive, got {self.shape}")
         self.device = resolve_device(device, "Mesh()")
+        # the leading dims of this process's tensors: the whole mesh here
+        self.block = self.shape
 
     # -- layout ------------------------------------------------------------
     @property
@@ -119,8 +157,8 @@ class Mesh:
 
     def _local(self, x: torch.Tensor) -> int:
         """Check ``x`` carries the mesh dims; return the dim its local shape starts at."""
-        if tuple(x.shape[: self.ndim]) != self.shape:
-            raise ValueError(f"tensor {tuple(x.shape)} does not lead with the mesh {self.shape}")
+        if tuple(x.shape[: self.ndim]) != self.block:
+            raise ValueError(f"tensor {tuple(x.shape)} does not lead with the mesh block {self.block}")
         return self.ndim
 
     # -- collectives ---------------------------------------------------------
@@ -129,12 +167,7 @@ class Mesh:
         ``axis``; a device that no pair sends to receives zeros."""
         self._local(x)
         a, p = self.dim(axis), self.axis_size(axis)
-        srcs = [int(s) for s, _ in perm]
-        dsts = [int(d) for _, d in perm]
-        if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
-            raise ValueError(f"perm {list(perm)} sends from or to a device twice")
-        if any(not 0 <= i < p for i in srcs + dsts):
-            raise ValueError(f"perm {list(perm)} out of range for axis size {p}")
+        srcs, dsts = _check_perm(perm, p)
         xs = x.movedim(a, 0)
         if sorted(dsts) == list(range(p)):
             inv = [0] * p
@@ -152,13 +185,7 @@ class Mesh:
         index tensors: (p, k) each device's group members in group order,
         and (p,) its position in its group."""
         p = self.axis_size(axis)
-        groups = [list(range(p))] if axis_index_groups is None else [
-            [int(i) for i in g] for g in axis_index_groups]
-        if sorted(i for g in groups for i in g) != list(range(p)):
-            raise ValueError(f"axis_index_groups {axis_index_groups} must partition range({p})")
-        k = len(groups[0])
-        if any(len(g) != k for g in groups):
-            raise ValueError(f"axis_index_groups {axis_index_groups} are not of one size")
+        groups = _partition(p, axis_index_groups)
         members = [None] * p
         pos = [0] * p
         for g in groups:
@@ -253,6 +280,16 @@ class Mesh:
         members, _ = self._groups(axes[0], axis_index_groups)
         return op(x.movedim(dims[0], 0)[members], dim=1).movedim(0, dims[0]).contiguous()
 
+    def broadcast(self, x: torch.Tensor, axis: str, index: int) -> torch.Tensor:
+        """Device ``index``'s ``x`` on every device along ``axis``: what
+        ``lax.psum`` gives of that device's ``x`` and the others' zeros, and
+        counted as that all-reduce. Here views of one copy of its row."""
+        self._local(x)
+        a = self.dim(axis)
+        if not 0 <= index < self.axis_size(axis):
+            raise ValueError(f"index {index} out of range for axis size {self.axis_size(axis)}")
+        return _noted("all-reduce", x.narrow(a, index, 1).contiguous().expand(x.shape))
+
     def psum_scatter(self, x: torch.Tensor, axis: str, scatter_dimension: int = 0,
                      tiled: bool = False,
                      axis_index_groups: Sequence[Sequence[int]] | None = None) -> torch.Tensor:
@@ -281,25 +318,27 @@ class Mesh:
         """Flat per-device start indices into a dim of ``n``, as ``lax`` reads
         them: negative counts from the end, then clamped so ``size`` fits."""
         idx = torch.as_tensor(index, device=self.device).to(torch.int64)
-        idx = idx.expand(self.shape).reshape(-1)
+        idx = idx.expand(self.block).reshape(-1)
         return torch.where(idx < 0, idx + n, idx).clamp(0, n - size)
 
     def dynamic_index_in_dim(self, x: torch.Tensor, index) -> torch.Tensor:
         """``lax.dynamic_index_in_dim`` (``keepdims=False``) on local dim 0,
         with a per-device index (an int or a tensor of the mesh shape)."""
         nm = self._local(x)
-        flat = x.reshape((self.size,) + x.shape[nm:])
-        rows = torch.arange(self.size, device=x.device)
-        return flat[rows, self._per_device(index, x.shape[nm])].reshape(self.shape + x.shape[nm + 1:])
+        n = math.prod(self.block)
+        flat = x.reshape((n,) + x.shape[nm:])
+        rows = torch.arange(n, device=x.device)
+        return flat[rows, self._per_device(index, x.shape[nm])].reshape(self.block + x.shape[nm + 1:])
 
     def dynamic_update_index_in_dim(self, x: torch.Tensor, update: torch.Tensor, index
                                     ) -> torch.Tensor:
         """``lax.dynamic_update_index_in_dim`` on local dim 0, per-device
         index; writes into ``x`` in place and returns it."""
         nm = self._local(x)
-        flat = x.view((self.size,) + x.shape[nm:])
-        rows = torch.arange(self.size, device=x.device)
-        flat[rows, self._per_device(index, x.shape[nm])] = update.reshape((self.size,) + x.shape[nm + 1:])
+        n = math.prod(self.block)
+        flat = x.view((n,) + x.shape[nm:])
+        rows = torch.arange(n, device=x.device)
+        flat[rows, self._per_device(index, x.shape[nm])] = update.reshape((n,) + x.shape[nm + 1:])
         return x
 
     def dynamic_slice_in_dim(self, x: torch.Tensor, start, size: int) -> torch.Tensor:
@@ -309,8 +348,336 @@ class Mesh:
         n = x.shape[nm]
         if not 0 <= size <= n:
             raise ValueError(f"slice size {size} outside [0, {n}]")
-        flat = x.reshape((self.size,) + x.shape[nm:])
+        flat = x.reshape((math.prod(self.block),) + x.shape[nm:])
         start = self._per_device(start, n, size)
         cols = start[:, None] + torch.arange(size, device=x.device)
-        rows = torch.arange(self.size, device=x.device)[:, None]
-        return flat[rows, cols].reshape(self.shape + (size,) + x.shape[nm + 1:])
+        rows = torch.arange(flat.shape[0], device=x.device)[:, None]
+        return flat[rows, cols].reshape(self.block + (size,) + x.shape[nm + 1:])
+
+
+# ---------------------------------------------------------------------------
+# The process mesh: one torch.distributed process per mesh device.
+# ---------------------------------------------------------------------------
+_STAGING: list[dict] = []
+
+
+@contextlib.contextmanager
+def count_staging():
+    """Yields {"copies", "bytes", "seconds"}, which every host copy that a
+    ``ProcessMesh`` makes for gloo on the card adds to while the context is
+    open: the copies, their bytes, and the host seconds they took (each
+    timed after the card was synchronised, so none waits on earlier work)."""
+    counts = {"copies": 0, "bytes": 0, "seconds": 0.0}
+    _STAGING.append(counts)
+    try:
+        yield counts
+    finally:
+        _STAGING.remove(counts)
+
+
+def _note_staging(t: torch.Tensor, seconds: float) -> None:
+    for counts in _STAGING:
+        counts["copies"] += 1
+        counts["bytes"] += t.numel() * t.element_size()
+        counts["seconds"] += seconds
+
+
+def process_device(device, backend: str) -> torch.device:
+    """The device of this process's shard under ``backend``: ``None`` means
+    the card, ``cuda:{LOCAL_RANK}`` under nccl (which needs one card per
+    local rank) and ``cuda:{LOCAL_RANK mod cards}`` under gloo (ranks share
+    the cards and gloo sees host copies); with no CUDA it raises rather
+    than run on the CPU. nccl carries CUDA tensors only."""
+    if backend not in ("gloo", "nccl"):
+        raise ValueError(f"unknown backend {backend!r}; one of 'gloo', 'nccl'")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("ProcessMesh() runs on the CUDA device and none is available; "
+                               "pass device='cpu' to run on the CPU")
+        local, cards = int(os.environ.get("LOCAL_RANK", "0")), torch.cuda.device_count()
+        if backend == "nccl" and local >= cards:
+            raise RuntimeError(f"nccl needs one card per local rank: local rank {local}, "
+                               f"{cards} cards")
+        device = torch.device("cuda", local % cards)
+    device = torch.device(device)
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError(f"nccl carries CUDA tensors only, not {device}; use gloo on the CPU")
+    return device
+
+
+def _inverse(order: list[int]) -> list[int]:
+    inv = [0] * len(order)
+    for q, j in enumerate(order):
+        inv[j] = q
+    return inv
+
+
+def _reduce_op(op):
+    return {torch.sum: dist.ReduceOp.SUM, torch.amax: dist.ReduceOp.MAX,
+            torch.amin: dist.ReduceOp.MIN}[op]
+
+
+class _Group:
+    """This process's group of a collective: the process group (None: the
+    default group), its members' global ranks in member order, and
+    ``order[q]``, the member position of group rank ``q`` (None where the
+    two orders agree)."""
+
+    def __init__(self, pg, ranks: list[int]):
+        self.pg, self.ranks = pg, ranks
+        grp = dist.get_process_group_ranks(pg if pg is not None else dist.group.WORLD)
+        order = [ranks.index(r) for r in grp]
+        self.order = None if order == list(range(len(ranks))) else order
+
+
+class ProcessMesh(Mesh):
+    """``Mesh``'s interface with one ``torch.distributed`` process per mesh
+    device: rank ``r`` is the device at the row-major coordinate ``r`` of
+    ``shape``, and holds only that device's shard.
+
+    ``shape`` stays the global mesh; this process's tensors lead with
+    ``block``, one dim of size 1 per axis, then the local shape. Every
+    collective is a call into the process group of the axes it names (or
+    of each ``axis_index_groups`` group): ``batch_isend_irecv`` pairs for
+    ``ppermute``, ``all_to_all_single``, ``all_gather_into_tensor``,
+    ``all_reduce``, ``reduce_scatter_tensor`` and ``broadcast``. The groups are made the
+    first time an axis (or axis tuple, or group list) is asked for; SPMD
+    code asks in the same order on every rank, as ``new_group`` needs.
+
+    The default process group must be initialized first
+    (``launch.procs.init_process_mesh`` or ``launch.procs.spawn``), with
+    ``prod(shape)`` ranks. ``device=None`` means the card
+    (``process_device``). Under gloo on the card every collective copies
+    its operand into a pinned host buffer (one per shape, kept), runs
+    gloo on it and copies the result back: ``transport`` says so, and
+    ``count_staging`` counts the copies. Under nccl the tensors go as
+    they are.
+    """
+
+    def __init__(self, axis_names: Sequence[str], shape: Sequence[int], device=None):
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessMesh() needs an initialized process group "
+                               "(launch.procs.init_process_mesh or launch.procs.spawn)")
+        backend = dist.get_backend()
+        super().__init__(axis_names, shape, device=process_device(device, backend))
+        world = dist.get_world_size()
+        if world != self.size:
+            raise ValueError(f"a mesh of {self.shape} needs {self.size} processes; "
+                             f"the process group has {world}")
+        self.rank = dist.get_rank()
+        self.coords = tuple(int(c) for c in np.unravel_index(self.rank, self.shape))
+        self.block = (1,) * self.ndim
+        self.staged = backend == "gloo" and self.device.type == "cuda"
+        self.transport = backend + (", staged through pinned host memory" if self.staged else "")
+        self._pgs: dict = {}
+        self._pinned: dict = {}
+
+    def axis_index(self, axis: str) -> torch.Tensor:
+        """This device's index along ``axis``, an int64 tensor of the block's shape."""
+        return torch.full(self.block, self.coords[self.dim(axis)], dtype=torch.int64,
+                          device=self.device)
+
+    def shard(self, data) -> torch.Tensor:
+        """This device's shard of what ``Mesh.shard`` takes (an array whose
+        leading dims are the mesh shape, or ``mesh.size`` per-device arrays
+        in row-major mesh order), leading with the block."""
+        if isinstance(data, np.ndarray):
+            if data.shape[: self.ndim] != self.shape:
+                raise ValueError(f"leading dims {data.shape[:self.ndim]} are not the mesh {self.shape}")
+            mine = data[self.coords]
+        else:
+            data = list(data)
+            if len(data) != self.size:
+                raise ValueError(f"{len(data)} shards for a mesh of {self.size} devices")
+            mine = np.asarray(data[self.rank])
+        mine = np.ascontiguousarray(mine)
+        return torch.from_numpy(mine).reshape(self.block + mine.shape).to(self.device)
+
+    # -- groups and the host copies ---------------------------------------------
+    def _peer(self, a: int, index: int) -> int:
+        """The global rank of the device at ``index`` along dim ``a`` beside this one."""
+        return self.rank + (int(index) - self.coords[a]) * math.prod(self.shape[a + 1:])
+
+    def _group(self, axes, axis_index_groups=None) -> _Group:
+        """This process's group over ``axes`` (a name or a tuple), or over
+        its ``axis_index_groups`` group of one axis; every group of the
+        partition is made on every rank, in one order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        dims = [self.dim(a) for a in axes]
+        if axis_index_groups is None:
+            members = [list(itertools.product(*(range(self.shape[d]) for d in dims)))]
+        elif len(dims) != 1:
+            raise ValueError("axis_index_groups needs exactly one axis")
+        else:
+            members = [[(i,) for i in g]
+                       for g in _partition(self.shape[dims[0]], axis_index_groups)]
+        key = (tuple(dims), tuple(map(tuple, members)))
+        hit = self._pgs.get(key)
+        if hit is not None:
+            return hit
+        others = [d for d in range(self.ndim) if d not in dims]
+        mine = None
+        for rest in itertools.product(*(range(self.shape[d]) for d in others)):
+            for g in members:
+                ranks = []
+                for m in g:
+                    c = [0] * self.ndim
+                    for d, v in itertools.chain(zip(others, rest), zip(dims, m)):
+                        c[d] = v
+                    ranks.append(int(np.ravel_multi_index(c, self.shape)))
+                pg = None if len(ranks) == self.size else dist.new_group(sorted(ranks))
+                if self.rank in ranks:
+                    mine = (pg, ranks)
+        hit = self._pgs[key] = _Group(*mine)
+        return hit
+
+    def _buffer(self, tag: str, shape, dtype) -> torch.Tensor:
+        key = (tag, tuple(shape), dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+        return buf
+
+    def _outgoing(self, t: torch.Tensor, tag: str = "send") -> torch.Tensor:
+        """``t`` as the backend takes it: contiguous, and under staging copied
+        into a pinned host buffer."""
+        t = t.contiguous()
+        if not self.staged:
+            return t
+        buf = self._buffer(tag, t.shape, t.dtype)
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        buf.copy_(t)
+        _note_staging(buf, time.perf_counter() - t0)
+        return buf
+
+    def _incoming(self, shape, dtype) -> torch.Tensor:
+        """A buffer for the backend to write into: pinned host memory under staging."""
+        if self.staged:
+            return self._buffer("recv", shape, dtype)
+        return torch.empty(tuple(shape), dtype=dtype, device=self.device)
+
+    def _landed(self, buf: torch.Tensor) -> torch.Tensor:
+        """What the backend wrote, on this mesh's device (copied there under staging)."""
+        if not self.staged:
+            return buf
+        t0 = time.perf_counter()
+        out = buf.to(self.device)
+        torch.cuda.synchronize(self.device)
+        _note_staging(buf, time.perf_counter() - t0)
+        return out
+
+    # -- collectives ---------------------------------------------------------
+    def ppermute(self, x: torch.Tensor, axis: str, perm: Perm) -> torch.Tensor:
+        """``lax.ppermute`` as ``batch_isend_irecv`` pairs: this device sends
+        to its destination and receives from its source; with no source it
+        gets zeros."""
+        self._local(x)
+        a = self.dim(axis)
+        me = self.coords[a]
+        srcs, dsts = _check_perm(perm, self.axis_size(axis))
+        to = [d for s, d in zip(srcs, dsts) if s == me]
+        frm = [s for s, d in zip(srcs, dsts) if d == me]
+        if to == [me]:
+            return _noted("collective-permute", x.clone(memory_format=torch.contiguous_format))
+        ops = []
+        if to:
+            ops.append(dist.P2POp(dist.isend, self._outgoing(x), self._peer(a, to[0])))
+        if frm:
+            recv = self._incoming(x.shape, x.dtype)
+            ops.append(dist.P2POp(dist.irecv, recv, self._peer(a, frm[0])))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        out = self._landed(recv) if frm else torch.zeros_like(
+            x, memory_format=torch.contiguous_format)
+        return _noted("collective-permute", out)
+
+    def all_to_all(self, x: torch.Tensor, axis: str, split_axis: int = 0,
+                   concat_axis: int = 0, tiled: bool = False,
+                   axis_index_groups: Sequence[Sequence[int]] | None = None) -> torch.Tensor:
+        """``lax.all_to_all`` as one ``all_to_all_single`` on the group."""
+        nm = self._local(x)
+        g = self._group(axis, axis_index_groups)
+        k, s = len(g.ranks), split_axis
+        xl = x.reshape(x.shape[nm:])
+        if tiled:
+            if xl.shape[s] % k:
+                raise ValueError(f"split dim {xl.shape[s]} not divisible by group size {k}")
+            xl = xl.unflatten(s, (k, -1))
+        elif xl.shape[s] != k:
+            raise ValueError(f"split dim {xl.shape[s]} != group size {k}")
+        send = xl.movedim(s, 0)  # chunk j goes to member j
+        if g.order:
+            send = send[g.order]
+        shape = send.shape
+        send = self._outgoing(send.reshape(-1))
+        recv = self._incoming(send.shape, send.dtype)
+        dist.all_to_all_single(recv, send, group=g.pg)
+        y = self._landed(recv).view(shape)
+        if g.order:
+            y = y[_inverse(g.order)]
+        y = y.movedim(0, concat_axis)  # the sources, in member order
+        if tiled:
+            y = y.flatten(concat_axis, concat_axis + 1)
+        return _noted("all-to-all", y.reshape(self.block + y.shape).contiguous())
+
+    def all_gather(self, x: torch.Tensor, axis: str, tiled: bool = False,
+                   axis_index_groups: Sequence[Sequence[int]] | None = None) -> torch.Tensor:
+        """``lax.all_gather`` as one ``all_gather_into_tensor`` on the group."""
+        nm = self._local(x)
+        g = self._group(axis, axis_index_groups)
+        send = self._outgoing(x.reshape(-1))
+        recv = self._incoming((len(g.ranks) * send.numel(),), send.dtype)
+        (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(
+            recv, send, group=g.pg)
+        y = self._landed(recv).view((len(g.ranks),) + x.shape[nm:])
+        if g.order:
+            y = y[_inverse(g.order)]
+        if tiled:
+            y = y.reshape((-1,) + y.shape[2:])
+        return _noted("all-gather", y.reshape(self.block + y.shape).contiguous())
+
+    def _reduce(self, x, axes, axis_index_groups, op) -> torch.Tensor:
+        self._local(x)
+        g = self._group(axes, axis_index_groups)
+        buf = (self._outgoing(x, "reduce") if self.staged
+               else x.clone(memory_format=torch.contiguous_format))
+        dist.all_reduce(buf, op=_reduce_op(op), group=g.pg)
+        return self._landed(buf)
+
+    def broadcast(self, x: torch.Tensor, axis: str, index: int) -> torch.Tensor:
+        """``Mesh.broadcast`` as one ``broadcast`` on the axis's group."""
+        self._local(x)
+        if not 0 <= index < self.axis_size(axis):
+            raise ValueError(f"index {index} out of range for axis size {self.axis_size(axis)}")
+        g = self._group(axis)
+        buf = (self._outgoing(x, "reduce") if self.staged
+               else x.clone(memory_format=torch.contiguous_format))
+        dist.broadcast(buf, src=g.ranks[index], group=g.pg)
+        return _noted("all-reduce", self._landed(buf))
+
+    def psum_scatter(self, x: torch.Tensor, axis: str, scatter_dimension: int = 0,
+                     tiled: bool = False,
+                     axis_index_groups: Sequence[Sequence[int]] | None = None) -> torch.Tensor:
+        """``lax.psum_scatter`` as one ``reduce_scatter_tensor`` on the group."""
+        nm = self._local(x)
+        g = self._group(axis, axis_index_groups)
+        k, s = len(g.ranks), scatter_dimension
+        xl = x.reshape(x.shape[nm:])
+        if tiled:
+            if xl.shape[s] % k:
+                raise ValueError(f"scatter dim {xl.shape[s]} not divisible by group size {k}")
+            xl = xl.unflatten(s, (k, -1))
+        elif xl.shape[s] != k:
+            raise ValueError(f"scatter dim {xl.shape[s]} != group size {k}")
+        send = xl.movedim(s, 0)  # member j keeps chunk j
+        if g.order:
+            send = send[g.order]
+        chunk = send.shape[1:]
+        send = self._outgoing(send.reshape(-1))
+        recv = self._incoming((send.numel() // k,), send.dtype)
+        (getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor)(
+            recv, send, group=g.pg)
+        y = self._landed(recv).view(chunk)
+        return _noted("reduce-scatter", y.reshape(self.block + y.shape).contiguous())
