@@ -125,10 +125,10 @@
    checkpoint restored into a model of another seed gives that second
    step's loss bitwise, ``segment_reduce`` on its kernel route. Then
    ``launch/dryrun.py``'s 40 cells on the meta device (``DRYRUN_JOBS``
-   worker processes; each a record or the reference's skip; every cell on
-   the reference's (16, 16) production mesh at ``resolve_tp(16)`` and its
-   rep groups, a train cell's one data-parallel rank scaled by the
-   data-parallel world), and every cell
+   worker processes, started beside phase 7's training; each a record or
+   the reference's skip; every cell on the reference's (16, 16) production
+   mesh at ``resolve_tp(16)`` and its rep groups, a train cell's one
+   data-parallel rank scaled by the data-parallel world), and every cell
    the dry run says fits one H100 run for real on the card at that mesh: its
    peak memory within ``DRYRUN_PEAK_TOL`` of the dry run's and its FLOPs
    within ``DRYRUN_FLOP_TOL``.
@@ -136,18 +136,19 @@
 9. Serves across a ("data", "model") mesh of world dims (``MESH_SERVE``),
    at full width and depth, random weights from ``SEED``, through
    ``launch.serve.generate`` over the mesh (the batch device-major, its rows
-   held once): Qwen1.5-0.5B at (2, 4) (tp 4; 8 × 4,096 tokens, 32 greedy
+   held once): Qwen1.5-0.5B at (2, 4) (tp 4; 8 × 4,096 tokens, 16 greedy
    tokens), granite-moe-1b-a400m at (1, 16) (tp 16, kv 8 over 16 ranks:
    dup span 2; 32 experts, 2 slots a rank; the prefill's MoE on the
-   all-to-all dispatch at capacity 1.25; 4 × 2,048, 16 tokens) and
-   mamba2-1.3b at (2, 2) (4 × 2,048, 16 tokens), and the other block kinds
+   all-to-all dispatch at capacity 1.25; 4 × 2,048, 8 tokens) and
+   mamba2-1.3b at (2, 2) (4 × 2,048, 8 tokens), and the other block kinds
    at the reference's tp: minicpm3-4b (MLA) at (1, 8), recurrentgemma-2b
    (RG-LRU and local attention) at (2, 2), qwen2-vl-7b (M-RoPE over patch
    embeddings) at (1, 8) (tp 4, rep 2) and seamless-m4t-large-v2 (enc-dec,
    ``ENC_FRAMES`` frames and a ``DEC_PROMPT``-token prompt) at (1, 16), 4
-   prompts and 16 tokens each. Launches are held to ``MESH_LAUNCHES``; each
-   warm prefill's window, device busy time and idle share are printed
-   (``device_busy``). The archs of ``TP_CHECK_ARCHS``, sharpened as in 5:
+   prompts and 8 tokens each (the greedy tokens halved from 32 and 16 to
+   keep the script inside its time limit). Launches are held to
+   ``MESH_LAUNCHES``; each warm prefill's window, device busy time and idle
+   share are printed (``device_busy``). The archs of ``TP_CHECK_ARCHS``, sharpened as in 5:
    the TP prefill's last-position logits against the tp = 1 route of the
    same model within ``TP_TOL``, its first token equal wherever the tp = 1
    route's top-two margin exceeds twice their largest logit difference (on
@@ -202,6 +203,33 @@
    their share of the wall, and a rank's peak memory; the kernels line gets
    the three data-plane kernels at a rank's shapes (timed in 4, alone on
    the card), with phase 11's launches summed over the ranks.
+12. Serves the LM on a process mesh: one gloo rank per device of a
+   (data, model) mesh on the one card, each holding only its device's shard
+   of the parameters (built from ``SEED`` and cut), its rows and its cache
+   (``PROCS_SERVE``): qwen1.5 at (2, 4) (the flash prefill, both decode
+   routes), granite-moe at (1, 8) (the a2a prefill at the config's
+   capacity, the replicated decode) and mamba2 at (2, 2), at full width,
+   qwen1.5 at full depth and the other two at ``PROCS_SERVE_LAYERS``. Each
+   arch is first served on the world-dim mesh of the same mesh shape,
+   weights and rows. On each route every rank's greedy tokens equal
+   its rows' there wherever the world-dim logits' top-two margin exceeds
+   twice the row's measured logit difference at that step (for qwen1.5 on
+   at least ``DECISIVE_SHARE`` of the positions), every step's logits (the
+   prefill's, then each decode step's on the rows whose tokens so far
+   agree) within ``TP_TOL`` normwise over every rank's vocab shard, each
+   rank's final cache block within ``TP_TOL`` of the world-dim block on the
+   rows whose tokens all agree (some rows must), and each rank's kernel
+   launches to ``PROCS_SERVE_LAUNCHES``; at tp 2 the prefill's logits
+   bitwise. The logits are recorded as the greedy token reads them and the
+   kernels' inputs kept as device copies, so that the timed calls do no
+   work of the check's. Prints
+   per arch the prefill wall (the slowest rank; the first call, which makes
+   the groups and pinned buffers) and decode ms a step on each route, the
+   bytes staged through host memory and their share of the wall, the
+   collectives of a rank and of all, and a rank's peak memory beside the
+   world-dim run's; the kernels line gets
+   ``flash_attention`` and the a2a combine's ``segment_reduce`` at a rank's
+   shapes (rank 0's first layer), timed alone on the card.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -320,16 +348,18 @@ CONSIST_TOL = 0.15
 # training (phase 7): qwen1.5-0.5b at full width and depth on a data world
 # of 8 ranks (``launch/train.py``'s --mesh: ("data",)=8, or ("pod","data") =
 # (2, 4) for HIERARCHICAL), global batch 8 × 2,048 (one sequence a rank),
-# one step per scenario from the same parameters, then TRAIN_STEPS steps
-# under S3 with an AdamW warmed up in 5 steps and decayed over the 20 (the
-# reference's default warmup is 100 steps); granite-moe-1b-a400m at W = 1, 4
-# × 2,048 tokens, MOE_TRAIN_STEPS steps
+# one step per scenario from the same parameters, then the first TRAIN_STEPS
+# steps under S3 of an AdamW warmed up in 5 steps and decayed over 20 (the
+# reference's default warmup is 100 steps; the run was 20 steps long until
+# the script had to be cut to its time limit, and its first 10 losses are
+# the same either way); granite-moe-1b-a400m at W = 1, 4 × 2,048 tokens,
+# MOE_TRAIN_STEPS steps
 TRAIN_ARCH = "qwen1.5-0.5b"
 TRAIN_MESHES = {"native": "8,1", "s1_host": "8,1", "s2_in_net": "8,1", "s3_in_net_map": "8,1",
                 "hierarchical": "2,4,1"}
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 20
-TRAIN_OPT = {"warmup_steps": 5, "decay_steps": TRAIN_STEPS}
-MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = "granite-moe-1b-a400m", 4, 5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 10
+TRAIN_OPT = {"warmup_steps": 5, "decay_steps": 20}
+MOE_TRAIN_ARCH, MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = "granite-moe-1b-a400m", 4, 3
 # the MoE training route (the combine on segment_reduce) against its plain
 # route (ref.segment_reduce through autograd, the kernel route's expert
 # choices replayed), normwise relative: the whole model's loss on one batch,
@@ -347,7 +377,7 @@ TRAIN_PHASES = ("rank_gradients", "aggregate", "apply")
 # the restart on RESTART_SHRINK ranks from the step-RESTART_AT checkpoint. The
 # first loss after it is the same step on the same parameters and global
 # batch, only the ranks' sum in another order: RESTART_LOSS_TOL relative
-RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_SHRINK, RESTART_AT = 6, 2, 5, 4, 4
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_SHRINK, RESTART_AT = 4, 2, 3, 4, 2
 RESTART_FLAGS = ("--ckpt-every", str(RESTART_EVERY), "--fail-step", str(RESTART_FAIL),
                  "--shrink-to", str(RESTART_SHRINK))
 RESTART_LOSS_TOL = 1e-5
@@ -355,8 +385,12 @@ RESTART_LOSS_TOL = 1e-5
 # checkpoint of all 24 (fp32 parameters and moments) is 16 GB
 MOE_CKPT_LAYERS = 4
 # the dry run against the card, on the cells it says fit: the peak within
-# 25% of the card's (the allocator rounds and caches), the FLOPs within 1e-6
-DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL, DRYRUN_JOBS = 0.25, 1e-6, 8
+# 25% of the card's (the allocator rounds and caches), the FLOPs within 1e-6.
+# Its cells run on the meta device in DRYRUN_JOBS worker processes started
+# beside phase 7 (``dryrun_start``), whose training keeps the card busy and
+# leaves the host's other cores idle; 6 of the 8 leave one to phase 7's
+# own process
+DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL, DRYRUN_JOBS = 0.25, 1e-6, 6
 # serving across a (data, model) mesh (phase 9): arch → (mesh, global batch,
 # prompt, greedy tokens). qwen1.5 at (2, 4): tp 4, 2 data ranks × 4 rows;
 # granite-moe at (1, 16), the reference's production model axis: tp 16, kv 8
@@ -371,13 +405,13 @@ DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL, DRYRUN_JOBS = 0.25, 1e-6, 8
 # M-RoPE over patch embeddings, the batch split over the rep groups);
 # seamless at (1, 16) (tp 16: the non-causal encoder over ENC_FRAMES frames,
 # cross-attention, a DEC_PROMPT-token decoder prompt)
-MESH_SERVE = {"qwen1.5-0.5b": ((2, 4), 8, 4096, 32),
-              "granite-moe-1b-a400m": ((1, 16), 4, 2048, 16),
-              "mamba2-1.3b": ((2, 2), 4, 2048, 16),
-              "minicpm3-4b": ((1, 8), 4, 2048, 16),
-              "recurrentgemma-2b": ((2, 2), 4, 2048, 16),
-              "qwen2-vl-7b": ((1, 8), 4, 2048, 16),
-              "seamless-m4t-large-v2": ((1, 16), 4, DEC_PROMPT, 16)}
+MESH_SERVE = {"qwen1.5-0.5b": ((2, 4), 8, 4096, 16),
+              "granite-moe-1b-a400m": ((1, 16), 4, 2048, 8),
+              "mamba2-1.3b": ((2, 2), 4, 2048, 8),
+              "minicpm3-4b": ((1, 8), 4, 2048, 8),
+              "recurrentgemma-2b": ((2, 2), 4, 2048, 8),
+              "qwen2-vl-7b": ((1, 8), 4, 2048, 8),
+              "seamless-m4t-large-v2": ((1, 16), 4, DEC_PROMPT, 8)}
 # launches of one served path over the mesh: (flash_attention, segment_reduce);
 # seamless: 24 encoder layers (non-causal) and 24 decoder self-attentions
 MESH_LAUNCHES = {"qwen1.5-0.5b": (24, 0), "granite-moe-1b-a400m": (24, 24),
@@ -502,10 +536,51 @@ PROCS_LAUNCHES = {"wordcount_histogram": {"segment_reduce": 1},
                   "wordcount_token": {"hash_partition": 2, "segment_reduce": 1},
                   "aggregate_s3_in_net_map": {"ring_fused_step": N_MAPPERS - 1},
                   "plan_wordcount_tree": {"segment_reduce": 1}}
+# serving on a process mesh (phase 12): arch → (mesh, global batch, prompt,
+# greedy tokens), one gloo rank per device on the one card. qwen1.5 as
+# phase 9 serves it (tp 4: a rank's 4 heads and kv slots, 2 data ranks x 4
+# rows); granite-moe at (1, 8), not phase 9's (1, 16), to keep the phase at 8
+# processes (tp 8: one kv head and 4 experts a rank, the a2a at the config's
+# capacity 1.25); mamba2 at (2, 2) as phase 9 (tp 2). Full width; the
+# greedy tokens cut from phase 9's 16 and 8 to 3, and the depth of the two
+# archs other than qwen1.5 halved (PROCS_SERVE_LAYERS), so that the whole
+# script stays well inside its time limit: a decode step takes 1.3-2.9 s on
+# gloo ranks that share the card, a prefill 7-15 s (measured on an NVIDIA
+# H100 80GB HBM3 at 700.00 W; PERF.md §5)
+PROCS_SERVE = {"qwen1.5-0.5b": ((2, 4), 8, 4096, 3),
+               "granite-moe-1b-a400m": ((1, 8), 4, 2048, 3),
+               "mamba2-1.3b": ((2, 2), 4, 2048, 3)}
+PROCS_SERVE_LAYERS = {"granite-moe-1b-a400m": 12, "mamba2-1.3b": 24}  # of 24 and 48
+# each rank's launches of one served path: (flash_attention, segment_reduce),
+# one prefill flash per layer on the rank's heads, one a2a combine per MoE layer
+PROCS_SERVE_LAUNCHES = {"qwen1.5-0.5b": (24, 0), "granite-moe-1b-a400m": (12, 12),
+                        "mamba2-1.3b": (0, 0)}
+PROCS_SERVE_CAD = ("qwen1.5-0.5b",)  # with an fsdp world and an MLP: both decode routes
+# held to the world-dim run of the same mesh, weights and rows on each route:
+# every step's logits normwise (the prefill's, then each decode step's, on
+# the rows whose tokens so far agree) within TP_TOL, and the final cache
+# blocks on the rows whose tokens all agree within TP_TOL: the two compute
+# the same products, but a process's have its rows where the world-dim ones
+# have every row (another cuBLAS kernel, another rounding), and gloo adds a
+# group's fp32 partials in its own order; over 24 layers that is a random
+# walk of bf16 roundings, as TP_TOL's. The tokens equal wherever the
+# world-dim top-two margin exceeds twice the row's logit difference, and for
+# the archs of PROCS_SERVE_SHARE on at least DECISIVE_SHARE of the positions
+PROCS_SERVE_SHARE = ("qwen1.5-0.5b",)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+START = time.perf_counter()
+
+
+def stage(what: str) -> None:
+    """A line on standard error as each phase starts, with the seconds since
+    the script began: where a run that was cut stood."""
+    print(f"chip_smoke: {time.perf_counter() - START:.1f} s: {what}", file=sys.stderr,
+          flush=True)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1188,8 +1263,8 @@ def recorded_routes(log: list):
 
     real = MoE.route
 
-    def route(self, x):
-        out = real(self, x)
+    def route(self, x, router=None):
+        out = real(self, x, router=router)
         log.append(out[1])
         return out
 
@@ -1209,10 +1284,10 @@ def replayed_routes(log: list, flips: list):
     real = MoE.route
     chosen = iter(log)
 
-    def route(self, x):
-        _, own = real(self, x)
+    def route(self, x, router=None):
+        _, own = real(self, x, router=router)
         experts = next(chosen)
-        p = torch.softmax(x.to(torch.float32) @ self.router, dim=-1).gather(-1, experts)
+        p = self.probs(x, router).gather(-1, experts)
         gates = p / torch.clamp_min(p.sum(-1, keepdim=True), 1e-9)
         flips.append(int((own.sort(-1).values != experts.sort(-1).values).any(-1).sum()))
         return gates.to(x.dtype), experts
@@ -2276,28 +2351,49 @@ def moe_restore(count) -> dict:
     return res
 
 
-def dryrun_phase() -> dict:
-    """Phase 8 (c): ``launch/dryrun.py --all`` on the meta device, one line a
+def dryrun_start() -> dict:
+    """Phase 8 (c)'s cells, ``launch/dryrun.py --all`` on the meta device,
+    started on ``DRYRUN_JOBS`` worker processes (``dryrun.submit_cells``)
+    to run beside the phases before it. Returns what ``dryrun_phase``
+    collects: the executor, the cells, their futures, the start time and
+    each cell's time of completion."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import shapes as shp
+
+    cells = [(a, s) for a in ARCHS for s in shp.SHAPES]
+    t = time.perf_counter()
+    ex, futs = dryrun.submit_cells(cells, DRYRUN_JOBS)
+    done = []
+    for fut in futs:
+        fut.add_done_callback(lambda _: done.append(time.perf_counter()))
+    return {"executor": ex, "cells": cells, "futures": futs, "t0": t, "done": done}
+
+
+def dryrun_phase(pending: dict) -> dict:
+    """Phase 8 (c): the dry run's records (``dryrun_start``), one line a
     cell, then every cell it says fits one H100 held to the card: the real
     step's peak memory (over what the process held before) within
     ``DRYRUN_PEAK_TOL`` of ``peak_bytes``, and ``FlopCounterMode``'s count of
-    it equal to ``flops_per_dev`` within ``DRYRUN_FLOP_TOL``."""
+    it equal to ``flops_per_dev`` within ``DRYRUN_FLOP_TOL``. Shuts the
+    dry run's workers down."""
     import gc
 
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.configs import ARCHS, get_config
-    from repro_torch.launch import dryrun
+    from repro_torch.configs import get_config
     from repro_torch.launch import shapes as shp
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.model import Model
 
-    cells = [(a, s) for a in ARCHS for s in shp.SHAPES]
-    t = time.perf_counter()
     records = {}
-    for (arch, shape), rec in dryrun.run_cells(cells, DRYRUN_JOBS):
+    with pending["executor"]:
+        results = [fut.result() for fut in pending["futures"]]
+    # from the start to the last cell's end: the workers' wall beside phase 7
+    wall = max(pending["done"]) - pending["t0"]
+    for (arch, shape), rec in zip(pending["cells"], results):
         records[(arch, shape)] = rec
         if "error" in rec:
             log(rec["trace"])
@@ -2317,9 +2413,9 @@ def dryrun_phase() -> dict:
             f"{rec['t_compute_s']:.4g}/{rec['t_memory_s']:.4g}/{rec['t_collective_s']:.4g} s "
             f"({rec['bottleneck']}); useful {rec['useful_flops_ratio']:.3f}; meta "
             f"{rec['meta_s']} s, probes {rec['probe_s']} s")
-    wall = time.perf_counter() - t
     fits = [c for c, r in records.items() if r.get("fits_80g")]
-    log(f"dry run: {len(records)} cells in {wall:.1f} s ({DRYRUN_JOBS} workers), "
+    log(f"dry run: {len(records)} cells in {wall:.1f} s ({DRYRUN_JOBS} workers, started "
+        f"beside phase 7), "
         f"{sum('skipped' in r for r in records.values())} skipped, fit one H100: {fits}")
     if len(records) != 40 or not {("mamba2_1_3b", "long_500k"),
                                   ("recurrentgemma_2b", "long_500k")} <= set(fits):
@@ -2369,9 +2465,10 @@ def dryrun_phase() -> dict:
                         for (a, s), r in records.items()}}
 
 
-def restart_phase(launches: dict) -> dict:
+def restart_phase(launches: dict, dryrun_pending: dict) -> dict:
     """Phase 8: the elastic restart, the MoE checkpoint on the kernel route
-    and the dry run. Adds its kernel launches to ``launches``."""
+    and the dry run (started by ``dryrun_start``). Adds its kernel launches
+    to ``launches``."""
     from repro_torch.kernels import ops
 
     def count():
@@ -2381,8 +2478,12 @@ def restart_phase(launches: dict) -> dict:
         ops.reset_launches()
         return got
 
-    res = {"restart": restart_run(count), "moe_restore": moe_restore(count)}
-    res["dryrun"] = dryrun_phase()
+    try:
+        res = {"restart": restart_run(count), "moe_restore": moe_restore(count)}
+    except BaseException:
+        dryrun_pending["executor"].shutdown(wait=True, cancel_futures=True)
+        raise
+    res["dryrun"] = dryrun_phase(dryrun_pending)
     return res
 
 
@@ -2918,6 +3019,389 @@ def procs_phase(ref: dict) -> dict:
     return res
 
 
+def recording_logits(log: list):
+    """A patch of ``parallel._local_logits`` that appends to ``log`` the
+    fp32 logits that each greedy token is taken from (the whole padded vocab
+    on world dims, the rank's vocab shard on a process mesh): the served
+    call's own, with no product or weight fetch of its own."""
+    from repro_torch.models import parallel
+
+    real = parallel._local_logits
+
+    def local_logits(*args):
+        out = real(*args)
+        log.append(out[0])
+        return out
+
+    return mock.patch.object(parallel, "_local_logits", local_logits)
+
+
+def procs_serve_routes(arch: str) -> tuple[str, ...]:
+    return ("gather", "cad") if arch in PROCS_SERVE_CAD else ("gather",)
+
+
+def procs_serve_config(arch: str):
+    """``arch``'s config at full width, cut to ``PROCS_SERVE_LAYERS``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    layers = PROCS_SERVE_LAYERS.get(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def procs_serve_world(arch: str, tmp: Path) -> dict:
+    """Phase 12's reference for ``arch``: the world-dim serve on the card of
+    the same mesh shape, weights (``SEED``) and rows, on each route, with
+    every step's logits recorded. Writes each rank's part to
+    ``tmp/ref.<rank>.pt`` (the world tokens, that rank's rows and vocab
+    shard of every step's logits, and its block of the final cache,
+    ``convert.cache_block``) and returns the tokens, each step's top-two
+    margins, the walls and the peak memory of each route."""
+    import torch
+
+    from repro_torch.launch import serve, steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import cache_block
+    from repro_torch.models.model import Model
+
+    dims, gb, prompt, gen = PROCS_SERVE[arch]
+    cfg = procs_serve_config(arch)
+    torch.cuda.empty_cache()
+    mesh = make_mesh(dims, device="cuda")
+    env = steps.make_env(cfg, mesh)
+    model = Model(cfg, device="cuda", seed=SEED, env=env)
+    batch = serve.prompt_batch(model, steps.held_rows(env, gb), prompt, seed=SEED)
+    per = model.vocab_padded // env.tp
+    rep, b_loc = env.row_groups(batch.shape[0])
+    parts = [{} for _ in range(mesh.size)]
+    out = {}
+    for route in procs_serve_routes(arch):
+        logs = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with recording_logits(logs):
+            res = serve.generate(model, batch, gen, impl="flash", mesh=mesh, global_batch=gb,
+                                 compute_at_data=route == "cad")
+        torch.cuda.synchronize()
+        if len(logs) != gen:
+            raise AssertionError(f"procs_serve_{arch} ({route}): {len(logs)} greedy calls, not {gen}")
+        lg = torch.stack(logs)  # (gen, rows, V_pad)
+        top2 = torch.topk(lg[..., :cfg.vocab], 2, dim=-1).values
+        out[route] = {"tokens": res["tokens"].cpu(), "margins": (top2[..., 0] - top2[..., 1]).cpu(),
+                      "walls": serve_walls(res, gb, gen),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        for r in range(mesh.size):
+            f, m = divmod(r, env.model_size)
+            start = (f * rep + (m % env.rep if rep > 1 else 0)) * b_loc
+            t = m // env.rep
+            parts[r][route] = {
+                "tokens": out[route]["tokens"],
+                "logits": lg[:, start:start + b_loc, t * per:(t + 1) * per].cpu(),
+                "cache": {k: v.cpu() for k, v in importlib.import_module(
+                    "repro_torch.models.convert").flatten(
+                        cache_block(res["cache"], env, f, m)).items()}}
+        del res, logs, lg
+    del model, batch
+    torch.cuda.empty_cache()
+    for r, part in enumerate(parts):
+        torch.save(part, tmp / f"ref.{r}.pt")
+    return out
+
+
+def procs_serve_rank(arch: str, tmp: str, device) -> dict:
+    """Phase 12 in one rank (``launch.procs.spawn``): the model made from
+    ``SEED`` under its process mesh's env (its device's shard kept), the
+    seeded prompts' rows of its block, then per route one served call, its
+    launches, staged copies and collectives counted and every step's logits
+    recorded as the greedy token reads them (on the gather route, rank 0
+    keeps a device copy of its first ``flash_attention`` and
+    ``segment_reduce`` inputs), held on its rows and vocab shard to the
+    world-dim run (``procs_serve_world``'s part), at each step on the rows
+    whose tokens so far agree: each row's largest logit difference, and the
+    step's squared differences and squared reference logits; and the final
+    cache block's worst normwise difference on the rows whose tokens all
+    agree."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.mesh import ProcessMesh, count_collectives, count_staging
+    from repro_torch.models.convert import flatten
+    from repro_torch.models.model import Model
+
+    dims, gb, prompt, gen = PROCS_SERVE[arch]
+    cfg = procs_serve_config(arch)
+    t0 = time.perf_counter()
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    pm = ProcessMesh(("data", "model"), dims, device=device)
+    env = steps.make_env(cfg, pm)
+    model = Model(cfg, device=device, seed=SEED, env=env)
+    rows = steps.rank_rows(env, serve.prompt_batch(model, steps.held_rows(env.world(), gb),
+                                                   prompt, seed=SEED), gb)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref = torch.load(Path(tmp) / f"ref.{pm.rank}.pt")
+    res = {"setup_s": time.perf_counter() - t0, "held_gb": torch.cuda.memory_allocated() / 1e9,
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "transport": pm.transport, "routes": {}, "capture": {}}
+
+    def capturing():
+        stack = contextlib.ExitStack()
+        if pm.rank != 0:
+            return stack
+        real_fa, real_sr = ops.flash_attention, ops.segment_reduce
+
+        def fa(q, k, v, causal=True):
+            if "flash" not in res["capture"]:
+                res["capture"]["flash"] = tuple(t.clone() for t in (q, k, v)) + (causal,)
+            return real_fa(q, k, v, causal=causal)
+
+        def sr(values, ids, n):
+            if "combine" not in res["capture"]:
+                res["capture"]["combine"] = (values.clone(), ids.clone(), n)
+            return real_sr(values, ids, n)
+
+        stack.enter_context(mock.patch.object(ops, "flash_attention", fa))
+        stack.enter_context(mock.patch.object(ops, "segment_reduce", sr))
+        return stack
+
+    for route in procs_serve_routes(arch):
+        logs = []
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        with (recording_logits(logs), count_staging() as staged,
+              count_collectives() as coll,
+              capturing() if route == "gather" else contextlib.ExitStack()):
+            out = serve.generate(model, rows, gen, impl="flash", mesh=pm, global_batch=gb,
+                                 compute_at_data=route == "cad")
+        torch.cuda.synchronize()
+        rec = {"launches": dict(ops.LAUNCHES), "prefill_s": out["prefill_s"],
+               "decode_s": out["decode_s"], "staged": dict(staged), "collectives": dict(coll)}
+        toks, want = out["tokens"], ref[route]
+        wt = steps.rank_rows(env, want["tokens"].to(device), gb)  # (b_loc, gen)
+        if len(logs) != gen:
+            raise AssertionError(f"procs_serve_{arch} ({route}): {len(logs)} greedy calls")
+        lg, wl = torch.stack(logs), want["logits"].to(device)  # (gen, b_loc, V/tp)
+        agree = torch.stack([(toks[:, :i] == wt[:, :i]).all(1) for i in range(gen)])
+        mask = agree[..., None] & torch.isfinite(wl)  # (gen, b_loc, V/tp)
+        d = torch.where(mask, lg - wl, 0.0)
+        rec.update({"tokens": toks.cpu(), "row_diffs": d.abs().amax(-1).cpu(),  # (gen, b_loc)
+                    "sq": (d * d).sum((1, 2)).tolist(),
+                    "wsq": torch.where(mask, wl * wl, 0.0).sum((1, 2)).tolist(),
+                    "logits_equal": bool(torch.equal(lg[0], wl[0])),
+                    "coords": tuple(pm.coords)})
+        same = (toks == wt).all(1).nonzero()[:, 0]
+        worst = 0.0
+        for k, v in flatten(out["cache"]).items():
+            rd = int(k.split("/")[0] == "blocks")  # superblock leaves lead with the layers
+            a, b = v.index_select(rd, same), want["cache"][k].to(device).index_select(rd, same)
+            if b.numel() and float(b.float().norm()):
+                worst = max(worst, rel_err(a, b))
+        rec.update({"cache_worst": worst, "cache_rows": int(same.numel())})
+        del out, logs, lg, wl, d, mask
+        res["routes"][route] = rec
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["capture"] = {k: tuple(t.cpu() if hasattr(t, "cpu") else t for t in v)
+                      for k, v in res["capture"].items()}
+    return res
+
+
+def procs_serve_decisive(tokens, want, margins, diffs) -> tuple[bool, int, int]:
+    """Every row's greedy tokens (rows, gen) against the world-dim run's
+    ``want``, step by step while the row's tokens agree: at a step whose
+    world-dim top-two margin exceeds twice ``diffs[step, row]`` (the row's
+    largest logit difference of the two runs there, over the whole vocab)
+    the tokens must be equal; at another, a difference ends that row's
+    comparison. Returns (equal where decisive, decisive positions compared,
+    positions compared)."""
+    ok, decisive, compared = True, 0, 0
+    for r in range(tokens.shape[0]):
+        for i in range(tokens.shape[1]):
+            compared += 1
+            same = bool(tokens[r, i] == want[r, i])
+            if float(margins[i, r]) > 2 * float(diffs[i, r]):
+                decisive += 1
+                ok = ok and same
+            if not same:
+                break
+    return ok, decisive, compared
+
+
+def procs_serve_phase(launches: dict, rows: list) -> dict:
+    """Phase 12: for each arch of ``PROCS_SERVE`` the world-dim reference
+    (``procs_serve_world``), then one gloo rank per mesh device spawned on
+    the card (``procs_serve_rank``), held to it. Adds the ranks' launches to
+    ``launches`` and the two kernel rows at a rank's shapes to ``rows``;
+    returns the readings."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import procs, steps
+    from repro_torch.launch.mesh import make_mesh
+
+    res = {"archs": {}, "launches": dict.fromkeys(ops.LAUNCHES, 0)}
+    captured = {}
+    for arch, (dims, gb, prompt, gen) in PROCS_SERVE.items():
+        stage(f"phase 12 {arch}")
+        n = dims[0] * dims[1]
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            world = procs_serve_world(arch, Path(tmp))
+            world_s = time.perf_counter() - t
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # the ranks share the card with this process
+            t = time.perf_counter()
+            ranks = procs.spawn(functools.partial(procs_serve_rank, arch, tmp), n,
+                                backend="gloo", store_path=Path(tmp) / "store",
+                                timeout_s=PROCS_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t
+        cfg = procs_serve_config(arch)
+        env = steps.make_env(cfg, make_mesh(dims, device="meta"))
+        want_fa, want_sr = PROCS_SERVE_LAUNCHES[arch]
+        st = {"ranks": n, "layers": cfg.n_layers,
+              "transport": sorted({r["transport"] for r in ranks}),
+              "world_s": world_s, "spawn_s": spawn_s,
+              "setup_s": max(r["setup_s"] for r in ranks),
+              "held_gb_per_rank": max(r["held_gb"] for r in ranks),
+              "param_gb_per_rank": max(r["param_bytes"] for r in ranks) / 1e9,
+              "peak_gb_per_rank": max(r["peak_gb"] for r in ranks),
+              "world_peak_gb": max(w["peak_gb"] for w in world.values()), "routes": {}}
+        for route, w in world.items():
+            recs = [r["routes"][route] for r in ranks]
+            for i, rec in enumerate(recs):
+                got = rec["launches"]
+                if (got["flash_attention"], got["segment_reduce"]) != (want_fa, want_sr) or (
+                        got["hash_partition"] or got["ring_fused_step"]):
+                    raise AssertionError(f"procs_serve_{arch} ({route}): rank {i} made {got} "
+                                         f"launches, not {want_fa} flash_attention and {want_sr} "
+                                         "segment_reduce")
+                for k, v in got.items():
+                    res["launches"][k] += v
+            # the tokens device-major (rows_of refuses tp ranks of a group that differ)
+            blocks = torch.stack([rec["tokens"] for rec in recs])
+            blocks = blocks.reshape(dims + blocks.shape[1:])
+            if not env.batch_split_rep(gb):  # every model index holds the data rank's rows
+                if not bool((blocks == blocks[:, :1]).all()):
+                    raise AssertionError(f"procs_serve_{arch} ({route}): the tp ranks' tokens "
+                                         "differ")
+                blocks = blocks[:, :1]
+            toks = steps.rows_of(env, blocks, gb)
+            if toks.shape != (gb, gen) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+                raise AssertionError(f"procs_serve_{arch}: tokens {tuple(toks.shape)} out of shape "
+                                     "or vocab")
+            # each row's largest difference over the vocab shards of the ranks that hold it
+            rep, b_loc = env.row_groups(gb)
+            diffs = torch.zeros(gen, w["tokens"].shape[0])
+            for rec in recs:
+                f, m = rec["coords"]
+                start = (f * rep + (m % env.rep if rep > 1 else 0)) * b_loc
+                sl = diffs[:, start:start + b_loc]
+                torch.maximum(sl, rec["row_diffs"], out=sl)
+            ok, decisive, compared = procs_serve_decisive(toks, w["tokens"], w["margins"], diffs)
+            step_rel = [(sum(rec["sq"][i] for rec in recs)
+                         / sum(rec["wsq"][i] for rec in recs)) ** 0.5 for i in range(gen)]
+            logits = step_rel[0]
+            r = {"tokens_equal_where_decisive": ok, "decisive": decisive, "compared": compared,
+                 "positions": gb * gen, "agreement": float((toks == w["tokens"]).float().mean()),
+                 "max_logit_diff": float(diffs.max()), "step_logits_rel": step_rel,
+                 "prefill_logits_rel": logits,
+                 "prefill_logits_bitwise": all(rec["logits_equal"] for rec in recs),
+                 "launches_per_rank": {k: v for k, v in recs[0]["launches"].items() if v},
+                 "world_walls": w["walls"]}
+            wall = max(rec["prefill_s"] + rec["decode_s"] for rec in recs)
+            r.update({"prefill_s": max(rec["prefill_s"] for rec in recs),
+                      "decode_ms_per_step": (max(rec["decode_s"] for rec in recs)
+                                             / max(1, gen - 1) * 1e3),
+                      "staged_bytes": sum(rec["staged"]["bytes"] for rec in recs),
+                      "staged_copies": sum(rec["staged"]["copies"] for rec in recs),
+                      "staging_share": max(rec["staged"]["seconds"] for rec in recs) / wall,
+                      "collectives_rank0": recs[0]["collectives"],
+                      "collectives_summed": {k: sum(rec["collectives"][k] for rec in recs)
+                                             for k in recs[0]["collectives"]}})
+            r["cache_worst"] = max(rec["cache_worst"] for rec in recs)
+            r["cache_rows"] = sum(rec["cache_rows"] for rec in recs)
+            st["routes"][route] = r
+            # tp 2 sums two partials, exactly in either order: the prefill bitwise
+            bad = (not ok or max(step_rel) > TP_TOL
+                   or (env.tp == 2 and not r["prefill_logits_bitwise"])
+                   or r["cache_worst"] > TP_TOL or r["cache_rows"] == 0
+                   or (arch in PROCS_SERVE_SHARE and decisive < DECISIVE_SHARE * compared))
+            if bad:
+                raise AssertionError(f"procs_serve_{arch} ({route}) differs from the world-dim "
+                                     f"run: {r}")
+        res["archs"][arch] = st
+        for k in ("flash", "combine"):
+            if k in ranks[0]["capture"]:
+                captured.setdefault(k, ranks[0]["capture"][k] + (f"serve_{arch}",))
+        log(f"process mesh serve {arch} on {dims} ({n} gloo ranks on one card, "
+            f"{' / '.join(st['transport'])}): {json.dumps(st)}")
+        del ranks, world
+    # the kernels at a rank's shapes (rank 0's first launch), timed alone
+    q, k, v, causal, fpath = captured.pop("flash")
+    q, k, v = (t.cuda() for t in (q, k, v))
+    fa = importlib.import_module("repro_torch.kernels.flash_attention").flash_attention
+    kout, pout = fa(q, k, v, causal=causal), ref.flash_attention(q, k, v, causal=causal)
+    row_err = row_rel_err(kout, pout)
+    if row_err > ROW_TOL[str(kout.dtype)]:
+        raise AssertionError(f"flash_attention at a rank's shape: a row is {row_err} off")
+    fb, fh, fs, fd = q.shape
+    b_ms, b_by = bound_ms(4 * q.numel() * 2, 4 * fd * fb * fh * fs * (fs + 1) / 2,
+                          BF16_TC_OPS_PER_S)
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:79",
+        "launches": res["launches"]["flash_attention"], "max_abs_err": max_abs_err([(kout, pout)]),
+        "ms": cuda_ms(lambda: fa(q, k, v, causal=causal)),
+        "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, causal=causal), iters=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])),
+        "norm_rel_err": rel_err(kout, pout), "max_row_rel_err": row_err, "path": "procs_" + fpath,
+        "shape": f"q, k, v {tuple(q.shape)} bf16, {'causal' if causal else 'non-causal'}: one "
+                 "rank's heads and rows of the prefill",
+    })
+    del q, k, v, kout, pout
+    values, ids, nseg, spath = captured.pop("combine")
+    values, ids = values.cuda(), ids.cuda()
+    sr = bare_launchers()[1]
+    ks, ps = sr(values, ids, nseg), ref.segment_reduce(values, ids, nseg)
+    comb_err = float((ks - ps).abs().max() / ps.abs().max())
+    if comb_err > COMBINE_TOL:
+        raise AssertionError(f"segment_reduce at a rank's a2a combine: {comb_err} off (relative)")
+    ok = ids >= 0
+    vals32, ids64 = values[ok].float(), ids[ok].long()
+    lib_out = torch.zeros_like(ps)
+    kept = int(ok.sum())
+    b_ms, b_by = bound_ms(kept * values.shape[1] * values.element_size() + ids.numel() * 4
+                          + ps.numel() * 4, kept * values.shape[1])
+    rows.append({
+        "name": "segment_reduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_reduce.cu",
+        "replaces": "src/repro/kernels/segment_reduce.py:55",
+        "launches": res["launches"]["segment_reduce"], "max_abs_err": max_abs_err([(ks, ps)]),
+        "rel_err": comb_err,
+        "ms": cuda_ms(lambda: sr(values, ids, nseg)),
+        "plain_ms": cuda_ms(lambda: ref.segment_reduce(values, ids, nseg)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, ids64, vals32)),
+        "path": "procs_" + spath,
+        "shape": f"values {tuple(values.shape)} bf16, ids ({ids.numel()},) int32 ({kept} kept), "
+                 f"nseg={nseg}: one rank's a2a combine",
+    })
+    for k2, v2 in res["launches"].items():
+        launches[k2] += v2
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -2943,6 +3427,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     # 1. build ------------------------------------------------------------
+    stage("phase 1 build")
     build_s = _build.build_all()
     log(f"build: {build_s:.2f} s for {len(_build.NAMES)} kernels")
     for name in _build.NAMES:
@@ -2953,6 +3438,7 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # 2. kernels against their plain versions, edge shapes ----------------
+    stage("phase 2 edge checks")
     t0 = time.perf_counter()
     check_kernels_at_edges(torch)
     n_flash = check_flash_at_edges(torch)
@@ -2960,6 +3446,7 @@ def main() -> int:
         f"cases; {time.perf_counter() - t0:.2f} s)")
 
     # 3. main paths -----------------------------------------------------------
+    stage("phase 3 main paths")
     t = time.perf_counter()
     shards, words, grads_np, grads = inputs()
     want_counts = wc.wordcount_reference(shards, VOCAB)
@@ -3185,6 +3672,7 @@ def main() -> int:
     del paths, schedule, tenant_plans, recv, reducer_counts, err
 
     # 3b. the recurrences: a phase of its own, with its own peak (the
+    stage("phase 3b recurrences")
     # allocator keeps its cached blocks, as it did for the paths above)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
@@ -3232,6 +3720,7 @@ def main() -> int:
     del recurrence
 
     # 5. serving at full width -------------------------------------------------
+    stage("phase 5 serving")
     from repro_torch.launch import serve
 
     torch.cuda.empty_cache()
@@ -3349,6 +3838,7 @@ def main() -> int:
     del q, k, v, model, prompts, flash_toks, fn  # fn: serve_paths' closure holds the model
 
     # 6. the other block kinds at full width, one model at a time -------------
+    stage("phase 6 block kinds")
     family_checks: dict[str, dict] = {}
     combine = {}
     for arch in FAMILY_ARCHS:
@@ -3436,37 +3926,55 @@ def main() -> int:
         family_checks[name] = checks
         del model, batch, fn
 
-    # 7. training at full width ------------------------------------------------
+    # 7. training at full width, phase 8's dry run on the host beside it ----------
+    stage("phase 7 training")
     t = time.perf_counter()
-    training = train_phase(launches)
+    pending = dryrun_start()
+    try:
+        training = train_phase(launches)
+    except BaseException:
+        pending["executor"].shutdown(wait=True, cancel_futures=True)
+        raise
     training["wall_s"] = time.perf_counter() - t
     log(f"training phase: {training['wall_s']:.2f} s")
 
     # 8. restart and dry run -----------------------------------------------------
+    stage("phase 8 restart and dry run")
     t = time.perf_counter()
-    restart = restart_phase(launches)
+    restart = restart_phase(launches, pending)
     restart["wall_s"] = time.perf_counter() - t
     log(f"restart and dry run phase: {restart['wall_s']:.2f} s")
 
     # 9. serving across a (data, model) mesh ------------------------------------
+    stage("phase 9 serving across a mesh")
     t = time.perf_counter()
     mesh_serving = mesh_phase(drive, launches, rows)
     mesh_serving["wall_s"] = time.perf_counter() - t
     log(f"serving across a mesh phase: {mesh_serving['wall_s']:.2f} s")
 
     # 10. training under tensor parallelism ---------------------------------------
+    stage("phase 10 training under TP")
     t = time.perf_counter()
     tp_training = tp_train_phase(launches)
     tp_training["wall_s"] = time.perf_counter() - t
     log(f"training under tensor parallelism phase: {tp_training['wall_s']:.2f} s")
 
     # 11. the data plane on a process mesh: one process per device ---------------
+    stage("phase 11 data plane on a process mesh")
     t = time.perf_counter()
     procs = procs_phase(procs_ref)
     procs["wall_s"] = time.perf_counter() - t
     for k in launches:
         launches[k] += procs["launches"][k]
     log(f"process mesh phase: {procs['wall_s']:.2f} s")
+
+    # 12. serving on a process mesh: one process per device, each its shard ---------
+    stage("phase 12 serving on a process mesh")
+    t = time.perf_counter()
+    procs_serve_rows = []  # the kernels at a rank's shapes, with phase 12's launches
+    procs_serving = procs_serve_phase(launches, procs_serve_rows)
+    procs_serving["wall_s"] = time.perf_counter() - t
+    log(f"serving on a process mesh phase: {procs_serving['wall_s']:.2f} s")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was never launched on the main paths")
@@ -3500,11 +4008,12 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     for row in procs_rows:  # the process mesh's launches, summed over its ranks
         row["launches"] = procs["launches"][row["name"]]
-    rows += procs_rows
+    rows += procs_rows + procs_serve_rows
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "family_checks": family_checks, "training": training,
                     "mesh_serving": mesh_serving, "tp_training": tp_training, "procs": procs,
+                    "procs_serving": procs_serving,
                     "restart": {k: v for k, v in restart.items() if k != "dryrun"},
                     "dryrun": {k: v for k, v in restart["dryrun"].items() if k != "records"},
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,
@@ -3514,6 +4023,8 @@ def main() -> int:
                     "peak_mem_gb": {"wordcount_aggregation": peak_wc_gb,
                                     "recurrence": peak_rec_gb, "serve": peak_serve_gb},
                     "build_s": build_s}))
+    log(f"script: {time.perf_counter() - START:.1f} s")
+    stage("done")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -363,18 +363,30 @@ def _cell_record(cell, kw) -> dict:
                 "trace": traceback.format_exc()[-3000:]}
 
 
+def submit_cells(cells, jobs: int, **kw):
+    """Start every (arch, shape) cell on ``jobs`` worker processes (spawned:
+    a worker never shares a CUDA context), or with ``jobs`` ≤ 1 on one
+    thread of this process. Returns the executor, which the caller shuts
+    down, and each cell's future of its record, in order."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    if jobs <= 1:
+        ex = ThreadPoolExecutor(1)
+    else:
+        ex = ProcessPoolExecutor(jobs, mp_context=multiprocessing.get_context("spawn"))
+    return ex, [ex.submit(_cell_record, cell, kw) for cell in cells]
+
+
 def run_cells(cells, jobs: int = 1, **kw):
     """Yield (cell, record) for every (arch, shape) cell, ``jobs`` worker
-    processes at a time (spawned: a worker never shares a CUDA context)."""
+    processes at a time (``submit_cells``)."""
     if jobs <= 1:
         for cell in cells:
             yield cell, _cell_record(cell, kw)
         return
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    with ProcessPoolExecutor(jobs, mp_context=multiprocessing.get_context("spawn")) as ex:
-        futs = [ex.submit(_cell_record, cell, kw) for cell in cells]
+    ex, futs = submit_cells(cells, jobs, **kw)
+    with ex:
         try:
             for cell, fut in zip(cells, futs):
                 yield cell, fut.result()

@@ -6,6 +6,8 @@
         --batch 2 --prompt-len 32 --gen 8 --device cpu
     python -m repro_torch.launch.serve --arch qwen1.5-0.5b --smoke --mesh 2,4 \
         --device cpu
+    torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --smoke --mesh 2,4 --backend gloo --device cpu
 
 The port of ``repro/launch/serve.py`` on one device (``--device``, the card
 by default), for every arch of ``repro_torch.configs``. Every cache leaf is
@@ -25,18 +27,25 @@ chunked attention; decode is the same for both. ``--mesh d,m`` (or
 "model")``) mesh of world dims, ``launch.mesh.make_mesh``'s (default 1,1):
 the model's tp ranks from ``cfg.resolve_tp(m)``, the batch in the
 device-major layout of ``launch.shapes.batch_layout`` and its distinct rows
-held once (``launch.steps.held_rows``).
+held once (``launch.steps.held_rows``). Under ``torchrun`` (``WORLD_SIZE``
+set) it serves on a process mesh instead, one process per mesh device
+(``launch.procs.init_process_mesh``, ``--backend``): every process makes
+the model from the seed and keeps its device's shard, makes the same
+global prompts and keeps its own rows (``steps.rank_rows``), and rank 0
+prints the tokens gathered from every process (GQA + MLP, MoE and Mamba-2
+models).
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 import time
 
 import torch
 
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import AXES, make_mesh
 from repro_torch.mesh import Mesh
 from repro_torch.models.model import Model
 
@@ -129,20 +138,47 @@ def run(args):
     from repro_torch.configs import get_config, get_smoke_config
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    mesh = make_mesh([int(x) for x in args.mesh.split(",")], device=args.device)
+    shape = [int(x) for x in args.mesh.split(",")]
+    joined = False
+    if "WORLD_SIZE" in os.environ:  # one process per mesh device
+        import torch.distributed as dist
+
+        from repro_torch.launch.procs import init_process_mesh
+
+        joined = not dist.is_initialized()
+        mesh = init_process_mesh(shape, AXES[-len(shape):], backend=args.backend,
+                                 device=args.device)
+    else:
+        mesh = make_mesh(shape, device=args.device)
+    try:
+        return _serve(args, cfg, mesh)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _serve(args, cfg, mesh):
     env = steps_lib.make_env(cfg, mesh)
     model = Model(cfg, device=mesh.device, seed=args.seed, env=env)
     impl = args.impl or ("flash" if model.device.type == "cuda" else "masked")
-    rows = steps_lib.held_rows(env, args.batch)
+    rows = steps_lib.held_rows(env.world(), args.batch)
     batch = prompt_batch(model, rows, args.prompt_len, seed=args.seed, enc_len=args.enc_len)
+    if env.mesh is not None:  # the same global prompts on every process: keep its own rows
+        batch = steps_lib.map_batch(batch, lambda v: steps_lib.rank_rows(env, v, args.batch))
     res = generate(model, batch, args.gen, impl=impl, mesh=mesh, global_batch=args.batch)
-    gen = res["tokens"].cpu().numpy()  # (rows, gen)
+    toks = res["tokens"]
+    where = ""
+    if env.mesh is not None:
+        toks = steps_lib.gather_rows(env, toks, args.batch)
+        where = f" on {mesh.size} processes ({mesh.transport})"
+    gen = toks.cpu().numpy()  # (rows, gen)
     n_tok = gen.size
-    print(f"[serve] {cfg.name} on {model.device} ({impl}), mesh {mesh.shape} (tp {env.tp}, "
-          f"rep {env.rep}): prefill {rows}x"
-          f"{args.prompt_len} in {res['prefill_s']:.2f}s; decoded {n_tok} tokens in "
-          f"{res['decode_s']:.2f}s ({n_tok / max(res['decode_s'], 1e-9):.1f} tok/s)")
-    print("[serve] sample:", gen[0][:16].tolist())
+    if env.mesh is None or mesh.rank == 0:
+        print(f"[serve] {cfg.name} on {model.device} ({impl}), mesh {mesh.shape}{where} (tp "
+              f"{env.tp}, rep {env.rep}): prefill {rows}x"
+              f"{args.prompt_len} in {res['prefill_s']:.2f}s; decoded {n_tok} tokens in "
+              f"{res['decode_s']:.2f}s ({n_tok / max(res['decode_s'], 1e-9):.1f} tok/s)")
+        print("[serve] sample:", gen[0][:16].tolist())
     return gen
 
 
@@ -159,6 +195,8 @@ def parser():
     ap.add_argument("--mesh", default="1,1",
                     help="data,model or pod,data,model: the serving mesh")
     ap.add_argument("--device", default=None, help="default: the CUDA device")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                    help="the process group's backend under torchrun (WORLD_SIZE set)")
     ap.add_argument("--impl", choices=("flash", "masked"), default=None,
                     help="prefill attention (default: flash on the card, masked on the CPU)")
     return ap

@@ -12,7 +12,9 @@ reference's device-major dims: (pod,) data, and a model dim that is the
 model axis when the batch also splits over the rep groups and 1 otherwise.
 A data world (a ``Mesh`` of ``("data",)`` or ``("pod", "data")``, which the
 dry run's serving cells take) leads with its own dims, the device-major
-layout without its model dim of 1. A spec is {input name: (shape, dtype)}.
+layout without its model dim of 1. On a process mesh (a ``ShardEnv`` whose
+``mesh`` is a ``ProcessMesh``) a process holds its own block: a dim of 1 per
+mesh axis, then its rows. A spec is {input name: (shape, dtype)}.
 """
 from __future__ import annotations
 
@@ -70,9 +72,11 @@ def batch_layout(world: World, global_batch: int) -> tuple[tuple[int, ...], int]
     """(the batch's leading mesh dims, each rank's rows). Over a
     ``ShardEnv`` the model dim is the model axis when the batch splits over
     the rep groups too, and tiny batches (fewer rows than the fsdp world)
-    replicate, one row a rank."""
+    replicate, one row a rank; on a process mesh, the process's block."""
     if isinstance(world, Mesh):
         return world.shape, local_batch(global_batch, world.size)
+    if world.mesh is not None:
+        return world.mesh.block, world.local_batch(global_batch)
     md = world.model_size if world.batch_split_rep(global_batch) else 1
     dims = (world.data_size, md) if world.pod_axis is None else (
         world.pod_size, world.data_size, md)

@@ -10,10 +10,14 @@ env), they take and give batches in the reference's device-major layout
 (``shapes.batch_layout``), hold the distinct rows once (``rows_of``) and run
 the model's tp ranks folded; ``compute_at_data`` is the serve step's
 compute-at-data route. Without a mesh they take (global_batch, ...) rows,
-as before. The train step runs the reference's ``make_train_step`` on a
-launcher's mesh (``launch.mesh.make_mesh``), its batches always
-device-major: the data-parallel ranks, (pod ×) data × rep, one after another, each rank's forward and backward on its own rows
-under its tp group, folded (``ShardEnv.tp_group``), then the scenario's
+as before. Built with a ``ProcessMesh`` (one process per device, the
+model made under its env: ``make_env``), a step takes and gives the
+process's block of the device-major batch and runs the model at one tp
+rank, its collectives calls into process groups. The train step runs the
+reference's ``make_train_step`` on a launcher's mesh
+(``launch.mesh.make_mesh``), its batches always device-major: the
+data-parallel ranks, (pod ×) data × rep, one after another, each rank's
+forward and backward on its own rows under its tp group, folded (``ShardEnv.tp_group``), then the scenario's
 aggregation of every leaf (S1/S2/S3/NATIVE/HIERARCHICAL:
 ``models.parallel.aggregate_leaf``: over the rep groups along the TP dim,
 then over (pod, data) along the FSDP dim, and the model axis's sums), the
@@ -28,7 +32,7 @@ import torch
 from repro_torch.core.scenarios import Scenario
 from repro_torch.launch import shapes
 from repro_torch.launch.mesh import data_extent
-from repro_torch.mesh import Mesh
+from repro_torch.mesh import Mesh, ProcessMesh, note_collective
 from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.models.convert import leaf_paths
@@ -47,27 +51,41 @@ def batch_shape(batch) -> tuple[int, int]:
 
 def make_env(cfg, mesh: Mesh, scenario: Scenario | str = Scenario.NATIVE) -> ShardEnv:
     """The ``ShardEnv`` of ``cfg`` on ``mesh`` (axes among "pod", "data",
-    "model"; a missing model axis is 1): tp is ``cfg.resolve_tp``."""
+    "model"; a missing model axis is 1): tp is ``cfg.resolve_tp``. A
+    ``ProcessMesh`` is carried in the env (``ShardEnv.mesh``)."""
     sizes = dict(zip(mesh.axis_names, mesh.shape))
     if "data" not in sizes:
         raise ValueError(f"mesh axes {mesh.axis_names}: a mesh needs a data axis")
     model = sizes.get("model", 1)
     return ShardEnv(model_size=model, data_size=sizes["data"], pod_size=sizes.get("pod", 1),
                     tp=cfg.resolve_tp(model), scenario=Scenario(scenario),
-                    pod_axis="pod" if "pod" in sizes else None)
+                    pod_axis="pod" if "pod" in sizes else None,
+                    mesh=mesh if isinstance(mesh, ProcessMesh) else None)
 
 
 def rows_of(env: ShardEnv, x: torch.Tensor, global_batch: int) -> torch.Tensor:
     """A device-major batch tensor (``batch_layout``'s dims, b_loc, ...) →
     its distinct rows, held once: (fsdp · (rep when the batch splits over the
-    rep groups) · b_loc, ...). A split batch's model dim gives each rep
-    group's rows at every tp rank of the group; they must be equal (the
-    reference sums the ranks' partials), and this raises where they are not."""
+    rep groups) · b_loc, ...); on a process mesh the process's rows (b_loc,
+    ...). A split batch's model dim gives each rep group's rows at every tp
+    rank of the group; they must be equal (the reference sums the ranks'
+    partials), and this raises where they are not: on a process mesh by a
+    ``pmax`` and a ``pmin`` of the rows over the tp group, noted so on the
+    world-dim mesh."""
     dims, b_loc = shapes.batch_layout(env, global_batch)
     nd = len(dims)
     if tuple(x.shape[:nd + 1]) != dims + (b_loc,):
         raise ValueError(f"batch {tuple(x.shape)} does not lead with {dims + (b_loc,)}")
-    if dims[-1] > 1:
+    split = env.batch_split_rep(global_batch)
+    if env.mesh is not None:
+        if split:
+            xf = x.to(torch.float32)
+            hi = env.mesh.pmax(xf, env.model_axis, env.tp_groups)
+            if not torch.equal(hi, env.mesh.pmin(xf, env.model_axis, env.tp_groups)):
+                raise ValueError("the tp ranks of a rep group hold different rows")
+        return x.reshape(x.shape[nd:])
+    if split:
+        note_collective("all-reduce", x.numel() * 8)
         x = x.unflatten(nd - 1, (env.tp, env.rep))
         first = x.select(nd - 1, 0)
         if not torch.equal(x, first.unsqueeze(nd - 1).expand_as(x)):
@@ -79,21 +97,51 @@ def rows_of(env: ShardEnv, x: torch.Tensor, global_batch: int) -> torch.Tensor:
 def held_rows(env: ShardEnv, global_batch: int) -> int:
     """How many distinct rows a device-major batch of ``global_batch`` holds
     (``rows_of``'s): fsdp · (rep when the batch splits over the rep groups)
-    · b_loc."""
+    · b_loc; a process's b_loc on a process mesh."""
     dims, b_loc = shapes.batch_layout(env, global_batch)
+    if env.mesh is not None:
+        return b_loc
     return env.fsdp_size * (env.rep if dims[-1] > 1 else 1) * b_loc
 
 
 def device_major(env: ShardEnv, rows: torch.Tensor, global_batch: int) -> torch.Tensor:
     """``rows_of``'s inverse: rows held once → the device-major layout, each
-    rep group's rows at every tp rank of the group."""
+    rep group's rows at every tp rank of the group (a process's rows → its
+    block)."""
     dims, b_loc = shapes.batch_layout(env, global_batch)
     rest = tuple(rows.shape[1:])
-    if dims[-1] > 1:
+    if dims[-1] > 1 and env.mesh is None:
         x = rows.reshape(dims[:-1] + (1, env.rep, b_loc) + rest)
         return x.expand(dims[:-1] + (env.tp, env.rep, b_loc) + rest).reshape(
             dims + (b_loc,) + rest)
     return rows.reshape(dims + (b_loc,) + rest)
+
+
+def rank_rows(env: ShardEnv, rows: torch.Tensor, global_batch: int) -> torch.Tensor:
+    """The distinct rows of the whole batch (``held_rows(env.world(), ...)``
+    of them, as every process can make them from one seed) → this
+    process's own rows (b_loc, ...), its block of the device-major batch."""
+    world = env.world()
+    dims, _ = shapes.batch_layout(world, global_batch)
+    dm = device_major(world, rows, global_batch)
+    m = env.mesh
+    at = [m.coords[m.dim(a)] for a in m.axis_names if a != env.model_axis]
+    at.append(env.model_index if dims[-1] > 1 else 0)
+    return dm[tuple(at)]
+
+
+def gather_rows(env: ShardEnv, x: torch.Tensor, global_batch: int) -> torch.Tensor:
+    """``rank_rows``' inverse over the process mesh: every process's rows
+    (b_loc, ...) all-gathered over the whole mesh → the distinct rows of the
+    batch, held once, on every process."""
+    m = env.mesh
+    full = m.all_gather(x.reshape(m.block + tuple(x.shape)), m.axis_names)
+    full = full.reshape(m.shape + tuple(x.shape))
+    world = env.world()
+    dims, _ = shapes.batch_layout(world, global_batch)
+    if dims[-1] == 1:
+        full = full.narrow(m.dim(env.model_axis), 0, 1)
+    return rows_of(world, full, global_batch)
 
 
 def _serving_env(model: M.Model, mesh: Mesh | None) -> ShardEnv:
@@ -101,10 +149,11 @@ def _serving_env(model: M.Model, mesh: Mesh | None) -> ShardEnv:
         return model.env
     env = make_env(model.cfg, mesh)
     have = model.env
-    if (have.model_size, have.data_size, have.pod_size, have.tp) != (
-            env.model_size, env.data_size, env.pod_size, env.tp):
-        raise ValueError(f"model made for {have}, the mesh {mesh.shape} needs {env}: make it "
-                         "with Model(cfg, env=steps.make_env(cfg, mesh))")
+    if (have.model_size, have.data_size, have.pod_size, have.tp, have.mesh is None) != (
+            env.model_size, env.data_size, env.pod_size, env.tp, env.mesh is None):
+        where = "a process mesh" if env.mesh is not None else "world dims"
+        raise ValueError(f"model made for {have}, the mesh {mesh.shape} on {where} needs {env}: "
+                         "make it with Model(cfg, env=steps.make_env(cfg, mesh))")
     return env
 
 
@@ -190,6 +239,9 @@ class TrainStep:
         if "model" not in mesh.axis_names:
             raise ValueError(f"mesh axes {mesh.axis_names}: training takes a launcher's mesh "
                              "(launch.mesh.make_mesh), model axis included")
+        if isinstance(mesh, ProcessMesh):
+            raise NotImplementedError("training on a process mesh waits (ROADMAP.md §1): train on "
+                                      "the world-dim mesh (launch.mesh.make_mesh)")
         if mesh.device.type != model.device.type:
             raise ValueError(f"mesh on {mesh.device}, model on {model.device}")
         self.env = env = make_env(cfg, mesh, scenario)

@@ -53,10 +53,28 @@ def count_collectives():
         _COUNTERS.remove(counts)
 
 
+def counting() -> bool:
+    """Is a ``count_collectives`` context open? (A caller whose note takes
+    work of its own skips it when none is.)"""
+    return bool(_COUNTERS)
+
+
 def note_collective(kind: str, nbytes: int) -> None:
     """Add ``nbytes`` of collective ``kind`` to the open counters."""
     for counts in _COUNTERS:
         counts[kind] += int(nbytes)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Collectives run inside are not counted: the caller notes them itself
+    (a wire wider than the operand that the reference moves)."""
+    saved = _COUNTERS[:]
+    _COUNTERS.clear()
+    try:
+        yield
+    finally:
+        _COUNTERS[:] = saved
 
 
 def _noted(kind: str, out: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,10 @@ The counterpart of ``repro/models/attention.py``. Over tp ranks each rank
 holds H/tp query heads and its kv slots (``gqa_dims``); when kv < tp, rank
 t reads logical kv head t // (tp / kv), which is the head its queries read
 at tp = 1, so the ranks' attention folded together is the whole model's:
-one launch over every rank's heads. The output projection is row-parallel,
+one launch over every rank's heads. On a process mesh a process computes
+its own rank's heads, from its fetched slices of the projections, and
+holds its kv slots in its cache (``kv_held``); the heads a layer runs are
+read off the fetched weights, so the code is the same. The output projection is row-parallel,
 its tp partials summed in bf16 (``parallel.row_parallel``). The same holds
 for cross-attention, for the local-attention rolling cache and for MLA's
 heads.
@@ -47,6 +50,14 @@ def gqa_dims(cfg: ModelConfig, env: ShardEnv | None = None):
     hq_loc = cfg.n_heads // tp
     kv_loc = max(1, cfg.n_kv_heads // tp)
     return hq_loc, kv_loc, cfg.n_heads // cfg.n_kv_heads, hq_loc // kv_loc
+
+
+def kv_held(cfg: ModelConfig, env: ShardEnv | None = None) -> int:
+    """The kv heads a cache holds: every logical head folded, the rank's
+    slots on a process mesh."""
+    if env is None or env.mesh is None or not cfg.n_kv_heads:
+        return cfg.n_kv_heads
+    return gqa_dims(cfg, env)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -192,12 +203,14 @@ def _put(t: torch.Tensor, new: torch.Tensor, r0: int, r1: int, dim: int) -> torc
 class GQAAttention(CastOnce):
     """Grouped-query self-attention with QKV bias, RoPE and a KV cache.
     Parameters are laid out as the JAX leaves are (tp = 1): wq (d, H·hd),
-    wk/wv (d, KV, hd), wo (H·hd, d), bq (H·hd,), bk/bv (KV, hd)."""
+    wk/wv (d, KV, hd), wo (H·hd, d), bq (H·hd,), bk/bv (KV, hd). ``group``:
+    "attn", or "cross" for cross-attention (the leaves' keys)."""
 
-    def __init__(self, cfg: ModelConfig, generator, device):
+    def __init__(self, cfg: ModelConfig, generator, device, group: str = "attn"):
         super().__init__()
         d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
         self.cfg = cfg
+        self.group = group
         self.wq = self.param((d, H * hd), "normal", generator, device)
         self.wk = self.param((d, KV, hd), "normal", generator, device)
         self.wv = self.param((d, KV, hd), "normal", generator, device)
@@ -229,18 +242,19 @@ class GQAAttention(CastOnce):
         q positions. Cross-attention: ``cross_kv`` (b, s_enc, d), the memory
         that k/v are projected from (into ``prefill_cache`` when given), or
         ``cross_cache``, k/v built at prefill. ``env``: the tp ranks, whose
-        output projection partials are summed; the cache is held once, with
-        the logical kv heads."""
+        output projection partials are summed; folded, the cache is held
+        once with the logical kv heads, on a process mesh it holds the
+        rank's kv slots."""
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r} not in {IMPLS}")
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.hd
-        hq, kv, _, rep_q = gqa_dims(cfg)
         cross = cross_kv is not None or cross_cache is not None
-        q = torch.matmul(x, self.cw("wq").to(x.dtype))
+        q = torch.matmul(x, self.fetch("wq", env).to(x.dtype))
         if cfg.qkv_bias:
-            q = q + self.cw("bq").to(x.dtype)
+            q = q + self.fetch("bq", env).to(x.dtype)
+        hq = q.shape[-1] // hd  # the heads held: all of them folded, the rank's on processes
         q = q.view(b, s, hq, hd)
 
         new_cache = None
@@ -252,11 +266,13 @@ class GQAAttention(CastOnce):
         else:
             src = cross_kv if cross else x
             sk = src.shape[1]
-            k = torch.matmul(src, self.cw("wk").to(src.dtype).flatten(1)).view(b, sk, kv, hd)
-            v = torch.matmul(src, self.cw("wv").to(src.dtype).flatten(1)).view(b, sk, kv, hd)
+            wk = self.fetch("wk", env).to(src.dtype).flatten(1)
+            wv = self.fetch("wv", env).to(src.dtype).flatten(1)
+            k = torch.matmul(src, wk).view(b, sk, -1, hd)  # the kv slots held
+            v = torch.matmul(src, wv).view(b, sk, -1, hd)
             if cfg.qkv_bias:
-                k = k + self.cw("bk").to(x.dtype)
-                v = v + self.cw("bv").to(x.dtype)
+                k = k + self.fetch("bk", env).to(x.dtype)
+                v = v + self.fetch("bv", env).to(x.dtype)
             if not cross:
                 cos, sin = rope
                 q = apply_rope(q, cos, sin)
@@ -288,6 +304,7 @@ class GQAAttention(CastOnce):
         if cross:
             window, causal = None, False
 
+        rep_q = hq // k_all.shape[2]  # q heads per kv slot
         cd = COMPUTE_DTYPE
         if impl == "flash":
             if cache is not None or cross or window is not None:
@@ -305,7 +322,7 @@ class GQAAttention(CastOnce):
                                   scale=1.0 / math.sqrt(hd), causal=causal, q_offset=q_offset,
                                   window=window, impl=impl, kv_len=kv_valid)
         y = y.reshape(b, s, hq * hd)
-        return row_parallel(y, self.cw("wo"), env), new_cache
+        return row_parallel(y, self.fetch("wo", env), env), new_cache
 
 
 # ---------------------------------------------------------------------------

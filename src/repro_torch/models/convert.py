@@ -21,6 +21,14 @@ the port's caches, held once, out device-major as the reference's serving
 steps return them. ``to_slots``/``from_slots`` do the same for a stacked
 tree of tensors (parameters, gradients, fp32 moments: the reference's
 checkpoint tree on a mesh).
+
+On a process mesh a process holds one device's shard of every leaf:
+``rank_shards`` cuts it from the reference's global tree (slots laid out)
+or from the port's logical leaves, as ``jax.device_put`` with the leaf's
+partition spec places it, and ``params_from_jax(..., env=)`` with a process
+mesh's env loads it; ``cache_block`` cuts a device's block out of a
+world-dim cache held once, which is what that process's cache holds
+(``cache_to_jax(block, mesh_dims)`` puts it behind its mesh dims).
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ import torch
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.model import Model
-from repro_torch.models.parallel import ONE, ShardEnv
+from repro_torch.models.parallel import ONE, ShardEnv, shard_leaf
 
 
 def flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -214,6 +222,29 @@ def from_slots(tree: Mapping[str, torch.Tensor], cfg: ModelConfig, env: ShardEnv
     return out
 
 
+def rank_shards(tree: Mapping, cfg: ModelConfig, env: ShardEnv, *, slots: bool,
+                at: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
+    """A stacked tree ({JAX leaf path: array or tensor}, nested or flat) →
+    one device's shard of each leaf (``parallel.shard_leaf``), as
+    ``jax.device_put(params, NamedSharding(mesh, partition spec))`` places
+    it: the FSDP slice and the model-axis slice of the TP dim. ``slots``:
+    the tree holds kv heads and experts in their slots (the reference's
+    storage), else logically (the port's, laid out here). ``at``: the
+    device's (index in the (pod, data) world, index on the model axis);
+    by default the env's process."""
+    from repro_torch.models import specs
+
+    if at is None:
+        at = (env.fsdp_index, env.model_index)
+    out = {}
+    for path, t in flatten(tree).items():
+        t = t if isinstance(t, torch.Tensor) else tensor_leaf(t)
+        stacked = int(path.split("/")[0] in ("blocks", "enc_blocks"))
+        pl = specs.place(specs.layer_leaf(path), cfg).shifted(stacked)
+        out[path] = shard_leaf(t, pl, env.world(), *at, slots=slots)
+    return out
+
+
 def params_from_jax(tree: Mapping, cfg: ModelConfig, *, env: ShardEnv | None = None,
                     device=None) -> Model:
     """A ``Model`` of ``cfg`` under ``env`` (a (1, 1) mesh by default)
@@ -221,11 +252,15 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, env: ShardEnv | None = N
     leaves, nested or flat with "/" keys) as ``init_params(param_specs(cfg,
     env), ...)`` lays them out: kv heads and experts in slots (read back to
     the logical leaves; their duplicate copies must be equal), the vocab
-    padded to the model axis. Stored in the config's ``param_dtype`` (fp32
-    leaves are rounded to a bf16 one). Every leaf must be used and have the
-    shape the port expects; the bf16 weight copies are made after loading."""
+    padded to the model axis. Under a process mesh's env, the process's
+    device's shard of each leaf (``rank_shards``). Stored in the config's
+    ``param_dtype`` (fp32 leaves are rounded to a bf16 one). Every leaf must
+    be used and have the shape the port expects; the bf16 weight copies are
+    made after loading."""
     env = ONE if env is None else env
-    flat = from_slots({path: tensor_leaf(a) for path, a in flatten(tree).items()}, cfg, env)
+    flat = {path: tensor_leaf(a) for path, a in flatten(tree).items()}
+    flat = (from_slots(flat, cfg, env) if env.mesh is None
+            else rank_shards(flat, cfg, env, slots=True))
     model = Model(cfg, device=device, env=env)
     values = unstack_leaves(model, flat)
     with torch.no_grad():
@@ -253,18 +288,35 @@ def opt_state_from_jax(state: Mapping, model: Model):
 def cache_to_jax(cache: Mapping, mesh_dims: int = 0, *, env: ShardEnv | None = None) -> dict:
     """The port's cache → the JAX cache pytree (the same tree), as float32
     numpy (bf16 values are exact in it), each leaf behind ``mesh_dims``
-    leading dims of 1 (the device-major layout of a (1, 1) mesh has two).
-    With ``env``: the device-major layout of the reference's serving steps
-    on that mesh, (pod,) data, model, then each device's leaf: its rows (of
-    the rows held once, ``ShardEnv.row_groups``), its kv slots (``dup_map``)
-    its tp slice of the SSM's heads and x channels and of the RG-LRU's
-    channels; MLA's latent cache is every rank's alike."""
+    leading dims of 1 (the device-major layout of a (1, 1) mesh has two; a
+    process's block of its mesh). With ``env``: the device-major layout of
+    the reference's serving steps on that mesh, (pod,) data, model, then
+    each device's leaf (``cache_block``)."""
     def leaf(t: torch.Tensor, name: str, rows_dim: int) -> np.ndarray:
-        a = t.detach().to(torch.float32).cpu().numpy()
         if env is None:
+            a = t.detach().to(torch.float32).cpu().numpy()
             return a.reshape((1,) * mesh_dims + a.shape)
-        return _device_major_leaf(a, name, rows_dim, env)
+        fsdp = (env.pod_size, env.data_size) if env.pod_axis else (env.data_size,)
+        blocks = [_block_leaf(t, name, rows_dim, env, f, m).detach().to(torch.float32).cpu()
+                  for f in range(env.fsdp_size) for m in range(env.model_size)]
+        return torch.stack(blocks).reshape(fsdp + (env.model_size,) + blocks[0].shape).numpy()
 
+    return _walk(cache, leaf)
+
+
+def cache_block(cache: Mapping, env: ShardEnv, fsdp_index: int, model_index: int) -> dict:
+    """A world-dim cache held once (``env``'s, without a process mesh) →
+    the block of device (``fsdp_index`` in the (pod, data) world,
+    ``model_index`` on the model axis), which a process of the process
+    mesh holds: its rows (of the rows held once, ``ShardEnv.row_groups``),
+    its kv slots (``dup_map``), its tp slice of the SSM's heads and x
+    channels and of the RG-LRU's channels; MLA's latent cache is every
+    rank's alike. Views where no slots are made."""
+    return _walk(cache, lambda t, name, rows_dim: _block_leaf(t, name, rows_dim, env,
+                                                              fsdp_index, model_index))
+
+
+def _walk(cache: Mapping, leaf) -> dict:
     def walk(tree: Mapping, rows_dim: int) -> dict:
         return {k: walk(v, rows_dim) if isinstance(v, Mapping) else leaf(v, k, rows_dim)
                 for k, v in tree.items()}
@@ -273,25 +325,19 @@ def cache_to_jax(cache: Mapping, mesh_dims: int = 0, *, env: ShardEnv | None = N
     return {k: walk(v, int(k == "blocks")) for k, v in cache.items()}
 
 
-def _device_major_leaf(a: np.ndarray, name: str, rows_dim: int, env: ShardEnv) -> np.ndarray:
-    rep, b_loc = env.row_groups(a.shape[rows_dim])
-    fsdp = (env.pod_size, env.data_size) if env.pod_axis else (env.data_size,)
-    a = a.reshape(a.shape[:rows_dim] + fsdp + (rep, b_loc) + a.shape[rows_dim + 1:])
-    nf = len(fsdp)
-    a = np.moveaxis(a, list(range(rows_dim, rows_dim + nf + 1)), list(range(nf + 1)))
-    tp = env.tp
-    per_device = []
-    for m in range(env.model_size):
-        t, r = divmod(m, env.rep)
-        x = a[(slice(None),) * nf + (r if rep > 1 else 0,)]
-        if name in ("k", "v"):  # the rank's kv slots
-            kv_loc = max(1, x.shape[-2] // tp)
-            x = x[..., list(env.dup_map(x.shape[-2])[m * kv_loc:(m + 1) * kv_loc]), :]
-        elif name in ("conv_x", "conv", "h"):  # the rank's channels (SSM's x, the RG-LRU's)
-            c = x.shape[-1] // tp
-            x = x[..., t * c:(t + 1) * c]
-        elif name == "ssm":  # the rank's heads
-            h = x.shape[-3] // tp
-            x = x[..., t * h:(t + 1) * h, :, :]
-        per_device.append(x)
-    return np.stack(per_device, nf)
+def _block_leaf(t: torch.Tensor, name: str, rows_dim: int, env: ShardEnv, fsdp_index: int,
+                model_index: int) -> torch.Tensor:
+    rep, b_loc = env.row_groups(t.shape[rows_dim])
+    tp_rank, r = divmod(model_index, env.rep)
+    x = t.narrow(rows_dim, (fsdp_index * rep + (r if rep > 1 else 0)) * b_loc, b_loc)
+    if name in ("k", "v"):  # the rank's kv slots
+        kv_loc = max(1, x.shape[-2] // env.tp)
+        slots = env.dup_map(x.shape[-2])[model_index * kv_loc:(model_index + 1) * kv_loc]
+        return x.index_select(x.dim() - 2, torch.tensor(slots, device=x.device))
+    if name in ("conv_x", "conv", "h"):  # the rank's channels (SSM's x, the RG-LRU's)
+        c = x.shape[-1] // env.tp
+        return x.narrow(-1, tp_rank * c, c)
+    if name == "ssm":  # the rank's heads
+        h = x.shape[-3] // env.tp
+        return x.narrow(x.dim() - 3, tp_rank * h, h)
+    return x

@@ -13,9 +13,11 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from repro_torch.mesh import counting
 from repro_torch.models.common import ModelConfig, init_tensor
-from repro_torch.models.parallel import (COMPUTE_DTYPE, ShardEnv, col_parallel, row_parallel,
-                                         serve_col_matmul)
+from repro_torch.models.parallel import (COMPUTE_DTYPE, NORM, ShardEnv, col_parallel,
+                                         fetch_weight, row_parallel, serve_col_matmul,
+                                         serve_row_matmul)
 
 
 class CastOnce(nn.Module):
@@ -32,9 +34,28 @@ class CastOnce(nn.Module):
     Parameters are made with ``requires_grad=False``, so a served model keeps
     no autograd state; a trainer turns them on (``requires_grad_()``).
     ``Model.cast_weights`` remakes the copies and must run after any change
-    to the parameters."""
+    to the parameters. ``fetch`` reads a parameter through the
+    reference's weight fetch: its working slice under a ``ShardEnv``
+    (gathered on a process mesh, where the module holds its device's
+    shard)."""
 
     compute: tuple[str, ...] = ()
+    group = ""  # the module's subtree in a JAX layer ("attn", "mlp", ...): its leaves' keys
+
+    def fetch(self, name: str, env: ShardEnv | None, *, fsdp: bool = True) -> torch.Tensor:
+        """Parameter ``name`` (its bf16 copy where it has one) under ``env``:
+        ``parallel.fetch_weight`` with the leaf's place (``specs``);
+        ``fsdp=False`` leaves the FSDP dim sharded (compute at data). On
+        world dims the leaf itself, noted as the fetch when counted."""
+        w = self.cw(name) if name in self.compute else getattr(self, name)
+        if env is None or (env.mesh is None and not counting()):
+            return w
+        places = self.__dict__.setdefault("_places", {})  # resolved once a module
+        if name not in places:
+            from repro_torch.models import specs
+
+            places[name] = specs.place(f"{self.group}/{name}" if self.group else name, self.cfg)
+        return fetch_weight(w, env, places[name], fsdp=fsdp)
 
     def param(self, shape, law: str, generator, device, scale: float = 0.02) -> nn.Parameter:
         return nn.Parameter(init_tensor(shape, law, generator, device, scale),
@@ -109,23 +130,28 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 class RMSNorm(CastOnce):
+    """RMSNorm with an fp32 scale, FSDP-sharded in storage (fetched under ``env``)."""
+
     def __init__(self, d: int, eps: float, generator, device):
         super().__init__()
         self.scale = self.param((d,), "ones", generator, device)
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return rms_norm(x, self.scale, self.eps)
+    def forward(self, x: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
+        scale = self.scale if env is None else fetch_weight(self.scale, env, NORM)
+        return rms_norm(x, scale, self.eps)
 
 
 class MLP(CastOnce):
     """Gated MLP (SwiGLU/GeGLU): ``wo(act(x·wi_gate) * x·wi_up)``, bf16."""
 
     compute = ("wi_gate", "wi_up", "wo")
+    group = "mlp"
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
         d, ff = cfg.d_model, cfg.d_ff
+        self.cfg = cfg
         self.wi_gate = self.param((d, ff), "normal", generator, device)
         self.wi_up = self.param((d, ff), "normal", generator, device)
         self.wo = self.param((ff, d), "normal", generator, device)
@@ -133,15 +159,19 @@ class MLP(CastOnce):
 
     def forward(self, x: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
         """``mlp_apply``: with ``env.compute_at_data`` over an fsdp world the
-        column products run at the weights' d-slices (``serve_col_matmul``);
-        the row product is row-parallel over the tp ranks either way."""
+        products run at the weights' d-slices (``serve_col_matmul``, then
+        ``serve_row_matmul``'s at-data form), without the weights' FSDP
+        gather; else on the fetched weights. The row product's tp partials
+        are summed either way."""
         if env is not None and env.compute_at_data and env.fsdp_size > 1:
-            g = serve_col_matmul(x, self.cw("wi_gate"), env)
-            u = serve_col_matmul(x, self.cw("wi_up"), env)
-        else:
-            g = col_parallel(x, self.cw("wi_gate"))
-            u = col_parallel(x, self.cw("wi_up"))
-        return row_parallel(act_fn(self.act)(g) * u, self.cw("wo"), env)
+            g = serve_col_matmul(x, self.fetch("wi_gate", env, fsdp=False), env)
+            u = serve_col_matmul(x, self.fetch("wi_up", env, fsdp=False), env)
+            y = serve_row_matmul(act_fn(self.act)(g) * u, self.fetch("wo", env, fsdp=False), env,
+                                 at_data=True)
+            return env.psum_tp(y) if env.tp > 1 else y[0]
+        g = col_parallel(x, self.fetch("wi_gate", env))
+        u = col_parallel(x, self.fetch("wi_up", env))
+        return row_parallel(act_fn(self.act)(g) * u, self.fetch("wo", env), env)
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, state: torch.Tensor | None = None):

@@ -31,6 +31,12 @@ prefill runs the all-to-all dispatch over the tp groups. Every block kind
 serves under tp > 1, the encoder of an enc-dec model included, and trains:
 ``train_loss`` runs one data-parallel rank's rows under its tp group
 (``ShardEnv.tp_group``), folded as serving is, with autograd recording.
+
+On a process mesh (an env whose ``mesh`` is a ``ProcessMesh``) the model is
+one device's: it holds that device's shard of every parameter (made from the
+same seeded weights as the world-dim model, whose shard it cuts), its rows
+and a cache of its kv slots and SSM heads, and serves the dense GQA + MLP,
+MoE and Mamba-2 layers through the same code at one tp rank.
 """
 from __future__ import annotations
 
@@ -40,12 +46,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.mesh import resolve_device
-from repro_torch.models.attention import TRAIN_IMPLS, GQAAttention, MLAAttention
+from repro_torch.models.attention import TRAIN_IMPLS, GQAAttention, MLAAttention, kv_held
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import MLP, CastOnce, RMSNorm, mrope_angles, rope_angles
 from repro_torch.models.moe import MoE
 from repro_torch.models.parallel import (ONE, ShardEnv, argmax_logits, embed_lookup, logits,
-                                         pad_vocab, sharded_xent)
+                                         pad_vocab, shard_leaf, sharded_xent)
 from repro_torch.models.rglru import CONV_WIDTH, RGLRU
 from repro_torch.models.ssm import SSM, ssm_dims
 
@@ -103,7 +109,7 @@ class Block(nn.Module):
                 cfg, generator, device)
             if kind == "dec":
                 self.lnx = RMSNorm(d, eps, generator, device)
-                self.cross = GQAAttention(cfg, generator, device)
+                self.cross = GQAAttention(cfg, generator, device, group="cross")
         elif kind == "ssm":
             self.ssm = SSM(cfg, generator, device)
         else:
@@ -133,7 +139,7 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
 
     if kind in ATTN_KINDS:
         impl = attention_impl(cfg, kind, ctx["impl"])
-        h = block.ln1(x)
+        h = block.ln1(x, env)
         if cfg.mla is not None:
             y, _ = block.attn(h, rope=ctx["rope"], cache=sub(cache, "attn"),
                               cache_len=ctx.get("cache_len"),
@@ -146,23 +152,35 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
                               env=env)
         x = x + y
         if kind == "dec":
-            y, _ = block.cross(block.lnx(x), cross_kv=ctx.get("enc_out"),
+            y, _ = block.cross(block.lnx(x, env), cross_kv=ctx.get("enc_out"),
                                cross_cache=sub(cache, "cross"),
                                prefill_cache=sub(prefill_cache, "cross"),
                                impl="masked" if impl == "flash" else impl, env=env)
             x = x + y
-        h = block.ln2(x)
+        h = block.ln2(x, env)
         if kind != "attn_moe":
             return x + block.mlp(h, env)
         if "aux" in ctx:
             ctx["aux"].append(block.moe.rank_aux_loss(h, env))
         return x + block.moe(h, decode=cache is not None, env=env)
     if kind == "ssm":
-        return x + block.ssm(block.ln1(x), state=sub(cache, "ssm"),
+        return x + block.ssm(block.ln1(x, env), state=sub(cache, "ssm"),
                              prefill_state=sub(prefill_cache, "ssm"), env=env)
-    x = x + block.rec(block.ln1(x), state=sub(cache, "rec"),
+    x = x + block.rec(block.ln1(x, env), state=sub(cache, "rec"),
                       prefill_state=sub(prefill_cache, "rec"), env=env)
-    return x + block.mlp(block.ln2(x), env)
+    return x + block.mlp(block.ln2(x, env), env)
+
+
+def check_procs_config(cfg: ModelConfig) -> None:
+    """Raise unless a process mesh serves ``cfg``'s layers: GQA self-attention
+    with the MLP or the MoE, and Mamba-2, on token inputs."""
+    unit, tail, _ = block_pattern(cfg)
+    kinds = set(unit) | set(tail)
+    if cfg.mla is not None or cfg.embed_input or cfg.enc_layers or not kinds <= {
+            "attn_mlp", "attn_moe", "ssm"}:
+        raise NotImplementedError(f"{cfg.name} on a process mesh waits (ROADMAP.md §1): it "
+                                  "serves GQA + MLP, MoE and Mamba-2 models so far; serve it on "
+                                  "the world-dim mesh (launch.mesh.make_mesh)")
 
 
 def check_train_impl(impl: str) -> None:
@@ -217,12 +235,16 @@ class Model(CastOnce):
     config's ``param_dtype``, as ``init_params`` rounds them;
     ``convert.params_from_jax`` loads the JAX model's instead. ``env``: the
     ``ShardEnv`` it serves under (a (1, 1) mesh by default); the vocab is
-    padded to a multiple of its model axis."""
+    padded to a multiple of its model axis. Under a process mesh's env the
+    model is built whole from ``seed`` and then keeps only its device's
+    shard of each parameter (``parallel.shard_leaf``)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
                  env: ShardEnv | None = None):
         super().__init__()
         self.env = env = ONE if env is None else env
+        if env.mesh is not None:
+            check_procs_config(cfg)
         device = resolve_device(device, "Model()")
         # on the meta device (shapes only, no memory) there are no numbers to draw
         gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
@@ -244,11 +266,25 @@ class Model(CastOnce):
                                         for _ in range(cfg.enc_layers))
         if cfg.enc_layers:
             self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, gen, device)
+        if env.mesh is not None:
+            self.keep_shard()
         dtype = getattr(torch, cfg.param_dtype)
         if dtype != torch.float32:
             for p in self.parameters():
                 p.data = p.data.to(dtype)
         self.cast_weights()
+
+    @torch.no_grad()
+    def keep_shard(self) -> None:
+        """Replace every parameter, held whole, by this process's device's
+        shard of it (the env's process mesh): the FSDP slice, the model-axis
+        slice of the TP dim, kv heads and experts in the device's slots."""
+        from repro_torch.models import specs
+
+        env = self.env
+        for name, pl in specs.leaf_places(self).items():
+            p = self.get_parameter(name)
+            p.data = shard_leaf(p.data, pl, env, env.fsdp_index, env.model_index).clone()
 
     @property
     def device(self) -> torch.device:
@@ -261,20 +297,26 @@ class Model(CastOnce):
             if isinstance(m, CastOnce):
                 CastOnce.cast_weights(m)
 
-    def head_table(self) -> torch.Tensor:
-        return self.cw("embed") if self.cfg.tie_embeddings else self.cw("head")
+    def head_table(self, env: ShardEnv | None = None) -> torch.Tensor:
+        """The output head's bf16 table under ``env``: the held vocab rows."""
+        return self.fetch("embed" if self.cfg.tie_embeddings else "head", env)
 
-    def embed_rows(self, ids: torch.Tensor) -> torch.Tensor:
+    def embed_rows(self, ids: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
         """bf16 embedding rows of ``ids``: gathered from the fp32 table and
         then cast while training (the JAX lookup's order, so the gradients
-        of a repeated id add in fp32), from the bf16 copy otherwise."""
-        training = self.embed.requires_grad and torch.is_grad_enabled()
-        return embed_lookup(ids, self.embed if training else self.embed_c)
+        of a repeated id add in fp32), from the bf16 copy otherwise, under
+        ``env`` (the sharded lookup)."""
+        if self.embed.requires_grad and torch.is_grad_enabled():
+            return embed_lookup(ids, self.embed)
+        return embed_lookup(ids, self.fetch("embed", env), env)
 
     def init_cache(self, batch: int, seq_max: int, enc_len: int | None = None) -> dict:
         """An empty cache for ``batch`` sequences of up to ``seq_max``
-        positions (``enc_len``: the encoder's input length, enc-dec only)."""
+        positions (``enc_len``: the encoder's input length, enc-dec only):
+        every kv head and SSM head folded, the device's kv slots and SSM
+        heads on a process mesh."""
         cfg = self.cfg
+        kv = kv_held(cfg, self.env)
         if cfg.enc_layers and enc_len is None:
             raise ValueError(f"{cfg.name} is enc-dec: init_cache needs enc_len")
         dt = getattr(torch, cfg.compute_dtype)
@@ -286,7 +328,7 @@ class Model(CastOnce):
         def block_cache(kind: str, lead: tuple) -> dict:
             if kind == "ssm":
                 s = cfg.ssm
-                d_in, heads = ssm_dims(cfg)
+                d_in, heads = ssm_dims(cfg, self.env)
                 return {"ssm": {"conv_x": zeros(lead, s.conv_width - 1, d_in),
                                 "conv_bc": zeros(lead, s.conv_width - 1,
                                                  2 * s.n_groups * s.d_state),
@@ -301,8 +343,8 @@ class Model(CastOnce):
                                 "k_rope": zeros(lead, seq_max, m.qk_rope_head_dim)}}
             else:
                 slots = min(seq_max, cfg.window) if kind == "attn_local" else seq_max
-                out = {"attn": {"k": zeros(lead, slots, cfg.n_kv_heads, cfg.hd),
-                                "v": zeros(lead, slots, cfg.n_kv_heads, cfg.hd)}}
+                out = {"attn": {"k": zeros(lead, slots, kv, cfg.hd),
+                                "v": zeros(lead, slots, kv, cfg.hd)}}
             if kind == "dec":
                 out["cross"] = {"k": zeros(lead, enc_len, cfg.n_kv_heads, cfg.hd),
                                 "v": zeros(lead, enc_len, cfg.n_kv_heads, cfg.hd)}
@@ -404,15 +446,16 @@ class Model(CastOnce):
         cfg = self.cfg
         if isinstance(batch, torch.Tensor):
             batch = {"tokens": batch}
+        env = env or self.env
         if cfg.embed_input and not cfg.enc_layers:
             x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
         else:  # enc-dec: the decoder reads tokens
-            x = self.embed_rows(batch["tokens"])
+            x = self.embed_rows(batch["tokens"], env)
         b, s = x.shape[:2]
         pos = batch.get("positions")
         if pos is None:
             pos = torch.arange(s, device=x.device)[None].expand(b, s)
-        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl, "env": env or self.env}
+        ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": impl, "env": env}
         enc_len = None
         if cfg.enc_layers:
             ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl,
@@ -421,7 +464,7 @@ class Model(CastOnce):
         if cache is None:
             cache = self.init_cache(b, s, enc_len=enc_len)
         x = self.backbone(x, ctx, prefill_cache=cache)
-        return cache, self.final_norm(x[:, -1])
+        return cache, self.final_norm(x[:, -1], env)
 
     def decode_hidden(self, cache: dict, tokens: torch.Tensor, cache_len: int,
                       env: ShardEnv | None = None) -> torch.Tensor:
@@ -429,19 +472,24 @@ class Model(CastOnce):
         into the cache in place, under ``env`` (the model's by default).
         Returns the final-normed hidden state (b, d)."""
         cfg = self.cfg
-        x = self.embed_rows(tokens[:, None])  # (b, 1, d)
+        env = env or self.env
+        x = self.embed_rows(tokens[:, None], env)  # (b, 1, d)
         shape = (x.shape[0], 1, 3) if cfg.mrope_sections is not None else (x.shape[0], 1)
         pos = torch.full(shape, cache_len, device=x.device)
         ctx = {"rope": rope_for(cfg, pos, rope_dim(cfg)), "impl": "masked",
-               "cache_len": cache_len, "env": env or self.env}
-        return self.final_norm(self.backbone(x, ctx, caches=cache)[:, 0])
+               "cache_len": cache_len, "env": env}
+        return self.final_norm(self.backbone(x, ctx, caches=cache)[:, 0], env)
 
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """fp32 logits over the padded vocab, padding at -inf."""
-        return logits(h, self.head_table(), self.cfg.vocab)
+    def logits(self, h: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
+        """fp32 logits over the padded vocab, padding at -inf (on a process
+        mesh, over the rank's vocab shard; ``env``: the model's by default)."""
+        env = env or self.env
+        return logits(h, self.head_table(env), self.cfg.vocab, env)
 
-    def greedy(self, h: torch.Tensor) -> torch.Tensor:
-        return argmax_logits(h, self.head_table(), self.cfg.vocab)
+    def greedy(self, h: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
+        """The greedy next token (b,) int32 under ``env`` (the model's by default)."""
+        env = env or self.env
+        return argmax_logits(h, self.head_table(env), self.cfg.vocab, env)
 
 
 def prefill(model: Model, batch, *, impl: str = "masked", cache: dict | None = None,
@@ -449,11 +497,11 @@ def prefill(model: Model, batch, *, impl: str = "masked", cache: dict | None = N
     """Fill caches from a prompt batch (see ``Model.prefill_hidden``).
     Returns (cache, next tokens (b,) int32)."""
     cache, h = model.prefill_hidden(batch, impl=impl, cache=cache, env=env)
-    return cache, model.greedy(h)
+    return cache, model.greedy(h, env)
 
 
 def decode_step(model: Model, cache: dict, tokens: torch.Tensor, cache_len: int,
                 env: ShardEnv | None = None) -> tuple[torch.Tensor, dict]:
     """One-token decode: tokens (b,) at position ``cache_len``, written into
     the cache in place. Returns (next tokens (b,) int32, cache)."""
-    return model.greedy(model.decode_hidden(cache, tokens, int(cache_len), env)), cache
+    return model.greedy(model.decode_hidden(cache, tokens, int(cache_len), env), env), cache

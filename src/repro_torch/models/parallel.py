@@ -21,6 +21,25 @@ sums the bf16 partials of the fsdp d-slices. The logits of the tp vocab
 shards are held side by side, so ``argmax_logits``'s first maximum is the
 reference's pmax/pmin tie-break toward the smallest id.
 
+On a ``ProcessMesh`` (``ShardEnv.mesh``: one process per device) the same
+code runs at one tp rank: the process holds its device's shard of every
+parameter (``convert.rank_shards``), its rows and its cache, ``held_tp`` is
+1, and every collective of the reference's serving step is a process-group
+call. ``fetch_weight`` all-gathers the stored shard, the FSDP dim over
+(pod, data) and then the TP dim over the rep groups (the bf16 copies:
+the same values as the reference's fp32 gather, half the bytes);
+``psum_tp`` sums the partials in fp32 over the tp group and rounds to
+bf16 once, as the folded sum does; the compute-at-data products move
+activations with ``all_to_all``/``all_gather``/``psum_scatter``; the
+embedding psums the vocab shards; the greedy token is the local argmax with
+``pmax``/``pmin``. On the world-dim mesh each of those is noted for
+``mesh.count_collectives`` with every device's bytes, so the counts of the
+two forms agree (where every device's rows are its own: the batch splits
+over the rep groups, or rep is 1). Both count the operands' bytes, as the
+reference moves them: the fp32 that the process form's ``psum_tp`` and
+compute-at-data reduce-scatter put on the wire for bf16 partials is a
+wider wire for the same collective.
+
 Training runs the same folded forward under autograd, one data-parallel
 rank (pod × data × rep) at a time, and the backward gives the logical
 gradient of the rank's loss. What the reference's weight fetch does in its
@@ -35,12 +54,13 @@ model axis).
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import collectives as coll
 from repro_torch.core.scenarios import Scenario
-from repro_torch.mesh import Mesh, note_collective
+from repro_torch.mesh import Mesh, counting, note_collective, uncounted
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -60,6 +80,8 @@ class ShardEnv:
     # serving: route the decode activations to the weights' fsdp shards
     # (serve_col_matmul) instead of gathering the weights
     compute_at_data: bool = False
+    # a ProcessMesh: this process is one device of it, at held_tp = 1
+    mesh: Mesh | None = None
 
     def __post_init__(self):
         if self.model_size % self.tp:
@@ -122,6 +144,43 @@ class ShardEnv:
                 out.append(t // (self.tp // n_logical))
         return tuple(out)
 
+    @property
+    def held_tp(self) -> int:
+        """The tp ranks this process computes: all of them folded, 1 on a
+        process mesh."""
+        return self.tp if self.mesh is None else 1
+
+    def tp_offset(self, per: int) -> int:
+        """The first index of this process's ``per`` entries along a dim
+        that the tp ranks split (heads, the vocab): 0 folded, where the dim
+        is held whole."""
+        return 0 if self.mesh is None else self.tp_index * per
+
+    def _coord(self, axis: str) -> int:
+        if self.mesh is None:
+            raise ValueError("a device's index needs the env's process mesh")
+        return self.mesh.coords[self.mesh.dim(axis)]
+
+    @property
+    def model_index(self) -> int:
+        """This process's index on the model axis (process mesh only)."""
+        return self._coord(self.model_axis)
+
+    @property
+    def tp_index(self) -> int:
+        """This process's tp rank (process mesh only)."""
+        return self.model_index // self.rep
+
+    @property
+    def fsdp_index(self) -> int:
+        """This process's rank in the (pod, data) world (process mesh only)."""
+        pod = self._coord(self.pod_axis) if self.pod_axis else 0
+        return pod * self.data_size + self._coord(self.data_axis)
+
+    def world(self) -> "ShardEnv":
+        """The same env without its process mesh: the world-dim form."""
+        return dataclasses.replace(self, mesh=None)
+
     def tp_rank(self, mesh: Mesh) -> torch.Tensor:
         """Every device's tp rank: an index tensor of the mesh's shape."""
         return mesh.axis_index(self.model_axis) // self.rep
@@ -131,12 +190,31 @@ class ShardEnv:
 
     def psum_tp(self, parts: torch.Tensor) -> torch.Tensor:
         """The sum over the TP domain of the tp ranks' partials, which lie
-        along dim 0: the row-parallel combine, held once for the group. It
-        counts as the reference's all-reduce, every tp rank's output
-        (``mesh.count_collectives``)."""
-        out = parts.sum(0)
-        note_collective("all-reduce", out.numel() * out.element_size() * parts.shape[0])
-        return out
+        along dim 0 (``held_tp`` of them), summed in fp32 and rounded once
+        to their dtype: the row-parallel combine, held once for the group.
+        On a process mesh, the all-reduce of the fp32 partial over the tp
+        group (gloo's bf16 sums are not relied on). Either form counts the
+        reference's all-reduce of the partials' dtype, every tp rank's
+        output (``mesh.count_collectives``)."""
+        if self.mesh is None:
+            out = parts[0] if parts.shape[0] == 1 else parts.sum(0)
+            note_collective("all-reduce", out.numel() * parts.element_size() * self.tp)
+            return out
+        wide = parts.to(torch.float32).sum(0)
+        with uncounted():
+            out = self.mesh.psum(self._lead(wide), self.model_axis, self.tp_groups)
+        note_collective("all-reduce", wide.numel() * parts.element_size())
+        return out.reshape(wide.shape).to(parts.dtype)
+
+    def _lead(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` behind the process mesh's block (a dim of 1 per axis)."""
+        return x.reshape(self.mesh.block + tuple(x.shape))
+
+    def _note(self, kind: str, nbytes: float) -> None:
+        """Note a collective on the world-dim mesh (the process mesh's own
+        calls note themselves)."""
+        if self.mesh is None:
+            note_collective(kind, int(nbytes))
 
     def batch_split_rep(self, global_batch: int) -> bool:
         """Does the batch additionally split across rep groups?"""
@@ -172,6 +250,60 @@ class ShardEnv:
 ONE = ShardEnv(1, 1)
 
 
+class LeafPlace(NamedTuple):
+    """A port parameter's ``LeafSpec`` facts (dims within one layer)."""
+
+    fsdp_dim: int | None
+    tp_dim: int | None
+    dup_of: int  # logical kv heads or experts in slots; 0 for a plain leaf
+
+    def tp_chunks(self, env) -> int:
+        """Along how many distinct device shards the TP dim is cut: the
+        model axis for a plain TP leaf, the logical entities over their
+        per-rank slots for kv heads and experts (their copies are equal),
+        1 for a leaf without a TP dim."""
+        if self.tp_dim is None:
+            return 1
+        if self.dup_of:
+            return self.dup_of // max(1, self.dup_of // env.tp)
+        return env.model_size
+
+    def rep_gathered(self, env) -> bool:
+        """Does the fetch gather the TP dim over the rep groups (a plain TP
+        leaf; kv/expert slots are each rank's working set)?"""
+        return self.tp_dim is not None and not self.dup_of and env.rep > 1
+
+    def shifted(self, k: int) -> "LeafPlace":
+        """The place of the leaf behind ``k`` more leading dims (stacked layers)."""
+        return LeafPlace(*(None if d is None else d + k for d in self[:2]), self.dup_of)
+
+
+def shard_leaf(t: torch.Tensor, place: LeafPlace, env: ShardEnv, fsdp_index: int,
+               model_index: int, *, slots: bool = False) -> torch.Tensor:
+    """Device (``fsdp_index`` in the (pod, data) world, ``model_index`` on
+    the model axis)'s shard of a leaf, as ``jax.device_put`` with its
+    partition spec lays it out: the TP dim cut into ``model_size`` chunks
+    and the FSDP dim into ``fsdp_size``. ``t``: the logical leaf, whose kv
+    heads or experts are first laid out in their slots (``dup_map``), or
+    with ``slots`` the stored one. A view of ``t`` where no slots are made."""
+    cuts = []
+    if place.tp_dim is not None:
+        if place.dup_of and not slots:
+            dm = torch.tensor(env.dup_map(place.dup_of), device=t.device)
+            t = t.index_select(place.tp_dim, dm)
+        cuts.append((place.tp_dim, env.model_size, model_index))
+    if place.fsdp_dim is not None:
+        cuts.append((place.fsdp_dim, env.fsdp_size, fsdp_index))
+    for dim, n, i in cuts:
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does not split over {n}")
+        t = t.narrow(dim, i * (t.shape[dim] // n), t.shape[dim] // n)
+    return t
+
+
+NORM = LeafPlace(0, None, 0)  # a norm's scale: FSDP-sharded, no TP dim
+
+
 def tp_groups(tp: int, rep: int) -> list[list[int]] | None:
     """The TP domains of a model axis of tp · rep indices (None: the whole axis)."""
     if rep == 1:
@@ -179,16 +311,47 @@ def tp_groups(tp: int, rep: int) -> list[list[int]] | None:
     return [[t * rep + r for t in range(tp)] for r in range(rep)]
 
 
-def fetch_weight(w: torch.Tensor, env: ShardEnv, *, tp_dim: int) -> torch.Tensor:
-    """A weight held whole → the tp ranks' working slices stacked on a new
-    dim 0, a view: ``fetch_weight``'s forward, whose FSDP gather and
-    rep-group gather give rank t the contiguous slice t of ``tp_dim``. (A
-    slot layout's working set is its logical kv heads or experts, which the
-    port holds: ``convert`` reads them out of the slots.) Under autograd the
-    view's backward puts each rank's slice of the gradient in its place; the
-    reduce-scatters of the fetch's backward run after the backward
-    (``aggregate_leaf``)."""
-    return w.unflatten(tp_dim, (env.tp, -1)).movedim(tp_dim, 0)
+def fetch_weight(w: torch.Tensor, env: ShardEnv, place: LeafPlace, *,
+                 fsdp: bool = True) -> torch.Tensor:
+    """``fetch_weight``'s forward: the storage shard → the working slice.
+    On a process mesh ``w`` is this device's shard; it is all-gathered
+    along its FSDP dim over (pod, data) (``fsdp``: unless the caller
+    computes at the data), then along its TP dim over the rep group (a
+    plain TP leaf; kv heads and experts are stored in the rank's slots).
+    On the world-dim mesh ``w`` is the logical leaf, held whole, and comes
+    back as it is: every tp rank's working slice side by side. The gathers
+    that the process form runs are noted, every device's output."""
+    if env.mesh is None:
+        if counting():
+            _note_fetch(w, env, place, fsdp)
+        return w
+    if fsdp and place.fsdp_dim is not None and env.fsdp_size > 1:
+        w = _gather(env, w, env.fsdp_axes, place.fsdp_dim)
+    if place.rep_gathered(env):
+        w = _gather(env, w, env.model_axis, place.tp_dim, env.rep_groups)
+    return w
+
+
+def _gather(env: ShardEnv, w: torch.Tensor, axes, dim: int, groups=None) -> torch.Tensor:
+    """``lax.all_gather(w, axes, axis=dim, tiled=True)`` on the process mesh."""
+    y = env.mesh.all_gather(env._lead(w), axes, axis_index_groups=groups)
+    y = y.reshape(y.shape[env.mesh.ndim:])  # (members, *w.shape)
+    return y.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _note_fetch(w: torch.Tensor, env: ShardEnv, place: LeafPlace, fsdp: bool) -> None:
+    """The world-dim count of a fetch: each device gathers its FSDP dim
+    (its model-axis shard, whole), then its rep group's TP slices."""
+    devices = env.fsdp_size * env.model_size
+    nbytes = w.numel() * w.element_size()
+    if place.tp_dim is not None:
+        per = max(1, place.dup_of // env.tp) if place.dup_of else 1
+        nbytes = nbytes * per // place.dup_of if place.dup_of else nbytes // env.tp
+    rep = place.rep_gathered(env)
+    if fsdp and place.fsdp_dim is not None and env.fsdp_size > 1:
+        note_collective("all-gather", devices * nbytes // (env.rep if rep else 1))
+    if rep:
+        note_collective("all-gather", devices * nbytes)
 
 
 def col_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -197,20 +360,40 @@ def col_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
 
 
-def serve_row_matmul(h: torch.Tensor, w: torch.Tensor, env: ShardEnv) -> torch.Tensor:
-    """h (..., F) @ w (F, d) with F split over the tp ranks: each rank's
-    bf16 product over its F/tp, stacked on dim 0 (tp, ..., d), what each
-    rank holds before the caller's ``psum_tp``. In the reference's serving
-    form the fsdp all-gather of the rows and the all-to-all back only move
-    whole rows and columns, so folded it is the same product."""
-    wt = fetch_weight(w.to(COMPUTE_DTYPE), env, tp_dim=0)  # (tp, F/tp, d)
-    ht = h.to(COMPUTE_DTYPE).unflatten(-1, (env.tp, -1)).movedim(-2, 0)  # (tp, ..., F/tp)
+def serve_row_matmul(h: torch.Tensor, w: torch.Tensor, env: ShardEnv, *,
+                     at_data: bool = False) -> torch.Tensor:
+    """h (..., F) @ w (F, d) with F split over the tp ranks: each held rank's
+    bf16 product over its F/tp, stacked on dim 0 (held_tp, ..., d), what it
+    holds before the caller's ``psum_tp``. ``w``: the fetched working slice,
+    or with ``at_data`` (the compute-at-data route over an fsdp world) the
+    slice fetched without its FSDP gather, each rank's d/fsdp columns: then
+    the rows are all-gathered over (pod, data), multiplied by those columns
+    and sent back by an all-to-all (the reference's serving form). Folded,
+    those collectives only move whole rows and columns, so it is the same
+    product."""
+    n = env.held_tp
+    h, w = h.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
+    if at_data and env.fsdp_size > 1 and env.mesh is not None:
+        lead, axes = h.shape[:-1], env.fsdp_axes
+        hg = env.mesh.all_gather(env._lead(h.reshape(-1, h.shape[-1])), axes, tiled=True)
+        part = torch.matmul(hg.reshape(hg.shape[env.mesh.ndim:]), w)  # (fsdp·rows, d/fsdp)
+        y = env.mesh.all_to_all(env._lead(part), axes, 0, 1, tiled=True)
+        return y.reshape((1,) + lead + (-1,))
+    if at_data and env.fsdp_size > 1:  # every device's gathered rows and its a2a's output
+        rows = h.numel() // h.shape[-1] * env.tp
+        env._note("all-gather", rows * env.fsdp_size * h.shape[-1] // env.tp * 2)
+        env._note("all-to-all", rows * w.shape[-1] * 2)
+    if n == 1:
+        return torch.matmul(h, w)[None]
+    wt = w.unflatten(0, (n, -1))  # (held, F/tp, d)
+    ht = h.unflatten(-1, (n, -1)).movedim(-2, 0)  # (held, ..., F/tp)
     return torch.matmul(ht.flatten(1, -2), wt).unflatten(1, ht.shape[1:-1])
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
-    """x (..., f) @ w (f, d) in bf16 with the input dim TP-sharded: at tp = 1
-    one product; above, the tp ranks' bf16 partials summed by ``psum_tp``."""
+    """x (..., f) @ w (f, d) in bf16 with the input dim TP-sharded (``w``
+    fetched): at tp = 1 one product; above, the tp ranks' bf16 partials
+    summed by ``psum_tp``."""
     if env is None or env.tp == 1:
         return col_parallel(x, w)
     return env.psum_tp(serve_row_matmul(x, w, env))
@@ -219,14 +402,28 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, env: ShardEnv | None = None) 
 def serve_col_matmul(x: torch.Tensor, w: torch.Tensor, env: ShardEnv) -> torch.Tensor:
     """x (..., d) @ w (d, F), compute at data: each fsdp rank contracts the
     rows sent to it over its d-slice of d/fsdp (its resident weight shard)
-    into a bf16 partial, and the reduce-scatter sums the fsdp partials:
-    folded, a batched product over the d-slices and a bf16 sum."""
+    into a bf16 partial, and the reduce-scatter sums the fsdp partials in
+    fp32, rounded to bf16 once (counted as the reference's reduce-scatter
+    of the bf16 partials). On a process mesh ``w`` is this rank's
+    (d/fsdp, F/tp) (fetched without the FSDP gather), the activations go by
+    an all-to-all and the sums by a reduce-scatter; folded, a batched
+    product over the d-slices and their sum, with ``w`` whole."""
     x, w = x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
     n = env.fsdp_size
     if n == 1:
         return torch.matmul(x, w)
+    if env.mesh is not None:
+        lead, axes, nd = x.shape[:-1], env.fsdp_axes, env.mesh.ndim
+        xs = env.mesh.all_to_all(env._lead(x.reshape(-1, x.shape[-1])), axes, 1, 0, tiled=True)
+        part = torch.matmul(xs.reshape(xs.shape[nd:]), w)  # (fsdp·rows, F/tp)
+        with uncounted():
+            y = env.mesh.psum_scatter(env._lead(part.to(torch.float32)), axes, 0, tiled=True)
+        note_collective("reduce-scatter", y.numel() * part.element_size())
+        return y.reshape(lead + (-1,)).to(COMPUTE_DTYPE)
     xs = x.unflatten(-1, (n, -1)).movedim(-2, 0)  # (fsdp, ..., d/fsdp)
     parts = torch.matmul(xs.flatten(1, -2), w.unflatten(0, (n, -1)))  # (fsdp, rows, F)
+    env._note("all-to-all", x.numel() * 2 * env.tp)
+    env._note("reduce-scatter", parts[0].numel() * parts.element_size())
     return parts.sum(0).unflatten(0, xs.shape[1:-1])
 
 
@@ -234,33 +431,66 @@ def pad_vocab(vocab: int, model_size: int = 1) -> int:
     return ((vocab + model_size - 1) // model_size) * model_size
 
 
-def embed_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """ids (...) int → (..., d) bf16 rows of ``table`` (V_pad, d); ids
-    outside ``[0, V_pad)`` give zero rows, as the sharded lookup does. Over
-    tp ranks each id's row comes from the one shard that holds it and the
-    others add zeros, so the lookup held once is the same."""
+def embed_lookup(ids: torch.Tensor, table: torch.Tensor, env: ShardEnv | None = None
+                 ) -> torch.Tensor:
+    """ids (...) int → (..., d) bf16 rows of ``table`` (the fetched
+    (V_pad/held_tp, d)); ids outside the padded vocab give zero rows, as the
+    sharded lookup does. Over tp ranks each id's row comes from the one shard
+    that holds it and the others add zeros (``psum_tp``), so the lookup held
+    once is the same. On a process mesh ``table`` is this rank's vocab shard."""
     per = table.shape[0]
-    ok = (ids >= 0) & (ids < per)
-    emb = table[ids.clamp(0, per - 1).long()]
-    return torch.where(ok[..., None], emb, torch.zeros((), dtype=emb.dtype,
-                                                       device=emb.device)).to(COMPUTE_DTYPE)
+    start = 0 if env is None else env.tp_offset(per)
+    loc = ids - start
+    ok = (loc >= 0) & (loc < per)
+    emb = table[loc.clamp(0, per - 1).long()]
+    emb = torch.where(ok[..., None], emb, torch.zeros((), dtype=emb.dtype,
+                                                      device=emb.device)).to(COMPUTE_DTYPE)
+    if env is not None and env.mesh is not None:
+        return env.psum_tp(emb[None])
+    if env is not None and env.tp > 1:
+        env._note("all-reduce", emb.numel() * emb.element_size() * env.tp)
+    return emb
 
 
-def logits(x: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Tensor:
+def _local_logits(x: torch.Tensor, table: torch.Tensor, vocab: int, env: ShardEnv | None
+                  ) -> tuple[torch.Tensor, int]:
+    """(fp32 logits of the held vocab columns, padding at -inf; the id of
+    their first column)."""
+    out = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).to(torch.float32)
+    start = 0 if env is None else env.tp_offset(out.shape[-1])
+    if start + out.shape[-1] > vocab:
+        out[..., max(0, vocab - start):] = float("-inf")
+    return out, start
+
+
+def logits(x: torch.Tensor, table: torch.Tensor, vocab: int, env: ShardEnv | None = None
+           ) -> torch.Tensor:
     """x (..., d) → fp32 logits (..., V_pad) from a bf16 product with the
     tied table, vocab padding columns set to -inf: the tp ranks'
-    ``sharded_logits`` side by side, masked as ``argmax_logits`` masks them."""
-    out = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).to(torch.float32)
-    if out.shape[-1] > vocab:
-        out[..., vocab:] = float("-inf")
-    return out
+    ``sharded_logits`` side by side, masked as ``argmax_logits`` masks them.
+    On a process mesh, this rank's vocab shard (..., V_pad/tp)."""
+    return _local_logits(x, table, vocab, env)[0]
 
 
-def argmax_logits(x: torch.Tensor, table: torch.Tensor, vocab: int) -> torch.Tensor:
-    """Greedy next token (...,) int32 over the vocab. The logits are held
-    whole, and ``torch.argmax`` returns the first maximum: the smallest-id
-    tie-break of the reference's pmax/pmin over the tp vocab shards."""
-    return torch.argmax(logits(x, table, vocab), dim=-1).to(torch.int32)
+def argmax_logits(x: torch.Tensor, table: torch.Tensor, vocab: int,
+                  env: ShardEnv | None = None) -> torch.Tensor:
+    """Greedy next token (...,) int32 over the vocab. Folded, the logits are
+    held whole, and ``torch.argmax`` returns the first maximum: the
+    smallest-id tie-break of the reference's pmax/pmin over the tp vocab
+    shards (noted as those two all-reduces). On a process mesh, the
+    reference's form: the local maximum and its id, ``pmax`` over the tp
+    group, and ``pmin`` of the ids of the shards that hold it."""
+    lg, start = _local_logits(x, table, vocab, env)
+    if env is None or env.mesh is None:
+        if env is not None and env.tp > 1:
+            env._note("all-reduce", lg[..., 0].numel() * 8 * env.tp)
+        return torch.argmax(lg, dim=-1).to(torch.int32)
+    m, groups = env.mesh, env.tp_groups
+    loc_max, loc_arg = torch.max(lg, dim=-1)
+    gmax = m.pmax(env._lead(loc_max), env.model_axis, groups).reshape(loc_max.shape)
+    cand = torch.where(loc_max >= gmax, loc_arg.to(torch.int32) + start,
+                       torch.iinfo(torch.int32).max)
+    return m.pmin(env._lead(cand), env.model_axis, groups).reshape(cand.shape)
 
 
 def sharded_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,

@@ -21,10 +21,9 @@ logical leaves; ``convert`` lays them out in slots and back.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 from repro_torch.models.convert import leaf_paths
 from repro_torch.models.model import Model
+from repro_torch.models.parallel import LeafPlace
 
 _GQA = {"wq": 0, "wk": 0, "wv": 0, "wo": 1, "bq": None, "bk": None, "bv": None}
 _MLA = {"wq_a": 0, "q_norm": None, "wq_b": 0, "wkv_a": 0, "kv_norm": None, "wkv_b": 0, "wo": 1}
@@ -88,29 +87,14 @@ def layer_leaf(path: str) -> str:
     return path
 
 
-class LeafPlace(NamedTuple):
-    """A port parameter's ``LeafSpec`` facts (dims within one layer)."""
-
-    fsdp_dim: int | None
-    tp_dim: int | None
-    dup_of: int  # logical kv heads or experts in slots; 0 for a plain leaf
-
-    def tp_chunks(self, env) -> int:
-        """Along how many distinct device shards the TP dim is cut: the
-        model axis for a plain TP leaf, the logical entities over their
-        per-rank slots for kv heads and experts (their copies are equal),
-        1 for a leaf without a TP dim."""
-        if self.tp_dim is None:
-            return 1
-        if self.dup_of:
-            return self.dup_of // max(1, self.dup_of // env.tp)
-        return env.model_size
+def place(key: str, cfg) -> LeafPlace:
+    """The ``LeafPlace`` of a leaf key (``FSDP_DIM``'s keys) under ``cfg``."""
+    return LeafPlace(FSDP_DIM[key], TP_DIM[key], dup_of(key, cfg))
 
 
 def leaf_places(model: Model) -> dict[str, LeafPlace]:
     """{port parameter name: its ``LeafPlace``}, in parameter order."""
     out = {}
     for name, (path, _) in leaf_paths(model).items():
-        key = layer_leaf(path)
-        out[name] = LeafPlace(FSDP_DIM[key], TP_DIM[key], dup_of(key, model.cfg))
+        out[name] = place(layer_leaf(path), model.cfg)
     return out

@@ -14,7 +14,9 @@ channels of z, x and the conv); B/C are per group and every rank computes
 them whole. The ranks' heads run as one, except two steps that see the
 rank: the gated RMSNorm normalises over the rank's d_in/tp features (so at
 tp > 1 the function differs from tp = 1's), and the down projection is
-row-parallel, its tp partials summed in bf16.
+row-parallel, its tp partials summed in bf16. On a process mesh a process
+runs its rank's heads from its fetched slices and holds their conv and SSD
+state; the heads and channels are read off the fetched weights.
 """
 from __future__ import annotations
 
@@ -27,10 +29,11 @@ from repro_torch.models.layers import CastOnce, causal_conv1d, rms_norm
 from repro_torch.models.parallel import ShardEnv, row_parallel
 
 
-def ssm_dims(cfg: ModelConfig) -> tuple[int, int]:
-    """(d_inner, heads) on one card."""
+def ssm_dims(cfg: ModelConfig, env: ShardEnv | None = None) -> tuple[int, int]:
+    """(d_inner, heads) held: all of them folded, the rank's on a process mesh."""
     d_in = cfg.d_model * cfg.ssm.expand
-    return d_in, d_in // cfg.ssm.head_dim
+    shards = 1 if env is None else env.tp // env.held_tp
+    return d_in // shards, d_in // cfg.ssm.head_dim // shards
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int):
@@ -79,6 +82,7 @@ class SSM(CastOnce):
     out_norm (d_in,), w_out (d_in, d)."""
 
     compute = ("w_z", "w_x", "w_bc", "w_dt", "w_out")
+    group = "ssm"
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
@@ -105,24 +109,30 @@ class SSM(CastOnce):
         one decode step (s = 1) from the state, which is then overwritten in
         place. ``prefill_state``: a state of that form that takes the
         prompt's final conv inputs and SSM state in place. ``env``: the tp
-        ranks (states held once, all heads)."""
+        ranks (folded: the states held once, all heads; on a process mesh
+        the rank's heads)."""
         cfg = self.cfg
         sc = cfg.ssm
         b, s, _ = x.shape
-        d_in, heads = ssm_dims(cfg)
         N, G, hd = sc.d_state, sc.n_groups, sc.head_dim
         if state is not None and s != 1:
             raise ValueError(f"an SSM decode step takes one position, got {s}")
         st = state or {}
-        z = x @ self.cw("w_z")
-        xin, conv_x = causal_conv1d(x @ self.cw("w_x"), self.conv_x, st.get("conv_x"))
-        bc, conv_bc = causal_conv1d(x @ self.cw("w_bc"), self.conv_bc, st.get("conv_bc"))
-        A = -torch.exp(self.A_log.to(torch.float32))
-        dt = torch.clamp(F.softplus((x @ self.cw("w_dt")).to(torch.float32)
-                                    + self.dt_bias.to(torch.float32)),
+        z = x @ self.fetch("w_z", env)
+        xin, conv_x = causal_conv1d(x @ self.fetch("w_x", env), self.fetch("conv_x", env),
+                                    st.get("conv_x"))
+        bc, conv_bc = causal_conv1d(x @ self.fetch("w_bc", env), self.fetch("conv_bc", env),
+                                    st.get("conv_bc"))
+        A = -torch.exp(self.fetch("A_log", env).to(torch.float32))
+        dt = torch.clamp(F.softplus((x @ self.fetch("w_dt", env)).to(torch.float32)
+                                    + self.fetch("dt_bias", env).to(torch.float32)),
                          sc.dt_min, sc.dt_max * 100)
+        heads = dt.shape[-1]  # the heads held: all folded, the rank's on a process mesh
+        d_in = heads * hd
+        first = 0 if env is None else env.tp_offset(heads)
         xh = xin.view(b, s, heads, hd)
-        gidx = (torch.arange(heads, device=x.device) * G) // heads  # head → group
+        # head → group, by the head's global index
+        gidx = ((first + torch.arange(heads, device=x.device)) * G) // ssm_dims(cfg)[1]
         Bh = bc[..., :G * N].view(b, s, G, N)[:, :, gidx]
         Ch = bc[..., G * N:].view(b, s, G, N)[:, :, gidx]
 
@@ -141,13 +151,14 @@ class SSM(CastOnce):
             out_state["conv_bc"].copy_(conv_bc)
             out_state["ssm"].copy_(new)
 
-        y = y + xh.to(torch.float32) * self.D[None, None, :, None]
+        y = y + xh.to(torch.float32) * self.fetch("D", env)[None, None, :, None]
         y = y.reshape(b, s, d_in).to(x.dtype)
         z = z.to(torch.float32)
         y = y * (z * torch.sigmoid(z)).to(y.dtype)
-        tp = 1 if env is None else env.tp
-        if tp == 1:
-            return rms_norm(y, self.out_norm, cfg.norm_eps) @ self.cw("w_out")
+        norm, w_out = self.fetch("out_norm", env), self.fetch("w_out", env)
+        if env is None or env.tp == 1:
+            return rms_norm(y, norm, cfg.norm_eps) @ w_out
         # each rank's gated norm over its own d_in/tp features
-        y = rms_norm(y.unflatten(-1, (tp, -1)), self.out_norm.view(tp, -1), cfg.norm_eps)
-        return row_parallel(y.flatten(-2), self.cw("w_out"), env)
+        n = env.held_tp
+        y = rms_norm(y.unflatten(-1, (n, -1)), norm.view(n, -1), cfg.norm_eps)
+        return row_parallel(y.flatten(-2), w_out, env)

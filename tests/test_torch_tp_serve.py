@@ -562,8 +562,8 @@ def replay_prefill_routes(model, jax_out, tag, env) -> None:
         g = rows_order(gates[:, :, i]).to(torch.bfloat16)
         e = rows_order(experts[:, :, i]).long()
 
-        def route(x, own=own, g=g, e=e):
-            return (g, e) if x.shape[0] == e.shape[0] else own(x)
+        def route(x, router=None, own=own, g=g, e=e):
+            return (g, e) if x.shape[0] == e.shape[0] else own(x, router=router)
 
         block.moe.route = route
 
