@@ -230,6 +230,28 @@
    world-dim run's; the kernels line gets
    ``flash_attention`` and the a2a combine's ``segment_reduce`` at a rank's
    shapes (rank 0's first layer), timed alone on the card.
+13. Trains the LM on a process mesh: one gloo rank per device on the one
+   card, each holding only its device's shard of the parameters and of the
+   fp32 moments (``launch.steps.ProcessTrainStep``; ``PROCS_TRAIN``, at
+   full width and ``PROCS_TRAIN_LAYERS``'s depth): qwen1.5 at (4, 2) under
+   S3 for its steps, a checkpoint gathered and written by rank 0, and
+   granite-moe at (1, 8) on the a2a dispatch, in one world; then a new
+   world of 4 ranks at (2, 2) that restores qwen1.5's checkpoint and takes
+   a step, and mamba2 at (2, 2). Each arch is first trained on the
+   world-dim mesh of the same shape, weights (``SEED``) and batches
+   (``procs_train_world``), qwen1.5's restart as the world-dim run carries on
+   on (2, 2).
+   Every step's loss and gradient norm within ``PROCS_TRAIN_TOL`` of the
+   world-dim step's, each rank's parameter shards after the steps within
+   two steps of lr of the world-dim ones and the whole update within
+   ``PROCS_UPDATE_TOL`` normwise; a rank's ``ring_fused_step`` launches
+   equal to its ring hops (``ring_hops()``), each hop's output bitwise its
+   plain version's, and granite-moe's combines on ``segment_reduce``.
+   Prints each step's wall on the slowest rank and its phases
+   (``rank_gradients``, ``aggregate``, ``apply``), the bytes staged and
+   their share, the collectives of a rank, the checkpoint's gather and
+   write, and a rank's peak; the kernels line gets ``ring_fused_step`` at
+   a rank's hop and ``segment_reduce`` at a rank's training combine.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -567,6 +589,34 @@ PROCS_SERVE_CAD = ("qwen1.5-0.5b",)  # with an fsdp world and an MLP: both decod
 # world-dim top-two margin exceeds twice the row's logit difference, and for
 # the archs of PROCS_SERVE_SHARE on at least DECISIVE_SHARE of the positions
 PROCS_SERVE_SHARE = ("qwen1.5-0.5b",)
+# training on a process mesh (phase 13): arch → (mesh, global batch, steps),
+# PROCS_TRAIN_SEQ tokens a row, S3, full width. qwen1.5 at (4, 2), the
+# reference's e2e mesh (tp 2, 4 data ranks: 3 ring hops a FSDP leaf), two
+# steps, then the restart world PROCS_TRAIN_RESTART from the checkpoint for
+# one; granite-moe at (1, 8) (tp 8, the a2a dispatch, no rings: data 1, rep
+# 1) and mamba2 at (2, 2) (tp 2), a step each. The depth cut to
+# PROCS_TRAIN_LAYERS and the rows to 1,024 tokens so that the phase stays
+# near 90 s: a rank's step makes ~47 staged collectives a layer under S3
+# at (4, 2), 7-28 ms each on gloo ranks that share the card (phase 12)
+PROCS_TRAIN = {"qwen1.5-0.5b": ((4, 2), 8, 2),
+               "granite-moe-1b-a400m": ((1, 8), 4, 1),
+               "mamba2-1.3b": ((2, 2), 4, 1)}
+PROCS_TRAIN_SEQ = 1024
+PROCS_TRAIN_LAYERS = {"qwen1.5-0.5b": 4, "granite-moe-1b-a400m": 4,
+                      "mamba2-1.3b": 4}  # of 24, 24 and 48
+PROCS_TRAIN_RESTART = (2, 2)
+# the two worlds: (arch, what it does) in order; "restart" restores qwen1.5's
+# checkpoint on PROCS_TRAIN_RESTART and takes one step
+PROCS_TRAIN_WORLDS = {"first": (("qwen1.5-0.5b", "train"), ("granite-moe-1b-a400m", "train")),
+                      "second": (("qwen1.5-0.5b", "restart"), ("mamba2-1.3b", "train"))}
+# held to the world-dim step of the same weights and batch, relative: the
+# loss and the gradient's norm at tests/test_torch_procs_train.py's
+# WORLD_LOSS_TOL and WORLD_NORM_TOL (the same products on other shapes,
+# gloo's order of fp32 sums), and the whole update at test_torch_train's
+# UPDATE_TOL (an element whose gradient is rounding noise takes an lr step
+# of either sign), each element within two steps of lr
+PROCS_TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
+PROCS_UPDATE_TOL = 0.15
 
 
 def log(msg: str) -> None:
@@ -3402,6 +3452,405 @@ def procs_serve_phase(launches: dict, rows: list) -> dict:
     return res
 
 
+def procs_train_build(arch: str, mesh, dims=None):
+    """(model, train step, pipeline) of phase 13's ``arch`` on ``mesh``
+    (world dims on the card, or this process's ``ProcessMesh``): full
+    width at ``PROCS_TRAIN_LAYERS``, weights from ``SEED`` (a process keeps
+    its device's shard), S3, ``PROCS_TRAIN_SEQ`` tokens a row, through
+    ``launch/train.py``'s ``build``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=PROCS_TRAIN_LAYERS[arch])
+    model = Model(cfg, device=mesh.device, seed=SEED, env=steps.make_env(cfg, mesh))
+    step, pipe = train.build(model, mesh, procs_train_args(arch, dims or PROCS_TRAIN[arch][0]))
+    return model, step, pipe
+
+
+def procs_train_args(arch: str, dims):
+    """``launch/train.py``'s arguments of phase 13's ``arch`` on ``dims``."""
+    from repro_torch.launch import train
+
+    return train.parser().parse_args([
+        "--arch", arch, "--scenario", "s3_in_net_map", "--mesh", ",".join(map(str, dims)),
+        "--global-batch", str(PROCS_TRAIN[arch][1]), "--seq", str(PROCS_TRAIN_SEQ),
+        "--seed", str(SEED)])
+
+
+def procs_train_steps(step, state, pipe, k0: int, n: int) -> tuple:
+    """``n`` steps from step ``k0`` on world dims: (state, [{loss,
+    grad_norm, lr, s}])."""
+    import torch
+
+    out = []
+    for k in range(k0, k0 + n):
+        t = time.perf_counter()
+        state, m = step(state, pipe.batch_at(k))
+        torch.cuda.synchronize()
+        out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "lr": float(m["lr"]), "s": time.perf_counter() - t})
+    return state, out
+
+
+def procs_train_shards(step, tmp: Path, name: str, metrics: list, lrs: list) -> None:
+    """Each device's shard of the world-dim step's parameters, with the
+    steps' metrics and the lr of every step since the seeded weights, to
+    ``tmp/name.<rank>.pt`` for the rank that holds it."""
+    import torch
+
+    from repro_torch.models.parallel import shard_leaf
+
+    env = step.env
+    for r in range(env.fsdp_size * env.model_size):
+        f, m = divmod(r, env.model_size)
+        torch.save({"metrics": metrics, "lrs": lrs,
+                    "params": {k: shard_leaf(p.detach(), step.places[k], env, f, m).cpu()
+                               for k, p in step.params.items()}}, tmp / f"{name}.{r}.pt")
+
+
+def procs_train_world(tmp: Path) -> dict:
+    """Phase 13's references on world dims on the card: every arch of
+    ``PROCS_TRAIN`` trained from the same weights on the same batches as
+    the ranks (``procs_train_build``), each rank's expected shards written
+    (``procs_train_shards``); qwen1.5 then carries on on
+    ``PROCS_TRAIN_RESTART`` for one step, as the world-dim restart does
+    (``launch/train.py``: the same model and optimizer state under the new
+    mesh's step). Returns each one's metrics and its peak GB."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+
+    out = {}
+    for arch, (dims, gb, n) in PROCS_TRAIN.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, step, pipe = procs_train_build(arch, make_mesh(dims, device="cuda"))
+        state, metrics = procs_train_steps(step, step.init_state(), pipe, 0, n)
+        lrs = [m["lr"] for m in metrics]
+        procs_train_shards(step, tmp, arch, metrics, lrs)
+        out[arch] = {"steps": metrics, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if arch == TRAIN_ARCH:
+            step, pipe = train.build(model, make_mesh(PROCS_TRAIN_RESTART, device="cuda"),
+                                     procs_train_args(arch, PROCS_TRAIN_RESTART))
+            state, metrics = procs_train_steps(step, state, pipe, n, 1)
+            procs_train_shards(step, tmp, f"{arch}.restart", metrics,
+                               lrs + [m["lr"] for m in metrics])
+            out[arch]["restart"] = metrics
+        del model, step, state, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes: list
+                     ) -> dict:
+    """One arch of phase 13 in this rank: built from ``SEED`` (its device's
+    shards kept), or for ``restart`` restored from the processes'
+    checkpoint (``tmp/procs``); its steps phase by phase between barriers,
+    each with its launches, staged copies and collectives counted, the
+    first one's ``ring_fused_step`` hops each held bitwise against the plain
+    version (rank 0 keeps the first hop's and the first combine's inputs in
+    ``capture``); qwen1.5's checkpoint gathered after its steps, rank 0's
+    store appended to ``writes`` while it writes in the background; each step's
+    metrics and this rank's shards against the world-dim run's
+    (``tmp/<arch>[.restart].<rank>.pt``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import train
+    from repro_torch.mesh import count_collectives, count_staging
+
+    t0 = time.perf_counter()
+    dims = PROCS_TRAIN_RESTART if what == "restart" else PROCS_TRAIN[arch][0]
+    n = 1 if what == "restart" else PROCS_TRAIN[arch][2]
+    model, step, pipe = procs_train_build(arch, pm, dims)
+    rec = {"mesh": list(dims), "tp": step.env.tp, "ring_hops": step.ring_hops(), "steps": []}
+    k0 = 0
+    store = CheckpointStore(str(tmp / "procs"))
+    p0 = {k: p.detach().clone() for k, p in step.params.items()}  # the seeded weights
+    if what == "restart":
+        t = time.perf_counter()
+        state, k0 = train.restore(step, store)
+        rec["restore_s"] = time.perf_counter() - t
+    else:
+        state = step.init_state()
+    want = torch.load(tmp / f"{arch}{'.restart' if what == 'restart' else ''}.{pm.rank}.pt")
+    rec["setup_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    real_rf, real_sr = ops.ring_fused_step, ops.segment_reduce
+    hops = {"n": 0, "equal": True}
+
+    def checked(acc, wire):
+        out = real_rf(acc, wire)
+        plain = ref.ring_fused_step(acc, wire)
+        hops["n"] += 1
+        hops["equal"] = hops["equal"] and all(equal(a, b) for a, b in zip(out, plain))
+        if pm.rank == 0 and "hop" not in capture:  # the kernel's own work: contiguous copies
+            capture["hop"] = (acc.clone(memory_format=torch.contiguous_format),
+                              wire.clone(memory_format=torch.contiguous_format),
+                              f"procs_train_{arch}", acc.is_contiguous())
+        return out
+
+    def combine(values, ids, nseg):
+        if pm.rank == 0 and "combine" not in capture:
+            capture["combine"] = (values.detach().clone(), ids.clone(), nseg,
+                                  f"procs_train_{arch}")
+        return real_sr(values, ids, nseg)
+
+    for i, k in enumerate(range(k0, k0 + n)):
+        batch = pipe.batch_at(k)
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        phases = {}
+        fetch, real_fetch = {}, step.fetch
+
+        def timed_fetch():
+            t = time.perf_counter()
+            out = real_fetch()
+            torch.cuda.synchronize()
+            fetch["s"] = time.perf_counter() - t
+            return out
+
+        with (count_staging() as staged, count_collectives() as coll,
+              mock.patch.object(step, "fetch", timed_fetch),
+              mock.patch.object(ops, "ring_fused_step", checked) if i == 0
+              else contextlib.nullcontext(),
+              mock.patch.object(ops, "segment_reduce", combine)):
+            t = time.perf_counter()
+            grads, nll, ntok = step.rank_gradients(batch)
+            torch.cuda.synchronize()
+            phases["rank_gradients"] = time.perf_counter() - t
+            t = time.perf_counter()
+            grads = step.aggregate(grads)
+            torch.cuda.synchronize()
+            phases["aggregate"] = time.perf_counter() - t
+            t = time.perf_counter()
+            state, gnorm = step.apply(state, grads)
+            torch.cuda.synchronize()
+            phases["apply"] = time.perf_counter() - t
+        del grads
+        rec["steps"].append({
+            "loss": float(nll) * step.norm, "grad_norm": float(gnorm),
+            "lr": step.optimizer.schedule(state.count), "phases_s": phases,
+            "fetch_s": fetch["s"],
+            "wall_s": sum(phases.values()), "launches": dict(ops.LAUNCHES),
+            "staged": dict(staged), "collectives": dict(coll)})
+    rec["hops_checked"], rec["hops_bitwise"] = hops["n"], hops["equal"]
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if arch == TRAIN_ARCH and what == "train":  # rank 0 writes while the world goes on
+        t = time.perf_counter()
+        tree = train.checkpoint_tree(step, state)
+        rec["ckpt_gather_s"] = time.perf_counter() - t
+        if tree is not None:
+            store.save(k0 + n, tree, meta=train.checkpoint_meta(step, arch=arch), blocking=False)
+            writes.append(store)
+        del tree
+    # this rank's shards against the world-dim run's, and the update since the seeded weights
+    lrs = want["lrs"]
+    worst, num, den = 0.0, 0.0, 0.0
+    for key, p in step.params.items():
+        p, w = p.detach(), want["params"][key].to(p.device)
+        worst = max(worst, float((p - w).abs().max()))
+        d_got, d_want = p - p0[key], w - p0[key]
+        num += float(((d_got - d_want).double() ** 2).sum())
+        den += float((d_want.double() ** 2).sum())
+    rec.update({"param_max_abs": worst, "param_atol": 2 * sum(lrs) * 1.01, "update_sq": num,
+                "update_want_sq": den, "want": want["metrics"]})
+    del model, step, state, pipe, want, p0
+    torch.cuda.empty_cache()
+    return rec
+
+
+def procs_train_rank(tmp: str, world: str, device) -> dict:
+    """Phase 13 in one rank of world ``world`` (``PROCS_TRAIN_WORLDS``,
+    ``launch.procs.spawn``): each of its archs (``procs_train_arch``) on
+    its process mesh. Returns their records and rank 0's captured kernel
+    inputs."""
+    import torch
+
+    from repro_torch.mesh import ProcessMesh
+
+    torch.set_num_threads(1)  # the ranks share the host's cores
+    res, capture, meshes, writes = {"archs": {}}, {}, {}, []
+    for arch, what in PROCS_TRAIN_WORLDS[world]:
+        dims = PROCS_TRAIN_RESTART if what == "restart" else PROCS_TRAIN[arch][0]
+        pm = meshes.setdefault(dims, ProcessMesh(("data", "model"), dims, device=device))
+        res["archs"][f"{arch}/{what}"] = procs_train_arch(arch, what, pm, Path(tmp), capture,
+                                                          writes)
+    t = time.perf_counter()
+    for store in writes:  # the world ends once the checkpoint is on disk
+        store.wait()
+        res["ckpt"] = {**store.stats[-1], "wait_s": time.perf_counter() - t}
+    torch.distributed.barrier()
+    res["transport"] = next(iter(meshes.values())).transport
+    res["capture"] = {k: tuple(t.cpu() if hasattr(t, "cpu") else t for t in v)
+                      for k, v in capture.items()}
+    return res
+
+
+def procs_train_phase(launches: dict, rows: list) -> dict:
+    """Phase 13: the world-dim references (``procs_train_world``), then the
+    two worlds of gloo ranks spawned on the card (``procs_train_rank``),
+    held to them. Adds the ranks' launches to ``launches`` and the two
+    kernel rows at a rank's shapes to ``rows``; returns the readings."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import procs
+
+    res = {"worlds": {}, "launches": dict.fromkeys(ops.LAUNCHES, 0)}
+    captured = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        world = procs_train_world(Path(tmp))
+        res["world_s"] = time.perf_counter() - t
+        for name, jobs in PROCS_TRAIN_WORLDS.items():
+            stage(f"phase 13 {name} world")
+            dims = {PROCS_TRAIN_RESTART if what == "restart" else PROCS_TRAIN[arch][0]
+                    for arch, what in jobs}
+            n = {d[0] * d[1] for d in dims}
+            if len(n) != 1:
+                raise AssertionError(f"phase 13's {name} world mixes mesh sizes {sorted(dims)}")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # the ranks share the card with this process
+            t = time.perf_counter()
+            ranks = procs.spawn(functools.partial(procs_train_rank, tmp, name), n.pop(),
+                                backend="gloo", store_path=Path(tmp) / f"store_{name}",
+                                timeout_s=PROCS_TIMEOUT_S)
+            st = {"spawn_s": time.perf_counter() - t, "ranks": len(ranks),
+                  "transport": ranks[0]["transport"], "archs": {}}
+            for key in ranks[0]["archs"]:
+                arch, what = key.split("/")
+                recs = [r["archs"][key] for r in ranks]
+                want = world[arch]["restart" if what == "restart" else "steps"]
+                st["archs"][key] = procs_train_check(arch, what, recs, want, res["launches"])
+                st["archs"][key]["world_peak_gb"] = world[arch]["peak_gb"]
+            if "ckpt" in ranks[0]:
+                st["ckpt_rank0"] = ranks[0]["ckpt"]
+            for k, v in ranks[0]["capture"].items():
+                captured.setdefault(k, v)
+            res["worlds"][name] = st
+            log(f"process mesh train, {name} world ({st['ranks']} gloo ranks on one card, "
+                f"{st['transport']}): {json.dumps(st)}")
+            del ranks
+    res["world_refs"] = world
+    # the kernels at a rank's shapes (rank 0's first S3 hop and first combine), timed alone
+    acc, wire, hpath, as_is = captured.pop("hop")
+    acc, wire = acc.cuda(), wire.cuda()
+    rf = bare_launchers()[2]
+    kout, pout = rf(acc, wire), ref.ring_fused_step(acc, wire)
+    if not all(equal(a, b) for a, b in zip(kout, pout)):
+        raise AssertionError(f"ring_fused_step at a rank's hop {tuple(acc.shape)} differs")
+    b_ms, b_by = bound_ms(acc.numel() * 12, acc.numel())
+    rows.append({
+        "name": "ring_fused_step", "route": "cuda",
+        "source": "src/repro_torch/csrc/ring_fused_step.cu",
+        "replaces": "src/repro/kernels/ring_fused_step.py:41",
+        "launches": res["launches"]["ring_fused_step"], "max_abs_err": max_abs_err(zip(kout, pout)),
+        "ms": cuda_ms(lambda: rf(acc, wire)),
+        "plain_ms": cuda_ms(lambda: ref.ring_fused_step(acc, wire)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "path": hpath,
+        "shape": f"acc {tuple(acc.shape)} fp32 + wire bf16: one rank's S3 hop of its "
+                 "fetch's backward" + ("" if as_is else ", timed contiguous (on the path the "
+                                      "acc arrives transposed and the wrapper copies it)"),
+    })
+    del acc, wire, kout, pout
+    values, ids, nseg, spath = captured.pop("combine")
+    values, ids = values.cuda(), ids.cuda()
+    sr = bare_launchers()[1]
+    ks, ps = sr(values, ids, nseg), ref.segment_reduce(values, ids, nseg)
+    comb_err = float((ks - ps).abs().max() / ps.abs().max())
+    if comb_err > COMBINE_TOL:
+        raise AssertionError(f"segment_reduce at a rank's training combine: {comb_err} off")
+    ok = ids >= 0
+    vals32, ids64, kept = values[ok].float(), ids[ok].long(), int(ok.sum())
+    lib_out = torch.zeros_like(ps)
+    b_ms, b_by = bound_ms(kept * values.shape[1] * values.element_size() + ids.numel() * 4
+                          + ps.numel() * 4, kept * values.shape[1])
+    rows.append({
+        "name": "segment_reduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_reduce.cu",
+        "replaces": "src/repro/kernels/segment_reduce.py:55",
+        "launches": res["launches"]["segment_reduce"], "max_abs_err": max_abs_err([(ks, ps)]),
+        "rel_err": comb_err, "ms": cuda_ms(lambda: sr(values, ids, nseg)),
+        "plain_ms": cuda_ms(lambda: ref.segment_reduce(values, ids, nseg)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, ids64, vals32)), "path": spath,
+        "shape": f"values {tuple(values.shape)} bf16, ids ({ids.numel()},) int32 ({kept} kept), "
+                 f"nseg={nseg}: one rank's a2a combine in training",
+    })
+    for k, v in res["launches"].items():
+        launches[k] += v
+    return res
+
+
+def procs_train_check(arch: str, what: str, recs: list, want: list, launches: dict) -> dict:
+    """One arch of a phase 13 world, its ranks' records (``procs_train_arch``)
+    against the world-dim run's steps ``want``: raises where a check fails;
+    returns the readings and adds the ranks' launches to ``launches``."""
+    r0 = recs[0]
+    out = {"mesh": r0["mesh"], "tp": r0["tp"], "ring_hops": r0["ring_hops"], "steps": []}
+    for i, w in enumerate(want):
+        got = [r["steps"][i] for r in recs]
+        if any((g["loss"], g["grad_norm"]) != (got[0]["loss"], got[0]["grad_norm"])
+               for g in got):
+            raise AssertionError(f"procs_train {arch} ({what}): the ranks' metrics differ")
+        diff = {n: abs(got[0][n] - w[n]) / abs(w[n]) for n in PROCS_TRAIN_TOL}
+        wall = max(g["wall_s"] for g in got)
+        step = {"loss": got[0]["loss"], "world_loss": w["loss"], "grad_norm": got[0]["grad_norm"],
+                "world_grad_norm": w["grad_norm"], "rel_diff": diff, "wall_s": wall,
+                "world_s": w["s"],
+                "phases_s": {p: max(g["phases_s"][p] for g in got) for p in TRAIN_PHASES},
+                "fetch_s": max(g["fetch_s"] for g in got),
+                "staged_gb": sum(g["staged"]["bytes"] for g in got) / 1e9,
+                "staged_copies_rank0": got[0]["staged"]["copies"],
+                "staging_share": max(g["staged"]["seconds"] / g["wall_s"] for g in got),
+                "collectives_rank0_gb": {k: v / 1e9 for k, v in got[0]["collectives"].items() if v},
+                "launches_rank0": {k: v for k, v in got[0]["launches"].items() if v}}
+        out["steps"].append(step)
+        if any(diff[n] > PROCS_TRAIN_TOL[n] for n in PROCS_TRAIN_TOL):
+            raise AssertionError(f"procs_train {arch} ({what}) step {i}: {step} (limits "
+                                 f"{PROCS_TRAIN_TOL})")
+        for r in recs:
+            lr = r["steps"][i]["launches"]
+            want_hops = r["ring_hops"]
+            if lr["ring_fused_step"] != want_hops or lr["flash_attention"] or lr["hash_partition"]:
+                raise AssertionError(f"procs_train {arch} ({what}): a rank made {lr} launches, "
+                                     f"not its {want_hops} ring hops")
+            if (lr["segment_reduce"] > 0) != (arch == "granite-moe-1b-a400m"):
+                raise AssertionError(f"procs_train {arch} ({what}): {lr['segment_reduce']} "
+                                     "segment_reduce launches")
+            for k, v in lr.items():
+                launches[k] += v
+    if any(r["hops_checked"] != r["ring_hops"] or not r["hops_bitwise"] for r in recs):
+        raise AssertionError(f"procs_train {arch} ({what}): ring hops checked "
+                             f"{[r['hops_checked'] for r in recs]} of {r0['ring_hops']}, bitwise "
+                             f"{[r['hops_bitwise'] for r in recs]}")
+    update = (sum(r["update_sq"] for r in recs) / sum(r["update_want_sq"] for r in recs)) ** 0.5
+    worst = max(r["param_max_abs"] for r in recs)
+    out.update({"param_max_abs": worst, "param_atol": r0["param_atol"], "update_rel": update,
+                "peak_gb_per_rank": max(r["peak_gb"] for r in recs),
+                "setup_s": max(r["setup_s"] for r in recs)})
+    for key in ("restore_s", "ckpt_gather_s"):
+        if key in r0:
+            out[key] = max(r[key] for r in recs)
+    if worst > r0["param_atol"] or update > PROCS_UPDATE_TOL:
+        raise AssertionError(f"procs_train {arch} ({what}): parameters {worst} from the "
+                             f"world-dim run's (limit {r0['param_atol']}), update {update} "
+                             f"(limit {PROCS_UPDATE_TOL})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3975,6 +4424,14 @@ def main() -> int:
     procs_serving = procs_serve_phase(launches, procs_serve_rows)
     procs_serving["wall_s"] = time.perf_counter() - t
     log(f"serving on a process mesh phase: {procs_serving['wall_s']:.2f} s")
+
+    # 13. training on a process mesh: one process per device, each its shard ----------
+    stage("phase 13 training on a process mesh")
+    t = time.perf_counter()
+    procs_train_rows = []  # the kernels at a rank's shapes, with phase 13's launches
+    procs_training = procs_train_phase(launches, procs_train_rows)
+    procs_training["wall_s"] = time.perf_counter() - t
+    log(f"training on a process mesh phase: {procs_training['wall_s']:.2f} s")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was never launched on the main paths")
@@ -4008,12 +4465,12 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     for row in procs_rows:  # the process mesh's launches, summed over its ranks
         row["launches"] = procs["launches"][row["name"]]
-    rows += procs_rows + procs_serve_rows
+    rows += procs_rows + procs_serve_rows + procs_train_rows
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "family_checks": family_checks, "training": training,
                     "mesh_serving": mesh_serving, "tp_training": tp_training, "procs": procs,
-                    "procs_serving": procs_serving,
+                    "procs_serving": procs_serving, "procs_training": procs_training,
                     "restart": {k: v for k, v in restart.items() if k != "dryrun"},
                     "dryrun": {k: v for k, v in restart["dryrun"].items() if k != "records"},
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,

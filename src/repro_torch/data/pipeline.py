@@ -5,7 +5,8 @@ The port of ``repro/data/pipeline.py``, numpy only: the same seed gives the
 same batches and shards, bit for bit, in both packages. Every batch is a
 pure function of (seed, step), so a restart at step k sees batch k.
 Training batches take the reference's device-major layout of a
-``ShardEnv`` (``launch.shapes.batch_layout``), bit for bit.
+``ShardEnv`` (``launch.shapes.batch_layout``), bit for bit; under a process
+mesh's env a process cuts its block out of it.
 """
 from __future__ import annotations
 
@@ -59,8 +60,20 @@ class TrainPipeline:
     seed: int = 0
 
     def batch_at(self, step: int) -> dict:
+        """The batch of ``step``: the world's device-major batch, or under a
+        process mesh's env the process's block of it (the same global rows
+        at any data world, so a restart keeps the stream)."""
         from repro_torch.launch.shapes import batch_layout
 
+        env = self.env
+        if env.mesh is not None:
+            world = dataclasses.replace(self, env=env.world()).batch_at(step)
+            dims, _ = batch_layout(env.world(), self.global_batch)
+            m = env.mesh
+            at = tuple(m.coords[m.dim(a)] for a in m.axis_names if a != env.model_axis)
+            at += (env.model_index if dims[-1] > 1 else 0,)
+            return {k: np.ascontiguousarray(v[at]).reshape(m.block + v.shape[len(dims):])
+                    for k, v in world.items()}
         rng = _rng(self.seed, step)
         dims, b_loc = batch_layout(self.env, self.global_batch)
         cfg = self.cfg

@@ -21,7 +21,9 @@ forward and backward on its own rows under its tp group, folded (``ShardEnv.tp_g
 aggregation of every leaf (S1/S2/S3/NATIVE/HIERARCHICAL:
 ``models.parallel.aggregate_leaf``: over the rep groups along the TP dim,
 then over (pod, data) along the FSDP dim, and the model axis's sums), the
-clip and the AdamW update.
+clip and the AdamW update. On a ``ProcessMesh`` ``make_train_step`` gives
+``ProcessTrainStep``: one data-parallel rank a process, on its shards and
+its block of the batch, the aggregation the backward of its weight fetch.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.mesh import Mesh, ProcessMesh, note_collective
 from repro_torch.models import convert
 from repro_torch.models import model as M
 from repro_torch.models.convert import leaf_paths
-from repro_torch.models.parallel import ShardEnv, pad_vocab
+from repro_torch.models.parallel import ShardEnv, fetch_weight, pad_vocab
 from repro_torch.models.specs import leaf_places
 from repro_torch.optim import AdamW, OptState, clip_by_global_norm, sync_gradients
 
@@ -239,9 +241,14 @@ class TrainStep:
         if "model" not in mesh.axis_names:
             raise ValueError(f"mesh axes {mesh.axis_names}: training takes a launcher's mesh "
                              "(launch.mesh.make_mesh), model axis included")
-        if isinstance(mesh, ProcessMesh):
-            raise NotImplementedError("training on a process mesh waits (ROADMAP.md §1): train on "
-                                      "the world-dim mesh (launch.mesh.make_mesh)")
+        procs = isinstance(mesh, ProcessMesh)
+        if procs != isinstance(self, ProcessTrainStep):
+            raise ValueError("a process mesh trains through ProcessTrainStep, world dims through "
+                             "TrainStep: build the step with make_train_step")
+        if procs != (model.env.mesh is not None):
+            where = "a process mesh" if procs else "world dims"
+            raise ValueError(f"model made for {model.env}, training on {where} {mesh.shape}: "
+                             "make it with Model(cfg, env=steps.make_env(cfg, mesh))")
         if mesh.device.type != model.device.type:
             raise ValueError(f"mesh on {mesh.device}, model on {model.device}")
         self.env = env = make_env(cfg, mesh, scenario)
@@ -399,6 +406,124 @@ class TrainStep:
                        "lr": self.optimizer.schedule(state.count)}
 
 
+class ProcessTrainStep(TrainStep):
+    """``TrainStep`` on a ``ProcessMesh``: this process is one device of the
+    mesh and holds only its shard of every parameter and of the fp32
+    moments. A step takes the process's block of the device-major batch
+    (``TrainPipeline(cfg, step.env, ...)`` cuts it), and its phases are:
+
+    * ``rank_gradients``: every leaf fetched once, in fp32
+      (``parallel.fetch_weight``: the FSDP all-gather over (pod, data), then
+      the TP one over the rep group), then one forward and backward a
+      microbatch on the process's rows at its tp rank, the gradients of the
+      working slices accumulated in fp32 as the reference's ``micro`` does;
+      a tp rank's loss is its own, and the collectives' backward (psums of
+      psums, the MoE's inverse all-to-all) sum the devices' losses.
+    * ``aggregate``: the fetch's backward, leaf by leaf in parameter order:
+      the scenario's reduce-scatter of each gather (``scatter_gradient``:
+      S1/S2/S3/NATIVE/HIERARCHICAL, S3's hops on ``ring_fused_step``), then
+      ``sync_gradients``' sums; the gradient of each storage shard.
+    * ``apply``: the clip over the mesh (``global_grad_norm``'s weighted,
+      all-reduced sum) and the AdamW update of the shards.
+
+    ``loss`` and ``ntok`` are psum'd over the whole mesh, as the
+    reference's metrics. 8-bit moments wait (ROADMAP.md §1)."""
+
+    def __init__(self, model: M.Model, mesh: ProcessMesh, **kw):
+        if kw["optimizer"].eightbit:
+            raise NotImplementedError(
+                "8-bit moments on a process mesh wait (ROADMAP.md §1): train with fp32 moments "
+                "(AdamW(eightbit=False)) or on the world-dim mesh (launch.mesh.make_mesh)")
+        super().__init__(model, mesh, **kw)
+        if tuple(model.env.mesh.shape) != tuple(mesh.shape):
+            raise ValueError(f"model made for the process mesh {model.env.mesh.shape}, training "
+                             f"on {mesh.shape}: make it with Model(cfg, env=steps.make_env(cfg, "
+                             "mesh))")
+        self.pmesh = mesh
+        self.fetched: dict | None = None
+
+    def rank_rows(self, batch: dict) -> dict:
+        """The process's block of the batch → its rows {name: (b_loc, ...)}
+        on the model's device (``rows_of``: where the batch splits over the
+        rep groups, the tp ranks of a group must hold the same rows)."""
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(v, device=self.model.device)
+            if k not in self.specs:
+                raise ValueError(f"batch input {k!r}: the step takes {sorted(self.specs)}")
+            if tuple(v.shape) != self.specs[k][0]:
+                raise ValueError(f"batch {k!r} {tuple(v.shape)}: the process's block is "
+                                 f"{self.specs[k][0]}")
+            out[k] = rows_of(self.env, v, self.global_batch)
+        return out
+
+    def fetch(self) -> dict:
+        """Every parameter's working slice, fp32, gathered from its storage
+        shard: the forward of the reference's weight fetch, once a step."""
+        return {k: fetch_weight(p, self.env, self.places[k]) for k, p in self.params.items()}
+
+    def rank_gradients(self, batch: dict):
+        """The process's forward and backward on its ``b_loc`` rows, its
+        microbatches' gradients of the working slices accumulated in fp32,
+        the loss scaled by ``env.loss_normalizer`` (no tp factor: each tp
+        rank's loss is its own). Keeps the fetched slices for ``aggregate``.
+        Returns ({name: the working slice's fp32 gradient}, Σ nll, Σ ntok),
+        the sums psum'd over the whole mesh."""
+        env, mb, m = self.env, self.microbatches, self.pmesh
+        rows = self.rank_rows(batch)
+        self.fetched = work = self.fetch()
+        names = list(work)
+        grads = {k: torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                 for k, w in work.items()}
+        nll = torch.zeros((), dtype=torch.float32, device=m.device)
+        ntok = torch.zeros((), dtype=torch.int64, device=m.device)
+        n = self.b_loc // mb
+        with self.model.working(work):
+            for i in range(mb):
+                part = {k: v.unflatten(0, (mb, n))[i] for k, v in rows.items()}
+                loss, aux = self.model.train_loss(part, impl=self.impl, env=env)
+                gs = torch.autograd.grad(loss * (self.norm * mb), [work[k] for k in names],
+                                         allow_unused=True)
+                for k, g in zip(names, gs):
+                    if g is not None:
+                        grads[k].add_(g.to(torch.float32) / mb)
+                nll += aux["nll_sum"]
+                ntok += aux["ntok"]
+        total = m.psum(torch.stack([nll.to(torch.float64), ntok.to(torch.float64)]).reshape(
+            m.block + (2,)), m.axis_names).reshape(2)
+        return grads, total[0].to(torch.float32), total[1].to(torch.int64)
+
+    def aggregate(self, rank_grads: dict) -> dict:
+        """The fetch's backward on the gradients of the working slices, leaf
+        by leaf in one order on every process (each gather's scenario
+        reduce-scatter, the rep groups' first), then ``sync_gradients``'
+        sums: {name: the gradient of this process's storage shard}."""
+        work, self.fetched = self.fetched, None
+        if work is None:
+            raise ValueError("aggregate takes the gradients of this step's rank_gradients")
+        out = {}
+        for k, p in self.params.items():
+            w = work.pop(k)
+            out[k] = rank_grads[k] if w is p else torch.autograd.grad(
+                w, p, grad_outputs=rank_grads[k])[0]
+        return sync_gradients(out, self.places, self.pmesh, self.scenario, tp=self.env.tp)
+
+    @torch.no_grad()
+    def apply(self, state: OptState, grads: dict) -> tuple[OptState, torch.Tensor]:
+        """The clip over the mesh and the AdamW update of this process's
+        shards, written into the model's parameters, then its bf16 copies
+        remade. Returns (new state, the gradient's norm before the clip)."""
+        grads, gnorm = clip_by_global_norm(grads, self.clip_norm, self.places, self.env)
+        new, state = self.optimizer.update(grads, state, self.params)
+        for k, p in self.params.items():
+            p.copy_(new[k])
+        self.model.cast_weights()
+        return state, gnorm
+
+    def init_state(self) -> OptState:
+        return self.optimizer.init(self.params)
+
+
 def make_train_step(model: M.Model, mesh: Mesh, *, scenario: Scenario | str = Scenario.NATIVE,
                     optimizer: AdamW | None = None, microbatches: int = 1, global_batch: int = 8,
                     seq: int = 128, impl: str = "masked", clip_norm: float = 1.0) -> TrainStep:
@@ -408,7 +533,8 @@ def make_train_step(model: M.Model, mesh: Mesh, *, scenario: Scenario | str = Sc
     ``make_env(cfg, mesh)``'s padded vocab), aggregating gradients under
     ``scenario``; ``optimizer`` defaults to ``AdamW`` with the config's
     8-bit moments setting. Turns the model's parameters' gradients on."""
-    return TrainStep(model, mesh, scenario=scenario,
-                     optimizer=optimizer or AdamW(eightbit=model.cfg.opt_state_8bit),
-                     microbatches=microbatches, global_batch=global_batch, seq=seq, impl=impl,
-                     clip_norm=clip_norm)
+    cls = ProcessTrainStep if isinstance(mesh, ProcessMesh) else TrainStep
+    return cls(model, mesh, scenario=scenario,
+               optimizer=optimizer or AdamW(eightbit=model.cfg.opt_state_8bit),
+               microbatches=microbatches, global_batch=global_batch, seq=seq, impl=impl,
+               clip_norm=clip_norm)

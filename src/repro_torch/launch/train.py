@@ -25,6 +25,21 @@ any data world, so the data stream is preserved. Parameters and fp32
 moments restore at any data world of the same model axis; 8-bit moments are
 cut per device shard and refuse a change of mesh.
 
+Under ``torchrun`` (``WORLD_SIZE`` set) the run is one process per mesh
+device (``--backend gloo | nccl``, ``launch.procs.init_process_mesh``):
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --smoke --mesh 4,2 --scenario s2_in_net --backend gloo --device cpu \
+        --ckpt /tmp/ck --ckpt-every 8 --fail-step 16 --shrink-to 4 --steps 24
+
+each process holding its device's shard of the parameters and moments
+(``launch.steps.ProcessTrainStep``) and its block of every batch. A
+checkpoint gathers the shards into the same whole leaves, which rank 0
+writes; a restore reads them in every process, which keeps its shard. The
+failure ends that world once the checkpoint is written, and the restart is
+a new one: the same command on ``--nproc-per-node 4 ... --mesh 2,2`` without
+``--fail-step`` (``relaunch_args``; ``spawn_run`` spawns both worlds).
+
 A checkpoint is the reference's tree, ``{"params": {JAX leaf path: array},
 "opt": (count, m, v)}`` (``checkpoint_tree``: kv heads and experts in their
 slots, the vocab padded to the model axis), so either package restores the
@@ -34,6 +49,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import math
+import os
 import time
 
 import numpy as np
@@ -42,8 +60,8 @@ import torch
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.data.pipeline import TrainPipeline
 from repro_torch.launch import steps as steps_lib
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.mesh import Mesh
+from repro_torch.launch.mesh import AXES, make_mesh
+from repro_torch.mesh import Mesh, ProcessMesh
 from repro_torch.models import convert
 from repro_torch.models.model import Model
 from repro_torch.optim import OptState
@@ -62,16 +80,25 @@ def build(model: Model, mesh: Mesh, args, optimizer=None):
     return step, pipe
 
 
-def checkpoint_tree(step: steps_lib.TrainStep, state: OptState) -> dict:
+def checkpoint_tree(step: steps_lib.TrainStep, state: OptState) -> dict | None:
     """The model's parameters and ``state`` as the reference checkpoints
     them on the step's mesh: ``{"params": {JAX leaf path: tensor}, "opt":
     (count, m, v)}``, stacked leaves stacked, kv heads and experts in their
     slots (new tensors; other unstacked leaves are the live tensors, which
     the store copies). 8-bit moments are the (codes, scales) of each
     distinct device shard of a stacked leaf, a row each, as ``AdamW`` keeps
-    them: the port's own layout (the reference's hold every device's)."""
+    them: the port's own layout (the reference's hold every device's). On a
+    process mesh every process's shards are gathered to rank 0 into the
+    same whole leaves (``convert.gather_shards``): the others get None."""
     model, env = step.model, step.env
     cfg = model.cfg
+    if env.mesh is not None:
+        def whole(tree):
+            return convert.gather_shards(convert.stack_leaves(model, tree), cfg, env)
+
+        tree = {"params": whole(step.params),
+                "opt": (np.int32(state.count), whole(state.m), whole(state.v))}
+        return tree if env.mesh.rank == 0 else None
 
     def moments(tree):
         return tree if step.stacked else convert.to_slots(convert.stack_leaves(model, tree),
@@ -87,14 +114,26 @@ def checkpoint_meta(step: steps_lib.TrainStep, **meta) -> dict:
     return {**meta, "world": step.world, "mesh": list(step.mesh_shape), "tp": step.env.tp}
 
 
+def _leaves(step: steps_lib.TrainStep, flat: dict, prefix: str) -> dict:
+    """The leaves of a restored checkpoint under ``prefix``, as the step's
+    parameters hold them: read out of their slots on world dims; on a
+    process mesh this process's device's shard of each (whole leaves read on
+    the host, the shard moved to the model's device)."""
+    model = step.model
+    tree = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    if step.env.mesh is None:
+        return convert.unstack_leaves(model, convert.from_slots(tree, model.cfg, step.env))
+    shards = convert.rank_shards(tree, model.cfg, step.env, slots=True)
+    return {k: t.contiguous().to(model.device)
+            for k, t in convert.unstack_leaves(model, shards).items()}
+
+
 def _moments(step: steps_lib.TrainStep, flat: dict, prefix: str, like: dict | None) -> dict:
     """The moments of a restored checkpoint under ``prefix``: fp32 leaves
-    read out of their slots, or 8-bit (codes, scales) pairs shaped as
-    ``like``'s."""
-    tree = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    (``_leaves``), or 8-bit (codes, scales) pairs shaped as ``like``'s."""
     if like is None:
-        model = step.model
-        return convert.unstack_leaves(model, convert.from_slots(tree, model.cfg, step.env))
+        return _leaves(step, flat, prefix)
+    tree = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
     out = {}
     for path, pair in like.items():
         got = tuple(tree.get(f"{path}/{i}") for i in (0, 1))
@@ -112,7 +151,9 @@ def restore(step: steps_lib.TrainStep, store: CheckpointStore, at: int | None = 
     and return (its optimizer state, its step). Raises where it cannot
     restore: 8-bit moments saved on another mesh (they are cut per device
     shard) or by the reference, a leaf's shape or dtype that is not the
-    model's, slot copies that differ."""
+    model's, slot copies that differ. On a process mesh every process reads
+    the whole leaves and keeps its device's shards, as the reference's
+    re-sharding restore does."""
     model, opt = step.model, step.optimizer
     manifest = store.manifest(at)
     meta = manifest["meta"]
@@ -123,10 +164,9 @@ def restore(step: steps_lib.TrainStep, store: CheckpointStore, at: int | None = 
             f"{meta.get('world', 'unknown (not written by the port)')} (mesh "
             f"{meta.get('mesh')}) and do not restore at world {step.world} (mesh "
             f"{list(step.mesh_shape)}): restart on the same mesh, or train with fp32 moments")
-    flat, manifest = store.restore(step=manifest["step"], device=model.device)
-    params = convert.unstack_leaves(model, convert.from_slots(
-        {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")},
-        model.cfg, step.env))
+    host = step.env.mesh is not None
+    flat, manifest = store.restore(step=manifest["step"], device="cpu" if host else model.device)
+    params = _leaves(step, flat, "params/")
     for name, p in step.params.items():
         if params[name].dtype != p.dtype:
             raise ValueError(f"checkpoint leaf of {name} is {params[name].dtype}, the model "
@@ -147,14 +187,24 @@ def init_or_restore(step: steps_lib.TrainStep, store: CheckpointStore | None, fr
     if store is None or fresh or store.latest_step() is None:
         return step.init_state(), 0
     state, start = restore(step, store)
-    print(f"[train] restored step {start} from {store.directory}")
+    _say(step, f"[train] restored step {start} from {store.directory}")
     return state, start
+
+
+def _say(step: steps_lib.TrainStep, msg: str) -> None:
+    """Print ``msg``: on a process mesh from rank 0 alone."""
+    if step.env.mesh is None or step.env.mesh.rank == 0:
+        print(msg, flush=True)
 
 
 def run(args, optimizer=None) -> list[float]:
     """Train up to step ``args.steps`` from random weights (seed
     ``args.seed``) or the latest checkpoint; returns the loss of every step
-    taken (a restart takes its steps again)."""
+    taken (a restart takes its steps again). Under ``torchrun``
+    (``WORLD_SIZE`` set) this process is one device of a ``ProcessMesh``
+    (``--backend``), holding its shards; a simulated failure there ends the
+    run once the checkpoint is written, and the restart is a new world
+    (``relaunch_args``, ``spawn_run``)."""
     from repro_torch.configs import get_config, get_smoke_config
 
     if args.fail_step is not None and args.shrink_to and not args.ckpt:
@@ -162,22 +212,50 @@ def run(args, optimizer=None) -> list[float]:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.moe_dispatch:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=args.moe_dispatch))
-    mesh = make_mesh([int(x) for x in args.mesh.split(",")], device=args.device)
+    shape = [int(x) for x in args.mesh.split(",")]
+    joined = False
+    if "WORLD_SIZE" in os.environ:  # one process per mesh device
+        import torch.distributed as dist
+
+        from repro_torch.launch.procs import init_process_mesh
+
+        joined = not dist.is_initialized()
+        mesh = init_process_mesh(shape, AXES[-len(shape):], backend=args.backend,
+                                 device=args.device)
+    else:
+        mesh = make_mesh(shape, device=args.device)
+    try:
+        return _train(args, cfg, mesh, optimizer)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, mesh: Mesh, optimizer) -> list[float]:
+    procs = isinstance(mesh, ProcessMesh)
     store = CheckpointStore(args.ckpt) if args.ckpt else None
-    model = Model(cfg, device=args.device, seed=args.seed, env=steps_lib.make_env(cfg, mesh))
+    model = Model(cfg, device=mesh.device, seed=args.seed, env=steps_lib.make_env(cfg, mesh))
     step, pipe = build(model, mesh, args, optimizer)
     state, k = init_or_restore(step, store, args.fresh)
+    saved = k if store is not None and store.latest_step() == k else None
     fail_step = args.fail_step
     losses = []
     while k < args.steps:
         if fail_step is not None and k == fail_step and args.shrink_to:
+            store.wait()
+            if procs:  # every process stops once the checkpoint is on disk
+                torch.distributed.barrier()
+                nxt = relaunch_args(args)
+                _say(step, f"[train] step {k}: simulating a device failure; the latest "
+                           f"checkpoint is written: relaunch {args.shrink_to} devices' "
+                           f"processes on --mesh {nxt.mesh}")
+                return losses
             # simulated failure: shrink the data world and restore
             print(f"[train] step {k}: simulating a device failure; shrinking to "
                   f"{args.shrink_to} devices")
-            store.wait()
             plan = elastic_mesh_plan(args.shrink_to, model_size=step.env.model_size)
             del step, pipe, state
-            step, pipe = build(model, make_mesh(plan.shape, plan.axes, device=args.device),
+            step, pipe = build(model, make_mesh(plan.shape, plan.axes, device=mesh.device),
                                args, optimizer)
             state, k = init_or_restore(step, store, fresh=False)
             fail_step = None
@@ -188,19 +266,65 @@ def run(args, optimizer=None) -> list[float]:
         losses.append(loss)
         k += 1
         if k % args.log_every == 0 or k == args.steps:
-            print(f"[train] step {k:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"lr {metrics['lr']:.2e} {time.perf_counter() - t0:.2f}s")
+            _say(step, f"[train] step {k:5d} loss {loss:.4f} "
+                       f"gnorm {float(metrics['grad_norm']):.3f} "
+                       f"lr {metrics['lr']:.2e} {time.perf_counter() - t0:.2f}s")
         if store is not None and k % args.ckpt_every == 0:
-            store.save(k, checkpoint_tree(step, state),
-                       meta=checkpoint_meta(step, arch=cfg.name, loss=loss),
-                       blocking=False)
+            save(store, k, step, state, blocking=False, loss=loss)
+            saved = k
     if store is not None:
         store.wait()
-        if store.latest_step() != k:
-            store.save(k, checkpoint_tree(step, state),
-                       meta=checkpoint_meta(step, arch=cfg.name), blocking=True)
+        if saved != k:
+            save(store, k, step, state, blocking=True)
     return losses
+
+
+def save(store: CheckpointStore, k: int, step: steps_lib.TrainStep, state: OptState, *,
+         blocking: bool, **meta) -> None:
+    """Checkpoint step ``k`` (``checkpoint_tree``, ``checkpoint_meta``):
+    on a process mesh every process gathers, and rank 0 writes."""
+    tree = checkpoint_tree(step, state)
+    if tree is not None:
+        store.save(k, tree, meta=checkpoint_meta(step, arch=step.model.cfg.name, **meta),
+                   blocking=blocking)
+
+
+def relaunch_args(args) -> argparse.Namespace | None:
+    """The second world's arguments after a run on a process mesh stopped at
+    ``--fail-step`` for ``--shrink-to N``: ``elastic_mesh_plan(N,
+    model_size=...)``'s mesh (the model axis kept), the latest checkpoint
+    restored, no failure to simulate. None where the run simulates none."""
+    if args.fail_step is None or not args.shrink_to:
+        return None
+    shape = [int(x) for x in args.mesh.split(",")]
+    plan = elastic_mesh_plan(args.shrink_to, model_size=shape[-1])
+    return argparse.Namespace(**{**vars(args), "mesh": ",".join(map(str, plan.shape)),
+                                 "fail_step": None, "shrink_to": None, "fresh": False})
+
+
+def _rank_run(args, device) -> list[float]:
+    if device.type == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    return run(argparse.Namespace(**{**vars(args), "device": device}))
+
+
+def spawn_run(args, store_path, *, backend: str = "gloo", device=None,
+              timeout_s: float = 300) -> list[list[float]]:
+    """``run(args)`` in one spawned process per mesh device
+    (``launch.procs.spawn``, ``device``: each rank's, ``None`` the card),
+    then, after a simulated failure, the new world of ``relaunch_args``'
+    mesh, which restores the checkpoint and carries on. Returns each
+    world's losses (rank 0's; every rank's are the same)."""
+    from repro_torch.launch import procs
+
+    out = []
+    while args is not None:
+        world = math.prod(int(x) for x in args.mesh.split(","))
+        ranks = procs.spawn(functools.partial(_rank_run, args), world, backend=backend,
+                            device=device, store_path=store_path, timeout_s=timeout_s)
+        out.append(ranks[0])
+        args = relaunch_args(args)
+    return out
 
 
 def parser():
@@ -223,6 +347,8 @@ def parser():
     ap.add_argument("--fail-step", type=int, default=None)
     ap.add_argument("--shrink-to", type=int, default=None)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                    help="the process group's backend under torchrun (WORLD_SIZE set)")
     return ap
 
 

@@ -458,7 +458,8 @@ class ProcessMesh(Mesh):
     collective is a call into the process group of the axes it names (or
     of each ``axis_index_groups`` group): ``batch_isend_irecv`` pairs for
     ``ppermute``, ``all_to_all_single``, ``all_gather_into_tensor``,
-    ``all_reduce``, ``reduce_scatter_tensor`` and ``broadcast``. The groups are made the
+    ``all_reduce``, ``reduce_scatter_tensor`` and ``broadcast`` (and ``gather`` to one
+    process, which no ``lax`` collective is). The groups are made the
     first time an axis (or axis tuple, or group list) is asked for; SPMD
     code asks in the same order on every rank, as ``new_group`` needs.
 
@@ -674,6 +675,21 @@ class ProcessMesh(Mesh):
                else x.clone(memory_format=torch.contiguous_format))
         dist.broadcast(buf, src=g.ranks[index], group=g.pg)
         return _noted("all-reduce", self._landed(buf))
+
+    def gather(self, x: torch.Tensor, root: int = 0) -> torch.Tensor | None:
+        """Every process's ``x`` (one shape on all) on process ``root``: the
+        (processes, *x) stack in rank order there, None elsewhere; one
+        ``gather`` on the default group. Not a ``lax`` collective (nothing
+        counts it): a checkpoint's writer collects the shards with it."""
+        send = self._outgoing(x)
+        bufs = None
+        if self.rank == root:
+            bufs = [self._buffer(f"gather{i}", send.shape, send.dtype) if self.staged
+                    else torch.empty_like(send) for i in range(self.size)]
+        dist.gather(send, bufs, dst=root)
+        if bufs is None:
+            return None
+        return torch.stack([self._landed(b) for b in bufs])
 
     def psum_scatter(self, x: torch.Tensor, axis: str, scatter_dimension: int = 0,
                      tiled: bool = False,

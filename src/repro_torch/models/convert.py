@@ -26,7 +26,8 @@ On a process mesh a process holds one device's shard of every leaf:
 ``rank_shards`` cuts it from the reference's global tree (slots laid out)
 or from the port's logical leaves, as ``jax.device_put`` with the leaf's
 partition spec places it, and ``params_from_jax(..., env=)`` with a process
-mesh's env loads it; ``cache_block`` cuts a device's block out of a
+mesh's env loads it, ``gather_shards`` puts the processes' shards back
+into whole leaves (a checkpoint's); ``cache_block`` cuts a device's block out of a
 world-dim cache held once, which is what that process's cache holds
 (``cache_to_jax(block, mesh_dims)`` puts it behind its mesh dims).
 """
@@ -245,6 +246,36 @@ def rank_shards(tree: Mapping, cfg: ModelConfig, env: ShardEnv, *, slots: bool,
     return out
 
 
+def gather_shards(tree: Mapping[str, torch.Tensor], cfg: ModelConfig, env: ShardEnv, *,
+                  root: int = 0) -> dict[str, torch.Tensor]:
+    """``rank_shards``' inverse over a process mesh (``env.mesh``): every
+    process's shard of each leaf of a stacked tree ({JAX leaf path: this
+    process's shard}, as ``stack_leaves`` gives it from the model's
+    parameters or moments) gathered to process ``root``, leaf by leaf in
+    path order, and laid back there into the whole leaf as the reference
+    stores it (kv heads and experts in their slots). Every process must
+    call it; the others get {}."""
+    from repro_torch.models import specs
+
+    m = env.mesh
+    out = {}
+    for path in sorted(tree):
+        t = tree[path]
+        every = m.gather(t.contiguous(), root)
+        if every is None:
+            continue
+        stacked = int(path.split("/")[0] in ("blocks", "enc_blocks"))
+        pl = specs.place(specs.layer_leaf(path), cfg).shifted(stacked)
+        every = every.reshape((env.fsdp_size, env.model_size) + tuple(t.shape))
+        if pl.tp_dim is None:
+            x = every[:, 0]
+        else:
+            x = torch.cat(list(every.unbind(1)), dim=1 + pl.tp_dim)
+        out[path] = torch.cat(list(x.unbind(0)), dim=pl.fsdp_dim) if pl.fsdp_dim is not None \
+            else x[0]
+    return out
+
+
 def params_from_jax(tree: Mapping, cfg: ModelConfig, *, env: ShardEnv | None = None,
                     device=None) -> Model:
     """A ``Model`` of ``cfg`` under ``env`` (a (1, 1) mesh by default)
@@ -272,17 +303,27 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, *, env: ShardEnv | None = N
 
 def opt_state_from_jax(state: Mapping, model: Model):
     """The reference's ``OptState`` (``count``, and fp32 moments ``m``/``v``
-    shaped like the parameters, as numpy) → the port's ``optim.OptState``.
-    8-bit moments are cut into blocks per stacked leaf there and per layer
-    here, so they do not carry over."""
+    shaped like the parameters, as numpy) → the port's ``optim.OptState``;
+    under a process mesh's env (the model's), each moment's shard of this
+    process's device, from the reference's storage (kv heads and experts in
+    their slots: ``rank_shards``). 8-bit moments are cut into blocks per
+    stacked leaf there and per layer here, so they do not carry over."""
     from repro_torch.optim.adamw import OptState
 
     if isinstance(state["m"], (tuple, list)) or any(
             isinstance(v, (tuple, list)) for v in flatten(state["m"]).values()):
         raise ValueError("8-bit moments do not carry over: the reference cuts their blocks "
                          "from stacked leaves, the port from each layer")
-    return OptState(count=int(np.asarray(state["count"])), m=from_jax(model, state["m"]),
-                    v=from_jax(model, state["v"]))
+
+    def moments(tree):
+        if model.env.mesh is None:
+            return from_jax(model, tree)
+        shards = rank_shards(tree, model.cfg, model.env, slots=True)
+        return {k: t.contiguous().to(model.device)
+                for k, t in unstack_leaves(model, shards).items()}
+
+    return OptState(count=int(np.asarray(state["count"])), m=moments(state["m"]),
+                    v=moments(state["v"]))
 
 
 def cache_to_jax(cache: Mapping, mesh_dims: int = 0, *, env: ShardEnv | None = None) -> dict:

@@ -37,16 +37,24 @@ class CastOnce(nn.Module):
     to the parameters. ``fetch`` reads a parameter through the
     reference's weight fetch: its working slice under a ``ShardEnv``
     (gathered on a process mesh, where the module holds its device's
-    shard)."""
+    shard). While ``work`` holds working slices ({parameter name: fp32
+    slice}, set by ``Model.working`` for a process train step, which
+    fetches every leaf once a step), ``fetch`` reads them instead."""
 
     compute: tuple[str, ...] = ()
     group = ""  # the module's subtree in a JAX layer ("attn", "mlp", ...): its leaves' keys
+    work: dict | None = None
 
     def fetch(self, name: str, env: ShardEnv | None, *, fsdp: bool = True) -> torch.Tensor:
         """Parameter ``name`` (its bf16 copy where it has one) under ``env``:
         ``parallel.fetch_weight`` with the leaf's place (``specs``);
         ``fsdp=False`` leaves the FSDP dim sharded (compute at data). On
-        world dims the leaf itself, noted as the fetch when counted."""
+        world dims the leaf itself, noted as the fetch when counted. From
+        ``work`` where it is set: the slice, cast to bf16 in the graph
+        for a matmul weight."""
+        if self.work is not None:
+            w = self.work[name]
+            return w.to(COMPUTE_DTYPE) if name in self.compute else w
         w = self.cw(name) if name in self.compute else getattr(self, name)
         if env is None or (env.mesh is None and not counting()):
             return w
@@ -138,7 +146,10 @@ class RMSNorm(CastOnce):
         self.eps = eps
 
     def forward(self, x: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
-        scale = self.scale if env is None else fetch_weight(self.scale, env, NORM)
+        if self.work is not None:
+            scale = self.work["scale"]
+        else:
+            scale = self.scale if env is None else fetch_weight(self.scale, env, NORM)
         return rms_norm(x, scale, self.eps)
 
 

@@ -35,10 +35,15 @@ serves under tp > 1, the encoder of an enc-dec model included, and trains:
 On a process mesh (an env whose ``mesh`` is a ``ProcessMesh``) the model is
 one device's: it holds that device's shard of every parameter (made from the
 same seeded weights as the world-dim model, whose shard it cuts), its rows
-and a cache of its kv slots and SSM heads, and serves the dense GQA + MLP,
-MoE and Mamba-2 layers through the same code at one tp rank.
+and a cache of its kv slots and SSM heads, and serves and trains the dense
+GQA + MLP, MoE and Mamba-2 layers through the same code at one tp rank:
+``train_loss`` under the process's env reads the step's working slices
+(``Model.working``), and its loss is the device's own, as the reference's
+(the collectives' backward sums the devices' losses).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -286,6 +291,24 @@ class Model(CastOnce):
             p = self.get_parameter(name)
             p.data = shard_leaf(p.data, pl, env, env.fsdp_index, env.model_index).clone()
 
+    @contextlib.contextmanager
+    def working(self, tensors: dict):
+        """Run with ``tensors`` ({parameter name: its working slice}) read
+        in place of each parameter's fetch (``CastOnce.work``): a process
+        train step's fp32 slices, gathered once a step, so that the
+        gradients of every use add up on them."""
+        mods: dict[str, dict] = {}
+        for name, t in tensors.items():
+            mod, _, leaf = name.rpartition(".")
+            mods.setdefault(mod, {})[leaf] = t
+        try:
+            for mod, work in mods.items():
+                self.get_submodule(mod).work = work
+            yield
+        finally:
+            for mod in mods:
+                self.get_submodule(mod).work = None
+
     @property
     def device(self) -> torch.device:
         return self.embed.device
@@ -400,21 +423,29 @@ class Model(CastOnce):
         default). Returns (Σ nll + the MoE layers' load-balance loss,
         {"nll_sum", "ntok"}): the mean over the tp ranks of each rank's own
         loss, which differ only where the MoE's all-to-all route has each
-        rank route (and balance) its slice of the sequence. Autograd records
+        rank route (and balance) its slice of the sequence. Under a process
+        mesh's env (inside ``Model.working``), this device's own loss on its
+        rows, at its tp rank. Autograd records
         it once the parameters require grad. ``impl`` is the sequence mixing;
         ``flash`` raises: neither the ``flash_attention`` kernel nor the
         reference's Pallas kernel has a backward."""
         check_train_impl(impl)
         cfg = self.cfg
         env = ONE if env is None else env
-        if env.fsdp_size != 1 or env.rep != 1:
+        procs = env.mesh is not None
+        if not procs and (env.fsdp_size != 1 or env.rep != 1):
             raise ValueError(f"train_loss runs one rank's rows under its tp group, got {env}: "
                              "pass env.tp_group()")
+        if procs and self.work is None:
+            raise ValueError("train_loss on a process mesh reads the step's working slices: "
+                             "run it inside Model.working (launch.steps.ProcessTrainStep)")
         if self.vocab_padded % env.tp:
             raise ValueError(f"the model's vocab of {self.vocab_padded} rows does not split over "
                              f"tp {env.tp}: make it with Model(cfg, env=...) on the mesh")
         if cfg.embed_input and not cfg.enc_layers:
             x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
+        elif procs:  # the fp32 working vocab shard, then the psum over the tp group
+            x = embed_lookup(batch["tokens"], self.work["embed"], env)
         else:  # enc-dec: the decoder reads tokens
             x = self.embed_rows(batch["tokens"])
         b, s = x.shape[:2]
@@ -425,7 +456,8 @@ class Model(CastOnce):
         if cfg.enc_layers:
             ctx["enc_out"] = self.encode(batch["enc_embeds"], batch["enc_positions"], impl, env)
         x, aux = self.stack(self.blocks, x, ctx)
-        head = self.embed if cfg.tie_embeddings else self.head
+        head = "embed" if cfg.tie_embeddings else "head"
+        head = self.work[head] if procs else getattr(self, head)
         labels = batch["labels"]
         nll = sharded_xent(self.final_norm(x), head, labels, cfg.vocab, env)
         nll_sum = nll.sum()

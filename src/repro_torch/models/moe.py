@@ -29,7 +29,9 @@ Three routes compute it:
 On a process mesh a process holds its device's expert slots and its rows:
 the a2a routes its rank's slice of the sequence, the ``all_to_all``s are
 calls into the tp group's process group, and the tp group's all-gather of
-the sequence is one; the replicated route runs the rank's slots.
+the sequence is one (differentiable: the inverse all-to-all and a
+reduce-scatter in the backward); the replicated route runs the rank's
+slots.
 The routes sum the experts' outputs in fp32 where the JAX model adds each
 expert's bf16 contribution to a bf16 total, so they agree with it to bf16
 rounding, and the kernel's fp32 atomics make the last bits depend on their
@@ -45,8 +47,8 @@ from repro_torch.kernels import ops
 from repro_torch.mesh import Mesh
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import CastOnce, act_fn
-from repro_torch.models.parallel import (ShardEnv, serve_col_matmul, serve_row_matmul,
-                                         tp_groups)
+from repro_torch.models.parallel import (ShardEnv, all_gather, all_to_all, serve_col_matmul,
+                                         serve_row_matmul, tp_groups)
 
 
 def expert_counts(experts: torch.Tensor, n_experts: int) -> torch.Tensor:
@@ -105,14 +107,14 @@ class MoE(CastOnce):
         gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
         return gates.to(x.dtype), experts
 
-    def aux_loss(self, x: torch.Tensor) -> torch.Tensor:
+    def aux_loss(self, x: torch.Tensor, router: torch.Tensor | None = None) -> torch.Tensor:
         """``_router``'s third output, the switch-style load-balance loss of
         tokens x (n, d): E · Σ_e mean(probs)_e · count_e / (n·k) ·
         ``router_aux_weight``, fp32. The counts of top-k choices carry no
         gradient; the mean probabilities do. Training adds it to the loss;
-        serving does not compute it."""
+        serving does not compute it. ``router``: as ``probs`` takes it."""
         m = self.cfg.moe
-        probs = self.probs(x)
+        probs = self.probs(x, router)
         experts = torch.topk(probs, m.top_k, dim=-1).indices.reshape(-1)
         ce = expert_counts(experts, m.n_experts).to(torch.float32) / max(1, experts.numel())
         return m.n_experts * torch.sum(probs.mean(0) * ce) * m.router_aux_weight
@@ -128,13 +130,18 @@ class MoE(CastOnce):
         """The load-balance loss of a training forward on h (b, s, d), as the
         mean over the tp ranks of each rank's own: on the all-to-all route
         rank t routes its slice t of the sequence (every row's) and balances
-        it alone, elsewhere every rank routes every token."""
+        it alone, elsewhere every rank routes every token. On a process mesh,
+        this rank's own (the objective sums the devices' losses)."""
         b, s, d = h.shape
+        procs = env is not None and env.mesh is not None
+        router = self.fetch("router", env) if procs else None
         if not self.a2a_route(s, env):
-            return self.aux_loss(h.reshape(-1, d))
+            return self.aux_loss(h.reshape(-1, d), router)
         tp = env.tp
-        parts = h.unflatten(1, (tp, s // tp)).movedim(1, 0).reshape(tp, -1, d)
-        return sum(self.aux_loss(p) for p in parts) / tp
+        parts = h.unflatten(1, (tp, s // tp)).movedim(1, 0)
+        if procs:
+            return self.aux_loss(parts[env.tp_index].reshape(-1, d), router)
+        return sum(self.aux_loss(p, router) for p in parts.reshape(tp, -1, d)) / tp
 
     def expert(self, x: torch.Tensor, w: tuple[torch.Tensor, ...], e: int,
                env: ShardEnv | None = None) -> torch.Tensor:
@@ -346,7 +353,7 @@ class MoE(CastOnce):
             return t.reshape(lead + (tp, cap) + t.shape[len(lead) + 1:])
 
         def exchange(t):  # chunk j of rank i's dim 2 → chunk i on rank j, in each tp group
-            return mesh.all_to_all(t, env.model_axis, 0, 0, axis_index_groups=groups)
+            return all_to_all(t, mesh, env.model_axis, 0, 0, groups=groups)
 
         send_meta = cut(send_meta)
         recv_x, recv_meta = exchange(cut(send_x)), exchange(send_meta)
@@ -370,8 +377,8 @@ class MoE(CastOnce):
         seg = torch.where(keep, rank * n + tok_id, -1).reshape(-1).to(torch.int32)
         out = ops.segment_reduce(contrib, seg, ranks * n).to(x.dtype)
         if procs:  # the tp group's all-gather of the sequence
-            full = mesh.all_gather(out.view(lead + (R, s_loc, d)), env.model_axis,
-                                   axis_index_groups=groups)
+            full = all_gather(out.view(lead + (R, s_loc, d)), mesh, env.model_axis,
+                              groups=groups)
             full = full.reshape(full.shape[len(lead):]).permute(1, 0, 2, 3).reshape(R, s, d)
             return full, {"keep": keep.view(R, s_loc, k), "send_meta": send_meta}
 

@@ -24,10 +24,10 @@ reference's pmax/pmin tie-break toward the smallest id.
 On a ``ProcessMesh`` (``ShardEnv.mesh``: one process per device) the same
 code runs at one tp rank: the process holds its device's shard of every
 parameter (``convert.rank_shards``), its rows and its cache, ``held_tp`` is
-1, and every collective of the reference's serving step is a process-group
-call. ``fetch_weight`` all-gathers the stored shard, the FSDP dim over
-(pod, data) and then the TP dim over the rep groups (the bf16 copies:
-the same values as the reference's fp32 gather, half the bytes);
+1, and every collective of the reference's steps is a process-group call.
+``fetch_weight`` all-gathers the stored shard, the FSDP dim over (pod,
+data) and then the TP dim over the rep groups (serving gathers the bf16
+copies: the same values as the reference's fp32 gather, half the bytes);
 ``psum_tp`` sums the partials in fp32 over the tp group and rounds to
 bf16 once, as the folded sum does; the compute-at-data products move
 activations with ``all_to_all``/``all_gather``/``psum_scatter``; the
@@ -40,9 +40,9 @@ reference moves them: the fp32 that the process form's ``psum_tp`` and
 compute-at-data reduce-scatter put on the wire for bf16 partials is a
 wider wire for the same collective.
 
-Training runs the same folded forward under autograd, one data-parallel
-rank (pod × data × rep) at a time, and the backward gives the logical
-gradient of the rank's loss. What the reference's weight fetch does in its
+Training on world dims runs the same folded forward under autograd, one
+data-parallel rank (pod × data × rep) at a time, and the backward gives the
+logical gradient of the rank's loss. What the reference's weight fetch does in its
 backward is then run leaf by leaf on every rank's gradient
 (``aggregate_leaf``): the rep-group reduce-scatter along the TP dim
 (``rep_aggregate``), then the FSDP reduce-scatter along the FSDP dim over
@@ -50,6 +50,20 @@ backward is then run leaf by leaf on every rank's gradient
 ``sync_gradients`` for the leaves the fetch does not gather (``fsdp_dim``
 None: over the data world; ``tp_dim`` None or kv/expert slots: over the
 model axis).
+
+The process form is differentiable as the reference's ``shard_map`` with
+``check_vma=False`` is: each collective is a ``torch.autograd.Function``
+whose backward is the reference's transpose. A weight's gather
+(``fetch_weight``, the reference's ``scenario_all_gather``) reduce-scatters
+its gradient under the env's scenario (``scatter_gradient``, ``_sag_bwd``):
+the rep groups' ring first, then the FSDP one, so that the gradient leaves
+the backward aggregated over the data-parallel world and shaped like the
+rank's storage shard. A psum's backward is the same psum (each device's
+loss is its own, and their sum is the objective), an activation's
+all-gather's a reduce-scatter, an all-to-all's the inverse all-to-all
+(``psum``, ``all_gather``, ``all_to_all``). A training step fetches every
+leaf once in fp32, and the gradients of its uses and microbatches add in
+fp32 before the one reduce-scatter (``launch.steps.ProcessTrainStep``).
 """
 from __future__ import annotations
 
@@ -60,7 +74,7 @@ import torch
 
 from repro_torch.core import collectives as coll
 from repro_torch.core.scenarios import Scenario
-from repro_torch.mesh import Mesh, counting, note_collective, uncounted
+from repro_torch.mesh import Mesh, ProcessMesh, counting, note_collective, uncounted
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -202,9 +216,14 @@ class ShardEnv:
             return out
         wide = parts.to(torch.float32).sum(0)
         with uncounted():
-            out = self.mesh.psum(self._lead(wide), self.model_axis, self.tp_groups)
+            out = self.tp_sum(wide)
         note_collective("all-reduce", wide.numel() * parts.element_size())
-        return out.reshape(wide.shape).to(parts.dtype)
+        return out.to(parts.dtype)
+
+    def tp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax.psum`` of ``x`` over this process's tp group (process mesh
+        only), differentiable: its backward is the same psum."""
+        return psum(self._lead(x), self.mesh, self.model_axis, self.tp_groups).reshape(x.shape)
 
     def _lead(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` behind the process mesh's block (a dim of 1 per axis)."""
@@ -313,23 +332,142 @@ def tp_groups(tp: int, rep: int) -> list[list[int]] | None:
 
 def fetch_weight(w: torch.Tensor, env: ShardEnv, place: LeafPlace, *,
                  fsdp: bool = True) -> torch.Tensor:
-    """``fetch_weight``'s forward: the storage shard → the working slice.
+    """``fetch_weight``: the storage shard → the working slice.
     On a process mesh ``w`` is this device's shard; it is all-gathered
     along its FSDP dim over (pod, data) (``fsdp``: unless the caller
     computes at the data), then along its TP dim over the rep group (a
     plain TP leaf; kv heads and experts are stored in the rank's slots).
-    On the world-dim mesh ``w`` is the logical leaf, held whole, and comes
-    back as it is: every tp rank's working slice side by side. The gathers
-    that the process form runs are noted, every device's output."""
+    Its backward is the scenario's reduce-scatter of each gather, the rep
+    groups' first (``scatter_gradient``): the gradient leaves it aggregated
+    and shaped like ``w``. On the world-dim mesh ``w`` is the logical leaf,
+    held whole, and comes back as it is: every tp rank's working slice side
+    by side. The gathers that the process form runs are noted, every
+    device's output."""
     if env.mesh is None:
         if counting():
             _note_fetch(w, env, place, fsdp)
         return w
     if fsdp and place.fsdp_dim is not None and env.fsdp_size > 1:
-        w = _gather(env, w, env.fsdp_axes, place.fsdp_dim)
+        w = _FetchGather.apply(w, env, env.fsdp_axes, place.fsdp_dim, None)
     if place.rep_gathered(env):
-        w = _gather(env, w, env.model_axis, place.tp_dim, env.rep_groups)
+        w = _FetchGather.apply(w, env, env.model_axis, place.tp_dim, env.rep_groups)
     return w
+
+
+class _FetchGather(torch.autograd.Function):
+    """``scenario_all_gather`` on a process mesh: the forward all-gathers
+    ``w`` along ``dim`` over ``axes`` (or each of ``groups`` of the model
+    axis), the backward reduce-scatters the gradient as the env's scenario
+    says (``scatter_gradient``)."""
+
+    @staticmethod
+    def forward(ctx, w, env, axes, dim, groups):
+        ctx.args = (env, axes, dim, groups)
+        return _gather(env, w, axes, dim, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (scatter_gradient(g, *ctx.args),) + (None,) * 4
+
+
+def scatter_gradient(g: torch.Tensor, env: ShardEnv, axes, dim: int, groups=None
+                     ) -> torch.Tensor:
+    """``_sag_bwd`` on the process mesh: the gradient ``g`` of a gathered
+    weight → this device's chunk of ``dim`` summed over ``axes`` (a name
+    or a tuple, the major axis first; or over each of ``groups`` of one
+    axis), as ``env.scenario`` aggregates it. NATIVE: ``psum_scatter``;
+    S2_IN_NET and HIERARCHICAL: ``ring_reduce_scatter`` axis by axis;
+    S3_IN_NET_MAP: the same ring with bf16 on the wire, each hop one
+    ``ring_fused_step``; S1_HOST: the endpoint sum (all-gather, sum, slice)
+    axis by axis. fp32 in, fp32 out."""
+    mesh, sc = env.mesh, Scenario(env.scenario)
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    nm = mesh.ndim
+    if sc is Scenario.NATIVE:
+        out = mesh.psum_scatter(env._lead(g.movedim(dim, 0)), axes, 0, tiled=True,
+                                axis_index_groups=groups)
+        return out.reshape(out.shape[nm:]).movedim(0, dim)
+    wire = sc is Scenario.S3_IN_NET_MAP
+    for ax in axes:
+        p = len(groups[0]) if groups is not None else mesh.axis_size(ax)
+        gm = g.movedim(dim, 0)
+        chunks = gm.reshape((p, gm.shape[0] // p) + gm.shape[1:])
+        if sc is Scenario.S1_HOST:
+            every = mesh.all_gather(env._lead(chunks), ax, axis_index_groups=groups)
+            mine = coll._group_rank(mesh, ax, groups).reshape(())
+            red = every.reshape(every.shape[nm:]).sum(0)[mine]
+        else:
+            red = coll.ring_reduce_scatter(env._lead(chunks), mesh, ax, groups=groups,
+                                           wire_map=coll.bf16_wire if wire else None,
+                                           unmap=coll.fp32_unwire if wire else None)
+            red = red.reshape(red.shape[nm:])
+        g = red.movedim(0, dim)
+    return g
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, groups):
+        ctx.args = (mesh, axes, groups)
+        return mesh.psum(x, axes, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, groups = ctx.args
+        return (mesh.psum(g, axes, groups),) + (None,) * 3
+
+
+def psum(x: torch.Tensor, mesh: Mesh, axes, groups=None) -> torch.Tensor:
+    """``lax.psum`` (``x`` leads with the mesh's block), differentiable on a
+    process mesh: its backward is the same psum, as the reference's
+    transpose under ``check_vma=False``."""
+    if not isinstance(mesh, ProcessMesh):
+        return mesh.psum(x, axes, groups)
+    return _Psum.apply(x, mesh, axes, groups)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, tiled, groups):
+        ctx.args = (mesh, axis, tiled, groups)
+        return mesh.all_gather(x, axis, tiled=tiled, axis_index_groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, tiled, groups = ctx.args
+        return (mesh.psum_scatter(g, axis, 0, tiled=tiled, axis_index_groups=groups),) + (
+            None,) * 4
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh, axis, *, tiled: bool = False, groups=None
+               ) -> torch.Tensor:
+    """``lax.all_gather`` of an activation, differentiable on a process mesh:
+    its backward is ``psum_scatter`` over the same group."""
+    if not isinstance(mesh, ProcessMesh):
+        return mesh.all_gather(x, axis, tiled=tiled, axis_index_groups=groups)
+    return _AllGather.apply(x, mesh, axis, tiled, groups)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split, concat, tiled, groups):
+        ctx.args = (mesh, axis, split, concat, tiled, groups)
+        return mesh.all_to_all(x, axis, split, concat, tiled=tiled, axis_index_groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split, concat, tiled, groups = ctx.args
+        return (mesh.all_to_all(g, axis, concat, split, tiled=tiled, axis_index_groups=groups),
+                ) + (None,) * 6
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis, split: int, concat: int, *,
+               tiled: bool = False, groups=None) -> torch.Tensor:
+    """``lax.all_to_all``, differentiable on a process mesh: its backward is
+    the inverse all-to-all (``split`` and ``concat`` swapped)."""
+    if not isinstance(mesh, ProcessMesh):
+        return mesh.all_to_all(x, axis, split, concat, tiled=tiled, axis_index_groups=groups)
+    return _AllToAll.apply(x, mesh, axis, split, concat, tiled, groups)
 
 
 def _gather(env: ShardEnv, w: torch.Tensor, axes, dim: int, groups=None) -> torch.Tensor:
@@ -500,23 +638,34 @@ def sharded_xent(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
     vocab-padding columns at -inf, a max stabiliser that carries no gradient
     (the reference's pmax has no transpose), and labels < 0 (padding) at 0
     loss. Over tp ranks each rank holds V_pad / tp columns: its sum of
-    exponentials is summed over the ranks (``psum_tp``) as the reference
-    sums them, and the label's logit comes from the one rank that holds
-    it."""
-    tp = 1 if env is None else env.tp
+    exponentials is summed over the ranks as the reference sums them, and
+    the label's logit comes from the one rank that holds it. Folded, the
+    ranks' columns lie side by side and their sums add in fp32; on a
+    process mesh ``table`` is this rank's (V_pad / tp, d), the max is a
+    ``pmax`` over the tp group, and the two sums are differentiable psums
+    (``ShardEnv.tp_sum``)."""
+    procs = env is not None and env.mesh is not None
+    tp = 1 if env is None else env.held_tp
     lg = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).to(torch.float32)
     per = lg.shape[-1]
     if per % tp:
         raise ValueError(f"a vocab of {per} rows does not split over tp {tp}: pad it to the "
                          "model axis (Model(cfg, env=...))")
-    col = torch.arange(per, device=lg.device)
+    start = env.tp_offset(per) if procs else 0
+    col = start + torch.arange(per, device=lg.device)
     lg = torch.where(col < vocab, lg, float("-inf"))
     mx = torch.amax(lg, dim=-1).detach()
+    if procs:
+        mx = env.mesh.pmax(env._lead(mx), env.model_axis, env.tp_groups).reshape(mx.shape)
     se = torch.sum(torch.exp(lg - mx[..., None]).unflatten(-1, (tp, -1)), dim=-1)
-    lse = torch.log(se.sum(-1) if tp > 1 else se[..., 0]) + mx
-    ok = (labels >= 0) & (labels < per)
-    tl = torch.gather(lg, -1, labels.clamp(0, per - 1).long()[..., None])[..., 0]
-    nll = lse - torch.where(ok, tl, 0.0)
+    se = se.sum(-1) if tp > 1 else se[..., 0]
+    loc = labels - start
+    ok = (loc >= 0) & (loc < per)
+    tl = torch.gather(lg, -1, loc.clamp(0, per - 1).long()[..., None])[..., 0]
+    tl = torch.where(ok, tl, 0.0)
+    if procs:
+        se, tl = env.tp_sum(se), env.tp_sum(tl)
+    nll = torch.log(se) + mx - tl
     return torch.where(labels >= 0, nll, 0.0)
 
 
