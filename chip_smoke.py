@@ -205,13 +205,16 @@
    the card), with phase 11's launches summed over the ranks.
 12. Serves the LM on a process mesh: one gloo rank per device of a
    (data, model) mesh on the one card, each holding only its device's shard
-   of the parameters (built from ``SEED`` and cut), its rows and its cache
-   (``PROCS_SERVE``): qwen1.5 at (2, 4) (the flash prefill, both decode
-   routes), granite-moe at (1, 8) (the a2a prefill at the config's
-   capacity, the replicated decode) and mamba2 at (2, 2), at full width,
-   qwen1.5 at full depth and the other two at ``PROCS_SERVE_LAYERS``. Each
-   arch is first served on the world-dim mesh of the same mesh shape,
-   weights and rows. On each route every rank's greedy tokens equal
+   of the parameters (each leaf cut as it is drawn from ``SEED``), its rows
+   and its cache (``PROCS_SERVE``): qwen1.5 at (2, 4) (the flash prefill,
+   both decode routes), granite-moe at (1, 8) (the a2a prefill at the
+   config's capacity, the replicated decode), mamba2 at (2, 2), minicpm3
+   (MLA) at (1, 4), recurrentgemma at (2, 2) (both decode routes), qwen2-vl
+   at (1, 8) (patch embeddings on their grid, split over rep) and seamless
+   at (1, 4) (``ENC_FRAMES`` frames), at full width, qwen1.5 at full depth
+   and the others at ``PROCS_SERVE_LAYERS``; the archs of one world size
+   share a spawn (``PROCS_SERVE_SPAWNS``). Each arch is first served on the
+   world-dim mesh of the same mesh shape, weights and rows. On each route every rank's greedy tokens equal
    its rows' there wherever the world-dim logits' top-two margin exceeds
    twice the row's measured logit difference at that step (for qwen1.5 on
    at least ``DECISIVE_SHARE`` of the positions), every step's logits (the
@@ -226,10 +229,12 @@
    per arch the prefill wall (the slowest rank; the first call, which makes
    the groups and pinned buffers) and decode ms a step on each route, the
    bytes staged through host memory and their share of the wall, the
-   collectives of a rank and of all, and a rank's peak memory beside the
-   world-dim run's; the kernels line gets
-   ``flash_attention`` and the a2a combine's ``segment_reduce`` at a rank's
-   shapes (rank 0's first layer), timed alone on the card.
+   collectives of a rank and of all, and a rank's peak memory at setup and
+   serving beside the world-dim run's; the kernels line gets
+   ``flash_attention`` (qwen1.5's, qwen2-vl's GQA prefill and seamless's
+   non-causal encoder, ``PROCS_SERVE_FLASH``) and the a2a combine's
+   ``segment_reduce`` at a rank's shapes (rank 0's first layer), timed
+   alone on the card.
 13. Trains the LM on a process mesh: one gloo rank per device on the one
    card, each holding only its device's shard of the parameters and of the
    fp32 moments (``launch.steps.ProcessTrainStep``; ``PROCS_TRAIN``, at
@@ -272,6 +277,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -568,16 +574,45 @@ PROCS_LAUNCHES = {"wordcount_histogram": {"segment_reduce": 1},
 # archs other than qwen1.5 halved (PROCS_SERVE_LAYERS), so that the whole
 # script stays well inside its time limit: a decode step takes 1.3-2.9 s on
 # gloo ranks that share the card, a prefill 7-15 s (measured on an NVIDIA
-# H100 80GB HBM3 at 700.00 W; PERF.md §5)
+# H100 80GB HBM3 at 700.00 W; PERF.md §5). The other block kinds at full
+# width, 4 rows and 3 tokens: minicpm3 at (1, 4) (tp 4: MLA, 10 heads a
+# rank, the latent cache of its rows) at 8 of 62 layers; recurrentgemma at
+# (2, 2) as phase 9 (tp 2: the RG-LRU by tp rank, the rolling window over
+# its one kv head's copies) at 8 of 26 (2 superblocks and the tail), 2,048
+# a multiple of its window; qwen2-vl at (1, 8) as phase 9 (tp 4, rep 2: a
+# rank's 7 q heads and one kv slot, patch embeddings on their (t, h, w)
+# grid, the batch split over the rep groups) at 4 of 28; seamless at (1, 4)
+# (tp 4: the non-causal encoder over ENC_FRAMES frames, cross-attention
+# over a rank's kv slots, a DEC_PROMPT-token prompt) at 6 + 6 of 24 + 24
 PROCS_SERVE = {"qwen1.5-0.5b": ((2, 4), 8, 4096, 3),
                "granite-moe-1b-a400m": ((1, 8), 4, 2048, 3),
-               "mamba2-1.3b": ((2, 2), 4, 2048, 3)}
-PROCS_SERVE_LAYERS = {"granite-moe-1b-a400m": 12, "mamba2-1.3b": 24}  # of 24 and 48
+               "mamba2-1.3b": ((2, 2), 4, 2048, 3),
+               "minicpm3-4b": ((1, 4), 4, 2048, 3),
+               "recurrentgemma-2b": ((2, 2), 4, 2048, 3),
+               "qwen2-vl-7b": ((1, 8), 4, 2048, 3),
+               "seamless-m4t-large-v2": ((1, 4), 4, DEC_PROMPT, 3)}
+PROCS_SERVE_LAYERS = {"granite-moe-1b-a400m": 12, "mamba2-1.3b": 24,  # of 24 and 48
+                      "minicpm3-4b": 8, "recurrentgemma-2b": 8, "qwen2-vl-7b": 4,
+                      "seamless-m4t-large-v2": 6}  # of 62, 26, 28 and 24
+PROCS_SERVE_ENC_LAYERS = {"seamless-m4t-large-v2": 6}  # of 24
 # each rank's launches of one served path: (flash_attention, segment_reduce),
-# one prefill flash per layer on the rank's heads, one a2a combine per MoE layer
+# one prefill flash per layer on the rank's heads (seamless: its encoder's
+# non-causal ones and its decoder's), one a2a combine per MoE layer
 PROCS_SERVE_LAUNCHES = {"qwen1.5-0.5b": (24, 0), "granite-moe-1b-a400m": (12, 12),
-                        "mamba2-1.3b": (0, 0)}
-PROCS_SERVE_CAD = ("qwen1.5-0.5b",)  # with an fsdp world and an MLP: both decode routes
+                        "mamba2-1.3b": (0, 0), "minicpm3-4b": (0, 0),
+                        "recurrentgemma-2b": (0, 0), "qwen2-vl-7b": (4, 0),
+                        "seamless-m4t-large-v2": (12, 0)}
+# with an fsdp world and an MLP: both decode routes
+PROCS_SERVE_CAD = ("qwen1.5-0.5b", "recurrentgemma-2b")
+# the archs of one world size share one spawn: each rank serves them in turn
+PROCS_SERVE_SPAWNS = (("qwen1.5-0.5b", "granite-moe-1b-a400m", "qwen2-vl-7b"),
+                      ("mamba2-1.3b", "minicpm3-4b", "recurrentgemma-2b",
+                       "seamless-m4t-large-v2"))
+# the flash_attention rows at a rank's shapes: rank 0's first launch of each
+# of these archs, and what it is
+PROCS_SERVE_FLASH = {"qwen1.5-0.5b": "one rank's heads and rows of the prefill",
+                     "qwen2-vl-7b": "one rank's prefill, GQA (its q heads over one kv slot)",
+                     "seamless-m4t-large-v2": "one rank's encoder layer"}
 # held to the world-dim run of the same mesh, weights and rows on each route:
 # every step's logits normwise (the prefill's, then each decode step's, on
 # the rows whose tokens so far agree) within TP_TOL, and the final cache
@@ -3091,40 +3126,53 @@ def procs_serve_routes(arch: str) -> tuple[str, ...]:
 
 
 def procs_serve_config(arch: str):
-    """``arch``'s config at full width, cut to ``PROCS_SERVE_LAYERS``."""
+    """``arch``'s config at full width, cut to ``PROCS_SERVE_LAYERS`` (and
+    an enc-dec model's encoder to ``PROCS_SERVE_ENC_LAYERS``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    layers = PROCS_SERVE_LAYERS.get(arch)
-    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+    cut = {"n_layers": PROCS_SERVE_LAYERS.get(arch), "enc_layers": PROCS_SERVE_ENC_LAYERS.get(arch)}
+    return dataclasses.replace(cfg, **{k: v for k, v in cut.items() if v})
+
+
+def procs_serve_batch(model, rows: int, arch: str):
+    """``arch``'s seeded prompt rows (``launch.serve.prompt_batch`` from
+    ``SEED``): tokens, patch embeddings with their grid, or ``ENC_FRAMES``
+    frames and a token prompt."""
+    from repro_torch.launch import serve
+
+    _, _, prompt, _ = PROCS_SERVE[arch]
+    return serve.prompt_batch(model, rows, prompt, seed=SEED, enc_len=ENC_FRAMES)
 
 
 def procs_serve_world(arch: str, tmp: Path) -> dict:
     """Phase 12's reference for ``arch``: the world-dim serve on the card of
     the same mesh shape, weights (``SEED``) and rows, on each route, with
     every step's logits recorded. Writes each rank's part to
-    ``tmp/ref.<rank>.pt`` (the world tokens, that rank's rows and vocab
-    shard of every step's logits, and its block of the final cache,
+    ``tmp/ref.<arch>.<rank>.pt`` (the world tokens, that rank's rows and
+    vocab shard of every step's logits, and its block of the final cache,
     ``convert.cache_block``) and returns the tokens, each step's top-two
     margins, the walls and the peak memory of each route."""
     import torch
 
     from repro_torch.launch import serve, steps
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.convert import cache_block
+    from repro_torch.models.convert import cache_block, flatten
     from repro_torch.models.model import Model
 
-    dims, gb, prompt, gen = PROCS_SERVE[arch]
+    dims, gb, _, gen = PROCS_SERVE[arch]
     cfg = procs_serve_config(arch)
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     mesh = make_mesh(dims, device="cuda")
     env = steps.make_env(cfg, mesh)
     model = Model(cfg, device="cuda", seed=SEED, env=env)
-    batch = serve.prompt_batch(model, steps.held_rows(env, gb), prompt, seed=SEED)
+    batch = procs_serve_batch(model, steps.held_rows(env, gb), arch)
+    setup_gb = torch.cuda.max_memory_allocated() / 1e9
     per = model.vocab_padded // env.tp
-    rep, b_loc = env.row_groups(batch.shape[0])
+    rep, b_loc = env.row_groups(steps.batch_shape(batch)[0])
     parts = [{} for _ in range(mesh.size)]
     out = {}
     for route in procs_serve_routes(arch):
@@ -3140,7 +3188,7 @@ def procs_serve_world(arch: str, tmp: Path) -> dict:
         lg = torch.stack(logs)  # (gen, rows, V_pad)
         top2 = torch.topk(lg[..., :cfg.vocab], 2, dim=-1).values
         out[route] = {"tokens": res["tokens"].cpu(), "margins": (top2[..., 0] - top2[..., 1]).cpu(),
-                      "walls": serve_walls(res, gb, gen),
+                      "walls": serve_walls(res, gb, gen), "setup_peak_gb": setup_gb,
                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         for r in range(mesh.size):
             f, m = divmod(r, env.model_size)
@@ -3149,30 +3197,30 @@ def procs_serve_world(arch: str, tmp: Path) -> dict:
             parts[r][route] = {
                 "tokens": out[route]["tokens"],
                 "logits": lg[:, start:start + b_loc, t * per:(t + 1) * per].cpu(),
-                "cache": {k: v.cpu() for k, v in importlib.import_module(
-                    "repro_torch.models.convert").flatten(
-                        cache_block(res["cache"], env, f, m)).items()}}
+                "cache": {k: v.cpu() for k, v in flatten(
+                    cache_block(res["cache"], env, f, m)).items()}}
         del res, logs, lg
     del model, batch
     torch.cuda.empty_cache()
     for r, part in enumerate(parts):
-        torch.save(part, tmp / f"ref.{r}.pt")
+        torch.save(part, tmp / f"ref.{arch}.{r}.pt")
     return out
 
 
 def procs_serve_rank(arch: str, tmp: str, device) -> dict:
-    """Phase 12 in one rank (``launch.procs.spawn``): the model made from
-    ``SEED`` under its process mesh's env (its device's shard kept), the
-    seeded prompts' rows of its block, then per route one served call, its
-    launches, staged copies and collectives counted and every step's logits
-    recorded as the greedy token reads them (on the gather route, rank 0
-    keeps a device copy of its first ``flash_attention`` and
-    ``segment_reduce`` inputs), held on its rows and vocab shard to the
-    world-dim run (``procs_serve_world``'s part), at each step on the rows
-    whose tokens so far agree: each row's largest logit difference, and the
-    step's squared differences and squared reference logits; and the final
-    cache block's worst normwise difference on the rows whose tokens all
-    agree."""
+    """Phase 12 for ``arch`` in one rank (``launch.procs.spawn``): the model
+    made from ``SEED`` under its process mesh's env (each leaf cut to its
+    device's shard as it is drawn; the setup's peak memory read), the seeded
+    prompts' rows of its block (every input of a dict batch), then per route
+    one served call, its launches, staged copies and collectives counted
+    and every step's logits recorded as the greedy token reads them (on the
+    gather route, rank 0 keeps a device copy of its first
+    ``flash_attention`` and ``segment_reduce`` inputs), held on its rows and
+    vocab shard to the world-dim run (``procs_serve_world``'s part), at each
+    step on the rows whose tokens so far agree: each row's largest logit
+    difference, and the step's squared differences and squared reference
+    logits; and the final cache block's worst normwise difference on the
+    rows whose tokens all agree."""
     import torch
     import torch.distributed as dist
 
@@ -3182,20 +3230,26 @@ def procs_serve_rank(arch: str, tmp: str, device) -> dict:
     from repro_torch.models.convert import flatten
     from repro_torch.models.model import Model
 
-    dims, gb, prompt, gen = PROCS_SERVE[arch]
+    dims, gb, _, gen = PROCS_SERVE[arch]
     cfg = procs_serve_config(arch)
     t0 = time.perf_counter()
     torch.set_num_threads(1)  # the ranks share the host's cores
-    pm = ProcessMesh(("data", "model"), dims, device=device)
-    env = steps.make_env(cfg, pm)
-    model = Model(cfg, device=device, seed=SEED, env=env)
-    rows = steps.rank_rows(env, serve.prompt_batch(model, steps.held_rows(env.world(), gb),
-                                                   prompt, seed=SEED), gb)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ref = torch.load(Path(tmp) / f"ref.{pm.rank}.pt")
+    pm = ProcessMesh(("data", "model"), dims, device=device)
+    env = steps.make_env(cfg, pm)
+    model = Model(cfg, device=device, seed=SEED, env=env)
+    batch = procs_serve_batch(model, steps.held_rows(env.world(), gb), arch)
+    rows = steps.map_batch(batch, lambda v: steps.rank_rows(env, v, gb))
+    del batch
+    torch.cuda.synchronize()
+    setup_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref = torch.load(Path(tmp) / f"ref.{arch}.{pm.rank}.pt")
     res = {"setup_s": time.perf_counter() - t0, "held_gb": torch.cuda.memory_allocated() / 1e9,
+           "setup_peak_gb": setup_peak,
            "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
            "transport": pm.transport, "routes": {}, "capture": {}}
 
@@ -3258,7 +3312,16 @@ def procs_serve_rank(arch: str, tmp: str, device) -> dict:
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["capture"] = {k: tuple(t.cpu() if hasattr(t, "cpu") else t for t in v)
                       for k, v in res["capture"].items()}
+    res["arch_s"] = time.perf_counter() - t0
+    del model, rows, ref
+    torch.cuda.empty_cache()
     return res
+
+
+def procs_serve_ranks(archs: tuple, tmp: str, device) -> dict:
+    """One rank of a spawn shared by ``archs`` (one world size): each arch
+    in turn (``procs_serve_rank``), its model freed before the next."""
+    return {arch: procs_serve_rank(arch, tmp, device) for arch in archs}
 
 
 def procs_serve_decisive(tokens, want, margins, diffs) -> tuple[bool, int, int]:
@@ -3282,144 +3345,195 @@ def procs_serve_decisive(tokens, want, margins, diffs) -> tuple[bool, int, int]:
     return ok, decisive, compared
 
 
-def procs_serve_phase(launches: dict, rows: list) -> dict:
-    """Phase 12: for each arch of ``PROCS_SERVE`` the world-dim reference
-    (``procs_serve_world``), then one gloo rank per mesh device spawned on
-    the card (``procs_serve_rank``), held to it. Adds the ranks' launches to
-    ``launches`` and the two kernel rows at a rank's shapes to ``rows``;
-    returns the readings."""
-    import functools
-    import tempfile
-
+def procs_serve_check(arch: str, world: dict, ranks: list, res: dict) -> dict:
+    """Phase 12's checks of ``arch``: every rank's launches, then on each
+    route its tokens, logits and cache blocks held to the world-dim run
+    (``world``); adds the ranks' launches to ``res``. Returns the readings."""
     import torch
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.launch import procs, steps
+    from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh
 
-    res = {"archs": {}, "launches": dict.fromkeys(ops.LAUNCHES, 0)}
-    captured = {}
-    for arch, (dims, gb, prompt, gen) in PROCS_SERVE.items():
-        stage(f"phase 12 {arch}")
-        n = dims[0] * dims[1]
-        t = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            world = procs_serve_world(arch, Path(tmp))
-            world_s = time.perf_counter() - t
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()  # the ranks share the card with this process
-            t = time.perf_counter()
-            ranks = procs.spawn(functools.partial(procs_serve_rank, arch, tmp), n,
-                                backend="gloo", store_path=Path(tmp) / "store",
-                                timeout_s=PROCS_TIMEOUT_S)
-            spawn_s = time.perf_counter() - t
-        cfg = procs_serve_config(arch)
-        env = steps.make_env(cfg, make_mesh(dims, device="meta"))
-        want_fa, want_sr = PROCS_SERVE_LAUNCHES[arch]
-        st = {"ranks": n, "layers": cfg.n_layers,
-              "transport": sorted({r["transport"] for r in ranks}),
-              "world_s": world_s, "spawn_s": spawn_s,
-              "setup_s": max(r["setup_s"] for r in ranks),
-              "held_gb_per_rank": max(r["held_gb"] for r in ranks),
-              "param_gb_per_rank": max(r["param_bytes"] for r in ranks) / 1e9,
-              "peak_gb_per_rank": max(r["peak_gb"] for r in ranks),
-              "world_peak_gb": max(w["peak_gb"] for w in world.values()), "routes": {}}
-        for route, w in world.items():
-            recs = [r["routes"][route] for r in ranks]
-            for i, rec in enumerate(recs):
-                got = rec["launches"]
-                if (got["flash_attention"], got["segment_reduce"]) != (want_fa, want_sr) or (
-                        got["hash_partition"] or got["ring_fused_step"]):
-                    raise AssertionError(f"procs_serve_{arch} ({route}): rank {i} made {got} "
-                                         f"launches, not {want_fa} flash_attention and {want_sr} "
-                                         "segment_reduce")
-                for k, v in got.items():
-                    res["launches"][k] += v
-            # the tokens device-major (rows_of refuses tp ranks of a group that differ)
-            blocks = torch.stack([rec["tokens"] for rec in recs])
-            blocks = blocks.reshape(dims + blocks.shape[1:])
-            if not env.batch_split_rep(gb):  # every model index holds the data rank's rows
-                if not bool((blocks == blocks[:, :1]).all()):
-                    raise AssertionError(f"procs_serve_{arch} ({route}): the tp ranks' tokens "
-                                         "differ")
-                blocks = blocks[:, :1]
-            toks = steps.rows_of(env, blocks, gb)
-            if toks.shape != (gb, gen) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
-                raise AssertionError(f"procs_serve_{arch}: tokens {tuple(toks.shape)} out of shape "
-                                     "or vocab")
-            # each row's largest difference over the vocab shards of the ranks that hold it
-            rep, b_loc = env.row_groups(gb)
-            diffs = torch.zeros(gen, w["tokens"].shape[0])
-            for rec in recs:
-                f, m = rec["coords"]
-                start = (f * rep + (m % env.rep if rep > 1 else 0)) * b_loc
-                sl = diffs[:, start:start + b_loc]
-                torch.maximum(sl, rec["row_diffs"], out=sl)
-            ok, decisive, compared = procs_serve_decisive(toks, w["tokens"], w["margins"], diffs)
-            step_rel = [(sum(rec["sq"][i] for rec in recs)
-                         / sum(rec["wsq"][i] for rec in recs)) ** 0.5 for i in range(gen)]
-            logits = step_rel[0]
-            r = {"tokens_equal_where_decisive": ok, "decisive": decisive, "compared": compared,
-                 "positions": gb * gen, "agreement": float((toks == w["tokens"]).float().mean()),
-                 "max_logit_diff": float(diffs.max()), "step_logits_rel": step_rel,
-                 "prefill_logits_rel": logits,
-                 "prefill_logits_bitwise": all(rec["logits_equal"] for rec in recs),
-                 "launches_per_rank": {k: v for k, v in recs[0]["launches"].items() if v},
-                 "world_walls": w["walls"]}
-            wall = max(rec["prefill_s"] + rec["decode_s"] for rec in recs)
-            r.update({"prefill_s": max(rec["prefill_s"] for rec in recs),
-                      "decode_ms_per_step": (max(rec["decode_s"] for rec in recs)
-                                             / max(1, gen - 1) * 1e3),
-                      "staged_bytes": sum(rec["staged"]["bytes"] for rec in recs),
-                      "staged_copies": sum(rec["staged"]["copies"] for rec in recs),
-                      "staging_share": max(rec["staged"]["seconds"] for rec in recs) / wall,
-                      "collectives_rank0": recs[0]["collectives"],
-                      "collectives_summed": {k: sum(rec["collectives"][k] for rec in recs)
-                                             for k in recs[0]["collectives"]}})
-            r["cache_worst"] = max(rec["cache_worst"] for rec in recs)
-            r["cache_rows"] = sum(rec["cache_rows"] for rec in recs)
-            st["routes"][route] = r
-            # tp 2 sums two partials, exactly in either order: the prefill bitwise
-            bad = (not ok or max(step_rel) > TP_TOL
-                   or (env.tp == 2 and not r["prefill_logits_bitwise"])
-                   or r["cache_worst"] > TP_TOL or r["cache_rows"] == 0
-                   or (arch in PROCS_SERVE_SHARE and decisive < DECISIVE_SHARE * compared))
-            if bad:
-                raise AssertionError(f"procs_serve_{arch} ({route}) differs from the world-dim "
-                                     f"run: {r}")
-        res["archs"][arch] = st
-        for k in ("flash", "combine"):
-            if k in ranks[0]["capture"]:
-                captured.setdefault(k, ranks[0]["capture"][k] + (f"serve_{arch}",))
-        log(f"process mesh serve {arch} on {dims} ({n} gloo ranks on one card, "
-            f"{' / '.join(st['transport'])}): {json.dumps(st)}")
-        del ranks, world
-    # the kernels at a rank's shapes (rank 0's first launch), timed alone
-    q, k, v, causal, fpath = captured.pop("flash")
+    dims, gb, _, gen = PROCS_SERVE[arch]
+    cfg = procs_serve_config(arch)
+    env = steps.make_env(cfg, make_mesh(dims, device="meta"))
+    want_fa, want_sr = PROCS_SERVE_LAUNCHES[arch]
+    st = {"ranks": len(ranks), "layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+          "transport": sorted({r["transport"] for r in ranks}),
+          "setup_s": max(r["setup_s"] for r in ranks),
+          "rank_s": max(r["arch_s"] for r in ranks),
+          "setup_peak_gb_per_rank": max(r["setup_peak_gb"] for r in ranks),
+          "held_gb_per_rank": max(r["held_gb"] for r in ranks),
+          "param_gb_per_rank": max(r["param_bytes"] for r in ranks) / 1e9,
+          "peak_gb_per_rank": max(r["peak_gb"] for r in ranks),
+          "world_setup_peak_gb": max(w["setup_peak_gb"] for w in world.values()),
+          "world_peak_gb": max(w["peak_gb"] for w in world.values()), "routes": {},
+          "flash_launches": 0}
+    for route, w in world.items():
+        recs = [r["routes"][route] for r in ranks]
+        for i, rec in enumerate(recs):
+            got = rec["launches"]
+            if (got["flash_attention"], got["segment_reduce"]) != (want_fa, want_sr) or (
+                    got["hash_partition"] or got["ring_fused_step"]):
+                raise AssertionError(f"procs_serve_{arch} ({route}): rank {i} made {got} "
+                                     f"launches, not {want_fa} flash_attention and {want_sr} "
+                                     "segment_reduce")
+            for k, v in got.items():
+                res["launches"][k] += v
+            st["flash_launches"] += got["flash_attention"]
+        # the tokens device-major (rows_of refuses tp ranks of a group that differ)
+        blocks = torch.stack([rec["tokens"] for rec in recs])
+        blocks = blocks.reshape(dims + blocks.shape[1:])
+        if not env.batch_split_rep(gb):  # every model index holds the data rank's rows
+            if not bool((blocks == blocks[:, :1]).all()):
+                raise AssertionError(f"procs_serve_{arch} ({route}): the tp ranks' tokens "
+                                     "differ")
+            blocks = blocks[:, :1]
+        toks = steps.rows_of(env, blocks, gb)
+        if toks.shape != (gb, gen) or not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+            raise AssertionError(f"procs_serve_{arch}: tokens {tuple(toks.shape)} out of shape "
+                                 "or vocab")
+        # each row's largest difference over the vocab shards of the ranks that hold it
+        rep, b_loc = env.row_groups(gb)
+        diffs = torch.zeros(gen, w["tokens"].shape[0])
+        for rec in recs:
+            f, m = rec["coords"]
+            start = (f * rep + (m % env.rep if rep > 1 else 0)) * b_loc
+            sl = diffs[:, start:start + b_loc]
+            torch.maximum(sl, rec["row_diffs"], out=sl)
+        ok, decisive, compared = procs_serve_decisive(toks, w["tokens"], w["margins"], diffs)
+        step_rel = [(sum(rec["sq"][i] for rec in recs)
+                     / sum(rec["wsq"][i] for rec in recs)) ** 0.5 for i in range(gen)]
+        logits = step_rel[0]
+        r = {"tokens_equal_where_decisive": ok, "decisive": decisive, "compared": compared,
+             "positions": gb * gen, "agreement": float((toks == w["tokens"]).float().mean()),
+             "max_logit_diff": float(diffs.max()), "step_logits_rel": step_rel,
+             "prefill_logits_rel": logits,
+             "prefill_logits_bitwise": all(rec["logits_equal"] for rec in recs),
+             "launches_per_rank": {k: v for k, v in recs[0]["launches"].items() if v},
+             "world_walls": w["walls"]}
+        wall = max(rec["prefill_s"] + rec["decode_s"] for rec in recs)
+        r.update({"prefill_s": max(rec["prefill_s"] for rec in recs),
+                  "decode_ms_per_step": (max(rec["decode_s"] for rec in recs)
+                                         / max(1, gen - 1) * 1e3),
+                  "staged_bytes": sum(rec["staged"]["bytes"] for rec in recs),
+                  "staged_copies": sum(rec["staged"]["copies"] for rec in recs),
+                  "staging_share": max(rec["staged"]["seconds"] for rec in recs) / wall,
+                  "collectives_rank0": recs[0]["collectives"],
+                  "collectives_summed": {k: sum(rec["collectives"][k] for rec in recs)
+                                         for k in recs[0]["collectives"]}})
+        r["cache_worst"] = max(rec["cache_worst"] for rec in recs)
+        r["cache_rows"] = sum(rec["cache_rows"] for rec in recs)
+        st["routes"][route] = r
+        # tp 2 sums two partials, exactly in either order: the prefill bitwise
+        bad = (not ok or max(step_rel) > TP_TOL
+               or (env.tp == 2 and not r["prefill_logits_bitwise"])
+               or r["cache_worst"] > TP_TOL or r["cache_rows"] == 0
+               or (arch in PROCS_SERVE_SHARE and decisive < DECISIVE_SHARE * compared))
+        if bad:
+            raise AssertionError(f"procs_serve_{arch} ({route}) differs from the world-dim "
+                                 f"run: {r}")
+    return st
+
+
+def procs_flash_row(capture: tuple, launches: int, what: str) -> dict:
+    """The ``flash_attention`` row at a rank's shapes (``capture``: rank 0's
+    first launch of a path, (q, k, v, causal, path)), timed alone against
+    its plain version and SDPA; ``launches``: that path's over its ranks."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    q, k, v, causal, fpath = capture
     q, k, v = (t.cuda() for t in (q, k, v))
     fa = importlib.import_module("repro_torch.kernels.flash_attention").flash_attention
     kout, pout = fa(q, k, v, causal=causal), ref.flash_attention(q, k, v, causal=causal)
     row_err = row_rel_err(kout, pout)
     if row_err > ROW_TOL[str(kout.dtype)]:
-        raise AssertionError(f"flash_attention at a rank's shape: a row is {row_err} off")
+        raise AssertionError(f"flash_attention at a rank's shape ({fpath}): a row is {row_err} "
+                             "off")
     fb, fh, fs, fd = q.shape
-    b_ms, b_by = bound_ms(4 * q.numel() * 2, 4 * fd * fb * fh * fs * (fs + 1) / 2,
-                          BF16_TC_OPS_PER_S)
-    rows.append({
+    pairs = fs * (fs + 1) / 2 if causal else fs * fs
+    b_ms, b_by = bound_ms((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                          4 * fd * fb * fh * pairs, BF16_TC_OPS_PER_S)
+    row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:79",
-        "launches": res["launches"]["flash_attention"], "max_abs_err": max_abs_err([(kout, pout)]),
+        "launches": launches, "max_abs_err": max_abs_err([(kout, pout)]),
         "ms": cuda_ms(lambda: fa(q, k, v, causal=causal)),
         "plain_ms": cuda_ms(lambda: ref.flash_attention(q, k, v, causal=causal), iters=3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=q.shape[1] != k.shape[1])),
         "norm_rel_err": rel_err(kout, pout), "max_row_rel_err": row_err, "path": "procs_" + fpath,
-        "shape": f"q, k, v {tuple(q.shape)} bf16, {'causal' if causal else 'non-causal'}: one "
-                 "rank's heads and rows of the prefill",
-    })
+        "shape": f"q {tuple(q.shape)}, k, v {tuple(k.shape)} bf16, "
+                 f"{'causal' if causal else 'non-causal'}: {what}",
+    }
     del q, k, v, kout, pout
+    return row
+
+
+def procs_serve_phase(launches: dict, rows: list) -> dict:
+    """Phase 12: for each group of ``PROCS_SERVE_SPAWNS`` the world-dim
+    reference of each of its archs (``procs_serve_world``), then one gloo
+    rank per mesh device spawned on the card once for the group
+    (``procs_serve_ranks``), each arch held to its reference
+    (``procs_serve_check``). Adds the ranks' launches to ``launches`` and
+    the kernel rows at a rank's shapes to ``rows``: ``flash_attention`` at
+    each of ``PROCS_SERVE_FLASH``'s archs, ``segment_reduce`` at the a2a
+    combine; returns the readings."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import procs
+
+    res = {"archs": {}, "launches": dict.fromkeys(ops.LAUNCHES, 0), "spawns": []}
+    captured = {}
+    for group in PROCS_SERVE_SPAWNS:
+        sizes = {math.prod(PROCS_SERVE[a][0]) for a in group}
+        if len(sizes) != 1:
+            raise ValueError(f"phase 12 spawn {group}: world sizes {sizes} differ")
+        n = sizes.pop()
+        with tempfile.TemporaryDirectory() as tmp:
+            world, world_s = {}, {}
+            for arch in group:
+                stage(f"phase 12 {arch} on world dims")
+                t = time.perf_counter()
+                world[arch] = procs_serve_world(arch, Path(tmp))
+                world_s[arch] = time.perf_counter() - t
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # the ranks share the card with this process
+            stage(f"phase 12 {n} ranks: {', '.join(group)}")
+            t = time.perf_counter()
+            ranks = procs.spawn(functools.partial(procs_serve_ranks, group, tmp), n,
+                                backend="gloo", store_path=Path(tmp) / "store",
+                                timeout_s=PROCS_TIMEOUT_S)
+            spawn_s = time.perf_counter() - t
+        res["spawns"].append({"archs": list(group), "ranks": n, "spawn_s": spawn_s})
+        for arch in group:
+            mine = [r[arch] for r in ranks]
+            st = procs_serve_check(arch, world[arch], mine, res)
+            st.update({"world_s": world_s[arch], "spawn_s": spawn_s,
+                       "wall_s": world_s[arch] + st["rank_s"]})
+            res["archs"][arch] = st
+            cap = mine[0]["capture"]
+            if arch in PROCS_SERVE_FLASH:
+                captured[arch] = cap["flash"] + (f"serve_{arch}",)
+            if "combine" in cap:
+                captured.setdefault("combine", cap["combine"] + (f"serve_{arch}",))
+            log(f"process mesh serve {arch} on {PROCS_SERVE[arch][0]} ({n} gloo ranks on one "
+                f"card, {' / '.join(st['transport'])}): {json.dumps(st)}")
+        del ranks, world
+    # the kernels at a rank's shapes (rank 0's first launch), timed alone:
+    # qwen1.5's with phase 12's launches, the others' with their arch's
+    for arch, what in PROCS_SERVE_FLASH.items():
+        n_fa = (res["launches"]["flash_attention"] if arch == "qwen1.5-0.5b"
+                else res["archs"][arch]["flash_launches"])
+        rows.append(procs_flash_row(captured.pop(arch), n_fa, what))
     values, ids, nseg, spath = captured.pop("combine")
     values, ids = values.cuda(), ids.cuda()
     sr = bare_launchers()[1]

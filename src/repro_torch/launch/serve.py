@@ -29,11 +29,16 @@ the model's tp ranks from ``cfg.resolve_tp(m)``, the batch in the
 device-major layout of ``launch.shapes.batch_layout`` and its distinct rows
 held once (``launch.steps.held_rows``). Under ``torchrun`` (``WORLD_SIZE``
 set) it serves on a process mesh instead, one process per mesh device
-(``launch.procs.init_process_mesh``, ``--backend``): every process makes
-the model from the seed and keeps its device's shard, makes the same
-global prompts and keeps its own rows (``steps.rank_rows``), and rank 0
-prints the tokens gathered from every process (GQA + MLP, MoE and Mamba-2
-models).
+(``launch.procs.init_process_mesh``, ``--backend``), every block kind:
+every process makes the model from the seed, keeping its device's shard of
+each leaf as it is drawn, makes the same global prompts (token prompts,
+patch embeddings with their grid, or ``--enc-len`` frames with a token
+prompt) and keeps its own rows of each input (``steps.rank_rows``), and
+rank 0 prints the tokens gathered from every process.
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.serve \
+        --arch seamless-m4t-large-v2 --smoke --mesh 2,4 --enc-len 12 \
+        --backend gloo --device cpu
 """
 from __future__ import annotations
 

@@ -406,6 +406,21 @@ class TrainStep:
                        "lr": self.optimizer.schedule(state.count)}
 
 
+def check_procs_train(cfg) -> None:
+    """Raise unless a process mesh trains ``cfg``'s layers: GQA
+    self-attention with the MLP or the MoE, and Mamba-2, on token inputs.
+    MLA, the RG-LRU hybrid (with local attention), embedding inputs (M-RoPE)
+    and enc-dec serve there but train only on world dims so far."""
+    unit, tail, _ = M.block_pattern(cfg)
+    kinds = set(unit) | set(tail)
+    if cfg.mla is not None or cfg.embed_input or cfg.enc_layers or not kinds <= {
+            "attn_mlp", "attn_moe", "ssm"}:
+        raise NotImplementedError(
+            f"training {cfg.name} on a process mesh waits (ROADMAP.md §1 item 2): it trains GQA "
+            "+ MLP, MoE and Mamba-2 models so far; train it on the world-dim mesh "
+            "(launch.mesh.make_mesh), or serve it on the process mesh")
+
+
 class ProcessTrainStep(TrainStep):
     """``TrainStep`` on a ``ProcessMesh``: this process is one device of the
     mesh and holds only its shard of every parameter and of the fp32
@@ -427,9 +442,11 @@ class ProcessTrainStep(TrainStep):
       all-reduced sum) and the AdamW update of the shards.
 
     ``loss`` and ``ntok`` are psum'd over the whole mesh, as the
-    reference's metrics. 8-bit moments wait (ROADMAP.md §1)."""
+    reference's metrics. It trains GQA + MLP, MoE and Mamba-2 models
+    (``check_procs_train``); 8-bit moments wait (ROADMAP.md §1)."""
 
     def __init__(self, model: M.Model, mesh: ProcessMesh, **kw):
+        check_procs_train(model.cfg)
         if kw["optimizer"].eightbit:
             raise NotImplementedError(
                 "8-bit moments on a process mesh wait (ROADMAP.md §1): train with fp32 moments "

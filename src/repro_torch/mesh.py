@@ -554,7 +554,11 @@ class ProcessMesh(Mesh):
         key = (tag, tuple(shape), dtype)
         buf = self._pinned.get(key)
         if buf is None:
-            buf = self._pinned[key] = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+            # a normal tensor even when made under inference mode (a serving
+            # step's), so that a later collective outside it can write into it
+            with torch.inference_mode(False):
+                buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+            self._pinned[key] = buf
         return buf
 
     def _outgoing(self, t: torch.Tensor, tag: str = "send") -> torch.Tensor:

@@ -37,7 +37,7 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import CastOnce, RMSNorm, apply_rope
-from repro_torch.models.parallel import COMPUTE_DTYPE, ShardEnv, row_parallel
+from repro_torch.models.parallel import COMPUTE_DTYPE, LeafPlace, ShardEnv, row_parallel
 
 NEG_INF = -1e30
 IMPLS = ("masked", "triangle", "direct", "flash")
@@ -338,19 +338,21 @@ class MLAAttention(CastOnce):
     latent space, in fp32 from the fp32 ``wkv_b``, as ``mla_apply`` does."""
 
     compute = ("wq_a", "wq_b", "wkv_a", "wkv_b", "wo")
+    group = "attn"
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
         m = cfg.mla
         d, H = cfg.d_model, cfg.n_heads
+        whole = LeafPlace(None, None, 0)  # the latent norms: neither FSDP nor TP sharded
         self.cfg = cfg
         self.wq_a = self.param((d, m.q_lora_rank), "normal", generator, device)
-        self.q_norm = RMSNorm(m.q_lora_rank, cfg.norm_eps, generator, device)
+        self.q_norm = RMSNorm(m.q_lora_rank, cfg.norm_eps, generator, device, whole)
         self.wq_b = self.param((m.q_lora_rank, H * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
                                "normal", generator, device)
         self.wkv_a = self.param((d, m.kv_lora_rank + m.qk_rope_head_dim), "normal", generator,
                                 device)
-        self.kv_norm = RMSNorm(m.kv_lora_rank, cfg.norm_eps, generator, device)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, cfg.norm_eps, generator, device, whole)
         self.wkv_b = self.param((m.kv_lora_rank, H * (m.qk_nope_head_dim + m.v_head_dim)),
                                 "normal", generator, device)
         self.wo = self.param((H * m.v_head_dim, d), "normal", generator, device)
@@ -364,17 +366,21 @@ class MLAAttention(CastOnce):
         q and kv up-projections (``wq_b``, ``wkv_b``) are column-parallel
         and their attention is per head, so folded these are the tp = 1
         computation; the output projection is row-parallel, its partials
-        summed. The latent cache, which every rank holds alike, is held
-        once."""
+        summed. Every weight comes through ``fetch`` (on a process mesh the
+        rank's heads' slices, the decode's ``wkv_b`` gathered in fp32) and
+        the heads are read off the fetched ``wq_b``. The latent cache, which
+        every rank holds alike, is held once folded and by every process for
+        its rows."""
         m = self.cfg.mla
         b, s, _ = x.shape
-        H = self.cfg.n_heads
         dn, dr, dv, dc = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
         cos, sin = rope
-        q = (self.q_norm(x @ self.cw("wq_a")) @ self.cw("wq_b")).view(b, s, H, dn + dr)
+        q = self.q_norm(x @ self.fetch("wq_a", env), env) @ self.fetch("wq_b", env)
+        H = q.shape[-1] // (dn + dr)  # the heads held: all of them folded, the rank's on processes
+        q = q.view(b, s, H, dn + dr)
         q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
-        kv_a = x @ self.cw("wkv_a")
-        c_kv = self.kv_norm(kv_a[..., :dc])
+        kv_a = x @ self.fetch("wkv_a", env)
+        c_kv = self.kv_norm(kv_a[..., :dc], env)
         k_rope = apply_rope(kv_a[..., dc:][:, :, None, :], cos, sin)[:, :, 0]  # one shared head
 
         new_cache = None
@@ -384,7 +390,7 @@ class MLAAttention(CastOnce):
             cr[:, cache_len:cache_len + s] = k_rope.to(cr.dtype)
             new_cache = cache
             f32 = torch.float32
-            w_kb = self.wkv_b.to(f32).view(dc, H, dn + dv)
+            w_kb = self.fetch("wkv_b", env, stored=True).to(f32).view(dc, H, dn + dv)
             q_abs = torch.einsum("bshn,chn->bshc", q_nope.to(f32), w_kb[..., :dn])
             sc = torch.einsum("bshc,bSc->bhsS", q_abs, cc.to(f32))
             sc = sc + torch.einsum("bshr,bSr->bhsS", q_rope.to(f32), cr.to(f32))
@@ -394,7 +400,7 @@ class MLAAttention(CastOnce):
             ctx = torch.einsum("bhsS,bSc->bshc", w, cc.to(f32))
             y = torch.einsum("bshc,chv->bshv", ctx, w_kb[..., dn:])
         else:  # prefill: expand the latent and run the chunked attention
-            w_kb = self.cw("wkv_b").view(dc, H, dn + dv)
+            w_kb = self.fetch("wkv_b", env).view(dc, H, dn + dv)
             k_nope = torch.einsum("bsc,chn->bshn", c_kv, w_kb[..., :dn])
             v = torch.einsum("bsc,chv->bshv", c_kv, w_kb[..., dn:])
             k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, H, dr)], dim=-1)
@@ -407,4 +413,4 @@ class MLAAttention(CastOnce):
                 prefill_cache["k_rope"][:, :s] = k_rope.to(prefill_cache["k_rope"].dtype)
                 new_cache = prefill_cache
         y = y.reshape(b, s, H * dv).to(x.dtype)
-        return row_parallel(y, self.cw("wo"), env), new_cache
+        return row_parallel(y, self.fetch("wo", env), env), new_cache

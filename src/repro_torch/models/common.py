@@ -151,4 +151,5 @@ def init_tensor(shape, law: str, generator: torch.Generator, device,
         return torch.ones(shape, dtype=torch.float32, device=device)
     if law != "normal":
         raise ValueError(f"unknown init law {law!r}")
-    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device) * scale
+    # scaled in place: one tensor of the leaf's size (the same numbers as ``* scale``)
+    return torch.randn(shape, generator=generator, dtype=torch.float32, device=device).mul_(scale)

@@ -9,15 +9,37 @@ when serving asks for it over an fsdp world.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.mesh import counting
 from repro_torch.models.common import ModelConfig, init_tensor
-from repro_torch.models.parallel import (COMPUTE_DTYPE, NORM, ShardEnv, col_parallel,
+from repro_torch.models.parallel import (COMPUTE_DTYPE, NORM, LeafPlace, ShardEnv, col_parallel,
                                          fetch_weight, row_parallel, serve_col_matmul,
-                                         serve_row_matmul)
+                                         serve_row_matmul, shard_leaf)
+
+# the process mesh's env whose device's shard each parameter keeps as it is
+# made (``cutting``), None elsewhere
+_CUT: contextvars.ContextVar[ShardEnv | None] = contextvars.ContextVar("cut", default=None)
+
+
+@contextlib.contextmanager
+def cutting(env: ShardEnv | None):
+    """While open, every parameter a ``CastOnce`` module is given is cut to
+    the shard of ``env``'s device (``env.mesh``'s process) as it is
+    assigned: drawn whole, then at once replaced by its shard
+    (``parallel.shard_leaf`` with the leaf's place), so that a process holds
+    one whole leaf at a time while it builds a model. ``None``: nothing is
+    cut."""
+    token = _CUT.set(env)
+    try:
+        yield
+    finally:
+        _CUT.reset(token)
 
 
 class CastOnce(nn.Module):
@@ -39,31 +61,46 @@ class CastOnce(nn.Module):
     (gathered on a process mesh, where the module holds its device's
     shard). While ``work`` holds working slices ({parameter name: fp32
     slice}, set by ``Model.working`` for a process train step, which
-    fetches every leaf once a step), ``fetch`` reads them instead."""
+    fetches every leaf once a step), ``fetch`` reads them instead. Under
+    ``cutting`` a parameter is cut to its device's shard as it is assigned."""
 
     compute: tuple[str, ...] = ()
     group = ""  # the module's subtree in a JAX layer ("attn", "mlp", ...): its leaves' keys
     work: dict | None = None
 
-    def fetch(self, name: str, env: ShardEnv | None, *, fsdp: bool = True) -> torch.Tensor:
-        """Parameter ``name`` (its bf16 copy where it has one) under ``env``:
+    def __setattr__(self, name: str, value) -> None:
+        env = _CUT.get()
+        if env is not None and isinstance(value, nn.Parameter):
+            value.data = shard_leaf(value.data, self.leaf_place(name), env, env.fsdp_index,
+                                    env.model_index).clone()
+        super().__setattr__(name, value)
+
+    def leaf_place(self, name: str) -> LeafPlace:
+        """Parameter ``name``'s ``LeafPlace`` (``specs``), resolved once a module."""
+        places = self.__dict__.setdefault("_places", {})
+        if name not in places:
+            from repro_torch.models import specs
+
+            places[name] = specs.place(f"{self.group}/{name}" if self.group else name, self.cfg)
+        return places[name]
+
+    def fetch(self, name: str, env: ShardEnv | None, *, fsdp: bool = True,
+              stored: bool = False) -> torch.Tensor:
+        """Parameter ``name`` (its bf16 copy where it has one; ``stored``:
+        the parameter as stored, fp32) under ``env``:
         ``parallel.fetch_weight`` with the leaf's place (``specs``);
         ``fsdp=False`` leaves the FSDP dim sharded (compute at data). On
         world dims the leaf itself, noted as the fetch when counted. From
         ``work`` where it is set: the slice, cast to bf16 in the graph
         for a matmul weight."""
+        copy = name in self.compute and not stored
         if self.work is not None:
             w = self.work[name]
-            return w.to(COMPUTE_DTYPE) if name in self.compute else w
-        w = self.cw(name) if name in self.compute else getattr(self, name)
+            return w.to(COMPUTE_DTYPE) if copy else w
+        w = self.cw(name) if copy else getattr(self, name)
         if env is None or (env.mesh is None and not counting()):
             return w
-        places = self.__dict__.setdefault("_places", {})  # resolved once a module
-        if name not in places:
-            from repro_torch.models import specs
-
-            places[name] = specs.place(f"{self.group}/{name}" if self.group else name, self.cfg)
-        return fetch_weight(w, env, places[name], fsdp=fsdp)
+        return fetch_weight(w, env, self.leaf_place(name), fsdp=fsdp)
 
     def param(self, shape, law: str, generator, device, scale: float = 0.02) -> nn.Parameter:
         return nn.Parameter(init_tensor(shape, law, generator, device, scale),
@@ -138,18 +175,24 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 class RMSNorm(CastOnce):
-    """RMSNorm with an fp32 scale, FSDP-sharded in storage (fetched under ``env``)."""
+    """RMSNorm with an fp32 scale, fetched under ``env`` from its storage at
+    ``place``: FSDP-sharded (``NORM``: a layer's norms, the final and the
+    encoder's), or held whole (MLA's latent norms)."""
 
-    def __init__(self, d: int, eps: float, generator, device):
+    def __init__(self, d: int, eps: float, generator, device, place: LeafPlace = NORM):
         super().__init__()
+        self.place = place
         self.scale = self.param((d,), "ones", generator, device)
         self.eps = eps
+
+    def leaf_place(self, name: str) -> LeafPlace:
+        return self.place
 
     def forward(self, x: torch.Tensor, env: ShardEnv | None = None) -> torch.Tensor:
         if self.work is not None:
             scale = self.work["scale"]
         else:
-            scale = self.scale if env is None else fetch_weight(self.scale, env, NORM)
+            scale = self.scale if env is None else fetch_weight(self.scale, env, self.place)
         return rms_norm(x, scale, self.eps)
 
 

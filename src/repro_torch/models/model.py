@@ -33,13 +33,14 @@ serves under tp > 1, the encoder of an enc-dec model included, and trains:
 (``ShardEnv.tp_group``), folded as serving is, with autograd recording.
 
 On a process mesh (an env whose ``mesh`` is a ``ProcessMesh``) the model is
-one device's: it holds that device's shard of every parameter (made from the
-same seeded weights as the world-dim model, whose shard it cuts), its rows
-and a cache of its kv slots and SSM heads, and serves and trains the dense
-GQA + MLP, MoE and Mamba-2 layers through the same code at one tp rank:
-``train_loss`` under the process's env reads the step's working slices
-(``Model.working``), and its loss is the device's own, as the reference's
-(the collectives' backward sums the devices' losses).
+one device's: it holds that device's shard of every parameter (the same
+seeded weights as the world-dim model's, each cut to its shard as it is
+drawn), its rows and a cache of its kv slots, SSM heads and RG-LRU channels,
+and serves every block kind through the same code at one tp rank. It trains
+the dense GQA + MLP, MoE and Mamba-2 layers (``launch.steps.ProcessTrainStep``
+refuses the others): ``train_loss`` under the process's env reads the step's
+working slices (``Model.working``), and its loss is the device's own, as the
+reference's (the collectives' backward sums the devices' losses).
 """
 from __future__ import annotations
 
@@ -53,10 +54,10 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS
 from repro_torch.mesh import resolve_device
 from repro_torch.models.attention import TRAIN_IMPLS, GQAAttention, MLAAttention, kv_held
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import MLP, CastOnce, RMSNorm, mrope_angles, rope_angles
+from repro_torch.models.layers import MLP, CastOnce, RMSNorm, cutting, mrope_angles, rope_angles
 from repro_torch.models.moe import MoE
 from repro_torch.models.parallel import (ONE, ShardEnv, argmax_logits, embed_lookup, logits,
-                                         pad_vocab, shard_leaf, sharded_xent)
+                                         pad_vocab, sharded_xent)
 from repro_torch.models.rglru import CONV_WIDTH, RGLRU
 from repro_torch.models.ssm import SSM, ssm_dims
 
@@ -176,18 +177,6 @@ def block_apply(block: Block, x: torch.Tensor, ctx: dict, cache: dict | None = N
     return x + block.mlp(block.ln2(x, env), env)
 
 
-def check_procs_config(cfg: ModelConfig) -> None:
-    """Raise unless a process mesh serves ``cfg``'s layers: GQA self-attention
-    with the MLP or the MoE, and Mamba-2, on token inputs."""
-    unit, tail, _ = block_pattern(cfg)
-    kinds = set(unit) | set(tail)
-    if cfg.mla is not None or cfg.embed_input or cfg.enc_layers or not kinds <= {
-            "attn_mlp", "attn_moe", "ssm"}:
-        raise NotImplementedError(f"{cfg.name} on a process mesh waits (ROADMAP.md §1): it "
-                                  "serves GQA + MLP, MoE and Mamba-2 models so far; serve it on "
-                                  "the world-dim mesh (launch.mesh.make_mesh)")
-
-
 def check_train_impl(impl: str) -> None:
     """Raise unless training can run sequence mixing ``impl``: ``flash`` has
     no backward (neither the kernel nor the reference's Pallas kernel)."""
@@ -241,55 +230,41 @@ class Model(CastOnce):
     ``convert.params_from_jax`` loads the JAX model's instead. ``env``: the
     ``ShardEnv`` it serves under (a (1, 1) mesh by default); the vocab is
     padded to a multiple of its model axis. Under a process mesh's env the
-    model is built whole from ``seed`` and then keeps only its device's
-    shard of each parameter (``parallel.shard_leaf``)."""
+    model keeps only its device's shard of each parameter, cut as the
+    parameter is drawn (``layers.cutting``: ``parallel.shard_leaf``), so the
+    numbers are those of the world-dim model's shards and a process holds one
+    whole leaf at a time while it builds."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int = 0,
                  env: ShardEnv | None = None):
         super().__init__()
         self.env = env = ONE if env is None else env
-        if env.mesh is not None:
-            check_procs_config(cfg)
         device = resolve_device(device, "Model()")
         # on the meta device (shapes only, no memory) there are no numbers to draw
         gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
         self.cfg = cfg
         self.vocab_padded = pad_vocab(cfg.vocab, env.model_size)
-        self.embed = self.param((self.vocab_padded, cfg.d_model), "normal", gen, device)
-        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, gen, device)
-        self.compute = ("embed",)
-        if not cfg.tie_embeddings:
-            self.head = self.param((self.vocab_padded, cfg.d_model), "normal", gen, device)
-            self.compute = ("embed", "head")
+        self.compute = ("embed",) if cfg.tie_embeddings else ("embed", "head")
         unit, tail, n_sb = block_pattern(cfg)
         self.layout = [("blocks", f"{pos}_{kind}", i) for i in range(n_sb)
                        for pos, kind in enumerate(unit)]
         self.layout += [("tail", f"{i}_{kind}", None) for i, kind in enumerate(tail)]
-        self.blocks = nn.ModuleList(Block(key.split("_", 1)[1], cfg, gen, device)
-                                    for _, key, _ in self.layout)
-        self.enc_blocks = nn.ModuleList(Block("enc", cfg, gen, device)
-                                        for _ in range(cfg.enc_layers))
-        if cfg.enc_layers:
-            self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, gen, device)
-        if env.mesh is not None:
-            self.keep_shard()
+        with cutting(env if env.mesh is not None else None):
+            self.embed = self.param((self.vocab_padded, cfg.d_model), "normal", gen, device)
+            self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, gen, device)
+            if not cfg.tie_embeddings:
+                self.head = self.param((self.vocab_padded, cfg.d_model), "normal", gen, device)
+            self.blocks = nn.ModuleList(Block(key.split("_", 1)[1], cfg, gen, device)
+                                        for _, key, _ in self.layout)
+            self.enc_blocks = nn.ModuleList(Block("enc", cfg, gen, device)
+                                            for _ in range(cfg.enc_layers))
+            if cfg.enc_layers:
+                self.enc_norm = RMSNorm(cfg.d_model, cfg.norm_eps, gen, device)
         dtype = getattr(torch, cfg.param_dtype)
         if dtype != torch.float32:
             for p in self.parameters():
                 p.data = p.data.to(dtype)
         self.cast_weights()
-
-    @torch.no_grad()
-    def keep_shard(self) -> None:
-        """Replace every parameter, held whole, by this process's device's
-        shard of it (the env's process mesh): the FSDP slice, the model-axis
-        slice of the TP dim, kv heads and experts in the device's slots."""
-        from repro_torch.models import specs
-
-        env = self.env
-        for name, pl in specs.leaf_places(self).items():
-            p = self.get_parameter(name)
-            p.data = shard_leaf(p.data, pl, env, env.fsdp_index, env.model_index).clone()
 
     @contextlib.contextmanager
     def working(self, tensors: dict):
@@ -336,10 +311,12 @@ class Model(CastOnce):
     def init_cache(self, batch: int, seq_max: int, enc_len: int | None = None) -> dict:
         """An empty cache for ``batch`` sequences of up to ``seq_max``
         positions (``enc_len``: the encoder's input length, enc-dec only):
-        every kv head and SSM head folded, the device's kv slots and SSM
-        heads on a process mesh."""
+        every kv head, SSM head and RG-LRU channel folded; on a process mesh
+        the device's kv slots (self- and cross-attention's), SSM heads and
+        RG-LRU channels (its tp rank's), and MLA's latent cache of its rows."""
         cfg = self.cfg
         kv = kv_held(cfg, self.env)
+        lru = cfg.d_model // (self.env.tp // self.env.held_tp)  # the RG-LRU channels held
         if cfg.enc_layers and enc_len is None:
             raise ValueError(f"{cfg.name} is enc-dec: init_cache needs enc_len")
         dt = getattr(torch, cfg.compute_dtype)
@@ -358,8 +335,8 @@ class Model(CastOnce):
                                 "ssm": zeros(lead, heads, s.d_state, s.head_dim,
                                              dtype=torch.float32)}}
             if kind == "rec":
-                return {"rec": {"conv": zeros(lead, CONV_WIDTH - 1, cfg.d_model),
-                                "h": zeros(lead, cfg.d_model, dtype=torch.float32)}}
+                return {"rec": {"conv": zeros(lead, CONV_WIDTH - 1, lru),
+                                "h": zeros(lead, lru, dtype=torch.float32)}}
             if cfg.mla is not None:
                 m = cfg.mla
                 out = {"attn": {"c_kv": zeros(lead, seq_max, m.kv_lora_rank),
@@ -369,8 +346,8 @@ class Model(CastOnce):
                 out = {"attn": {"k": zeros(lead, slots, kv, cfg.hd),
                                 "v": zeros(lead, slots, kv, cfg.hd)}}
             if kind == "dec":
-                out["cross"] = {"k": zeros(lead, enc_len, cfg.n_kv_heads, cfg.hd),
-                                "v": zeros(lead, enc_len, cfg.n_kv_heads, cfg.hd)}
+                out["cross"] = {"k": zeros(lead, enc_len, kv, cfg.hd),
+                                "v": zeros(lead, enc_len, kv, cfg.hd)}
             return out
 
         cache = {"blocks": {f"{pos}_{kind}": block_cache(kind, (n_sb,))
@@ -412,7 +389,7 @@ class Model(CastOnce):
         ctx = {"rope": rope_for(self.cfg, positions, rope_dim(self.cfg)), "impl": impl,
                "env": env}
         x, _ = self.stack(self.enc_blocks, embeds.to(getattr(torch, self.cfg.compute_dtype)), ctx)
-        return self.enc_norm(x)
+        return self.enc_norm(x, env)
 
     def train_loss(self, batch: dict, *, impl: str = "masked", env: ShardEnv | None = None):
         """The JAX model's ``train_loss`` on one rank's batch: ``tokens`` (or

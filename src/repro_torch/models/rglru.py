@@ -10,7 +10,10 @@ fp32 sums round in another order); decode carries the (b, lru) state one
 step. Over tp ranks each rank holds lru/tp channels; the gates, the conv
 and the scan are per channel, so folded they are the tp = 1 computation, and
 the output projection is row-parallel, its partials summed
-(``parallel.row_parallel``). The state is held once.
+(``parallel.row_parallel``). The state is held once. Every leaf comes
+through ``fetch`` (``group = "rec"``): on a process mesh the rank's
+channels of each projection, of the conv and of the fp32 gate vectors, and
+its state holds those channels.
 """
 from __future__ import annotations
 
@@ -32,10 +35,12 @@ class RGLRU(CastOnce):
     w_out (lru, d)."""
 
     compute = ("w_gate", "w_in", "w_out")
+    group = "rec"
 
     def __init__(self, cfg: ModelConfig, generator, device):
         super().__init__()
         d = lru = cfg.d_model
+        self.cfg = cfg
         self.w_gate = self.param((d, lru), "normal", generator, device)
         self.w_in = self.param((d, lru), "normal", generator, device)
         self.conv = self.param((lru, CONV_WIDTH), "normal", generator, device, scale=0.1)
@@ -52,17 +57,22 @@ class RGLRU(CastOnce):
         """x (b, s, d) → (b, s, d). ``state`` {"conv", "h"}: one decode step
         (s = 1) from the state, which is then overwritten in place.
         ``prefill_state``: a state of that form that takes the prompt's last
-        conv inputs and hidden state in place. ``env``: the tp ranks."""
+        conv inputs and hidden state in place. ``env``: the tp ranks (folded:
+        every channel; on a process mesh the rank's)."""
         b, s, _ = x.shape
         if state is not None and s != 1:
             raise ValueError(f"an RG-LRU decode step takes one position, got {s}")
-        gate = x @ self.cw("w_gate")
-        xin, conv = causal_conv1d(x @ self.cw("w_in"), self.conv,
+
+        def vec(name):
+            return self.fetch(name, env).to(torch.float32)
+
+        gate = x @ self.fetch("w_gate", env)
+        xin, conv = causal_conv1d(x @ self.fetch("w_in", env), self.fetch("conv", env),
                                   None if state is None else state["conv"])
         xf = xin.to(torch.float32)
-        r = torch.sigmoid(xf * self.gate_a_w + self.gate_a_b)
-        i = torch.sigmoid(xf * self.gate_i_w + self.gate_i_b)
-        a = torch.exp(-RG_C * F.softplus(self.lam.to(torch.float32)) * r)
+        r = torch.sigmoid(xf * vec("gate_a_w") + vec("gate_a_b"))
+        i = torch.sigmoid(xf * vec("gate_i_w") + vec("gate_i_b"))
+        a = torch.exp(-RG_C * F.softplus(vec("lam")) * r)
         gated_x = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * xf)
         if state is not None:
             y = (a[:, 0] * state["h"] + gated_x[:, 0])[:, None]
@@ -74,4 +84,4 @@ class RGLRU(CastOnce):
             out_state["conv"].copy_(conv)
             out_state["h"].copy_(y[:, -1])
         y = (y * F.gelu(gate.to(torch.float32), approximate="tanh")).to(x.dtype)
-        return row_parallel(y, self.cw("w_out"), env)
+        return row_parallel(y, self.fetch("w_out", env), env)

@@ -30,13 +30,26 @@ split over rep); granite-moe at (1, 8) (tp 4, rep 2, kv 2 over a span of
 and at 1.0 (where assignments drop), then the replicated decode, and its
 layer-0 a2a at capacity 4.0 and 1.0, and at (2, 4) (its expert slots over an fsdp
 world of 2; also the compute-at-data decode); mamba2 at (4, 2) (its
-resolve_tp's 2).
+resolve_tp's 2). The other block kinds (``KINDS``, the reference from
+``test_torch_tp_serve_kinds.jax_case`` in the same subprocesses): minicpm3
+(MLA) at (1, 8) (tp 4, rep 2: the latent cache of each rank's rows, the
+decode's fp32 ``wkv_b`` gather); recurrentgemma at (2, 4) (tp 4: the RG-LRU
+state by tp rank, the rolling window over kv 1 duplicated over a span of 4;
+also the compute-at-data decode); qwen2-vl at (1, 8) (tp 4, rep 2: patch
+embeddings and their M-RoPE grid, the batch split over rep); seamless at
+(2, 4) (tp 4: the encoder over ``ENC`` frames, the cross cache of each
+rank's kv slots).
 The MoE prefill replays the reference's route on each rank (a router
-near-tie could flip an expert), as ``test_torch_tp_serve`` does.
+near-tie could flip an expert), as ``test_torch_tp_serve`` does. Each rank
+also makes every served arch from the seed under its process mesh's env:
+its parameters are bitwise the world-dim model's shards, each leaf cut as it
+is drawn.
 
 Tolerances: against the reference, ``test_torch_tp_serve``'s (caches
-``CACHE_TOL``, logits ``LOGIT_TOL``, the MoE layer ``MOE_TOL``), tokens
-equal, the a2a's sent rows and kept assignments bitwise. Against the
+``CACHE_TOL``, logits ``LOGIT_TOL``, the MoE layer ``MOE_TOL``; the kinds'
+caches as ``test_torch_tp_serve_kinds.close_cache`` holds them, at the same
+``CACHE_TOL``), tokens equal, the a2a's sent rows and kept assignments
+bitwise. Against the
 world-dim port on the same inputs, tokens equal, and the caches and logits
 bitwise at tp 2 (mamba2: the same products, and psum_tp's fp32 sum of two
 partials is exact in any order), except its SSM state after decoding, within
@@ -52,6 +65,7 @@ import functools
 import io
 import os
 import time
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -59,9 +73,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import test_torch_tp_serve as TT  # noqa: E402
+import test_torch_tp_serve_kinds as TK  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.launch import procs, serve, steps  # noqa: E402
 from repro_torch.mesh import Mesh, ProcessMesh, count_collectives  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import (cache_to_jax, flatten, params_from_jax,  # noqa: E402
                                         rank_shards, stack_leaves)
@@ -69,10 +85,13 @@ from repro_torch.models.convert import (cache_to_jax, flatten, params_from_jax, 
 WORLD = 8
 TIMEOUT_S = 240
 JAX_WAIT_S = 200  # how long a rank waits for the reference's outputs
-# the CLI on the 8 ranks' (2, 4) mesh
+# the CLI on the 8 ranks' (2, 4) mesh: qwen1.5, and seamless with an encoder of its own length
 CLI = ["--arch", "qwen1.5-0.5b", "--smoke", "--mesh", "2,4", "--batch", "8", "--prompt-len", "16",
        "--gen", "3", "--device", "cpu"]
+CLI_ENC = ["--arch", "seamless-m4t-large-v2", "--smoke", "--mesh", "2,4", "--batch", "8",
+           "--prompt-len", "16", "--enc-len", "12", "--gen", "3", "--device", "cpu"]
 B, S, GEN = TT.B, TT.S, TT.GEN
+ENC = TK.ENC
 CASES = {  # tag: (arch, mesh)
     "qwen24": ("qwen1.5-0.5b", (2, 4)),
     "qwen18": ("qwen1.5-0.5b", (1, 8)),
@@ -80,8 +99,16 @@ CASES = {  # tag: (arch, mesh)
     "granite18cf1": ("granite-moe-1b-a400m", (1, 8)),
     "granite24": ("granite-moe-1b-a400m", (2, 4)),
     "mamba42": ("mamba2-1.3b", (4, 2)),
+    "minicpm18": ("minicpm3-4b", (1, 8)),
+    "rg24": ("recurrentgemma-2b", (2, 4)),
+    "qwen2vl18": ("qwen2-vl-7b", (1, 8)),
+    "seamless24": ("seamless-m4t-large-v2", (2, 4)),
 }
-CAD = ("qwen24", "granite24")  # the compute-at-data decode: meshes with an fsdp world
+# the other block kinds: references from test_torch_tp_serve_kinds.jax_case, dict inputs
+KINDS = ("minicpm18", "rg24", "qwen2vl18", "seamless24")
+CAD = ("qwen24", "granite24", "rg24")  # the compute-at-data decode: meshes with an fsdp world
+# every served arch, at one case's mesh: made from the seed on the ranks
+SEEDED = {CASES[t][0]: t for t in ("qwen24", "granite24", "mamba42") + KINDS}
 CF = {"granite18cf1": 1.0}  # a case's MoE capacity factor where not its config's
 A2A_CF = (4.0, 1.0)
 CACHE_TOL, LOGIT_TOL, MOE_TOL = TT.CACHE_TOL, TT.LOGIT_TOL, TT.MOE_TOL
@@ -120,6 +147,26 @@ def rows(tag: str) -> np.ndarray:
     r, b_loc = env.row_groups(B)
     return np.random.RandomState(5).randint(0, get_smoke_config(arch).vocab,
                                             (env.fsdp_size * r * b_loc, S)).astype(np.int32)
+
+
+def batch_rows(tag: str):
+    """A case's distinct prompt rows as the steps take them: ``rows`` as a
+    tensor, or for ``KINDS`` the dict of ``test_torch_tp_serve_kinds.inputs``
+    (tokens; patch embeddings and their grid; frames, their positions and a
+    token prompt)."""
+    if tag not in KINDS:
+        return torch.from_numpy(rows(tag))
+    with mock.patch.dict(TK.CASES, {tag: CASES[tag]}):
+        return {k: torch.from_numpy(v) for k, v in TK.inputs(tag).items()}
+
+
+def ref_tokens(jax_out: dict, tag: str, key: str) -> np.ndarray:
+    """The reference's greedy tokens ``key`` of a case, device-major (the
+    kinds' reference gives the rows held once)."""
+    t = jax_out[f"{tag}/{key}"]
+    if tag in KINDS:
+        t = steps.device_major(world_env(tag), torch.from_numpy(t), B).numpy()
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -205,6 +252,21 @@ def jax_a2a(out: dict) -> dict:
     return res
 
 
+def jax_kind(tag: str) -> dict:
+    """``test_torch_tp_serve_kinds.jax_case`` of a ``KINDS`` case: its
+    logits over the vocab and tokens of the rows held once."""
+    from repro.models import model as JM
+    from repro.models.parallel import sharded_logits
+
+    TK.CASES[tag], TK.CAD_CASES = CASES[tag], CAD
+    real = JM.argmax_logits
+    JM.argmax_logits = lambda x, table, e, vocab: sharded_logits(x, table, e).astype("float32")
+    try:
+        return TK.jax_case(tag)
+    finally:
+        JM.argmax_logits = real
+
+
 def jax_side(tags) -> dict:
     import repro.configs
 
@@ -212,6 +274,10 @@ def jax_side(tags) -> dict:
     out = {}
     get = repro.configs.get_smoke_config
     for tag in tags:
+        if tag in KINDS:
+            out.update(jax_kind(tag))
+            out.update(jax_local_shapes(tag))
+            continue
         TT.CASES[tag] = CASES[tag]
         # jax_serve_mesh reads the config by this name when it runs
         repro.configs.get_smoke_config = functools.partial(
@@ -228,7 +294,8 @@ def jax_side(tags) -> dict:
 
 # the reference's cases in parts that run side by side (their compiles take
 # most of the time)
-JAX_PARTS = (("qwen24", "qwen18"), ("mamba42", "granite24"), ("granite18", "granite18cf1"))
+JAX_PARTS = (("qwen24", "qwen18", "minicpm18", "qwen2vl18"), ("mamba42", "granite24", "rg24"),
+             ("granite18", "granite18cf1", "seamless24"))
 JAX_XLA = "--xla_backend_optimization_level=0"
 JAX_SCRIPT = r"""
 import os
@@ -310,13 +377,15 @@ def replay(model, jax_out: dict, tag: str, block) -> None:
         blk.moe.route = route
 
 
-def serve_case(model, mesh, jax_out: dict, tag: str, held: torch.Tensor) -> dict:
+def serve_case(model, mesh, jax_out: dict, tag: str, held) -> dict:
     """One case on a mesh (world dims or this process's): the prefill's
     cache and last-position logits (a cache of S positions, as the
     reference's prefill step), then the prefill step and the decode steps
     into a cache of S + GEN on each route, counted. ``held``: the distinct
-    rows held (all of them world-dim, the process's own on a process mesh)."""
+    rows held (all of them world-dim, the process's own on a process mesh),
+    a tensor or a dict of the model's inputs."""
     env = steps.make_env(model.cfg, mesh)
+    enc = ENC if model.cfg.enc_layers else None
     out = {}
     with torch.inference_mode():
         cache, h = model.prefill_hidden(held)
@@ -325,9 +394,9 @@ def serve_case(model, mesh, jax_out: dict, tag: str, held: torch.Tensor) -> dict
         out["logits"] = model.logits(h).numpy()
     for route in routes(tag in CAD):
         with count_collectives() as counts:
-            cache = model.init_cache(held.shape[0], S + GEN)
+            cache = model.init_cache(steps.batch_shape(held)[0], S + GEN, enc_len=enc)
             cache, tok = steps.make_prefill_step(model, global_batch=B, seq=S, mesh=mesh)(
-                steps.device_major(env, held, B), cache)
+                steps.map_batch(held, lambda v: steps.device_major(env, v, B)), cache)
             toks = [tok]
             sstep = steps.make_serve_step(model, global_batch=B, seq_max=S + GEN, mesh=mesh,
                                           compute_at_data=route == "cad")
@@ -372,8 +441,6 @@ def refusals(device) -> dict:
         "world_model": lambda: steps.make_prefill_step(
             M.Model(cfg, device=device, seed=0, env=env18.world()), global_batch=B, seq=S,
             mesh=pm18),
-        "mla": lambda: M.Model(get_smoke_config("minicpm3-4b"), device=device,
-                               env=steps.make_env(get_smoke_config("minicpm3-4b"), pm18)),
     }
     out = {}
     for name, fn in cases.items():
@@ -385,10 +452,45 @@ def refusals(device) -> dict:
     return out
 
 
+def seeded(device) -> dict:
+    """Every served arch made from the seed on this rank (its ``SEEDED``
+    case's mesh): {arch: (its parameters as the JAX tree's stacked leaves,
+    numpy; the order in which leaves were drawn whole and cut, (event,
+    shape))}."""
+    out = {}
+    real_draw, real_cut = layers.init_tensor, layers.shard_leaf
+    for arch, tag in SEEDED.items():
+        events = []
+
+        def draw(shape, *a, **kw):
+            events.append(("draw", tuple(shape)))
+            return real_draw(shape, *a, **kw)
+
+        def cut(t, *a, **kw):
+            events.append(("cut", tuple(t.shape)))
+            return real_cut(t, *a, **kw)
+
+        cfg = get_smoke_config(arch)
+        pm = ProcessMesh(("data", "model"), CASES[tag][1], device=device)
+        with mock.patch.object(layers, "init_tensor", draw), \
+                mock.patch.object(layers, "shard_leaf", cut):
+            model = M.Model(cfg, device=device, seed=0, env=steps.make_env(cfg, pm))
+        out[arch] = ({k: v.numpy() for k, v in stack_leaves(
+            model, dict(model.named_parameters())).items()}, events)
+    return out
+
+
 def _rank(path: str, device) -> dict:
-    """Every case on this rank, once the reference's npz at ``path`` is
-    written (``spawned``); then the CLI as ``torchrun`` would start it."""
+    """What needs no reference first (the refusals, the seeded models, the
+    CLI as ``torchrun`` would start it), then every case on this rank, once
+    the reference's npz at ``path`` is written (``spawned``)."""
     torch.set_num_threads(1)
+    res = {"refusals": refusals(device), "seeded": seeded(device)}  # meanwhile: no reference
+    for name, cli in (("cli", CLI), ("cli_enc", CLI_ENC)):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res[name] = serve.run(serve.parser().parse_args(cli + ["--backend", "gloo"]))
+        res[f"{name}_out"] = buf.getvalue()
     failed = os.path.join(os.path.dirname(path), "out.failed")
     deadline = time.monotonic() + JAX_WAIT_S
     while not os.path.exists(path):
@@ -397,7 +499,7 @@ def _rank(path: str, device) -> dict:
         time.sleep(0.1)
     with np.load(path) as f:
         jax_out = dict(f)
-    res, meshes = {}, {}
+    meshes = {}
     for tag, (arch, dims) in CASES.items():
         pm = meshes.setdefault(dims, ProcessMesh(("data", "model"), dims, device=device))
         cfg = case_cfg(tag)
@@ -405,18 +507,13 @@ def _rank(path: str, device) -> dict:
         model = params_from_jax(tree_of(jax_out, tag), cfg, env=env, device=device)
         block = pm.coords
         replay(model, jax_out, tag, block)
-        res[tag] = serve_case(model, pm, jax_out, tag,
-                              steps.rank_rows(env, torch.from_numpy(rows(tag)), B))
+        res[tag] = serve_case(model, pm, jax_out, tag, steps.map_batch(
+            batch_rows(tag), lambda v: steps.rank_rows(env, v, B)))
         res[tag]["shapes"] = {k: tuple(v.shape) for k, v in stack_leaves(
             model, dict(model.named_parameters())).items()}
         res[tag]["bytes"] = sum(p.numel() * p.element_size() for p in model.parameters())
         if tag == "granite18":
             res["a2a"] = {cf: a2a_case(model, env, jax_out, cf, block) for cf in A2A_CF}
-    res["refusals"] = refusals(device)
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        res["cli"] = serve.run(serve.parser().parse_args(CLI + ["--backend", "gloo"]))
-    res["cli_out"] = buf.getvalue()
     return res
 
 
@@ -429,7 +526,7 @@ def world(jax_out):
         model = params_from_jax(tree_of(jax_out, tag), case_cfg(tag), env=world_env(tag),
                                 device="cpu")
         replay_world(model, jax_out, tag, model.env)
-        out[tag] = serve_case(model, mesh, jax_out, tag, torch.from_numpy(rows(tag)))
+        out[tag] = serve_case(model, mesh, jax_out, tag, batch_rows(tag))
     return out
 
 
@@ -503,12 +600,16 @@ def test_prefill_on_processes_matches_reference(ranks, world, jax_out, tag):
     world-dim port's; the prefill step's tokens."""
     dims = CASES[tag][1]
     got = stacked_tree(ranks, tag, lambda r: r["prefill"], dims)
-    held(got, ref_tree(jax_out, f"{tag}/prefill/"), CACHE_TOL, "cache vs reference")
+    if tag in KINDS:
+        TK.close_cache(got, jax_out, f"{tag}/prefill/")
+    else:
+        held(got, ref_tree(jax_out, f"{tag}/prefill/"), CACHE_TOL, "cache vs reference")
     held(got, flatten(world[tag]["prefill"]), world_tol(tag), "cache vs world-dim")
     shards = np.stack([r[tag]["logits"] for r in ranks])
     vocab = get_smoke_config(CASES[tag][0]).vocab
     full = TT.full_logits(shards.reshape(dims + shards.shape[1:]), world_env(tag))
-    ref = TT.full_logits(jax_out[f"{tag}/logits_shards"], world_env(tag))
+    ref = jax_out[f"{tag}/logits0"] if tag in KINDS else TT.full_logits(
+        jax_out[f"{tag}/logits_shards"], world_env(tag))
     np.testing.assert_allclose(full[:, :vocab], ref[:, :vocab], rtol=0, atol=LOGIT_TOL)
     wl = world[tag]["logits"][:, :vocab]
     if world_tol(tag):
@@ -516,8 +617,8 @@ def test_prefill_on_processes_matches_reference(ranks, world, jax_out, tag):
     else:
         np.testing.assert_array_equal(full[:, :vocab], wl)
     tok0 = np.stack([r[tag]["gather"]["toks"][0] for r in ranks]).reshape(dims + (-1,))
-    np.testing.assert_array_equal(tok0[:, :jax_out[f"{tag}/tok0"].shape[1]],
-                                  jax_out[f"{tag}/tok0"])
+    want = ref_tokens(jax_out, tag, "tok0")
+    np.testing.assert_array_equal(tok0[:, :want.shape[1]], want)
 
 
 @pytest.mark.parametrize("route,tag", [("gather", t) for t in sorted(CASES)]
@@ -531,12 +632,16 @@ def test_decode_on_processes_matches_reference(ranks, world, jax_out, route, tag
     for i in range(GEN):
         got = np.stack([r[tag][route]["toks"][i] for r in ranks]).reshape(dims + (-1,))
         got = got[:, :md]
-        want = jax_out[f"{tag}/tok0"] if i == 0 else jax_out[f"{tag}/{route}/tok{i}"]
+        want = ref_tokens(jax_out, tag, "tok0" if i == 0 else f"{route}/tok{i}")
         np.testing.assert_array_equal(got, want, err_msg=f"step {i}")
         np.testing.assert_array_equal(
             got, world[tag][route]["toks"][i], err_msg=f"step {i} vs world-dim")
     fin = stacked_tree(ranks, tag, lambda r: r[route]["final"], dims)
-    held(fin, ref_tree(jax_out, f"{tag}/{route}/final/"), CACHE_TOL, "final cache vs reference")
+    if tag in KINDS:
+        TK.close_cache(fin, jax_out, f"{tag}/{route}/final/")
+    else:
+        held(fin, ref_tree(jax_out, f"{tag}/{route}/final/"), CACHE_TOL,
+             "final cache vs reference")
     held(fin, flatten(world[tag][route]["final"]), world_tol(tag, decoded=True),
          "final cache vs world-dim")
 
@@ -580,6 +685,29 @@ def test_rank_holds_its_device_shard(ranks, jax_out, tag):
         b = rank_shards(tree, cfg, env, slots=True, at=at)
         for k in b:
             torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("arch", sorted(SEEDED))
+def test_seeded_rank_holds_world_model_shards(ranks, arch):
+    """Every rank's model made from the seed under its process mesh's env:
+    each parameter bitwise its device's shard (``rank_shards``,
+    ``parallel.shard_leaf``) of the world-dim model made from the same seed,
+    and each leaf cut to its shard right after it is drawn, before the next
+    is drawn, so that a rank holds one whole leaf at a time."""
+    tag = SEEDED[arch]
+    cfg, env = get_smoke_config(arch), world_env(tag)
+    world_model = M.Model(cfg, device="cpu", seed=0, env=env)
+    logical = stack_leaves(world_model, dict(world_model.named_parameters()))
+    for r, rank in enumerate(ranks):
+        got, events = rank["seeded"][arch]
+        want = rank_shards(logical, cfg, env, slots=False, at=divmod(r, env.model_size))
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v.numpy(), err_msg=k)
+        draws = events[0::2]
+        assert len(events) == 2 * len(draws) == 2 * len(list(world_model.parameters()))
+        assert [e for e, _ in draws] == ["draw"] * len(draws)
+        assert events[1::2] == [("cut", shape) for _, shape in draws]
 
 
 @pytest.mark.parametrize("cf", A2A_CF)
@@ -633,8 +761,7 @@ def test_whole_model_case_drops_assignments(jax_out):
     ("world_size", "needs 4 processes; WORLD_SIZE is 8"),
     ("rep_split", "different rows"),
     ("other_mesh", "model made for"),
-    ("world_model", "model made for"),
-    ("mla", "process mesh waits")])
+    ("world_model", "model made for")])
 def test_process_serving_refuses(ranks, name, match):
     for r in ranks:
         assert r["refusals"][name] is not None and match in r["refusals"][name], \
@@ -642,15 +769,17 @@ def test_process_serving_refuses(ranks, name, match):
 
 
 def test_serve_cli_on_processes(ranks, capsys):
-    """The CLI in the 8 ranks' process group (as torchrun starts it): every
-    rank gets the tokens of every rank's rows, the world-dim CLI's, and rank
-    0 alone prints them."""
-    want = serve.run(serve.parser().parse_args(CLI))
-    capsys.readouterr()
-    for r in ranks:
-        np.testing.assert_array_equal(r["cli"], want)
-    assert "on 8 processes (gloo)" in ranks[0]["cli_out"]
-    assert all(r["cli_out"] == "" for r in ranks[1:])
+    """The CLI in the 8 ranks' process group (as torchrun starts it), for
+    qwen1.5 and for seamless with ``--enc-len``: every rank gets the tokens
+    of every rank's rows, the world-dim CLI's, and rank 0 alone prints
+    them."""
+    for name, cli in (("cli", CLI), ("cli_enc", CLI_ENC)):
+        want = serve.run(serve.parser().parse_args(cli))
+        capsys.readouterr()
+        for r in ranks:
+            np.testing.assert_array_equal(r[name], want)
+        assert "on 8 processes (gloo)" in ranks[0][f"{name}_out"]
+        assert all(r[f"{name}_out"] == "" for r in ranks[1:])
 
 
 # ---------------------------------------------------------------------------

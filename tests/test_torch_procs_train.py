@@ -378,12 +378,20 @@ def refusals(device) -> dict:
     pm = ProcessMesh(("data", "model"), (4, 2), device=device)
     cfg = get_smoke_config("qwen1_5_0_5b")
     model = M.Model(cfg, device=device, seed=0, env=steps.make_env(cfg, pm))
-    mini = get_smoke_config("minicpm3_4b")
+    def kind(arch):  # a model of a kind that serves on the process mesh but does not train there
+        c = get_smoke_config(arch)
+        return lambda: steps.make_train_step(
+            M.Model(c, device=device, seed=0, env=steps.make_env(c, pm)), pm, global_batch=8,
+            seq=SEQ)
+
     cases = {
         "eightbit": lambda: steps.make_train_step(model, pm, optimizer=AdamW(eightbit=True),
                                                   global_batch=8, seq=SEQ),
         "flash": lambda: steps.make_train_step(model, pm, impl="flash", global_batch=8, seq=SEQ),
-        "mla": lambda: M.Model(mini, device=device, env=steps.make_env(mini, pm)),
+        "mla": kind("minicpm3_4b"),
+        "rglru": kind("recurrentgemma_2b"),
+        "mrope": kind("qwen2_vl_7b"),
+        "encdec": kind("seamless_m4t_large_v2"),
         "world_model": lambda: steps.make_train_step(
             M.Model(cfg, device=device, seed=0, env=steps.make_env(cfg, pm).world()), pm,
             global_batch=8, seq=SEQ),
@@ -567,6 +575,9 @@ def test_collectives_backward_is_the_transpose(ranks):
     ("eightbit", "8-bit moments on a process mesh wait"),
     ("flash", "no backward"),
     ("mla", "process mesh waits"),
+    ("rglru", "process mesh waits (ROADMAP.md §1 item 2)"),
+    ("mrope", "process mesh waits (ROADMAP.md §1 item 2)"),
+    ("encdec", "process mesh waits (ROADMAP.md §1 item 2)"),
     ("world_model", "made for")])
 def test_process_training_refuses(ranks, name, match):
     for r in ranks:
