@@ -237,26 +237,33 @@
    alone on the card.
 13. Trains the LM on a process mesh: one gloo rank per device on the one
    card, each holding only its device's shard of the parameters and of the
-   fp32 moments (``launch.steps.ProcessTrainStep``; ``PROCS_TRAIN``, at
-   full width and ``PROCS_TRAIN_LAYERS``'s depth): qwen1.5 at (4, 2) under
-   S3 for its steps, a checkpoint gathered and written by rank 0, and
-   granite-moe at (1, 8) on the a2a dispatch, in one world; then a new
-   world of 4 ranks at (2, 2) that restores qwen1.5's checkpoint and takes
-   a step, and mamba2 at (2, 2). Each arch is first trained on the
-   world-dim mesh of the same shape, weights (``SEED``) and batches
-   (``procs_train_world``), qwen1.5's restart as the world-dim run carries on
-   on (2, 2).
+   moments (``launch.steps.ProcessTrainStep``; ``PROCS_TRAIN``, at full
+   width and ``PROCS_TRAIN_LAYERS``'s depth): qwen1.5 at (4, 2) under
+   S3 for its steps, a checkpoint gathered and written by rank 0,
+   granite-moe at (1, 8) on the a2a dispatch and qwen2-vl at (1, 8)
+   (M-RoPE over embeddings, the rep groups' rings), in one world; then a
+   new world of 4 ranks that restores qwen1.5's checkpoint on (2, 2) and
+   takes a step, and trains mamba2 at (2, 2), recurrentgemma at (1, 4)
+   (the RG-LRU and local attention, rep 2), minicpm3 at (1, 4) (MLA),
+   seamless at (2, 2) (enc-dec) and qwen1.5 at (2, 2) with 8-bit moments
+   (``PROCS_TRAIN_8BIT``). Each is first trained on the world-dim mesh of
+   the same shape, weights (``SEED``) and batches (``procs_train_world``),
+   qwen1.5's restart as the world-dim run carries on on (2, 2).
    Every step's loss and gradient norm within ``PROCS_TRAIN_TOL`` of the
    world-dim step's, each rank's parameter shards after the steps within
    two steps of lr of the world-dim ones and the whole update within
    ``PROCS_UPDATE_TOL`` normwise; a rank's ``ring_fused_step`` launches
    equal to its ring hops (``ring_hops()``), each hop's output bitwise its
-   plain version's, and granite-moe's combines on ``segment_reduce``.
+   plain version's, and granite-moe's combines on ``segment_reduce``; the
+   8-bit rows, dequantized, within ``PROCS_EIGHTBIT_TOL`` a leaf and
+   ``PROCS_MOMENT_TOL`` over the tree of the world-dim step's, and their
+   checkpoint (rank 0's) restored in every rank bitwise.
    Prints each step's wall on the slowest rank and its phases
    (``rank_gradients``, ``aggregate``, ``apply``), the bytes staged and
    their share, the collectives of a rank, the checkpoint's gather and
    write, and a rank's peak; the kernels line gets ``ring_fused_step`` at
-   a rank's hop and ``segment_reduce`` at a rank's training combine.
+   a rank's first hop and at the phase's largest (on seeded inputs of its
+   shape) and ``segment_reduce`` at a rank's training combine.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -632,18 +639,55 @@ PROCS_SERVE_SHARE = ("qwen1.5-0.5b",)
 # 1) and mamba2 at (2, 2) (tp 2), a step each. The depth cut to
 # PROCS_TRAIN_LAYERS and the rows to 1,024 tokens so that the phase stays
 # near 90 s: a rank's step makes ~47 staged collectives a layer under S3
-# at (4, 2), 7-28 ms each on gloo ranks that share the card (phase 12)
+# at (4, 2), 7-28 ms each on gloo ranks that share the card (phase 12).
+# The other block kinds, a step each: qwen2-vl at (1, 8) as phase 12 (tp 4,
+# rep 2: the rep groups' rings, M-RoPE over patch embeddings; 3 rows, which
+# do not split over the rep groups: training refuses a split, REP_SPLIT) at
+# 2 of 28 layers, since 8 ranks share the card and each holds its working
+# slices and their gradients of the two 152k-row tables (0.55 GB each in
+# fp32 at tp 4); recurrentgemma at (1, 4), phase 10's mesh (tp 2, rep 2:
+# the RG-LRU vectors' and every TP leaf's rep ring; 3 rows, which do not
+# split over the rep groups), at 5 of 26 layers, one superblock (rec, rec,
+# attn_local) and the 2-layer tail: an 8-device mesh with rep 2, (2, 4),
+# would put ~9 GB on each of 8 ranks by the count of its leaves (the
+# 256,000-row table's working slice and gradient, 1.3 GB each); minicpm3
+# at (1, 4) (tp 4: MLA, the latent norms and projections held whole) and
+# seamless at (2, 2) (tp 2: the encoder's and decoder's FSDP rings) at 4
+# layers, seamless's encoder at PROCS_TRAIN_ENC_LAYERS
 PROCS_TRAIN = {"qwen1.5-0.5b": ((4, 2), 8, 2),
                "granite-moe-1b-a400m": ((1, 8), 4, 1),
-               "mamba2-1.3b": ((2, 2), 4, 1)}
+               "mamba2-1.3b": ((2, 2), 4, 1),
+               "qwen2-vl-7b": ((1, 8), 3, 1),
+               "recurrentgemma-2b": ((1, 4), 3, 1),
+               "minicpm3-4b": ((1, 4), 4, 1),
+               "seamless-m4t-large-v2": ((2, 2), 4, 1)}
 PROCS_TRAIN_SEQ = 1024
 PROCS_TRAIN_LAYERS = {"qwen1.5-0.5b": 4, "granite-moe-1b-a400m": 4,
-                      "mamba2-1.3b": 4}  # of 24, 24 and 48
+                      "mamba2-1.3b": 4, "qwen2-vl-7b": 2,  # of 24, 24, 48 and 28
+                      "recurrentgemma-2b": 5, "minicpm3-4b": 4,  # of 26 and 62
+                      "seamless-m4t-large-v2": 4}  # of 24
+PROCS_TRAIN_ENC_LAYERS = {"seamless-m4t-large-v2": 4}  # of 24
 PROCS_TRAIN_RESTART = (2, 2)
+# qwen1.5 with 8-bit moments (AdamW(eightbit=True)) on (2, 2) from SEED, a
+# step: each rank's (codes, scales) row against the world-dim step's row of
+# its device, dequantized, per leaf within PROCS_EIGHTBIT_TOL
+# (tests/test_torch_tp_train_kinds.py's EIGHTBIT_TOL: a gradient's bf16
+# rounding turns a code by a step of its block's absmax / 127) but for the
+# key bias, whose gradient is rounding noise (it cancels in the softmax),
+# and over the tree within PROCS_MOMENT_TOL (tests/test_torch_train.py's
+# MOMENT_TOL); its checkpoint written by rank 0 and restored in every rank
+# into zeroed parameters and fresh moments, bitwise
+PROCS_TRAIN_8BIT = (2, 2)
+PROCS_EIGHTBIT_TOL, PROCS_MOMENT_TOL = 0.1, 5e-2
+PROCS_NOISE_LEAVES = ("attn/bk",)
 # the two worlds: (arch, what it does) in order; "restart" restores qwen1.5's
-# checkpoint on PROCS_TRAIN_RESTART and takes one step
-PROCS_TRAIN_WORLDS = {"first": (("qwen1.5-0.5b", "train"), ("granite-moe-1b-a400m", "train")),
-                      "second": (("qwen1.5-0.5b", "restart"), ("mamba2-1.3b", "train"))}
+# checkpoint on PROCS_TRAIN_RESTART and takes one step, "8bit" trains it on
+# PROCS_TRAIN_8BIT with 8-bit moments
+PROCS_TRAIN_WORLDS = {"first": (("qwen1.5-0.5b", "train"), ("granite-moe-1b-a400m", "train"),
+                                ("qwen2-vl-7b", "train")),
+                      "second": (("qwen1.5-0.5b", "restart"), ("mamba2-1.3b", "train"),
+                                 ("recurrentgemma-2b", "train"), ("minicpm3-4b", "train"),
+                                 ("seamless-m4t-large-v2", "train"), ("qwen1.5-0.5b", "8bit"))}
 # held to the world-dim step of the same weights and batch, relative: the
 # loss and the gradient's norm at tests/test_torch_procs_train.py's
 # WORLD_LOSS_TOL and WORLD_NORM_TOL (the same products on other shapes,
@@ -3566,21 +3610,33 @@ def procs_serve_phase(launches: dict, rows: list) -> dict:
     return res
 
 
-def procs_train_build(arch: str, mesh, dims=None):
-    """(model, train step, pipeline) of phase 13's ``arch`` on ``mesh``
-    (world dims on the card, or this process's ``ProcessMesh``): full
-    width at ``PROCS_TRAIN_LAYERS``, weights from ``SEED`` (a process keeps
-    its device's shard), S3, ``PROCS_TRAIN_SEQ`` tokens a row, through
+def procs_train_dims(arch: str, what: str) -> tuple:
+    """The mesh of phase 13's ``arch`` doing ``what`` (``PROCS_TRAIN_WORLDS``)."""
+    return {"restart": PROCS_TRAIN_RESTART, "8bit": PROCS_TRAIN_8BIT}.get(what,
+                                                                         PROCS_TRAIN[arch][0])
+
+
+def procs_train_build(arch: str, mesh, what: str = "train"):
+    """(model, train step, pipeline) of phase 13's ``arch`` doing ``what``
+    on ``mesh`` (world dims on the card, or this process's ``ProcessMesh``):
+    full width at ``PROCS_TRAIN_LAYERS`` (and ``PROCS_TRAIN_ENC_LAYERS``),
+    weights from ``SEED`` (a process keeps its device's shard), S3,
+    ``PROCS_TRAIN_SEQ`` tokens a row, 8-bit moments for ``8bit``, through
     ``launch/train.py``'s ``build``."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.launch import steps, train
     from repro_torch.models.model import Model
+    from repro_torch.optim import AdamW
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=PROCS_TRAIN_LAYERS[arch])
+    cut = {"n_layers": PROCS_TRAIN_LAYERS[arch]}
+    if arch in PROCS_TRAIN_ENC_LAYERS:
+        cut["enc_layers"] = PROCS_TRAIN_ENC_LAYERS[arch]
+    cfg = dataclasses.replace(get_config(arch), **cut)
     model = Model(cfg, device=mesh.device, seed=SEED, env=steps.make_env(cfg, mesh))
-    step, pipe = train.build(model, mesh, procs_train_args(arch, dims or PROCS_TRAIN[arch][0]))
+    step, pipe = train.build(model, mesh, procs_train_args(arch, procs_train_dims(arch, what)),
+                             optimizer=AdamW(eightbit=True) if what == "8bit" else None)
     return model, step, pipe
 
 
@@ -3609,10 +3665,13 @@ def procs_train_steps(step, state, pipe, k0: int, n: int) -> tuple:
     return state, out
 
 
-def procs_train_shards(step, tmp: Path, name: str, metrics: list, lrs: list) -> None:
+def procs_train_shards(step, tmp: Path, name: str, metrics: list, lrs: list,
+                       state=None) -> None:
     """Each device's shard of the world-dim step's parameters, with the
     steps' metrics and the lr of every step since the seeded weights, to
-    ``tmp/name.<rank>.pt`` for the rank that holds it."""
+    ``tmp/name.<rank>.pt`` for the rank that holds it; with 8-bit moments
+    (``state``) also the device's row of each leaf's (codes, scales)
+    (``TrainStep.shard_row``)."""
     import torch
 
     from repro_torch.models.parallel import shard_leaf
@@ -3620,9 +3679,15 @@ def procs_train_shards(step, tmp: Path, name: str, metrics: list, lrs: list) -> 
     env = step.env
     for r in range(env.fsdp_size * env.model_size):
         f, m = divmod(r, env.model_size)
-        torch.save({"metrics": metrics, "lrs": lrs,
-                    "params": {k: shard_leaf(p.detach(), step.places[k], env, f, m).cpu()
-                               for k, p in step.params.items()}}, tmp / f"{name}.{r}.pt")
+        out = {"metrics": metrics, "lrs": lrs,
+               "params": {k: shard_leaf(p.detach(), step.places[k], env, f, m).cpu()
+                          for k, p in step.params.items()}}
+        if state is not None:
+            out["rows"] = {what: {path: tuple(t[step.shard_row(path, f, m)][None].cpu()
+                                              for t in pair)
+                                  for path, pair in getattr(state, what).items()}
+                           for what in ("m", "v")}
+        torch.save(out, tmp / f"{name}.{r}.pt")
 
 
 def procs_train_world(tmp: Path) -> dict:
@@ -3632,7 +3697,9 @@ def procs_train_world(tmp: Path) -> dict:
     (``procs_train_shards``); qwen1.5 then carries on on
     ``PROCS_TRAIN_RESTART`` for one step, as the world-dim restart does
     (``launch/train.py``: the same model and optimizer state under the new
-    mesh's step). Returns each one's metrics and its peak GB."""
+    mesh's step), and takes a step with 8-bit moments on
+    ``PROCS_TRAIN_8BIT`` from the seeded weights. Returns each one's
+    metrics and its peak GB."""
     import torch
 
     from repro_torch.launch import train
@@ -3654,6 +3721,16 @@ def procs_train_world(tmp: Path) -> dict:
             procs_train_shards(step, tmp, f"{arch}.restart", metrics,
                                lrs + [m["lr"] for m in metrics])
             out[arch]["restart"] = metrics
+            del model, step, state, pipe
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model, step, pipe = procs_train_build(arch, make_mesh(PROCS_TRAIN_8BIT,
+                                                                  device="cuda"), "8bit")
+            state, metrics = procs_train_steps(step, step.init_state(), pipe, 0, 1)
+            procs_train_shards(step, tmp, f"{arch}.8bit", metrics, [m["lr"] for m in metrics],
+                               state)
+            out[arch]["8bit"] = metrics
+            out[arch]["8bit_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         del model, step, state, pipe
     torch.cuda.empty_cache()
     return out
@@ -3667,10 +3744,13 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
     each with its launches, staged copies and collectives counted, the
     first one's ``ring_fused_step`` hops each held bitwise against the plain
     version (rank 0 keeps the first hop's and the first combine's inputs in
-    ``capture``); qwen1.5's checkpoint gathered after its steps, rank 0's
-    store appended to ``writes`` while it writes in the background; each step's
-    metrics and this rank's shards against the world-dim run's
-    (``tmp/<arch>[.restart].<rank>.pt``)."""
+    ``capture``, and the largest hop's shape); qwen1.5's checkpoint gathered
+    after its steps, rank 0's store appended to ``writes`` while it writes in
+    the background; each step's metrics and this rank's shards against the
+    world-dim run's (``tmp/<arch>[.<what>].<rank>.pt``). For ``8bit`` also
+    the rank's 8-bit rows against the world-dim run's
+    (``procs_eightbit_readings``), and its checkpoint written by rank 0 and
+    restored in every rank into zeroed parameters and fresh moments."""
     import torch
     import torch.distributed as dist
 
@@ -3680,9 +3760,9 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
     from repro_torch.mesh import count_collectives, count_staging
 
     t0 = time.perf_counter()
-    dims = PROCS_TRAIN_RESTART if what == "restart" else PROCS_TRAIN[arch][0]
-    n = 1 if what == "restart" else PROCS_TRAIN[arch][2]
-    model, step, pipe = procs_train_build(arch, pm, dims)
+    dims = procs_train_dims(arch, what)
+    n = PROCS_TRAIN[arch][2] if what == "train" else 1
+    model, step, pipe = procs_train_build(arch, pm, what)
     rec = {"mesh": list(dims), "tp": step.env.tp, "ring_hops": step.ring_hops(), "steps": []}
     k0 = 0
     store = CheckpointStore(str(tmp / "procs"))
@@ -3693,7 +3773,7 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
         rec["restore_s"] = time.perf_counter() - t
     else:
         state = step.init_state()
-    want = torch.load(tmp / f"{arch}{'.restart' if what == 'restart' else ''}.{pm.rank}.pt")
+    want = torch.load(tmp / f"{arch}{'' if what == 'train' else '.' + what}.{pm.rank}.pt")
     rec["setup_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3709,6 +3789,8 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
             capture["hop"] = (acc.clone(memory_format=torch.contiguous_format),
                               wire.clone(memory_format=torch.contiguous_format),
                               f"procs_train_{arch}", acc.is_contiguous())
+        if pm.rank == 0 and acc.numel() > capture.get("largest", (0,))[0]:
+            capture["largest"] = (acc.numel(), tuple(acc.shape), f"procs_train_{arch}")
         return out
 
     def combine(values, ids, nseg):
@@ -3766,6 +3848,27 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
             store.save(k0 + n, tree, meta=train.checkpoint_meta(step, arch=arch), blocking=False)
             writes.append(store)
         del tree
+    if what == "8bit":
+        rec["moments"] = procs_eightbit_readings(step, state, want["rows"], pm)
+        store8 = CheckpointStore(str(tmp / "procs8"))
+        t = time.perf_counter()
+        train.save(store8, k0 + n, step, state, blocking=True)  # rank 0 writes
+        dist.barrier()
+        rec["ckpt8_save_s"] = time.perf_counter() - t
+        kept = {k: p.detach().clone() for k, p in step.params.items()}
+        with torch.no_grad():
+            for p in step.params.values():
+                p.zero_()
+        t = time.perf_counter()
+        got, at = train.restore(step, store8)
+        rec["restore_s"] = time.perf_counter() - t
+        rec["restore_bitwise"] = (
+            at == k0 + n and got.count == state.count
+            and all(equal(p, kept[k]) for k, p in step.params.items())
+            and all(equal(a, b) for what_ in ("m", "v")
+                    for path, pair in getattr(state, what_).items()
+                    for a, b in zip(pair, getattr(got, what_)[path])))
+        del kept, got
     # this rank's shards against the world-dim run's, and the update since the seeded weights
     lrs = want["lrs"]
     worst, num, den = 0.0, 0.0, 0.0
@@ -3782,6 +3885,34 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
     return rec
 
 
+def procs_eightbit_readings(step, state, want: dict, pm) -> dict:
+    """This rank's 8-bit moments against the world-dim step's row of its
+    device (``want``: {"m" | "v": {path: (codes, scales)}}), dequantized:
+    {path: {"m" | "v": (Σ (got − want)², Σ want²)}} over the leaves whose
+    row this rank is the first device to hold, so that the ranks' sums
+    count each row once; and whether every row's shape is the world-dim
+    one."""
+    from repro_torch.optim.adamw import dequantize_block8
+
+    env = step.env
+    numel = {path: t.numel() for path, t in step.opt_tree(step.params).items()}
+    out = {"shapes_equal": True, "leaves": {}}
+    for path, n in numel.items():
+        row = step.shard_row(path, env.fsdp_index, env.model_index)
+        first = next(r for r in range(pm.size)
+                     if step.shard_row(path, *divmod(r, env.model_size)) == row)
+        sums = {}
+        for what in ("m", "v"):
+            got = getattr(state, what)[path]
+            ref = tuple(t.to(got[0].device) for t in want[what][path])
+            out["shapes_equal"] &= all(a.shape == b.shape for a, b in zip(got, ref))
+            a, b = dequantize_block8(*got, n), dequantize_block8(*ref, n)
+            sums[what] = (float(((a - b).double() ** 2).sum()), float((b.double() ** 2).sum()))
+        if first == pm.rank:
+            out["leaves"][path] = sums
+    return out
+
+
 def procs_train_rank(tmp: str, world: str, device) -> dict:
     """Phase 13 in one rank of world ``world`` (``PROCS_TRAIN_WORLDS``,
     ``launch.procs.spawn``): each of its archs (``procs_train_arch``) on
@@ -3794,7 +3925,7 @@ def procs_train_rank(tmp: str, world: str, device) -> dict:
     torch.set_num_threads(1)  # the ranks share the host's cores
     res, capture, meshes, writes = {"archs": {}}, {}, {}, []
     for arch, what in PROCS_TRAIN_WORLDS[world]:
-        dims = PROCS_TRAIN_RESTART if what == "restart" else PROCS_TRAIN[arch][0]
+        dims = procs_train_dims(arch, what)
         pm = meshes.setdefault(dims, ProcessMesh(("data", "model"), dims, device=device))
         res["archs"][f"{arch}/{what}"] = procs_train_arch(arch, what, pm, Path(tmp), capture,
                                                           writes)
@@ -3812,8 +3943,9 @@ def procs_train_rank(tmp: str, world: str, device) -> dict:
 def procs_train_phase(launches: dict, rows: list) -> dict:
     """Phase 13: the world-dim references (``procs_train_world``), then the
     two worlds of gloo ranks spawned on the card (``procs_train_rank``),
-    held to them. Adds the ranks' launches to ``launches`` and the two
-    kernel rows at a rank's shapes to ``rows``; returns the readings."""
+    held to them. Adds the ranks' launches to ``launches`` and the kernel
+    rows at a rank's shapes to ``rows`` (the first S3 hop, the largest one,
+    the first combine); returns the readings."""
     import functools
     import tempfile
 
@@ -3830,8 +3962,7 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
         res["world_s"] = time.perf_counter() - t
         for name, jobs in PROCS_TRAIN_WORLDS.items():
             stage(f"phase 13 {name} world")
-            dims = {PROCS_TRAIN_RESTART if what == "restart" else PROCS_TRAIN[arch][0]
-                    for arch, what in jobs}
+            dims = {procs_train_dims(arch, what) for arch, what in jobs}
             n = {d[0] * d[1] for d in dims}
             if len(n) != 1:
                 raise AssertionError(f"phase 13's {name} world mixes mesh sizes {sorted(dims)}")
@@ -3846,13 +3977,15 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
             for key in ranks[0]["archs"]:
                 arch, what = key.split("/")
                 recs = [r["archs"][key] for r in ranks]
-                want = world[arch]["restart" if what == "restart" else "steps"]
+                want = world[arch]["steps" if what == "train" else what]
                 st["archs"][key] = procs_train_check(arch, what, recs, want, res["launches"])
-                st["archs"][key]["world_peak_gb"] = world[arch]["peak_gb"]
+                st["archs"][key]["world_peak_gb"] = world[arch].get(f"{what}_peak_gb",
+                                                                    world[arch]["peak_gb"])
             if "ckpt" in ranks[0]:
                 st["ckpt_rank0"] = ranks[0]["ckpt"]
             for k, v in ranks[0]["capture"].items():
-                captured.setdefault(k, v)
+                captured[k] = max(captured.get(k, v), v) if k == "largest" else \
+                    captured.get(k, v)
             res["worlds"][name] = st
             log(f"process mesh train, {name} world ({st['ranks']} gloo ranks on one card, "
                 f"{st['transport']}): {json.dumps(st)}")
@@ -3877,6 +4010,26 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
         "shape": f"acc {tuple(acc.shape)} fp32 + wire bf16: one rank's S3 hop of its "
                  "fetch's backward" + ("" if as_is else ", timed contiguous (on the path the "
                                       "acc arrives transposed and the wrapper copies it)"),
+    })
+    del acc, wire, kout, pout
+    # the phase's largest hop (rank 0's), on seeded inputs of its shape
+    numel, shape, lpath = captured.pop("largest")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    acc = torch.randn(shape, generator=gen, device="cuda")
+    wire = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    kout, pout = rf(acc, wire), ref.ring_fused_step(acc, wire)
+    if not all(equal(a, b) for a, b in zip(kout, pout)):
+        raise AssertionError(f"ring_fused_step at the largest rank hop {shape} differs")
+    b_ms, b_by = bound_ms(numel * 12, numel)
+    rows.append({
+        "name": "ring_fused_step", "route": "cuda",
+        "source": "src/repro_torch/csrc/ring_fused_step.cu",
+        "replaces": "src/repro/kernels/ring_fused_step.py:41",
+        "launches": res["launches"]["ring_fused_step"], "max_abs_err": max_abs_err(zip(kout, pout)),
+        "ms": cuda_ms(lambda: rf(acc, wire)),
+        "plain_ms": cuda_ms(lambda: ref.ring_fused_step(acc, wire)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "path": lpath,
+        "shape": f"acc {shape} fp32 + wire bf16: the phase's largest rank hop, on seeded inputs",
     })
     del acc, wire, kout, pout
     values, ids, nseg, spath = captured.pop("combine")
@@ -3955,13 +4108,49 @@ def procs_train_check(arch: str, what: str, recs: list, want: list, launches: di
     out.update({"param_max_abs": worst, "param_atol": r0["param_atol"], "update_rel": update,
                 "peak_gb_per_rank": max(r["peak_gb"] for r in recs),
                 "setup_s": max(r["setup_s"] for r in recs)})
-    for key in ("restore_s", "ckpt_gather_s"):
+    for key in ("restore_s", "ckpt_gather_s", "ckpt8_save_s"):
         if key in r0:
             out[key] = max(r[key] for r in recs)
+    if what == "8bit":
+        out["moments"] = procs_eightbit_check(arch, recs)
     if worst > r0["param_atol"] or update > PROCS_UPDATE_TOL:
         raise AssertionError(f"procs_train {arch} ({what}): parameters {worst} from the "
                              f"world-dim run's (limit {r0['param_atol']}), update {update} "
                              f"(limit {PROCS_UPDATE_TOL})")
+    return out
+
+
+def procs_eightbit_check(arch: str, recs: list) -> dict:
+    """The ranks' 8-bit rows against the world-dim run's
+    (``procs_eightbit_readings``' sums, each row once): every leaf within
+    ``PROCS_EIGHTBIT_TOL`` but ``PROCS_NOISE_LEAVES``, the tree within
+    ``PROCS_MOMENT_TOL``, relative; the rows' shapes the world-dim ones and
+    the checkpoint's restore bitwise in every rank. Raises where one fails;
+    returns the readings."""
+    sums = {}
+    for r in recs:
+        for path, by in r["moments"]["leaves"].items():
+            for what, (num, den) in by.items():
+                acc = sums.setdefault(what, {}).setdefault(path, [0.0, 0.0])
+                acc[0] += num
+                acc[1] += den
+    out = {}
+    for what, leaves in sums.items():
+        rel = {p: (num / den) ** 0.5 if den else float(num > 0) for p, (num, den) in leaves.items()}
+        checked = {p: v for p, v in rel.items()
+                   if not any(p.endswith(n) for n in PROCS_NOISE_LEAVES)}
+        worst = max(checked.items(), key=lambda kv: kv[1])
+        tree = (sum(n for n, _ in leaves.values()) / sum(d for _, d in leaves.values())) ** 0.5
+        out[what] = {"worst_leaf": worst, "tree": tree, "leaves": len(rel),
+                     "noise_leaves": {p: v for p, v in rel.items() if p not in checked}}
+        if worst[1] > PROCS_EIGHTBIT_TOL or tree > PROCS_MOMENT_TOL:
+            raise AssertionError(f"procs_train {arch} (8bit): moments {what} {out[what]} (limits "
+                                 f"{PROCS_EIGHTBIT_TOL} a leaf, {PROCS_MOMENT_TOL} the tree)")
+    if not all(r["moments"]["shapes_equal"] and r["restore_bitwise"] for r in recs):
+        raise AssertionError(f"procs_train {arch} (8bit): rows shaped as the world-dim ones "
+                             f"{[r['moments']['shapes_equal'] for r in recs]}, the restore bitwise "
+                             f"{[r['restore_bitwise'] for r in recs]}")
+    out["restore_bitwise"] = True
     return out
 
 

@@ -277,11 +277,13 @@ class TrainStep:
         self.dims = {k: pl.fsdp_dim for k, pl in self.places.items()}
         # 8-bit moments run on the reference's stacked leaves ({JAX leaf path:
         # the layers stacked}), their blocks cut from each device's shard of
-        # them; fp32 moments (elementwise) on the port's parameters
+        # them; fp32 moments (elementwise) on the port's parameters. A
+        # process's stacked leaf is its device's shard already: one row, no cut
         self.stacked = optimizer.eightbit
         paths = leaf_paths(model)
+        self.path_places = {path: self.places[k] for k, (path, _) in paths.items()}
         lead = {k: int(self.stacked and i is not None) for k, (_, i) in paths.items()}
-        self.layout = {(paths[k][0] if self.stacked else k): tuple(
+        self.layout = {} if procs else {(paths[k][0] if self.stacked else k): tuple(
             (d + lead[k], n) for d, n in ((pl.fsdp_dim, env.fsdp_size),
                                           (pl.tp_dim, pl.tp_chunks(env)))
             if d is not None and n > 1) or None for k, pl in self.places.items()}
@@ -292,6 +294,15 @@ class TrainStep:
         """Tensors keyed by parameter name → the tree the optimizer runs on:
         the same, or with 8-bit moments the stacked leaves (new tensors)."""
         return convert.stack_leaves(self.model, tensors) if self.stacked else tensors
+
+    def shard_row(self, path: str, fsdp_index: int, model_index: int) -> int:
+        """The row that device (``fsdp_index`` in the (pod, data) world,
+        ``model_index`` on the model axis) holds among the world-dim 8-bit
+        moments' rows of stacked leaf ``path`` (``layout``'s cuts, the FSDP
+        cut's index major, then the TP dim's distinct shards)."""
+        pl, env = self.path_places[path], self.env
+        f = fsdp_index if pl.fsdp_dim is not None else 0
+        return f * pl.tp_chunks(env) + pl.tp_chunk(env, model_index)
 
     def ring_hops(self) -> int:
         """The ring hops of one aggregation under S2, S3 and HIERARCHICAL,
@@ -386,8 +397,10 @@ class TrainStep:
     def apply(self, state: OptState, grads: dict) -> tuple[OptState, torch.Tensor]:
         """The clip and the AdamW update, written into the model's
         parameters, then its bf16 copies remade. Returns (new state, the
-        gradient's norm before the clip)."""
-        grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
+        gradient's norm before the clip). On a process mesh the clip's norm
+        is over the mesh (``global_grad_norm``'s weighted all-reduce) and the
+        update is of this process's shards."""
+        grads, gnorm = clip_by_global_norm(grads, self.clip_norm, self.places, self.env)
         new, state = self.optimizer.update(self.opt_tree(grads), state,
                                            self.opt_tree(self.params), self.layout)
         if self.stacked:
@@ -406,25 +419,10 @@ class TrainStep:
                        "lr": self.optimizer.schedule(state.count)}
 
 
-def check_procs_train(cfg) -> None:
-    """Raise unless a process mesh trains ``cfg``'s layers: GQA
-    self-attention with the MLP or the MoE, and Mamba-2, on token inputs.
-    MLA, the RG-LRU hybrid (with local attention), embedding inputs (M-RoPE)
-    and enc-dec serve there but train only on world dims so far."""
-    unit, tail, _ = M.block_pattern(cfg)
-    kinds = set(unit) | set(tail)
-    if cfg.mla is not None or cfg.embed_input or cfg.enc_layers or not kinds <= {
-            "attn_mlp", "attn_moe", "ssm"}:
-        raise NotImplementedError(
-            f"training {cfg.name} on a process mesh waits (ROADMAP.md §1 item 2): it trains GQA "
-            "+ MLP, MoE and Mamba-2 models so far; train it on the world-dim mesh "
-            "(launch.mesh.make_mesh), or serve it on the process mesh")
-
-
 class ProcessTrainStep(TrainStep):
     """``TrainStep`` on a ``ProcessMesh``: this process is one device of the
-    mesh and holds only its shard of every parameter and of the fp32
-    moments. A step takes the process's block of the device-major batch
+    mesh and holds only its shard of every parameter and of the moments. A
+    step takes the process's block of the device-major batch
     (``TrainPipeline(cfg, step.env, ...)`` cuts it), and its phases are:
 
     * ``rank_gradients``: every leaf fetched once, in fp32
@@ -442,15 +440,14 @@ class ProcessTrainStep(TrainStep):
       all-reduced sum) and the AdamW update of the shards.
 
     ``loss`` and ``ntok`` are psum'd over the whole mesh, as the
-    reference's metrics. It trains GQA + MLP, MoE and Mamba-2 models
-    (``check_procs_train``); 8-bit moments wait (ROADMAP.md §1)."""
+    reference's metrics. It trains every block kind that world dims train:
+    GQA + MLP, the MoE on both dispatches, MLA, Mamba-2, the RG-LRU with
+    local attention, M-RoPE over embeddings and enc-dec. 8-bit moments are
+    quantized on the process's stacked leaves (``opt_tree``), which are its
+    device's shards of the reference's: the blocks and the row that
+    ``TrainStep`` cuts for that device (``shard_row``)."""
 
     def __init__(self, model: M.Model, mesh: ProcessMesh, **kw):
-        check_procs_train(model.cfg)
-        if kw["optimizer"].eightbit:
-            raise NotImplementedError(
-                "8-bit moments on a process mesh wait (ROADMAP.md §1): train with fp32 moments "
-                "(AdamW(eightbit=False)) or on the world-dim mesh (launch.mesh.make_mesh)")
         super().__init__(model, mesh, **kw)
         if tuple(model.env.mesh.shape) != tuple(mesh.shape):
             raise ValueError(f"model made for the process mesh {model.env.mesh.shape}, training "
@@ -458,6 +455,7 @@ class ProcessTrainStep(TrainStep):
                              "mesh))")
         self.pmesh = mesh
         self.fetched: dict | None = None
+        self.leaves: dict = {}
 
     def rank_rows(self, batch: dict) -> dict:
         """The process's block of the batch → its rows {name: (b_loc, ...)}
@@ -475,9 +473,18 @@ class ProcessTrainStep(TrainStep):
         return out
 
     def fetch(self) -> dict:
-        """Every parameter's working slice, fp32, gathered from its storage
-        shard: the forward of the reference's weight fetch, once a step."""
-        return {k: fetch_weight(p, self.env, self.places[k]) for k, p in self.params.items()}
+        """Every parameter's working slice, gathered in fp32 from its storage
+        shard (kept in ``fetched`` for ``aggregate``): the forward of the
+        reference's weight fetch, once a step. A parameter stored in bf16
+        (grok) is gathered from an fp32 copy of its shard (``leaves``) and
+        computed with in bf16, so that its gradient adds up in bf16 over its
+        uses and is aggregated in fp32, as on world dims. Returns the slices
+        the model computes with."""
+        self.leaves = {k: p if p.dtype == torch.float32 else p.detach().float().requires_grad_()
+                       for k, p in self.params.items()}
+        self.fetched = {k: fetch_weight(p, self.env, self.places[k])
+                        for k, p in self.leaves.items()}
+        return {k: w.to(self.params[k].dtype) for k, w in self.fetched.items()}
 
     def rank_gradients(self, batch: dict):
         """The process's forward and backward on its ``b_loc`` rows, its
@@ -488,10 +495,9 @@ class ProcessTrainStep(TrainStep):
         the sums psum'd over the whole mesh."""
         env, mb, m = self.env, self.microbatches, self.pmesh
         rows = self.rank_rows(batch)
-        self.fetched = work = self.fetch()
+        work = self.fetch()
         names = list(work)
-        grads = {k: torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-                 for k, w in work.items()}
+        grads = {}  # a microbatch's gradient is the sum's first term: no zeros held beside it
         nll = torch.zeros((), dtype=torch.float32, device=m.device)
         ntok = torch.zeros((), dtype=torch.int64, device=m.device)
         n = self.b_loc // mb
@@ -503,9 +509,14 @@ class ProcessTrainStep(TrainStep):
                                          allow_unused=True)
                 for k, g in zip(names, gs):
                     if g is not None:
-                        grads[k].add_(g.to(torch.float32) / mb)
+                        g = g.to(torch.float32)
+                        g = g / mb if mb > 1 else g
+                        grads[k] = grads[k].add_(g) if k in grads else g
+                del gs
                 nll += aux["nll_sum"]
                 ntok += aux["ntok"]
+        for k, w in work.items():  # a slice the loss does not reach
+            grads.setdefault(k, torch.zeros(w.shape, dtype=torch.float32, device=w.device))
         total = m.psum(torch.stack([nll.to(torch.float64), ntok.to(torch.float64)]).reshape(
             m.block + (2,)), m.axis_names).reshape(2)
         return grads, total[0].to(torch.float32), total[1].to(torch.int64)
@@ -519,26 +530,12 @@ class ProcessTrainStep(TrainStep):
         if work is None:
             raise ValueError("aggregate takes the gradients of this step's rank_gradients")
         out = {}
-        for k, p in self.params.items():
+        for k, p in self.leaves.items():
             w = work.pop(k)
             out[k] = rank_grads[k] if w is p else torch.autograd.grad(
                 w, p, grad_outputs=rank_grads[k])[0]
+        self.leaves = {}
         return sync_gradients(out, self.places, self.pmesh, self.scenario, tp=self.env.tp)
-
-    @torch.no_grad()
-    def apply(self, state: OptState, grads: dict) -> tuple[OptState, torch.Tensor]:
-        """The clip over the mesh and the AdamW update of this process's
-        shards, written into the model's parameters, then its bf16 copies
-        remade. Returns (new state, the gradient's norm before the clip)."""
-        grads, gnorm = clip_by_global_norm(grads, self.clip_norm, self.places, self.env)
-        new, state = self.optimizer.update(grads, state, self.params)
-        for k, p in self.params.items():
-            p.copy_(new[k])
-        self.model.cast_weights()
-        return state, gnorm
-
-    def init_state(self) -> OptState:
-        return self.optimizer.init(self.params)
 
 
 def make_train_step(model: M.Model, mesh: Mesh, *, scenario: Scenario | str = Scenario.NATIVE,

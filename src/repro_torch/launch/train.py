@@ -23,7 +23,7 @@ the mesh, the train step and the pipeline, restores the latest checkpoint
 and carries on at its step; the batch at a step is the same global rows at
 any data world, so the data stream is preserved. Parameters and fp32
 moments restore at any data world of the same model axis; 8-bit moments are
-cut per device shard and refuse a change of mesh.
+cut per device shard and refuse a change of mesh (in either form).
 
 Under ``torchrun`` (``WORLD_SIZE`` set) the run is one process per mesh
 device (``--backend gloo | nccl``, ``launch.procs.init_process_mesh``):
@@ -33,9 +33,12 @@ device (``--backend gloo | nccl``, ``launch.procs.init_process_mesh``):
         --ckpt /tmp/ck --ckpt-every 8 --fail-step 16 --shrink-to 4 --steps 24
 
 each process holding its device's shard of the parameters and moments
-(``launch.steps.ProcessTrainStep``) and its block of every batch. A
-checkpoint gathers the shards into the same whole leaves, which rank 0
-writes; a restore reads them in every process, which keeps its shard. The
+(fp32, or 8-bit: the (codes, scales) of its device's shard of each stacked
+leaf; ``launch.steps.ProcessTrainStep``) and its block of every batch. A
+checkpoint gathers the shards into the same whole leaves, and the 8-bit
+rows into the world-dim form's rows, which rank 0 writes: the same files as
+a world-dim run on that mesh writes. A restore reads them in every process,
+which keeps its shard (its row). The
 failure ends that world once the checkpoint is written, and the restart is
 a new one: the same command on ``--nproc-per-node 4 ... --mesh 2,2`` without
 ``--fail-step`` (``relaunch_args``; ``spawn_run`` spawns both worlds).
@@ -89,15 +92,17 @@ def checkpoint_tree(step: steps_lib.TrainStep, state: OptState) -> dict | None:
     distinct device shard of a stacked leaf, a row each, as ``AdamW`` keeps
     them: the port's own layout (the reference's hold every device's). On a
     process mesh every process's shards are gathered to rank 0 into the
-    same whole leaves (``convert.gather_shards``): the others get None."""
+    same whole leaves (``convert.gather_shards``), and its 8-bit row into
+    the world-dim rows (``gather_rows``): the others get None."""
     model, env = step.model, step.env
     cfg = model.cfg
     if env.mesh is not None:
         def whole(tree):
             return convert.gather_shards(convert.stack_leaves(model, tree), cfg, env)
 
+        moments = functools.partial(gather_rows, step) if step.stacked else whole
         tree = {"params": whole(step.params),
-                "opt": (np.int32(state.count), whole(state.m), whole(state.v))}
+                "opt": (np.int32(state.count), moments(state.m), moments(state.v))}
         return tree if env.mesh.rank == 0 else None
 
     def moments(tree):
@@ -106,6 +111,27 @@ def checkpoint_tree(step: steps_lib.TrainStep, state: OptState) -> dict | None:
 
     return {"params": convert.to_slots(convert.stack_leaves(model, step.params), cfg, env),
             "opt": (np.int32(state.count), moments(state.m), moments(state.v))}
+
+
+def gather_rows(step: steps_lib.TrainStep, tree: dict, root: int = 0) -> dict:
+    """A process's 8-bit moments ({JAX leaf path: (codes, scales)}, one row:
+    its device's shard of the stacked leaf) → on process ``root`` the
+    world-dim step's rows of the same mesh, each from the first device that
+    holds it (``TrainStep.shard_row``; a shard's copies hold equal
+    moments), leaf by leaf in path order; {} elsewhere. Every process must
+    call it."""
+    env = step.env
+    m = env.mesh
+    out = {}
+    for path in sorted(tree):
+        every = [m.gather(t.contiguous(), root) for t in tree[path]]
+        if every[0] is None:
+            continue
+        rows = {}
+        for r in range(m.size):
+            rows.setdefault(step.shard_row(path, *divmod(r, env.model_size)), r)
+        out[path] = tuple(torch.cat([e[rows[k]] for k in range(len(rows))]) for e in every)
+    return out
 
 
 def checkpoint_meta(step: steps_lib.TrainStep, **meta) -> dict:
@@ -130,13 +156,19 @@ def _leaves(step: steps_lib.TrainStep, flat: dict, prefix: str) -> dict:
 
 def _moments(step: steps_lib.TrainStep, flat: dict, prefix: str, like: dict | None) -> dict:
     """The moments of a restored checkpoint under ``prefix``: fp32 leaves
-    (``_leaves``), or 8-bit (codes, scales) pairs shaped as ``like``'s."""
+    (``_leaves``), or 8-bit (codes, scales) pairs shaped as ``like``'s: on a
+    process mesh its device's row of the world-dim rows
+    (``TrainStep.shard_row``), moved to the model's device."""
     if like is None:
         return _leaves(step, flat, prefix)
     tree = {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    env = step.env
     out = {}
     for path, pair in like.items():
         got = tuple(tree.get(f"{path}/{i}") for i in (0, 1))
+        if env.mesh is not None and all(g is not None for g in got):
+            row = step.shard_row(path, env.fsdp_index, env.model_index)
+            got = tuple(g[row:row + 1].to(step.model.device) for g in got)
         if any(g is None or g.shape != t.shape for g, t in zip(got, pair)):
             raise ValueError(f"8-bit moments of {path}: the checkpoint does not hold "
                              f"{[tuple(t.shape) for t in pair]}")

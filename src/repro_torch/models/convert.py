@@ -306,14 +306,15 @@ def opt_state_from_jax(state: Mapping, model: Model):
     shaped like the parameters, as numpy) → the port's ``optim.OptState``;
     under a process mesh's env (the model's), each moment's shard of this
     process's device, from the reference's storage (kv heads and experts in
-    their slots: ``rank_shards``). 8-bit moments are cut into blocks per
-    stacked leaf there and per layer here, so they do not carry over."""
+    their slots: ``rank_shards``). 8-bit moments do not carry over: the
+    reference keeps a row of (codes, scales) for every device, the port one
+    for each distinct device shard (a process its own)."""
     from repro_torch.optim.adamw import OptState
 
     if isinstance(state["m"], (tuple, list)) or any(
             isinstance(v, (tuple, list)) for v in flatten(state["m"]).values()):
-        raise ValueError("8-bit moments do not carry over: the reference cuts their blocks "
-                         "from stacked leaves, the port from each layer")
+        raise ValueError("8-bit moments do not carry over: the reference keeps a row for "
+                         "every device, the port one for each distinct device shard")
 
     def moments(tree):
         if model.env.mesh is None:

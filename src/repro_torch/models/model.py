@@ -36,10 +36,11 @@ On a process mesh (an env whose ``mesh`` is a ``ProcessMesh``) the model is
 one device's: it holds that device's shard of every parameter (the same
 seeded weights as the world-dim model's, each cut to its shard as it is
 drawn), its rows and a cache of its kv slots, SSM heads and RG-LRU channels,
-and serves every block kind through the same code at one tp rank. It trains
-the dense GQA + MLP, MoE and Mamba-2 layers (``launch.steps.ProcessTrainStep``
-refuses the others): ``train_loss`` under the process's env reads the step's
-working slices (``Model.working``), and its loss is the device's own, as the
+and serves and trains every block kind through the same code at one tp rank
+(``launch.steps.ProcessTrainStep``): ``train_loss`` under the process's env
+reads the step's working slices (``Model.working``: the decoder's vocab
+shard, the encoder's layers and ``enc_norm``, MLA's latent norms and the
+RG-LRU's vectors alike), and its loss is the device's own, as the
 reference's (the collectives' backward sums the devices' losses).
 """
 from __future__ import annotations

@@ -287,6 +287,18 @@ class LeafPlace(NamedTuple):
             return self.dup_of // max(1, self.dup_of // env.tp)
         return env.model_size
 
+    def tp_chunk(self, env, model_index: int) -> int:
+        """Which of the ``tp_chunks`` distinct shards of the TP dim the
+        device at ``model_index`` on the model axis holds (0 without a TP
+        dim; for kv heads and experts, the first logical entity of its
+        slots over the slots a rank)."""
+        if self.tp_dim is None:
+            return 0
+        if self.dup_of:
+            per = max(1, self.dup_of // env.tp)
+            return env.dup_map(self.dup_of)[model_index * per] // per
+        return model_index
+
     def rep_gathered(self, env) -> bool:
         """Does the fetch gather the TP dim over the rep groups (a plain TP
         leaf; kv/expert slots are each rank's working set)?"""
