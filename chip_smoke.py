@@ -264,6 +264,27 @@
    write, and a rank's peak; the kernels line gets ``ring_fused_step`` at
    a rank's first hop and at the phase's largest (on seeded inputs of its
    shape) and ``segment_reduce`` at a rank's training combine.
+14. The process mesh under nccl, one card per rank, on a host with four
+   cards or more (``NCCL_WORLD``; on fewer it prints that it did not run):
+   the kernels on cuda:3 while the current card is cuda:0, then the
+   references on world dims on cuda:0, then three spawns. Four nccl ranks
+   on cards 0-3: a partial permutation as the world's first collective
+   against the world-dim mesh; phase 11's data plane at W = 4 (4 x 2^24
+   tokens, 4 x GRAD_SIZE fp32, HIERARCHICAL on (2, 2), the plan on a
+   4-ring) held to its world-dim run as phase 11 holds it; the five
+   collectives alone at ``NCCL_COLL_BYTES`` a rank; each rank's three
+   data-plane kernels against their plain versions on its own card; then
+   qwen1.5 at (2, 2) at full depth served (8 x 4,096 prompts, 8 tokens,
+   both routes, flash prefill) and trained (S3, 8 x 1,024 rows, 2 steps,
+   the checkpoint gathered to rank 0 and written), held as phases 12 and
+   13 hold them; every rank's transport "nccl" and nothing staged. The
+   same four ranks under gloo, staged through host memory (the data plane
+   and the collectives). Then two nccl ranks on cards 0-1 (1, 2) restore
+   the checkpoint and take a step. Prints each path's slowest-rank wall
+   beside the world-dim one under both backends, the collectives' ms and
+   algorithm and bus GB/s, the cards and their topology; the kernels line
+   gets rank 3's data-plane kernels (timed on cuda:3) and rank 0's flash
+   prefill, with phase 14's launches.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -696,6 +717,45 @@ PROCS_TRAIN_WORLDS = {"first": (("qwen1.5-0.5b", "train"), ("granite-moe-1b-a400
 # of either sign), each element within two steps of lr
 PROCS_TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
 PROCS_UPDATE_TOL = 0.15
+# the process mesh under nccl, one card per rank (phase 14), on a host with
+# NCCL_WORLD cards or more (else it does not run): NCCL_WORLD ranks on cards
+# 0-3. In one nccl world: a partial permutation as the world's first
+# collective (NCCL_FIRST, ranks left out), phase 11's data plane at
+# W = NCCL_WORLD (NCCL_WORLD x 2^24 tokens, NCCL_WORLD x GRAD_SIZE fp32,
+# HIERARCHICAL on (2, 2), the word-count plan on a 4-ring) held to its
+# world-dim run on cuda:0 as phase 11 holds it, the collectives alone at
+# NCCL_COLL_BYTES a rank, then qwen1.5 served and trained at (2, 2) at full
+# depth as phases 12 and 13 serve and train (NCCL_CASE's entries of their
+# tables: 8 x 4,096 prompts, 8 tokens, both routes, flash prefill; S3, 8 x
+# PROCS_TRAIN_SEQ rows, 2 steps, the checkpoint gathered to rank 0 and
+# written); the same 4 ranks then under gloo, staged through pinned host
+# memory (the data plane and the collectives); last a world of 2 on cards
+# 0-1, NCCL_RESTART, which restores the checkpoint and takes a step
+NCCL_WORLD = 4
+NCCL_TIMEOUT_S = 300
+NCCL_FIRST = ((0, 1),)  # rank 1 receives rank 0's block; ranks 2, 3 take no part
+NCCL_COLL_BYTES = 256 << 20
+NCCL_COLL_ITERS = {"nccl": 5, "gloo": 1}  # timed calls after a warm-up
+# algorithm GB/s = NCCL_COLL_BYTES / time (the larger of a rank's send and
+# receive buffers, as nccl-tests count them); bus GB/s = that x the factor
+# (what each rank's link carries at n ranks: nccl-tests' convention)
+NCCL_BUS = {"all_reduce": lambda n: 2 * (n - 1) / n, "all_gather": lambda n: (n - 1) / n,
+            "reduce_scatter": lambda n: (n - 1) / n, "all_to_all": lambda n: (n - 1) / n,
+            "ppermute": lambda n: 1.0}
+NCCL_CASE = "qwen1.5-0.5b@nccl"
+NCCL_RESTART = (1, 2)
+PROCS_SERVE[NCCL_CASE] = ((2, 2), 8, 4096, 8)
+PROCS_SERVE_LAUNCHES[NCCL_CASE] = (24, 0)  # full depth
+PROCS_SERVE_CAD += (NCCL_CASE,)
+PROCS_SERVE_SHARE += (NCCL_CASE,)
+PROCS_TRAIN[NCCL_CASE] = ((2, 2), 8, 2)
+PROCS_TRAIN_LAYERS[NCCL_CASE] = 24  # of 24
+NCCL_TRAIN_WORLDS = {"first": ((NCCL_CASE, "train"),), "restart": ((NCCL_CASE, "restart"),)}
+
+
+def case_arch(case: str) -> str:
+    """The arch of a process-mesh case: its name before any ``@``."""
+    return case.split("@")[0]
 
 
 def log(msg: str) -> None:
@@ -755,14 +815,15 @@ def bare_launchers():
     return mods[0].hash_partition, mods[1].segment_reduce, mods[2].ring_fused_step
 
 
-def data_plane_rows(words, recv, hop: int, prefix: str = "") -> list:
+def data_plane_rows(words, recv, hop: int, prefix: str = "", buckets: int = N_MAPPERS) -> list:
     """The kernels line's rows of the three data-plane kernels: each held
     against its plain version and timed on the card at the shapes given,
     ``words`` (mappers, n) int32 for ``hash_partition`` and the histogram
     path's ``segment_reduce``, ``recv`` (reducers, m) the token path's
     received words, and one S3 hop of ``hop`` elements for
-    ``ring_fused_step``. ``prefix`` goes before each row's path; the
-    launch counts are the caller's to fill."""
+    ``ring_fused_step``, on the current card. ``prefix`` goes before each
+    row's path; ``buckets``: the token path's reducers; the launch counts
+    are the caller's to fill."""
     import torch
 
     from repro_torch.kernels import ref
@@ -771,20 +832,20 @@ def data_plane_rows(words, recv, hop: int, prefix: str = "") -> list:
     seg_mod = importlib.import_module("repro_torch.kernels.segment_reduce")
     rows = []
     n_tok, mappers = words.numel(), words.shape[0]
-    kout, pout = hp(words, N_MAPPERS), ref.hash_partition(words, N_MAPPERS)
+    kout, pout = hp(words, buckets), ref.hash_partition(words, buckets)
     if not all(equal(k, p) for k, p in zip(kout, pout)):
         raise AssertionError(f"hash_partition differs at {tuple(words.shape)}")
-    b, b_by = bound_ms(n_tok * 8 + mappers * N_MAPPERS * 4, 3 * n_tok)
+    b, b_by = bound_ms(n_tok * 8 + mappers * buckets * 4, 3 * n_tok)
     rows.append({
         "name": "hash_partition", "route": "cuda",
         "source": "src/repro_torch/csrc/hash_partition.cu",
         "replaces": "src/repro/kernels/hash_partition.py:47",
         "launches": 0, "max_abs_err": max_abs_err(zip(kout, pout)),
-        "ms": cuda_ms(lambda: hp(words, N_MAPPERS)),
-        "plain_ms": cuda_ms(lambda: ref.hash_partition(words, N_MAPPERS)),
+        "ms": cuda_ms(lambda: hp(words, buckets)),
+        "plain_ms": cuda_ms(lambda: ref.hash_partition(words, buckets)),
         "bound_ms": b, "bound_by": b_by, "library_ms": None,
         "path": prefix + "wordcount_token",
-        "shape": f"tokens {tuple(words.shape)} int32, B={N_MAPPERS}",
+        "shape": f"tokens {tuple(words.shape)} int32, B={buckets}",
     })
     del kout, pout
 
@@ -841,7 +902,7 @@ def data_plane_rows(words, recv, hop: int, prefix: str = "") -> list:
         "bound_ms": b, "bound_by": b_by, "library_ms": None,
         "path": prefix + "aggregate_s3_in_net_map",
         "shape": f"acc ({hop},) fp32 + wire bf16: one S3 hop "
-                 + ("over 8 ranks" if hop == GRAD_SIZE else "of one rank"),
+                 + ("over 8 ranks" if hop == GRAD_SIZE else f"of one rank of {buckets}"),
     })
     return rows
 
@@ -2981,16 +3042,63 @@ def procs_record(name: str, out, devices: int) -> list:
     return [[digest(x) for x in r] for r in rows]
 
 
+def procs_launches(name: str, world: int) -> dict:
+    """A data-plane path's kernel launches in each rank of a ``world``-rank
+    process mesh (``PROCS_LAUNCHES``; S3 makes ``world - 1`` hops)."""
+    want = dict(PROCS_LAUNCHES.get(name, {}))
+    if "ring_fused_step" in want:
+        want["ring_fused_step"] = world - 1
+    return want
+
+
+def procs_meshes(world: int, device, process: bool = True) -> dict:
+    """The data plane's meshes over ``world`` devices: "all" and "data" of
+    ``world``, "pod_data" (2, world / 2); this process's ``ProcessMesh``es,
+    or (``process`` False) world dims on ``device``."""
+    from repro_torch.mesh import Mesh, ProcessMesh
+
+    cls = ProcessMesh if process else Mesh
+    return {"all": cls(("all",), (world,), device=device),
+            "data": cls(("data",), (world,), device=device),
+            "pod_data": cls(("pod", "data"), (2, world // 2), device=device)}
+
+
+def procs_inputs(meshes: dict) -> tuple:
+    """Phase 3's inputs at the meshes' world, made from ``SEED`` as
+    ``inputs()`` makes them, each mesh's share of them (a process's shard,
+    or every row on world dims), and the word-count plan on a ring of that
+    many switches: (words, grads, grads on "pod_data", plan)."""
+    import numpy as np
+
+    from repro_torch import compiler
+    from repro_torch.core import wordcount as wc
+    from repro_torch.core.topology import TorusTopology
+    from repro_torch.data.pipeline import wordcount_shards
+
+    world = meshes["all"].axis_size("all")
+    shards = wordcount_shards(world * TOKENS_PER_MAPPER, world, VOCAB, seed=SEED)
+    shards[3][-5:] = -1
+    words = meshes["all"].shard(shards)
+    grads_np = np.random.default_rng(SEED).standard_normal((world, GRAD_SIZE), dtype=np.float32)
+    grads = meshes["data"].shard(grads_np)
+    grads24 = meshes["pod_data"].shard(grads_np.reshape(2, world // 2, GRAD_SIZE))
+    plan = compiler.compile(wc.wordcount_program(world, VOCAB),
+                            TorusTopology(dims=(world,)), passes=PLAN_PASSES)
+    return words, grads, grads24, plan
+
+
 def procs_paths(meshes: dict, words, grads, grads24, plan) -> dict:
     """Phase 3's paths of ``PROCS_PATHS`` on one rank's process meshes
-    (``meshes``: "all" and "data" of 8, "pod_data" of (2, 4)) over its
-    shards, through the same entry points: name → call."""
+    (``procs_meshes``) over its shards, or on world dims over every row,
+    through the same entry points: name → call."""
     import torch
 
     from repro_torch.core import scenarios
     from repro_torch.core import wordcount as wc
+    from repro_torch.mesh import ProcessMesh
 
     m, d8, d24 = meshes["all"], meshes["data"], meshes["pod_data"]
+    n = m.axis_size("all")
 
     def hist_path():
         with warnings.catch_warnings():
@@ -2998,11 +3106,13 @@ def procs_paths(meshes: dict, words, grads, grads24, plan) -> dict:
             return wc.wordcount_step(words, VOCAB, m, "all", histogram_fn=wc.kernel_histogram)
 
     def plan_path():
+        hist = wc.kernel_histogram(words, VOCAB)
+        if not isinstance(m, ProcessMesh):
+            return plan.run({f"s{i}": hist[i] for i in range(n)})
         # the plan reads a rank's inputs only for the Store on its own switch
-        hist = wc.kernel_histogram(words, VOCAB)[0]
-        other = torch.zeros_like(hist)
-        return plan.run({f"s{i}": hist if int(plan.placement.switch_of(f"s{i}")) == m.rank
-                         else other for i in range(N_MAPPERS)})
+        other = torch.zeros_like(hist[0])
+        return plan.run({f"s{i}": hist[0] if int(plan.placement.switch_of(f"s{i}")) == m.rank
+                         else other for i in range(n)})
 
     paths = {
         "wordcount_histogram": hist_path,
@@ -3018,102 +3128,100 @@ def procs_paths(meshes: dict, words, grads, grads24, plan) -> dict:
     return paths
 
 
-def procs_rank(device) -> dict:
-    """Phase 11 in one rank (``launch.procs.spawn``): its shards of phase 3's
-    inputs, made from ``SEED`` as ``inputs()`` makes them; every path of
-    ``procs_paths`` once to warm up, then once timed between barriers (its
-    wall, kernel launches and staged host copies) with its outputs'
-    ``procs_record``; S3 against the plain ring; the rank's peak memory."""
-    import numpy as np
+def procs_timed(meshes: dict, paths: dict, grads, capture: dict | None = None) -> dict:
+    """Every path of ``paths`` once to warm up, then once timed (between
+    barriers on a process mesh): its wall, kernel launches, staged host
+    copies and collectives, with its outputs' ``procs_record``; S3 against
+    the plain ring. With ``capture``, the inputs of each path's first launch
+    of each kernel in the timed call, device copies under (path, kernel)."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch import compiler
     from repro_torch.core import collectives as coll
-    from repro_torch.core import wordcount as wc
-    from repro_torch.core.topology import TorusTopology
-    from repro_torch.data.pipeline import wordcount_shards
     from repro_torch.kernels import ops
-    from repro_torch.mesh import ProcessMesh, count_staging
+    from repro_torch.mesh import ProcessMesh, count_collectives, count_staging
 
-    t = time.perf_counter()
-    meshes = {"all": ProcessMesh(("all",), (N_MAPPERS,), device=device),
-              "data": ProcessMesh(("data",), (8,), device=device),
-              "pod_data": ProcessMesh(("pod", "data"), (2, 4), device=device)}
-    shards = wordcount_shards(N_MAPPERS * TOKENS_PER_MAPPER, N_MAPPERS, VOCAB, seed=SEED)
-    shards[3][-5:] = -1
-    words = meshes["all"].shard(shards)
-    grads_np = np.random.default_rng(SEED).standard_normal((8, GRAD_SIZE), dtype=np.float32)
-    grads = meshes["data"].shard(grads_np)
-    grads24 = meshes["pod_data"].shard(grads_np.reshape(2, 4, GRAD_SIZE))
-    del shards, grads_np
-    plan = compiler.compile(wc.wordcount_program(N_MAPPERS, VOCAB),
-                            TorusTopology(dims=(PLAN_RING,)), passes=PLAN_PASSES)
-    res = {"transport": meshes["all"].transport, "setup_s": time.perf_counter() - t, "paths": {}}
-    torch.cuda.reset_peak_memory_stats()
-    for name, fn in procs_paths(meshes, words, grads, grads24, plan).items():
+    process = isinstance(meshes["all"], ProcessMesh)
+    n = meshes["all"].axis_size("all")
+    out_recs = {}
+
+    def capturing(name):
+        stack = contextlib.ExitStack()
+        if capture is None:
+            return stack
+        for k in ("hash_partition", "segment_reduce", "ring_fused_step"):
+            real = getattr(ops, k)
+
+            def kept(*args, real=real, key=(name, k), **kw):
+                if key not in capture:
+                    capture[key] = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+                return real(*args, **kw)
+
+            stack.enter_context(mock.patch.object(ops, k, kept))
+        return stack
+
+    for name, fn in paths.items():
         fn()  # the warm-up: groups, pinned buffers, the allocator's blocks
         torch.cuda.synchronize()
-        dist.barrier()
+        if process:
+            dist.barrier()
         ops.reset_launches()
-        with count_staging() as staged:
+        with count_staging() as staged, count_collectives() as colls, capturing(name):
             t = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         rec = {"wall_s": wall, "launches": dict(ops.LAUNCHES), "staged": dict(staged),
-               "out": procs_record(name, out, 1)}
+               "collectives": dict(colls), "out": procs_record(name, out, 1 if process else n)}
         if name == "aggregate_s3_in_net_map":
             plain = coll.ring_all_reduce(grads, meshes["data"], "data",
                                          wire_map=lambda a: a.to(torch.bfloat16),
-                                         unmap=lambda a: a.to(torch.float32)) * (1.0 / 8)
+                                         unmap=lambda a: a.to(torch.float32)) * (1.0 / n)
             rec["plain_ring_equal"] = bool(torch.equal(out, plain))
             del plain
-        res["paths"][name] = rec
+        out_recs[name] = rec
         del out
+    return out_recs
+
+
+def procs_rank(device) -> dict:
+    """Phase 11 in one rank (``launch.procs.spawn``): its shards of phase 3's
+    inputs (``procs_inputs``), every path of ``procs_paths`` timed
+    (``procs_timed``), and the rank's peak memory."""
+    import torch
+
+    t = time.perf_counter()
+    meshes = procs_meshes(PROCS_WORLD, device)
+    words, grads, grads24, plan = procs_inputs(meshes)
+    res = {"transport": meshes["all"].transport, "setup_s": time.perf_counter() - t}
+    torch.cuda.reset_peak_memory_stats()
+    res["paths"] = procs_timed(meshes, procs_paths(meshes, words, grads, grads24, plan), grads)
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return res
 
 
-def procs_phase(ref: dict) -> dict:
-    """Phase 11: ``PROCS_WORLD`` gloo ranks spawned on the one card
-    (``procs_rank``); each path's outputs in every rank held to phase 3's
-    world-dim run (``ref``, from ``procs_record``) and its launches to
-    ``PROCS_LAUNCHES``. Returns the readings: per path the wall (the
-    slowest rank), the bytes staged through host memory (all ranks), the
-    staging seconds and their share of the wall (the rank where it is
-    largest), the launches per rank; the largest peak memory of a rank;
-    the launches summed over ranks and paths."""
-    import tempfile
-
+def procs_hold(ranks: list, ref: dict, world: int, launches: dict, label: str) -> dict:
+    """Each data-plane path's outputs in every rank held to the world-dim
+    run (``ref``, from ``procs_record``: bitwise, ``PROCS_CLOSE`` within
+    ``PROCS_TOL``, S3 also bitwise the plain ring) and its launches to
+    ``procs_launches``, which are added to ``launches``. Returns per path
+    the wall (the slowest rank), the bytes staged through host memory (all
+    ranks), the staging seconds and their share of the wall (the rank
+    where it is largest), rank 0's collectives and the launches per rank."""
     import numpy as np
-    import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.launch import procs
 
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()  # the ranks share the card with this process
-    t = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = procs.spawn(procs_rank, PROCS_WORLD, backend="gloo", store_path=Path(tmp) / "store",
-                            timeout_s=PROCS_TIMEOUT_S)
-    res = {"ranks": PROCS_WORLD, "transport": sorted({r["transport"] for r in ranks}),
-           "spawn_s": time.perf_counter() - t, "setup_s": max(r["setup_s"] for r in ranks),
-           "peak_gb_per_rank": max(r["peak_gb"] for r in ranks),
-           "launches": dict.fromkeys(ops.LAUNCHES, 0), "paths": {}}
-    log(f"process mesh: {PROCS_WORLD} ranks on one card, {' / '.join(res['transport'])}; spawned, "
-        f"run and joined in {res['spawn_s']:.2f} s (a rank's setup, its shards made from seed "
-        f"{SEED} and the plan compiled: {res['setup_s']:.2f} s at most)")
+    out = {}
     for name in PROCS_PATHS:
         recs = [r["paths"][name] for r in ranks]
-        want = {k: PROCS_LAUNCHES.get(name, {}).get(k, 0) for k in ops.LAUNCHES}
+        want = {k: procs_launches(name, world).get(k, 0) for k in ops.LAUNCHES}
         for r, rec in enumerate(recs):
             if rec["launches"] != want:
-                raise AssertionError(f"procs_{name}: rank {r} made launches {rec['launches']}, "
+                raise AssertionError(f"{label}_{name}: rank {r} made launches {rec['launches']}, "
                                      f"not {want}")
             for k, v in rec["launches"].items():
-                res["launches"][k] += v
+                launches[k] += v
         if name in PROCS_CLOSE:
             got = [(rec["out"][0], ref[name][r]) for r, rec in enumerate(recs)]
             err = max(float(np.abs(g.astype(np.float64) - w).max()) for g, w in got)
@@ -3129,20 +3237,55 @@ def procs_phase(ref: dict) -> dict:
             same = same and all(rec["plain_ring_equal"] for rec in recs)
             held += ", and == the plain ring (bf16 maps as separate steps)"
         if not same:
-            raise AssertionError(f"procs_{name}: a rank's outputs differ from the world-dim run "
-                                 f"(or S3 from the plain ring)")
+            raise AssertionError(f"{label}_{name}: a rank's outputs differ from the world-dim "
+                                 f"run (or S3 from the plain ring)")
         wall = max(rec["wall_s"] for rec in recs)
         share = max(rec["staged"]["seconds"] / rec["wall_s"] for rec in recs)
-        res["paths"][name] = {
+        out[name] = {
             "wall_s": wall, "staged_bytes": sum(rec["staged"]["bytes"] for rec in recs),
             "staged_copies": sum(rec["staged"]["copies"] for rec in recs),
             "staging_s": max(rec["staged"]["seconds"] for rec in recs), "staging_share": share,
-            "launches_per_rank": recs[0]["launches"]}
-        p = res["paths"][name]
-        log(f"path procs_{name}: {wall * 1e3:.3f} ms wall (the slowest rank), {p['staged_copies']} "
-            f"host copies of {p['staged_bytes'] / 1e9:.3f} GB, staging {p['staging_s'] * 1e3:.3f} ms "
-            f"in a rank ({share:.1%} of its wall at most), launches per rank "
-            f"{ {k: v for k, v in p['launches_per_rank'].items() if v} }; {held}")
+            "collectives_rank0": {k: v for k, v in recs[0]["collectives"].items() if v},
+            "launches_per_rank": recs[0]["launches"], "held": held}
+    return out
+
+
+def procs_phase(ref: dict) -> dict:
+    """Phase 11: ``PROCS_WORLD`` gloo ranks spawned on the one card
+    (``procs_rank``); each path's outputs in every rank held to phase 3's
+    world-dim run (``ref``, from ``procs_record``) and its launches to
+    ``PROCS_LAUNCHES`` (``procs_hold``). Returns the readings: per path the
+    wall (the slowest rank), the bytes staged through host memory (all
+    ranks), the staging seconds and their share of the wall (the rank
+    where it is largest), the launches per rank; the largest peak memory of
+    a rank; the launches summed over ranks and paths."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import procs
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = procs.spawn(procs_rank, PROCS_WORLD, backend="gloo", store_path=Path(tmp) / "store",
+                            timeout_s=PROCS_TIMEOUT_S)
+    res = {"ranks": PROCS_WORLD, "transport": sorted({r["transport"] for r in ranks}),
+           "spawn_s": time.perf_counter() - t, "setup_s": max(r["setup_s"] for r in ranks),
+           "peak_gb_per_rank": max(r["peak_gb"] for r in ranks),
+           "launches": dict.fromkeys(ops.LAUNCHES, 0)}
+    log(f"process mesh: {PROCS_WORLD} ranks on one card, {' / '.join(res['transport'])}; spawned, "
+        f"run and joined in {res['spawn_s']:.2f} s (a rank's setup, its shards made from seed "
+        f"{SEED} and the plan compiled: {res['setup_s']:.2f} s at most)")
+    res["paths"] = procs_hold(ranks, ref, PROCS_WORLD, res["launches"], "procs")
+    for name, p in res["paths"].items():
+        log(f"path procs_{name}: {p['wall_s'] * 1e3:.3f} ms wall (the slowest rank), "
+            f"{p['staged_copies']} host copies of {p['staged_bytes'] / 1e9:.3f} GB, staging "
+            f"{p['staging_s'] * 1e3:.3f} ms in a rank ({p['staging_share']:.1%} of its wall at "
+            f"most), launches per rank "
+            f"{ {k: v for k, v in p['launches_per_rank'].items() if v} }; {p.pop('held')}")
     log(f"  peak device memory of a rank {res['peak_gb_per_rank']:.3f} GB; launches summed over "
         f"the ranks {res['launches']}")
     return res
@@ -3176,7 +3319,7 @@ def procs_serve_config(arch: str):
 
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch)
+    cfg = get_config(case_arch(arch))
     cut = {"n_layers": PROCS_SERVE_LAYERS.get(arch), "enc_layers": PROCS_SERVE_ENC_LAYERS.get(arch)}
     return dataclasses.replace(cfg, **{k: v for k, v in cut.items() if v})
 
@@ -3612,8 +3755,8 @@ def procs_serve_phase(launches: dict, rows: list) -> dict:
 
 def procs_train_dims(arch: str, what: str) -> tuple:
     """The mesh of phase 13's ``arch`` doing ``what`` (``PROCS_TRAIN_WORLDS``)."""
-    return {"restart": PROCS_TRAIN_RESTART, "8bit": PROCS_TRAIN_8BIT}.get(what,
-                                                                         PROCS_TRAIN[arch][0])
+    restart = NCCL_RESTART if arch == NCCL_CASE else PROCS_TRAIN_RESTART
+    return {"restart": restart, "8bit": PROCS_TRAIN_8BIT}.get(what, PROCS_TRAIN[arch][0])
 
 
 def procs_train_build(arch: str, mesh, what: str = "train"):
@@ -3633,7 +3776,7 @@ def procs_train_build(arch: str, mesh, what: str = "train"):
     cut = {"n_layers": PROCS_TRAIN_LAYERS[arch]}
     if arch in PROCS_TRAIN_ENC_LAYERS:
         cut["enc_layers"] = PROCS_TRAIN_ENC_LAYERS[arch]
-    cfg = dataclasses.replace(get_config(arch), **cut)
+    cfg = dataclasses.replace(get_config(case_arch(arch)), **cut)
     model = Model(cfg, device=mesh.device, seed=SEED, env=steps.make_env(cfg, mesh))
     step, pipe = train.build(model, mesh, procs_train_args(arch, procs_train_dims(arch, what)),
                              optimizer=AdamW(eightbit=True) if what == "8bit" else None)
@@ -3645,7 +3788,8 @@ def procs_train_args(arch: str, dims):
     from repro_torch.launch import train
 
     return train.parser().parse_args([
-        "--arch", arch, "--scenario", "s3_in_net_map", "--mesh", ",".join(map(str, dims)),
+        "--arch", case_arch(arch), "--scenario", "s3_in_net_map", "--mesh",
+        ",".join(map(str, dims)),
         "--global-batch", str(PROCS_TRAIN[arch][1]), "--seq", str(PROCS_TRAIN_SEQ),
         "--seed", str(SEED)])
 
@@ -3690,14 +3834,16 @@ def procs_train_shards(step, tmp: Path, name: str, metrics: list, lrs: list,
         torch.save(out, tmp / f"{name}.{r}.pt")
 
 
-def procs_train_world(tmp: Path) -> dict:
-    """Phase 13's references on world dims on the card: every arch of
-    ``PROCS_TRAIN`` trained from the same weights on the same batches as
-    the ranks (``procs_train_build``), each rank's expected shards written
-    (``procs_train_shards``); qwen1.5 then carries on on
-    ``PROCS_TRAIN_RESTART`` for one step, as the world-dim restart does
-    (``launch/train.py``: the same model and optimizer state under the new
-    mesh's step), and takes a step with 8-bit moments on
+def procs_train_world(tmp: Path, worlds: dict = PROCS_TRAIN_WORLDS) -> dict:
+    """The references of the process worlds ``worlds`` (phase 13's, or
+    phase 14's) on world dims on the card: every arch of theirs trained from
+    the same weights on the same batches as the ranks
+    (``procs_train_build``, ``PROCS_TRAIN``), each rank's expected shards
+    written (``procs_train_shards``); one that a world restores carries on
+    on its restart mesh (``procs_train_dims``) for one step, as the
+    world-dim restart does (``launch/train.py``: the same model and
+    optimizer state under the new mesh's step), and one that a world
+    trains with 8-bit moments takes a step with them on
     ``PROCS_TRAIN_8BIT`` from the seeded weights. Returns each one's
     metrics and its peak GB."""
     import torch
@@ -3705,8 +3851,11 @@ def procs_train_world(tmp: Path) -> dict:
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_mesh
 
+    jobs = {job for js in worlds.values() for job in js}
     out = {}
     for arch, (dims, gb, n) in PROCS_TRAIN.items():
+        if (arch, "train") not in jobs and (arch, "restart") not in jobs:
+            continue
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         model, step, pipe = procs_train_build(arch, make_mesh(dims, device="cuda"))
@@ -3714,13 +3863,15 @@ def procs_train_world(tmp: Path) -> dict:
         lrs = [m["lr"] for m in metrics]
         procs_train_shards(step, tmp, arch, metrics, lrs)
         out[arch] = {"steps": metrics, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        if arch == TRAIN_ARCH:
-            step, pipe = train.build(model, make_mesh(PROCS_TRAIN_RESTART, device="cuda"),
-                                     procs_train_args(arch, PROCS_TRAIN_RESTART))
+        if (arch, "restart") in jobs:
+            dims = procs_train_dims(arch, "restart")
+            step, pipe = train.build(model, make_mesh(dims, device="cuda"),
+                                     procs_train_args(arch, dims))
             state, metrics = procs_train_steps(step, state, pipe, n, 1)
             procs_train_shards(step, tmp, f"{arch}.restart", metrics,
                                lrs + [m["lr"] for m in metrics])
             out[arch]["restart"] = metrics
+        if (arch, "8bit") in jobs:
             del model, step, state, pipe
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3840,7 +3991,7 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
             "staged": dict(staged), "collectives": dict(coll)})
     rec["hops_checked"], rec["hops_bitwise"] = hops["n"], hops["equal"]
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    if arch == TRAIN_ARCH and what == "train":  # rank 0 writes while the world goes on
+    if case_arch(arch) == TRAIN_ARCH and what == "train":  # rank 0 writes; the world goes on
         t = time.perf_counter()
         tree = train.checkpoint_tree(step, state)
         rec["ckpt_gather_s"] = time.perf_counter() - t
@@ -3913,18 +4064,18 @@ def procs_eightbit_readings(step, state, want: dict, pm) -> dict:
     return out
 
 
-def procs_train_rank(tmp: str, world: str, device) -> dict:
-    """Phase 13 in one rank of world ``world`` (``PROCS_TRAIN_WORLDS``,
-    ``launch.procs.spawn``): each of its archs (``procs_train_arch``) on
-    its process mesh. Returns their records and rank 0's captured kernel
-    inputs."""
+def procs_train_rank(tmp: str, jobs: tuple, device) -> dict:
+    """Phase 13 (or 14) in one rank of a world whose ``jobs`` are (arch,
+    what) pairs (``PROCS_TRAIN_WORLDS``, ``launch.procs.spawn``): each of
+    its archs (``procs_train_arch``) on its process mesh. Returns their
+    records and rank 0's captured kernel inputs."""
     import torch
 
     from repro_torch.mesh import ProcessMesh
 
     torch.set_num_threads(1)  # the ranks share the host's cores
     res, capture, meshes, writes = {"archs": {}}, {}, {}, []
-    for arch, what in PROCS_TRAIN_WORLDS[world]:
+    for arch, what in jobs:
         dims = procs_train_dims(arch, what)
         pm = meshes.setdefault(dims, ProcessMesh(("data", "model"), dims, device=device))
         res["archs"][f"{arch}/{what}"] = procs_train_arch(arch, what, pm, Path(tmp), capture,
@@ -3969,7 +4120,7 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()  # the ranks share the card with this process
             t = time.perf_counter()
-            ranks = procs.spawn(functools.partial(procs_train_rank, tmp, name), n.pop(),
+            ranks = procs.spawn(functools.partial(procs_train_rank, tmp, jobs), n.pop(),
                                 backend="gloo", store_path=Path(tmp) / f"store_{name}",
                                 timeout_s=PROCS_TIMEOUT_S)
             st = {"spawn_s": time.perf_counter() - t, "ranks": len(ranks),
@@ -4152,6 +4303,370 @@ def procs_eightbit_check(arch: str, recs: list) -> dict:
                              f"{[r['restore_bitwise'] for r in recs]}")
     out["restore_bitwise"] = True
     return out
+
+
+def calls_counted(calls: dict):
+    """A patch of ``mesh.note_collective`` that also counts the collectives
+    by kind into ``calls`` (``count_collectives`` counts their bytes)."""
+    from repro_torch import mesh
+
+    real = mesh.note_collective
+
+    def note(kind, nbytes):
+        calls[kind] = calls.get(kind, 0) + 1
+        real(kind, nbytes)
+
+    return mock.patch.object(mesh, "note_collective", note)
+
+
+def nccl_first(device) -> dict:
+    """The world's first collective, before any other: ``NCCL_FIRST``'s
+    partial permutation, which leaves some ranks out, against the
+    world-dim ``Mesh`` on the CPU; then the reverse permutation."""
+    import numpy as np
+
+    from repro_torch.mesh import Mesh, ProcessMesh
+
+    pm = ProcessMesh(("all",), (NCCL_WORLD,), device=device)
+    w = Mesh(("all",), (NCCL_WORLD,), device="cpu")
+    data = np.arange(NCCL_WORLD * 6, dtype=np.float32).reshape(NCCL_WORLD, 2, 3) + 1
+    out = {}
+    for name, perm in (("first", NCCL_FIRST), ("reverse", [(d, s) for s, d in NCCL_FIRST])):
+        t = time.perf_counter()
+        got = pm.ppermute(pm.shard(data), "all", perm).cpu().numpy()
+        want = w.ppermute(w.shard(data), "all", perm).numpy()[pm.rank:pm.rank + 1]
+        out[name] = {"equal": bool(np.array_equal(got, want)), "s": time.perf_counter() - t}
+    return out
+
+
+def nccl_collectives(m, iters: int) -> dict:
+    """The collectives alone on process mesh ``m`` ("all"), each over
+    ``NCCL_COLL_BYTES`` of fp32 a rank (``NCCL_BUS``'s buffers): once to
+    warm up, then ``iters`` calls between barriers; this rank's ms a call,
+    its staged bytes, and whether the values are right."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.mesh import count_staging
+
+    n = m.axis_size("all")
+    e = NCCL_COLL_BYTES // 4
+    x = torch.ones((1, e), device=m.device)
+    part = torch.ones((1, e // n), device=m.device)
+    calls = {
+        "all_reduce": (lambda: m.psum(x, "all"), n),
+        "all_gather": (lambda: m.all_gather(part, "all", tiled=True), 1),
+        "reduce_scatter": (lambda: m.psum_scatter(x, "all", 0, tiled=True), n),
+        "all_to_all": (lambda: m.all_to_all(x, "all", 0, 0, tiled=True), 1),
+        "ppermute": (lambda: m.ppermute(x, "all", [(i, (i + 1) % n) for i in range(n)]), 1),
+    }
+    out = {}
+    for name, (fn, value) in calls.items():
+        y = fn()
+        right = bool((y == value).all()) and y.numel() * 4 in (NCCL_COLL_BYTES, NCCL_COLL_BYTES // n)
+        del y
+        torch.cuda.synchronize()
+        dist.barrier()
+        with count_staging() as staged:
+            t = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) / iters * 1e3
+        dist.barrier()
+        out[name] = {"ms": ms, "staged_bytes": staged["bytes"], "right": right}
+    del x, part
+    torch.cuda.empty_cache()
+    return out
+
+
+def nccl_kernel_checks(capture: dict, words, n: int) -> list:
+    """This rank's kernels on its own card against their plain versions:
+    its first S3 hop of the timed data plane (``procs_timed``'s capture)
+    bitwise, then ``data_plane_rows`` at the rank's shapes (its words, the
+    token path's received words, a hop of its S3 hop's length), which
+    checks and times each. Returns the rows."""
+    from repro_torch.kernels import ref
+
+    acc, wire = capture[("aggregate_s3_in_net_map", "ring_fused_step")]
+    rf = bare_launchers()[2]
+    if not all(equal(a, b) for a, b in zip(rf(acc, wire), ref.ring_fused_step(acc, wire))):
+        raise AssertionError(f"ring_fused_step differs from its plain version at a rank's hop "
+                             f"{tuple(acc.shape)} on {acc.device}")
+    recv = capture[("wordcount_token", "segment_reduce")][1]
+    return data_plane_rows(words.reshape(1, -1), recv.reshape(1, -1), acc.numel(), "nccl_",
+                           buckets=n)
+
+
+def nccl_rank(tmp: str, full: bool, device) -> dict:
+    """Phase 14 in one rank (``launch.procs.spawn``, nccl or gloo):
+    ``nccl_first`` before any other collective; phase 11's data plane at
+    W = ``NCCL_WORLD`` (``procs_inputs``, ``procs_timed`` with each call's
+    collectives counted), the collectives alone (``nccl_collectives``),
+    the kernels on this rank's card (``nccl_kernel_checks``); with ``full``
+    then qwen1.5 served (``procs_serve_rank``) and trained
+    (``procs_train_rank``) as ``NCCL_CASE``, held to their world-dim files
+    under ``tmp``."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(4)  # the ranks share the host's cores
+    backend = dist.get_backend()
+    res = {"first": nccl_first(device), "device": str(device)}
+    t = time.perf_counter()
+    meshes = procs_meshes(NCCL_WORLD, device)
+    words, grads, grads24, plan = procs_inputs(meshes)
+    res.update(transport=meshes["all"].transport, setup_s=time.perf_counter() - t)
+    torch.cuda.reset_peak_memory_stats()
+    capture, calls = {}, {}
+    with calls_counted(calls):
+        res["paths"] = procs_timed(meshes, procs_paths(meshes, words, grads, grads24, plan),
+                                   grads, capture)
+    res["calls"] = calls  # the warm-up calls' and the timed calls' together
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["collectives"] = nccl_collectives(meshes["all"], NCCL_COLL_ITERS[backend])
+    t = time.perf_counter()
+    res["rows"] = nccl_kernel_checks(capture, words, NCCL_WORLD)
+    res["kernel_check_s"] = time.perf_counter() - t
+    del words, grads, grads24, capture, meshes
+    torch.cuda.empty_cache()
+    if full:
+        calls = {}
+        with calls_counted(calls):
+            res["serve"] = procs_serve_rank(NCCL_CASE, tmp, device)
+        res["serve"]["calls"] = calls
+        calls = {}
+        with calls_counted(calls):
+            res["train"] = procs_train_rank(tmp, NCCL_TRAIN_WORLDS["first"], device)
+        res["train"]["calls"] = calls
+    return res
+
+
+def nccl_other_card(card: int) -> dict:
+    """The four kernels on ``cuda:{card}`` while the current card is
+    another: each wrapper launches on its tensors' card. Small seeded
+    shapes, each against its plain version there (flash within
+    ``ROW_TOL``, the others bitwise: ``segment_reduce`` sums small
+    integers, exact in any order)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda", card)
+    hp, sr, rf = bare_launchers()
+    fa = importlib.import_module("repro_torch.kernels.flash_attention").flash_attention
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tok = torch.randint(-1, VOCAB, (2, 1 << 16), generator=g, device=dev, dtype=torch.int32)
+    vals = torch.randint(-8, 8, (4096, 64), generator=g, device=dev).float()  # exact sums
+    ids = torch.randint(-1, 512, (4096,), generator=g, device=dev, dtype=torch.int32)
+    acc = torch.randn((1 << 20,), generator=g, device=dev)
+    wire = torch.randn((1 << 20,), generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (torch.randn((2, 4, 256, 64), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    out = {"current": torch.cuda.current_device(), "card": card}
+    out["hash_partition"] = all(equal(a, b) for a, b in zip(hp(tok, 8), ref.hash_partition(tok, 8)))
+    out["segment_reduce"] = equal(sr(vals[None], ids[None], 512).to("cpu"),
+                                  ref.segment_reduce(vals[None], ids[None], 512).to("cpu"))
+    out["ring_fused_step"] = all(equal(a, b) for a, b in zip(rf(acc, wire),
+                                                            ref.ring_fused_step(acc, wire)))
+    kout = fa(q, k, v, causal=True)
+    out["flash_row_rel_err"] = row_rel_err(kout, ref.flash_attention(q, k, v, causal=True))
+    out["flash_attention"] = out["flash_row_rel_err"] <= ROW_TOL["torch.bfloat16"]
+    out["on_card"] = kout.device == dev
+    if not all(out[k] for k in ("hash_partition", "segment_reduce", "ring_fused_step",
+                                "flash_attention", "on_card")):
+        raise AssertionError(f"a kernel on cuda:{card} differs from its plain version: {out}")
+    return out
+
+
+def nccl_smi() -> dict:
+    """``nvidia-smi``'s cards (index, name, power limit) and ``topo -m``;
+    where the matrix cannot be read, the cards' peer-to-peer NVLink
+    matrix (``topo -p2p n``) instead."""
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    topo = []
+    for args in (["topo", "-m"], ["topo", "-p2p", "n"]):
+        r = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+        topo += [f"nvidia-smi {' '.join(args)}:"] + (r.stdout + r.stderr).rstrip().splitlines()
+        if r.returncode == 0:
+            break
+    return {"cards": cards, "topo": topo}
+
+
+def nccl_world_dataplane() -> tuple[dict, dict]:
+    """14a's reference: phase 11's paths at W = ``NCCL_WORLD`` on world dims
+    on the current card (``procs_inputs``, ``procs_timed``). Returns (each
+    path's ``procs_record`` per device, each path's readings)."""
+    import torch
+
+    meshes = procs_meshes(NCCL_WORLD, "cuda", process=False)
+    words, grads, grads24, plan = procs_inputs(meshes)
+    torch.cuda.reset_peak_memory_stats()
+    recs = procs_timed(meshes, procs_paths(meshes, words, grads, grads24, plan), grads)
+    if not recs["aggregate_s3_in_net_map"]["plain_ring_equal"]:
+        raise AssertionError("14a on world dims: S3 differs from the plain ring")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del words, grads, grads24, meshes
+    torch.cuda.empty_cache()
+    return ({name: r.pop("out") for name, r in recs.items()},
+            {"paths": recs, "peak_gb": peak})
+
+
+def nccl_hold_world(ranks: list, backend: str, ref: dict, world_dp: dict, launches: dict
+                    ) -> dict:
+    """One world of 14a/14b (``nccl_rank``): the first collective, the data
+    plane held to the world-dim run (``procs_hold``; every rank's launches
+    added to ``launches``), the collectives' values; under nccl every rank's
+    transport "nccl" and nothing staged. Returns the readings."""
+    label = f"nccl_{backend}"
+    transports = sorted({r["transport"] for r in ranks})
+    for r, rec in enumerate(ranks):
+        if not all(v["equal"] for v in rec["first"].values()):
+            raise AssertionError(f"{label}: rank {r}'s first collective {rec['first']} differs "
+                                 "from the world-dim permutation")
+        if not all(c["right"] for c in rec["collectives"].values()):
+            raise AssertionError(f"{label}: rank {r}'s collectives {rec['collectives']} give "
+                                 "wrong values")
+    paths = procs_hold(ranks, ref, NCCL_WORLD, launches, label)
+    for name, p in paths.items():
+        p["world_wall_s"] = world_dp["paths"][name]["wall_s"]
+        p["world_collectives"] = {k: v for k, v in world_dp["paths"][name]["collectives"].items()
+                                  if v}
+        p.pop("held")
+    staged = sum(p["staged_bytes"] for p in paths.values()) + sum(
+        c["staged_bytes"] for r in ranks for c in r["collectives"].values())
+    if backend == "nccl" and (transports != ["nccl"] or staged):
+        raise AssertionError(f"{label}: transports {transports}, {staged} bytes staged")
+    n = NCCL_WORLD
+    coll = {}
+    for name in ranks[0]["collectives"]:
+        ms = max(r["collectives"][name]["ms"] for r in ranks)
+        alg = NCCL_COLL_BYTES / (ms * 1e-3) / 1e9
+        coll[name] = {"ms": ms, "algbw_gb_s": alg, "busbw_gb_s": alg * NCCL_BUS[name](n),
+                      "bus_factor": NCCL_BUS[name](n),
+                      "staged_bytes": sum(r["collectives"][name]["staged_bytes"] for r in ranks)}
+    return {"ranks": len(ranks), "transport": transports, "devices": [r["device"] for r in ranks],
+            "first": ranks[0]["first"], "setup_s": max(r["setup_s"] for r in ranks),
+            "peak_gb_per_rank": max(r["peak_gb"] for r in ranks), "paths": paths,
+            "staged_bytes": staged, "collective_calls_rank0": ranks[0]["calls"],
+            "collectives": coll, "kernel_check_s": max(r["kernel_check_s"] for r in ranks)}
+
+
+def nccl_phase(launches: dict, rows: list) -> dict:
+    """Phase 14, the process mesh under nccl with one card per rank: on a
+    host with fewer than ``NCCL_WORLD`` cards it says so and returns
+    {"ran": False, "cards": N}. Else the references on world dims on
+    cuda:0 (``nccl_world_dataplane``, ``procs_serve_world`` and
+    ``procs_train_world`` of ``NCCL_CASE``), the kernels on the last card
+    (``nccl_other_card``), then three spawns: ``NCCL_WORLD`` nccl ranks
+    (``nccl_rank`` in full), the same ranks under gloo (the data plane and
+    the collectives, staged), and the restart world ``NCCL_RESTART`` on
+    cards 0-1; each held to its reference. Adds the ranks' launches to
+    ``launches`` and the kernel rows at a rank's shapes to ``rows``
+    (rank 3's data-plane kernels on cuda:3, rank 0's first flash prefill);
+    returns the readings."""
+    import functools
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch import procs
+
+    cards = torch.cuda.device_count()
+    if cards < NCCL_WORLD:
+        log(f"phase 14 (the process mesh under nccl, one card per rank) needs {NCCL_WORLD} cards; "
+            f"found {cards}: not run")
+        return {"ran": False, "cards": cards}
+    t0 = time.perf_counter()
+    res = {"ran": True, "cards": cards, **nccl_smi(), "launches": dict.fromkeys(ops.LAUNCHES, 0)}
+    for line in res["cards"] + res["topo"]:
+        log(f"  {line}")
+    _build.build_all()  # built already: the ranks only load
+    res["other_card"] = nccl_other_card(NCCL_WORLD - 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        stage("phase 14 world dims")
+        t = time.perf_counter()
+        ref, world_dp = nccl_world_dataplane()
+        world_serve = procs_serve_world(NCCL_CASE, Path(tmp))
+        world_train = procs_train_world(Path(tmp), NCCL_TRAIN_WORLDS)[NCCL_CASE]
+        res["world_s"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # rank 0 shares cuda:0 with this process
+        spawns = {}
+        for name, backend, world, fn in (
+                ("nccl", "nccl", NCCL_WORLD, functools.partial(nccl_rank, tmp, True)),
+                ("gloo", "gloo", NCCL_WORLD, functools.partial(nccl_rank, tmp, False)),
+                ("restart", "nccl", math.prod(NCCL_RESTART),
+                 functools.partial(procs_train_rank, tmp, NCCL_TRAIN_WORLDS["restart"]))):
+            stage(f"phase 14 {name} world")
+            t = time.perf_counter()
+            spawns[name] = procs.spawn(fn, world, backend=backend,
+                                       store_path=Path(tmp) / f"store_{name}",
+                                       timeout_s=NCCL_TIMEOUT_S)
+            res[f"{name}_spawn_s"] = time.perf_counter() - t
+    ranks = spawns["nccl"]
+    if [r["device"] for r in ranks] != [f"cuda:{i}" for i in range(NCCL_WORLD)]:
+        raise AssertionError(f"phase 14's ranks ran on {[r['device'] for r in ranks]}")
+    res["data_plane"] = {b: nccl_hold_world(spawns[b], b, ref, world_dp, res["launches"])
+                         for b in ("nccl", "gloo")}
+    res["world_data_plane_peak_gb"] = world_dp["peak_gb"]
+    for b, st in res["data_plane"].items():
+        for name, p in st["paths"].items():
+            log(f"path nccl_{name} ({b}, {' / '.join(st['transport'])}): {p['wall_s'] * 1e3:.3f} ms "
+                f"(the slowest rank; world dims {p['world_wall_s'] * 1e3:.3f} ms), staged "
+                f"{p['staged_bytes'] / 1e9:.3f} GB, rank 0's collectives {p['collectives_rank0']}")
+        for name, c in st["collectives"].items():
+            log(f"collective {name} ({b}), {NCCL_COLL_BYTES >> 20} MiB a rank: {c['ms']:.3f} ms, "
+                f"{c['algbw_gb_s']:.2f} GB/s algorithm, {c['busbw_gb_s']:.2f} GB/s bus "
+                f"(x {c['bus_factor']:.3f})")
+    # 14c: serving, held as phase 12 holds it
+    serve = [r["serve"] for r in ranks]
+    st = procs_serve_check(NCCL_CASE, world_serve, serve, res)
+    st["transport"] = sorted({r["transport"] for r in serve})
+    st["staged_bytes"] = sum(sum(x["staged"]["bytes"] for x in r["routes"].values())
+                             for r in serve)
+    st["collective_calls_rank0"] = ranks[0]["serve"]["calls"]
+    if st["transport"] != ["nccl"] or st["staged_bytes"]:
+        raise AssertionError(f"nccl serve: transports {st['transport']}, {st['staged_bytes']} "
+                             "bytes staged")
+    res["serve"] = st
+    log(f"process mesh under nccl, serve {case_arch(NCCL_CASE)} on "
+        f"{PROCS_SERVE[NCCL_CASE][0]}: {json.dumps(st)}")
+    # 14d: training and the restart, held as phase 13 holds them
+    res["train"] = {}
+    for key, recs_of, want in (
+            ("train", [r["train"] for r in ranks], world_train["steps"]),
+            ("restart", spawns["restart"], world_train["restart"])):
+        recs = [r["archs"][f"{NCCL_CASE}/{key}"] for r in recs_of]
+        tr = procs_train_check(NCCL_CASE, key, recs, want, res["launches"])
+        tr["transport"] = sorted({r["transport"] for r in recs_of})
+        tr["staged_gb"] = sum(s["staged_gb"] for s in tr["steps"])
+        tr["world_peak_gb"] = world_train["peak_gb"]
+        if tr["transport"] != ["nccl"] or tr["staged_gb"]:
+            raise AssertionError(f"nccl {key}: transports {tr['transport']}, {tr['staged_gb']} GB "
+                                 "staged")
+        if "ckpt" in recs_of[0]:
+            tr["ckpt_rank0"] = recs_of[0]["ckpt"]
+        res["train"][key] = tr
+        log(f"process mesh under nccl, {key} {case_arch(NCCL_CASE)} on "
+            f"{tr['mesh']}: {json.dumps(tr)}")
+    res["train"]["train"]["collective_calls_rank0"] = ranks[0]["train"]["calls"]
+    # the kernel rows: rank 3's data-plane kernels on cuda:3, rank 0's flash
+    for row in ranks[-1]["rows"]:
+        row["launches"] = res["launches"][row["name"]]
+        row["card"] = ranks[-1]["device"]
+        rows.append(row)
+    cap = ranks[0]["serve"]["capture"]["flash"] + (f"serve_{NCCL_CASE}",)
+    rows.append(procs_flash_row(cap, res["launches"]["flash_attention"],
+                                "rank 0's heads and rows of the prefill at (2, 2), on cuda:0"))
+    rows[-1]["path"] = "nccl_serve_qwen1.5"
+    for k, v in res["launches"].items():
+        launches[k] += v
+    res["wall_s"] = time.perf_counter() - t0
+    return res
 
 
 def main() -> int:
@@ -4735,6 +5250,13 @@ def main() -> int:
     procs_training = procs_train_phase(launches, procs_train_rows)
     procs_training["wall_s"] = time.perf_counter() - t
     log(f"training on a process mesh phase: {procs_training['wall_s']:.2f} s")
+
+    # 14. the process mesh under nccl, one card per rank (four cards or more) ---------
+    stage("phase 14 the process mesh under nccl")
+    nccl_rows = []  # the kernels at a rank's shapes, with phase 14's launches
+    nccl = nccl_phase(launches, nccl_rows)
+    if nccl["ran"]:
+        log(f"process mesh under nccl phase: {nccl['wall_s']:.2f} s")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was never launched on the main paths")
@@ -4768,12 +5290,13 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     for row in procs_rows:  # the process mesh's launches, summed over its ranks
         row["launches"] = procs["launches"][row["name"]]
-    rows += procs_rows + procs_serve_rows + procs_train_rows
+    rows += procs_rows + procs_serve_rows + procs_train_rows + nccl_rows
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "family_checks": family_checks, "training": training,
                     "mesh_serving": mesh_serving, "tp_training": tp_training, "procs": procs,
                     "procs_serving": procs_serving, "procs_training": procs_training,
+                    "nccl": nccl,
                     "restart": {k: v for k, v in restart.items() if k != "dryrun"},
                     "dryrun": {k: v for k, v in restart["dryrun"].items() if k != "records"},
                     "plan_compile_ms": compile_ms, "plan_makespan_ticks": makespans,

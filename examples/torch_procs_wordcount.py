@@ -4,6 +4,7 @@ shard (``repro_torch.mesh.ProcessMesh``), under ``torchrun``:
 
     PYTHONPATH=src torchrun --nproc-per-node 8 examples/torch_procs_wordcount.py --backend gloo
     PYTHONPATH=src torchrun --nproc-per-node 8 examples/torch_procs_wordcount.py --backend gloo --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 examples/torch_procs_wordcount.py --backend nccl
 
 Under gloo the ranks may share one card: every collective then copies its
 operands through pinned host memory. Under nccl (``--backend nccl``) each

@@ -85,10 +85,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.stride(3) != 1:
         out = torch.empty_like(q)
     strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]]
-    err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
-                b, h, hkv, sq, sk, d, *strides, int(causal),
-                1.0 / math.sqrt(d),
-                torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # a launch goes to the current card
+        err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
+                    b, h, hkv, sq, sk, d, *strides, int(causal),
+                    1.0 / math.sqrt(d),
+                    torch.cuda.current_stream(q.device).cuda_stream)
     if err < 0:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a layout of q "
                            f"{tuple(q.stride())}, k {tuple(k.stride())}, v {tuple(v.stride())} "

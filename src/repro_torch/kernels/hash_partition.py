@@ -49,7 +49,8 @@ def hash_partition(tokens: torch.Tensor, num_buckets: int) -> tuple[torch.Tensor
         raise ValueError(f"{rows} rows exceed the grid's {MAX_ROWS}")
     ids = torch.empty_like(tokens)
     hist = torch.zeros(tokens.shape[:-1] + (num_buckets,), dtype=torch.int32, device=tokens.device)
-    err = _fn()(tokens.data_ptr(), ids.data_ptr(), hist.data_ptr(), rows, n, num_buckets,
-                torch.cuda.current_stream(tokens.device).cuda_stream)
+    with torch.cuda.device(tokens.device):  # a launch goes to the current card
+        err = _fn()(tokens.data_ptr(), ids.data_ptr(), hist.data_ptr(), rows, n, num_buckets,
+                    torch.cuda.current_stream(tokens.device).cuda_stream)
     _build.check(err, "hash_partition")
     return ids, hist

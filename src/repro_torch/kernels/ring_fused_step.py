@@ -38,7 +38,8 @@ def ring_fused_step(acc: torch.Tensor, wire: torch.Tensor) -> tuple[torch.Tensor
     wire = wire.contiguous()
     new_acc = torch.empty_like(acc)
     new_wire = torch.empty_like(wire)
-    err = _fn()(acc.data_ptr(), wire.data_ptr(), new_acc.data_ptr(), new_wire.data_ptr(),
-                acc.numel(), torch.cuda.current_stream(acc.device).cuda_stream)
+    with torch.cuda.device(acc.device):  # a launch goes to the current card
+        err = _fn()(acc.data_ptr(), wire.data_ptr(), new_acc.data_ptr(), new_wire.data_ptr(),
+                    acc.numel(), torch.cuda.current_stream(acc.device).cuda_stream)
     _build.check(err, "ring_fused_step")
     return new_acc, new_wire

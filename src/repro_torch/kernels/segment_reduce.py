@@ -64,8 +64,9 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: in
         rows = rows.contiguous()
     ids = seg_ids.contiguous()
     out = torch.zeros((*batch, num_segments, d), dtype=torch.float32, device=values.device)
-    err = _fn()(rows.data_ptr(), DTYPES[values.dtype], ids.data_ptr(), out.data_ptr(),
-                rows.shape[0], max(n, 1), rows.stride(0), d, num_segments,
-                torch.cuda.current_stream(values.device).cuda_stream)
+    with torch.cuda.device(values.device):  # a launch goes to the current card
+        err = _fn()(rows.data_ptr(), DTYPES[values.dtype], ids.data_ptr(), out.data_ptr(),
+                    rows.shape[0], max(n, 1), rows.stride(0), d, num_segments,
+                    torch.cuda.current_stream(values.device).cuda_stream)
     _build.check(err, "segment_reduce")
     return out

@@ -14,7 +14,12 @@ spawning, so that the ranks only load them.
 
 Neither switches backend by itself: gloo carries CPU tensors and, staged
 through host memory, the tensors of ranks that share a card; nccl needs one
-card per local rank and raises with fewer.
+card per local rank and raises with fewer. Under nccl a process sets its
+card before it joins and binds the group to it (``device_id``), so the
+world's communicator exists before any collective: a ``ppermute`` that
+leaves some ranks out may then be the first call. NCCL's watchdog aborts a
+collective that waits past the timeout, and a rank that fails leaves its
+group without waiting for the others.
 """
 from __future__ import annotations
 
@@ -41,13 +46,24 @@ def _check_cards(backend: str, local_ranks: int) -> None:
                            f"{torch.cuda.device_count()} cards")
 
 
+def _join(backend: str, device: torch.device, timeout_s: float, **kw) -> None:
+    """Join the default process group from ``device``, the current card
+    where it is one; under nccl bound to it, which forms the world's
+    communicator at once, and with NCCL's errors aborting the process."""
+    if backend == "nccl":
+        os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
+        kw["device_id"] = device
+    dist.init_process_group(backend, timeout=datetime.timedelta(seconds=timeout_s), **kw)
+
+
 def init_process_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str,
                       device=None) -> ProcessMesh:
     """Join the process group of ``torchrun``'s environment (unless this
     process has joined one) and return the ``ProcessMesh`` of ``shape`` and
-    ``axes`` on ``device`` (``None``: the card). Raises when the world size
-    is not ``prod(shape)``, and under nccl when this host has fewer cards
-    than local ranks."""
+    ``axes`` on ``device`` (``None`` or ``"cuda"``: this local rank's card,
+    ``mesh.process_device``). Raises when the world size is not
+    ``prod(shape)``, and under nccl when this host has fewer cards than
+    local ranks."""
     shape = tuple(int(s) for s in shape)
     world = int(os.environ["WORLD_SIZE"])
     if world != math.prod(shape):
@@ -56,10 +72,9 @@ def init_process_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str
     _check_cards(backend, int(os.environ.get("LOCAL_WORLD_SIZE", world)))
     device = process_device(device, backend)
     if device.type == "cuda":
-        torch.cuda.set_device(device)
+        torch.cuda.set_device(device)  # before the group, which binds to it
     if not dist.is_initialized():
-        dist.init_process_group(backend, rank=int(os.environ["RANK"]), world_size=world,
-                                timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        _join(backend, device, TIMEOUT_S, rank=int(os.environ["RANK"]), world_size=world)
     return ProcessMesh(axes, shape, device=device)
 
 
@@ -72,20 +87,23 @@ def _rank_main(rank: int, world: int, backend: str, device, store: str, timeout_
         device = process_device(device, backend)
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
-                                world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        _join(backend, device, timeout_s, init_method=f"file://{store}", rank=rank,
+              world_size=world)
         try:
             result = fn(device)
         except BaseException:
             failed_at = time.time()
             raise
         finally:
-            dist.destroy_process_group()
+            if failed_at is None or backend != "nccl":
+                dist.destroy_process_group()
         with open(f"{out}.{rank}", "wb") as f:
             pickle.dump(("ok", result), f)
     except BaseException:
         with open(f"{out}.{rank}", "wb") as f:
             pickle.dump(("error", (failed_at or time.time(), traceback.format_exc())), f)
+        if backend == "nccl":  # the others may wait in a collective: leave without them
+            os._exit(1)
         raise
 
 

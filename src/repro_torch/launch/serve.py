@@ -8,6 +8,8 @@
         --device cpu
     torchrun --nproc-per-node 8 -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --smoke --mesh 2,4 --backend gloo --device cpu
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --mesh 2,2 --backend nccl
 
 The port of ``repro/launch/serve.py`` on one device (``--device``, the card
 by default), for every arch of ``repro_torch.configs``. Every cache leaf is

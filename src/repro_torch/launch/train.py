@@ -41,7 +41,9 @@ a world-dim run on that mesh writes. A restore reads them in every process,
 which keeps its shard (its row). The
 failure ends that world once the checkpoint is written, and the restart is
 a new one: the same command on ``--nproc-per-node 4 ... --mesh 2,2`` without
-``--fail-step`` (``relaunch_args``; ``spawn_run`` spawns both worlds).
+``--fail-step`` (``relaunch_args``; ``spawn_run`` spawns both worlds). With
+a card per process, ``--backend nccl`` and no ``--device``: each process
+computes on its local rank's card and the collectives go card to card.
 
 A checkpoint is the reference's tree, ``{"params": {JAX leaf path: array},
 "opt": (count, m, v)}`` (``checkpoint_tree``: kv heads and experts in their
@@ -378,7 +380,8 @@ def parser():
     ap.add_argument("--fresh", action="store_true", help="ignore existing checkpoints")
     ap.add_argument("--fail-step", type=int, default=None)
     ap.add_argument("--shrink-to", type=int, default=None)
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (under torchrun, the local rank's)")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
                     help="the process group's backend under torchrun (WORLD_SIZE set)")
     return ap

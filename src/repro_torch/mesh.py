@@ -401,14 +401,16 @@ def _note_staging(t: torch.Tensor, seconds: float) -> None:
 
 
 def process_device(device, backend: str) -> torch.device:
-    """The device of this process's shard under ``backend``: ``None`` means
-    the card, ``cuda:{LOCAL_RANK}`` under nccl (which needs one card per
-    local rank) and ``cuda:{LOCAL_RANK mod cards}`` under gloo (ranks share
-    the cards and gloo sees host copies); with no CUDA it raises rather
-    than run on the CPU. nccl carries CUDA tensors only."""
+    """The device of this process's shard under ``backend``: ``None`` or an
+    index-less ``"cuda"`` means this local rank's card, ``cuda:{LOCAL_RANK}``
+    under nccl (which needs one card per local rank) and
+    ``cuda:{LOCAL_RANK mod cards}`` under gloo (ranks share the cards and
+    gloo sees host copies); with no CUDA it raises rather than run on the
+    CPU. A device named with its index is kept. nccl carries CUDA tensors
+    only."""
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"unknown backend {backend!r}; one of 'gloo', 'nccl'")
-    if device is None:
+    if device is None or torch.device(device) == torch.device("cuda"):
         if not torch.cuda.is_available():
             raise RuntimeError("ProcessMesh() runs on the CUDA device and none is available; "
                                "pass device='cpu' to run on the CPU")
@@ -684,15 +686,19 @@ class ProcessMesh(Mesh):
         """Every process's ``x`` (one shape on all) on process ``root``: the
         (processes, *x) stack in rank order there, None elsewhere; one
         ``gather`` on the default group. Not a ``lax`` collective (nothing
-        counts it): a checkpoint's writer collects the shards with it."""
+        counts it): a checkpoint's writer collects the shards with it.
+        Unstaged, the processes' shards land in the rows of the stack itself."""
         send = self._outgoing(x)
-        bufs = None
-        if self.rank == root:
-            bufs = [self._buffer(f"gather{i}", send.shape, send.dtype) if self.staged
-                    else torch.empty_like(send) for i in range(self.size)]
-        dist.gather(send, bufs, dst=root)
-        if bufs is None:
+        if self.rank != root:
+            dist.gather(send, None, dst=root)
             return None
+        if not self.staged:
+            out = torch.empty((self.size,) + tuple(send.shape), dtype=send.dtype,
+                              device=self.device)
+            dist.gather(send, list(out.unbind(0)), dst=root)
+            return out
+        bufs = [self._buffer(f"gather{i}", send.shape, send.dtype) for i in range(self.size)]
+        dist.gather(send, bufs, dst=root)
         return torch.stack([self._landed(b) for b in bufs])
 
     def psum_scatter(self, x: torch.Tensor, axis: str, scatter_dimension: int = 0,

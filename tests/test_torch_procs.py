@@ -596,13 +596,91 @@ def test_gloo_on_one_card_stages_through_host_memory(tmp_path):
         assert r["staged"]["copies"] > 0 and r["staged"]["bytes"] > 0
 
 
+NCCL_PROMPT, NCCL_GEN, NCCL_BATCH, NCCL_SEQ = 32, 3, 4, 32
+# test_torch_procs_train's WORLD_LOSS_TOL and WORLD_NORM_TOL: the same products
+# on other shapes, the collectives' fp32 sums in their own order
+NCCL_LOSS_TOL, NCCL_NORM_TOL = 1e-4, 1e-3
+
+
+def _nccl_models(mesh, device):
+    """qwen1.5's smoke config on ``mesh`` from seed 0: (config, the served
+    model, the S3 train step of another copy)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models.model import Model
+
+    cfg = get_smoke_config("qwen1.5-0.5b")
+    served = Model(cfg, device=device, seed=0, env=steps.make_env(cfg, mesh))
+    trained = Model(cfg, device=device, seed=0, env=steps.make_env(cfg, mesh, "s3_in_net_map"))
+    step = steps.make_train_step(trained, mesh, scenario="s3_in_net_map",
+                                 global_batch=NCCL_BATCH, seq=NCCL_SEQ)
+    return cfg, served, step
+
+
+def _nccl_run(cfg, served, step, mesh, device, held):
+    """A served call (prefill and NCCL_GEN greedy tokens, ``impl="flash"``)
+    of seeded prompts, ``held`` distinct rows, and one train step: (tokens,
+    loss, gradient norm)."""
+    from repro_torch.data.pipeline import TrainPipeline
+    from repro_torch.launch import serve, steps
+
+    prompts = serve.prompt_batch(served, held, NCCL_PROMPT, seed=0)
+    if isinstance(mesh, ProcessMesh):
+        prompts = steps.rank_rows(served.env, prompts, NCCL_BATCH)
+    toks = serve.generate(served, prompts, NCCL_GEN, impl="flash", mesh=mesh,
+                          global_batch=NCCL_BATCH)["tokens"]
+    batch = TrainPipeline(cfg, step.env, NCCL_BATCH, NCCL_SEQ, seed=0).batch_at(0)
+    _, m = step(step.init_state(), batch)
+    return toks.cpu().numpy(), float(m["loss"]), float(m["grad_norm"])
+
+
+def _nccl_rank(device):
+    """``_card_rank``'s collectives, then qwen1.5's smoke config served and
+    trained a step on a (ranks / 2, 2) process mesh."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+
+    out = _card_rank(device)
+    p = torch.distributed.get_world_size()
+    pm = ProcessMesh(("data", "model"), (p // 2, 2), device=device)
+    cfg, served, step = _nccl_models(pm, device)
+    ops.reset_launches()
+    with count_staging() as staged:
+        toks, loss, norm = _nccl_run(cfg, served, step, pm, device,
+                                     steps.held_rows(served.env.world(), NCCL_BATCH))
+    return {**out, "tokens": toks, "loss": loss, "grad_norm": norm, "model_staged": dict(staged),
+            "launches": dict(ops.LAUNCHES), "hops": step.ring_hops()}
+
+
 @pytest.mark.cuda
 def test_nccl_with_one_card_per_rank(tmp_path):
+    """4 nccl ranks (2 on a host of 2 or 3 cards), one card each: the collectives bitwise to
+    the world-dim mesh, nothing staged; then qwen1.5's smoke config on
+    (ranks / 2, 2), its served tokens (prefill and greedy decode) equal to
+    the world-dim port's on the card, and one S3 train step's loss and norm
+    within NCCL_LOSS_TOL and NCCL_NORM_TOL of the world-dim step's, its ring
+    hops on the ``ring_fused_step`` kernel."""
     if torch.cuda.device_count() < 2:
         pytest.skip("nccl needs one card per rank; this host has fewer than 2")
-    p = torch.cuda.device_count()
-    res = procs.spawn(_card_rank, p, backend="nccl", store_path=tmp_path / "s",
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+
+    _build.build_all()
+    p = 4 if torch.cuda.device_count() >= 4 else 2
+    res = procs.spawn(_nccl_rank, p, backend="nccl", store_path=tmp_path / "s",
                       timeout_s=TIMEOUT_S)
     _card_cases(res, p)
+    dims = (p // 2, 2)
+    mesh = make_mesh(dims, device="cuda")
+    cfg, served, step = _nccl_models(mesh, "cuda")
+    want, loss, norm = _nccl_run(cfg, served, step, mesh, "cuda",
+                                 steps.held_rows(served.env, NCCL_BATCH))
+    blocks = np.stack([r["tokens"] for r in res]).reshape(dims + (-1, NCCL_GEN))[:, 0]
+    np.testing.assert_array_equal(blocks.reshape(-1, NCCL_GEN), want)
     for r in res:
         assert r["transport"] == "nccl" and r["staged"]["copies"] == 0
+        assert r["model_staged"]["copies"] == 0
+        assert abs(r["loss"] - loss) <= NCCL_LOSS_TOL * loss
+        assert abs(r["grad_norm"] - norm) <= NCCL_NORM_TOL * norm
+        assert r["launches"]["ring_fused_step"] == r["hops"] and (p < 4 or r["hops"] > 0)
