@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
     PYTHONPATH=src python3 chip_smoke.py
+    python3 chip_smoke.py --ring-hops [TREE]   # ring_fused_step's hops alone
 
 1. Builds the Hopper kernels (``src/repro_torch/csrc``) into ``build/``.
 2. Holds every kernel against its plain PyTorch version on the card, at edge
@@ -10,7 +11,9 @@
    up to the largest segment count that fits and the global atomics one
    past it; for ``flash_attention`` causal and not, d 64 and 128, fp32 at
    3e-4 and bf16 at 3e-2 elementwise and ``ROW_TOL`` per output row, ragged
-   lengths up to 4096, grouped kv heads, strided layouts).
+   lengths up to 4096, grouped kv heads, strided layouts;
+   ``ring_fused_step`` bitwise on every layout of ``ring_layouts``, each
+   without a copy but ``RING_COPIED``).
 3. Runs the paper's word count at full width — 8 mappers x 2**24 Zipf words,
    vocab 50,000 — in three forms (token shuffle + reducer count, histogram
    shuffle, S1 host baseline), each bitwise against ``wordcount_reference``,
@@ -57,7 +60,10 @@
    plain version, a one-call PyTorch yardstick where one exists (for
    ``segment_reduce`` the faster of ``index_add_`` and ``bincount``), and
    its bound on an H100 SXM (3.35 TB/s; 67 TFLOP/s fp32, 989 TFLOP/s bf16
-   on the tensor cores).
+   on the tensor cores); ``ring_fused_step`` on its hop's ``acc`` as the
+   ring hands it (``ring_row``), back to back and on the device alone (a
+   CUDA graph of the same launches, ``graph_ms``), each launch on inputs
+   that are not in L2 (``cold_pairs``).
 5. Serves Qwen1.5-0.5B at full width (24 layers, d 1024, 16 heads of 64,
    vocab 151,936; random weights from ``SEED``): prefills 8 prompts of 4096
    tokens through the ``flash_attention`` kernel (exactly 24 launches) and
@@ -199,7 +205,8 @@
    8-ring, each once to warm up and once timed: every rank's outputs held to
    its row of 3's world-dim run (bitwise; NATIVE and HIERARCHICAL within
    ``PROCS_TOL``), S3 also bitwise to the plain ring, each rank's launches
-   to ``PROCS_LAUNCHES``. Prints each path's wall, its host copies and
+   to ``PROCS_LAUNCHES``, no hop's input copied before ``ring_fused_step``'s
+   kernel (``ops.COPIES``). Prints each path's wall, its host copies and
    their share of the wall, and a rank's peak memory; the kernels line gets
    the three data-plane kernels at a rank's shapes (timed in 4, alone on
    the card), with phase 11's launches summed over the ranks.
@@ -254,7 +261,8 @@
    two steps of lr of the world-dim ones and the whole update within
    ``PROCS_UPDATE_TOL`` normwise; a rank's ``ring_fused_step`` launches
    equal to its ring hops (``ring_hops()``), each hop's output bitwise its
-   plain version's, and granite-moe's combines on ``segment_reduce``; the
+   plain version's and no hop's input copied (``ops.COPIES``), and
+   granite-moe's combines on ``segment_reduce``; the
    8-bit rows, dequantized, within ``PROCS_EIGHTBIT_TOL`` a leaf and
    ``PROCS_MOMENT_TOL`` over the tree of the world-dim step's, and their
    checkpoint (rank 0's) restored in every rank bitwise.
@@ -262,8 +270,9 @@
    (``rank_gradients``, ``aggregate``, ``apply``), the bytes staged and
    their share, the collectives of a rank, the checkpoint's gather and
    write, and a rank's peak; the kernels line gets ``ring_fused_step`` at
-   a rank's first hop and at the phase's largest (on seeded inputs of its
-   shape) and ``segment_reduce`` at a rank's training combine.
+   a rank's first hop and at the phase's largest (on seeded inputs laid
+   out as the ring handed each) and ``segment_reduce`` at a rank's training
+   combine.
 14. The process mesh under nccl, one card per rank, on a host with four
    cards or more (``NCCL_WORLD``; on fewer it prints that it did not run):
    the kernels on cuda:3 while the current card is cuda:0, then the
@@ -302,8 +311,10 @@ aggregation, compiled-plan and scheduler paths, ``recurrence_inputs`` and
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib
+import itertools
 import json
 import math
 import subprocess
@@ -788,6 +799,199 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph, its replay timed by CUDA events, over ``iters``. No host
+    issue lies between the launches, so at small sizes this is the kernel's
+    own time where ``cuda_ms`` (the same calls issued back to back) may be
+    the host's. ``fn`` reads inputs that the call before it left in L2
+    unless it takes them in turn (``in_turn``)."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up on a side stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def hop_layout(t) -> tuple:
+    """How an S3 hop's ``acc`` lies: (shape, element strides, its offset's
+    phase in 16 B in elements, elements spanned from its first to its last)."""
+    span = 1 + sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return (tuple(t.shape), tuple(t.stride()), t.data_ptr() % 16 // t.element_size(), span)
+
+
+def process_hop_layout(n: int, world: int, rank: int = 0) -> tuple:
+    """``hop_layout`` of ``rank``'s first S3 hop on a process mesh of
+    ``world`` over a flat gradient of ``n``: chunk (rank − 2) mod world of
+    its (1, world, n / world) chunks, a view at that chunk's offset
+    (``ring_reduce_scatter``; the buffer itself 16-B aligned)."""
+    m = n // world
+    return ((1, m), (m, 1), (rank - 2) % world * m % 4, m)
+
+
+def seeded_hop(layout: tuple, gen, device="cuda"):
+    """An S3 hop's inputs of seeded values: ``acc`` laid out as ``layout``
+    (``hop_layout``) in a new buffer, ``wire`` contiguous, as it lands."""
+    import torch
+
+    shape, stride, phase, span = layout
+    buf = torch.randn((phase + span,), generator=gen, device=device)
+    acc = torch.as_strided(buf, shape, stride, phase)
+    wire = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    return acc, wire
+
+
+# a timed hop's inputs are read again only after this many L2s of other inputs
+COLD_L2S = 4
+
+
+def cold_pairs(acc, wire, iters: int = 20) -> list:
+    """(acc, wire) and copies of them, each acc laid out as ``acc`` is
+    (``hop_layout``): enough pairs that the inputs of the others outweigh the
+    card's L2 ``COLD_L2S`` times, at most ``iters``."""
+    import torch
+
+    l2 = torch.cuda.get_device_properties(acc.device).L2_cache_size
+    n = max(1, min(iters, math.ceil(COLD_L2S * l2 / (acc.numel() * 6))))
+    shape, stride, phase, span = hop_layout(acc)
+    pairs = [(acc, wire)]
+    for _ in range(n - 1):
+        a = torch.as_strided(torch.empty((phase + span,), device=acc.device), shape, stride, phase)
+        pairs.append((a.copy_(acc), wire.clone()))
+    return pairs
+
+
+def in_turn(fn, pairs):
+    """A call of ``fn`` on the next of ``pairs`` each time, the last
+    ``len(pairs)`` calls' outputs kept: timed so, each call reads its inputs
+    from device memory and writes where no call before it wrote, as an S3
+    hop reads a chunk of a gradient that was just computed, not from an L2
+    that the call before warmed. Warm it up with two rounds of ``pairs``
+    before timing it back to back: the allocator then holds every output
+    block, and no timed call waits on ``cudaMalloc``."""
+    turn, kept = itertools.cycle(pairs), collections.deque(maxlen=len(pairs))
+    return lambda: kept.append(fn(*next(turn)))
+
+
+def ring_row(acc, wire, path: str, shape: str, launches: int = 0) -> dict:
+    """The kernels line's row of ``ring_fused_step`` at one hop, ``acc`` as
+    the path hands it: held bitwise against the plain version, timed back to
+    back (``ms``) and on the device alone (``device_ms``, ``graph_ms``), each
+    call on inputs that are not in L2 (``cold_pairs``, ``in_turn``), with the
+    route the wrapper planned and the copies it made (0 unless the layout is
+    one no route reads)."""
+    from repro_torch.kernels import ops, ref
+
+    rf, rfs = bare_launchers()[2], importlib.import_module("repro_torch.kernels.ring_fused_step")
+    before = ops.COPIES["ring_fused_step"]
+    kout, pout = rf(acc, wire), ref.ring_fused_step(acc, wire)
+    if not all(equal(k, p) for k, p in zip(kout, pout)):
+        raise AssertionError(f"ring_fused_step differs at {path}'s hop {tuple(acc.shape)} "
+                             f"strides {acc.stride()}")
+    plan = rfs.plan(acc.shape, acc.stride(), wire.stride())
+    pairs = cold_pairs(acc, wire)
+    n = acc.numel()
+    b, b_by = bound_ms(n * 12, n)
+    row = {
+        "name": "ring_fused_step", "route": "cuda",
+        "source": "src/repro_torch/csrc/ring_fused_step.cu",
+        "replaces": "src/repro/kernels/ring_fused_step.py:41",
+        "launches": launches, "max_abs_err": max_abs_err(zip(kout, pout)),
+        "ms": cuda_ms(in_turn(rf, pairs), warmup=2 * len(pairs)),
+        "device_ms": graph_ms(in_turn(rf, pairs)),
+        "plain_ms": cuda_ms(in_turn(ref.ring_fused_step, pairs), warmup=2 * len(pairs)),
+        "bound_ms": b, "bound_by": b_by, "library_ms": None, "path": path,
+        "shape": shape, "layout": {"strides": list(acc.stride()), "phase_16B": hop_layout(acc)[2],
+                                   "kernel_route": plan.route, "dims": list(plan.dims)},
+    }
+    row["copies"] = ops.COPIES["ring_fused_step"] - before
+    row["cold_pairs"] = len(pairs)
+    return row
+
+
+def ring_hop_layouts() -> dict:
+    """``hop_layout`` of each kernels-line row's S3 hop, ``acc`` as its path
+    hands it: the world-dim ring's gather over 8 devices (phases 3-4), a
+    rank's first hop over the flat gradient (phase 11: rank 0 of 8; phase
+    14: rank 3 of 4), and the two that phase 13 captures in its ranks:
+    rank 0's first hop of qwen1.5's embedding gradient (75,968, 1,024) cut
+    along its dim 1 over a data ring of 4 (chunk 2 of (4, 256, 75,968),
+    strides (1, 1,024)), and recurrentgemma's (64,000, 2,560) table chunk."""
+    m = GRAD_SIZE // 8
+    return {
+        "world_s3_hop": ((8, m), (m, 1), 0, 8 * m),
+        "procs_s3_hop": process_hop_layout(GRAD_SIZE, 8, 0),
+        "nccl_s3_hop": process_hop_layout(GRAD_SIZE, 4, 3),
+        "procs_train_embedding_hop": ((1, 1, 256, 75_968), (1_024, 1_024, 1, 1_024), 0,
+                                      1 + 255 + 75_967 * 1_024),
+        "procs_train_largest_hop": ((1, 1, 64_000, 2_560), (64_000 * 2_560, 64_000 * 2_560,
+                                                           2_560, 1), 0, 64_000 * 2_560),
+    }
+
+
+def ring_hops(tree: Path) -> int:
+    """``chip_smoke.py --ring-hops [TREE]``: ``ring_fused_step`` of the port
+    in the checkout at TREE (this one by default; a parent commit unpacked
+    by ``git archive`` into a git-ignored directory, say, so that two
+    versions are timed in one call on one card: parent, change, change,
+    parent) at each hop of ``ring_hop_layouts`` on seeded values: held
+    bitwise against that tree's plain version, timed back to back
+    (``ms``) and on the device alone (``device_ms``), each call on inputs
+    not in L2 (``cold_pairs``), with ``acc`` as its path hands it and as a
+    contiguous copy (``contiguous_*``: what a gather before the kernel
+    hands it). Builds that tree's kernels into its ``build/``; prints one
+    JSON line with the card's name and power limit."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.kernels import _build, ref
+
+    _build.build_all()
+    rf = importlib.import_module("repro_torch.kernels.ring_fused_step").ring_fused_step
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    hops = {}
+    for name, layout in ring_hop_layouts().items():
+        acc, wire = seeded_hop(layout, gen)
+        n = acc.numel()
+        row = {"shape": list(acc.shape), "strides": list(acc.stride()), "phase_16B": layout[2],
+               "bound_ms": bound_ms(n * 12, n)[0]}
+        for key, a in (("", acc), ("contiguous_", acc.contiguous())):
+            if not all(equal(k, p) for k, p in zip(rf(a, wire), ref.ring_fused_step(a, wire))):
+                raise AssertionError(f"ring_fused_step of {tree} differs at {name} "
+                                     f"({key or 'as handed'})")
+            pairs = cold_pairs(a, wire)
+            row[key + "ms"] = cuda_ms(in_turn(rf, pairs), warmup=2 * len(pairs))
+            row[key + "device_ms"] = graph_ms(in_turn(rf, pairs))
+            del pairs
+        hops[name] = row
+        del acc, wire
+        torch.cuda.empty_cache()
+    log(json.dumps({"tree": str(tree), "card": smi, "torch": torch.__version__, "hops": hops}))
+    return 0
+
+
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """The least time for moving ``nbytes`` and doing ``ops`` at the card's
     peaks (``ops_per_s``: the rate of the operations' type), and which bounds."""
@@ -815,20 +1019,21 @@ def bare_launchers():
     return mods[0].hash_partition, mods[1].segment_reduce, mods[2].ring_fused_step
 
 
-def data_plane_rows(words, recv, hop: int, prefix: str = "", buckets: int = N_MAPPERS) -> list:
+def data_plane_rows(words, recv, hop: tuple, prefix: str = "", buckets: int = N_MAPPERS
+                    ) -> list:
     """The kernels line's rows of the three data-plane kernels: each held
     against its plain version and timed on the card at the shapes given,
     ``words`` (mappers, n) int32 for ``hash_partition`` and the histogram
     path's ``segment_reduce``, ``recv`` (reducers, m) the token path's
-    received words, and one S3 hop of ``hop`` elements for
-    ``ring_fused_step``, on the current card. ``prefix`` goes before each
-    row's path; ``buckets``: the token path's reducers; the launch counts
-    are the caller's to fill."""
+    received words, and one S3 hop's (acc, wire) for ``ring_fused_step``
+    (``ring_row``), acc laid out as the path hands it, on the current card.
+    ``prefix`` goes before each row's path; ``buckets``: the token path's
+    reducers; the launch counts are the caller's to fill."""
     import torch
 
     from repro_torch.kernels import ref
 
-    hp, sr, rf = bare_launchers()
+    hp, sr, _ = bare_launchers()
     seg_mod = importlib.import_module("repro_torch.kernels.segment_reduce")
     rows = []
     n_tok, mappers = words.numel(), words.shape[0]
@@ -885,25 +1090,11 @@ def data_plane_rows(words, recv, hop: int, prefix: str = "", buckets: int = N_MA
         })
         del ks, ps, flat_idx, src, lib_out
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    acc = torch.randn((hop,), generator=g, device="cuda")
-    wire = torch.randn((hop,), generator=g, device="cuda").to(torch.bfloat16)
-    kout, pout = rf(acc, wire), ref.ring_fused_step(acc, wire)
-    if not all(equal(k, p) for k, p in zip(kout, pout)):
-        raise AssertionError(f"ring_fused_step differs at ({hop},)")
-    b, b_by = bound_ms(hop * 12, hop)
-    rows.append({
-        "name": "ring_fused_step", "route": "cuda",
-        "source": "src/repro_torch/csrc/ring_fused_step.cu",
-        "replaces": "src/repro/kernels/ring_fused_step.py:41",
-        "launches": 0, "max_abs_err": max_abs_err(zip(kout, pout)),
-        "ms": cuda_ms(lambda: rf(acc, wire)),
-        "plain_ms": cuda_ms(lambda: ref.ring_fused_step(acc, wire)),
-        "bound_ms": b, "bound_by": b_by, "library_ms": None,
-        "path": prefix + "aggregate_s3_in_net_map",
-        "shape": f"acc ({hop},) fp32 + wire bf16: one S3 hop "
-                 + ("over 8 ranks" if hop == GRAD_SIZE else f"of one rank of {buckets}"),
-    })
+    acc, wire = hop
+    what = "over 8 ranks" if acc.numel() == GRAD_SIZE else f"of one rank of {buckets}"
+    rows.append(ring_row(acc, wire, prefix + "aggregate_s3_in_net_map",
+                         f"acc {tuple(acc.shape)} fp32 + wire bf16: one S3 hop {what}, acc as "
+                         "the ring hands it"))
     return rows
 
 
@@ -1149,8 +1340,10 @@ def beyond_tol(got, want) -> tuple[float, float]:
     return float(d.max()), float((d / (RECURRENCE_TOL + RECURRENCE_TOL * want.abs())).max())
 
 
-def check_kernels_at_edges(torch) -> None:
-    """Each kernel against its plain version on the card, at edge shapes."""
+def check_kernels_at_edges(torch) -> dict:
+    """Each kernel against its plain version on the card, at edge shapes,
+    ``ring_fused_step`` also on every layout of ``ring_layouts``. Returns
+    the copies its wrapper made on each of those layouts."""
     from repro_torch.kernels import ref
 
     hp, sr, rf = bare_launchers()
@@ -1199,7 +1392,78 @@ def check_kernels_at_edges(torch) -> None:
             (ka, kw), (pa, pw) = rf(a, w), ref.ring_fused_step(a, w)
             if not (equal(ka, pa) and equal(kw, pw)):
                 raise AssertionError(f"ring_fused_step differs at n={n}")
+    copies = check_ring_layouts(torch, rf, vals)
     torch.cuda.synchronize()
+    return copies
+
+
+RING_COPIED = ("strided_slice", "transposed_wire")  # the layouts no kernel route reads
+
+
+def ring_layouts(torch, vals) -> dict:
+    """name → (acc, wire): the layouts of an S3 hop's inputs that the edge
+    sweep holds ``ring_fused_step`` to. The rows route's: flat at each
+    16-B phase, row-major, row-strided batches (aligned, off by one, an odd
+    pitch), ``rep_aggregate``'s (tp, chunk, rest) chunks, 1 × n and n × 1;
+    the tiles route's: a dense transposed acc, a transposed chunk of a wider
+    gradient (strides (1, d)) at an aligned and an unaligned start, batched,
+    ragged tiles; a wire off alignment; a 0-d and an empty hop; and
+    ``RING_COPIED``, which the wrapper copies first."""
+    def f32(*shape):
+        return vals(shape, torch.float32)
+
+    def bf16(*shape):
+        return vals(shape, torch.bfloat16)
+
+    grad = f32(1000, 1024)  # a (x, d) gradient: its chunks along d, (d/4, x) of strides (1, d)
+    odd = f32(1 + 1000 * 1024)[1:].view(1000, 1024)
+    rep = f32(2, 2 * 128, 1024).reshape(2, 2, 128, 1024)  # (tp, rep, chunk, rest)
+    out = {f"flat_phase{k}": (f32(40_003)[k:k + 40_000], bf16(40_000)) for k in range(4)}
+    out.update({
+        "row_major": (f32(333, 700), bf16(333, 700)),
+        "row_strided_batches": (f32(3, 50, 1040)[:, :, 16:1040], bf16(3, 50, 1024)),
+        "row_strided_off_by_one": (f32(3, 50, 1040)[:, :, 1:1025], bf16(3, 50, 1024)),
+        "row_pitch_odd": (f32(50, 1031)[:, :1030], bf16(50, 1030)),
+        "rep_chunks": (rep.select(1, 1), bf16(2, 128, 1024)),
+        "one_by_n": (f32(1, 7777), bf16(1, 7777)),
+        "n_by_one": (f32(7777, 1), bf16(7777, 1)),
+        "one_by_n_transposed": (f32(7777, 1).t(), bf16(1, 7777)),
+        "n_by_one_transposed": (f32(1, 7777).t(), bf16(7777, 1)),
+        "dense_transposed": (f32(1000, 257).t(), bf16(257, 1000)),
+        "transposed_chunk_of_wider": (grad.t().reshape(4, 256, 1000)[1], bf16(256, 1000)),
+        "transposed_chunk_unaligned": (odd.t().reshape(4, 256, 1000)[3], bf16(256, 1000)),
+        "batched_transposed": (f32(3, 1000, 45).transpose(1, 2), bf16(3, 45, 1000)),
+        "ragged_tiles": (f32(65, 31).t(), bf16(31, 65)),
+        "wire_unaligned": (f32(4096), bf16(4097)[1:]),
+        "scalar": (f32(1).reshape(()), bf16(1).reshape(())),
+        "empty": (f32(0, 7), bf16(0, 7)),
+        "strided_slice": (f32(300, 200)[:, ::2], bf16(300, 100)),
+        "transposed_wire": (f32(90, 110), bf16(110, 90).t()),
+    })
+    return out
+
+
+def check_ring_layouts(torch, rf, vals) -> dict:
+    """``ring_fused_step`` (the bare launcher ``rf``) bitwise against its
+    plain version on each of ``ring_layouts``; the layouts the wrapper
+    plans on a kernel route copy nothing, ``RING_COPIED`` one tensor each.
+    Returns {layout: copies}."""
+    from repro_torch.kernels import ops, ref
+
+    rfs = importlib.import_module("repro_torch.kernels.ring_fused_step")
+    copies = {}
+    for name, (a, w) in ring_layouts(torch, vals).items():
+        before = ops.COPIES["ring_fused_step"]
+        (ka, kw), (pa, pw) = rf(a, w), ref.ring_fused_step(a, w)
+        copies[name] = ops.COPIES["ring_fused_step"] - before
+        route = rfs.plan(a.shape, a.stride(), w.stride()).route
+        if not (equal(ka, pa) and equal(kw, pw)):
+            raise AssertionError(f"ring_fused_step differs on layout {name}: acc "
+                                 f"{tuple(a.shape)} strides {a.stride()}, route {route}")
+        if copies[name] != (name in RING_COPIED) or (route == "copy") != (name in RING_COPIED):
+            raise AssertionError(f"ring_fused_step on layout {name}: route {route}, "
+                                 f"{copies[name]} copies")
+    return copies
 
 
 def check_segment_reduce_branches(torch, sr, tokens, vals) -> int:
@@ -2233,7 +2497,8 @@ def train_phase(launches: dict) -> dict:
              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
              "peak_gb_over_held": peak_gb, "held_gb": base_gb, "loss": loss,
              "grad_norm": float(out["grad_norm"]), "agg_err_vs_float64": err,
-             "worst_leaf": leaf, "worst_leaf_err": leaf_err, "launches": got}
+             "worst_leaf": leaf, "worst_leaf_err": leaf_err, "launches": got,
+             "ring_copies": ops.COPIES["ring_fused_step"]}
         if sc == "s3_in_net_map":
             # the same ring hop by hop with the kernel's plain version
             with mock.patch.object(ops, "ring_fused_step", ref.ring_fused_step):
@@ -2270,7 +2535,7 @@ def train_phase(launches: dict) -> dict:
     res["s3_run"] = {"steps": TRAIN_STEPS, "optimizer": TRAIN_OPT, "wall_s": wall,
                      "first_loss": losses[0], "last5_mean": float(np.mean(losses[-5:])),
                      "losses": losses, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                     "launches": got}
+                     "launches": got, "ring_copies": ops.COPIES["ring_fused_step"]}
     log(f"train run {TRAIN_ARCH} s3_in_net_map, {TRAIN_STEPS} steps (AdamW {TRAIN_OPT}, lr "
         f"3e-4): {json.dumps(res['s3_run'])}")
     if not np.isfinite(losses).all() or len(losses) != TRAIN_STEPS:
@@ -2791,7 +3056,8 @@ def tp_step_record(step, out: dict, got: dict, base_gb: float, rows: int) -> dic
             "peak_gb_over_held": torch.cuda.max_memory_allocated() / 1e9 - base_gb,
             "loss": float(out["nll"]) * step.norm, "grad_norm": float(out["grad_norm"]),
             "mesh": list(step.mesh_shape), "tp": step.env.tp, "rep": step.env.rep,
-            "dp_world": step.world, "ring_hops": step.ring_hops(), "launches": got}
+            "dp_world": step.world, "ring_hops": step.ring_hops(), "launches": got,
+            "ring_copies": out.get("ring_copies")}
 
 
 def tp_busy(step, batch) -> dict:
@@ -2856,6 +3122,7 @@ def tp_train_phase(launches: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9
         out = timed_step(step, state, batch)
+        out["ring_copies"] = ops.COPIES["ring_fused_step"]  # count() zeroes it
         return out, count(), base_gb
 
     # (a) qwen1.5 on (4, 2): one step a scenario from the same parameters
@@ -3133,7 +3400,8 @@ def procs_timed(meshes: dict, paths: dict, grads, capture: dict | None = None) -
     barriers on a process mesh): its wall, kernel launches, staged host
     copies and collectives, with its outputs' ``procs_record``; S3 against
     the plain ring. With ``capture``, the inputs of each path's first launch
-    of each kernel in the timed call, device copies under (path, kernel)."""
+    of each kernel in the timed call, device copies under (path, kernel)
+    (for ``ring_fused_step`` also its acc's ``hop_layout``)."""
     import torch
     import torch.distributed as dist
 
@@ -3155,6 +3423,8 @@ def procs_timed(meshes: dict, paths: dict, grads, capture: dict | None = None) -
             def kept(*args, real=real, key=(name, k), **kw):
                 if key not in capture:
                     capture[key] = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
+                    if k == "ring_fused_step":  # and how its acc lay
+                        capture[key] += (hop_layout(args[0]),)
                 return real(*args, **kw)
 
             stack.enter_context(mock.patch.object(ops, k, kept))
@@ -3172,7 +3442,8 @@ def procs_timed(meshes: dict, paths: dict, grads, capture: dict | None = None) -
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
         rec = {"wall_s": wall, "launches": dict(ops.LAUNCHES), "staged": dict(staged),
-               "collectives": dict(colls), "out": procs_record(name, out, 1 if process else n)}
+               "copies": ops.COPIES["ring_fused_step"], "collectives": dict(colls),
+               "out": procs_record(name, out, 1 if process else n)}
         if name == "aggregate_s3_in_net_map":
             plain = coll.ring_all_reduce(grads, meshes["data"], "data",
                                          wire_map=lambda a: a.to(torch.bfloat16),
@@ -3204,7 +3475,8 @@ def procs_hold(ranks: list, ref: dict, world: int, launches: dict, label: str) -
     """Each data-plane path's outputs in every rank held to the world-dim
     run (``ref``, from ``procs_record``: bitwise, ``PROCS_CLOSE`` within
     ``PROCS_TOL``, S3 also bitwise the plain ring) and its launches to
-    ``procs_launches``, which are added to ``launches``. Returns per path
+    ``procs_launches``, which are added to ``launches``; no rank's
+    ``ring_fused_step`` copied a hop's input (``ops.COPIES``). Returns per path
     the wall (the slowest rank), the bytes staged through host memory (all
     ranks), the staging seconds and their share of the wall (the rank
     where it is largest), rank 0's collectives and the launches per rank."""
@@ -3220,6 +3492,9 @@ def procs_hold(ranks: list, ref: dict, world: int, launches: dict, label: str) -
             if rec["launches"] != want:
                 raise AssertionError(f"{label}_{name}: rank {r} made launches {rec['launches']}, "
                                      f"not {want}")
+            if rec["copies"]:
+                raise AssertionError(f"{label}_{name}: rank {r}'s ring_fused_step copied "
+                                     f"{rec['copies']} hop inputs before its kernel")
             for k, v in rec["launches"].items():
                 launches[k] += v
         if name in PROCS_CLOSE:
@@ -3936,12 +4211,10 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
         plain = ref.ring_fused_step(acc, wire)
         hops["n"] += 1
         hops["equal"] = hops["equal"] and all(equal(a, b) for a, b in zip(out, plain))
-        if pm.rank == 0 and "hop" not in capture:  # the kernel's own work: contiguous copies
-            capture["hop"] = (acc.clone(memory_format=torch.contiguous_format),
-                              wire.clone(memory_format=torch.contiguous_format),
-                              f"procs_train_{arch}", acc.is_contiguous())
+        if pm.rank == 0 and "hop" not in capture:  # how the ring hands it
+            capture["hop"] = (hop_layout(acc), f"procs_train_{arch}")
         if pm.rank == 0 and acc.numel() > capture.get("largest", (0,))[0]:
-            capture["largest"] = (acc.numel(), tuple(acc.shape), f"procs_train_{arch}")
+            capture["largest"] = (acc.numel(), hop_layout(acc), f"procs_train_{arch}")
         return out
 
     def combine(values, ids, nseg):
@@ -3988,7 +4261,8 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
             "lr": step.optimizer.schedule(state.count), "phases_s": phases,
             "fetch_s": fetch["s"],
             "wall_s": sum(phases.values()), "launches": dict(ops.LAUNCHES),
-            "staged": dict(staged), "collectives": dict(coll)})
+            "copies": ops.COPIES["ring_fused_step"], "staged": dict(staged),
+            "collectives": dict(coll)})
     rec["hops_checked"], rec["hops_bitwise"] = hops["n"], hops["equal"]
     rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     if case_arch(arch) == TRAIN_ARCH and what == "train":  # rank 0 writes; the world goes on
@@ -4142,47 +4416,23 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
                 f"{st['transport']}): {json.dumps(st)}")
             del ranks
     res["world_refs"] = world
-    # the kernels at a rank's shapes (rank 0's first S3 hop and first combine), timed alone
-    acc, wire, hpath, as_is = captured.pop("hop")
-    acc, wire = acc.cuda(), wire.cuda()
-    rf = bare_launchers()[2]
-    kout, pout = rf(acc, wire), ref.ring_fused_step(acc, wire)
-    if not all(equal(a, b) for a, b in zip(kout, pout)):
-        raise AssertionError(f"ring_fused_step at a rank's hop {tuple(acc.shape)} differs")
-    b_ms, b_by = bound_ms(acc.numel() * 12, acc.numel())
-    rows.append({
-        "name": "ring_fused_step", "route": "cuda",
-        "source": "src/repro_torch/csrc/ring_fused_step.cu",
-        "replaces": "src/repro/kernels/ring_fused_step.py:41",
-        "launches": res["launches"]["ring_fused_step"], "max_abs_err": max_abs_err(zip(kout, pout)),
-        "ms": cuda_ms(lambda: rf(acc, wire)),
-        "plain_ms": cuda_ms(lambda: ref.ring_fused_step(acc, wire)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "path": hpath,
-        "shape": f"acc {tuple(acc.shape)} fp32 + wire bf16: one rank's S3 hop of its "
-                 "fetch's backward" + ("" if as_is else ", timed contiguous (on the path the "
-                                      "acc arrives transposed and the wrapper copies it)"),
-    })
-    del acc, wire, kout, pout
-    # the phase's largest hop (rank 0's), on seeded inputs of its shape
-    numel, shape, lpath = captured.pop("largest")
+    # the kernels at a rank's shapes (rank 0's first S3 hop and first combine), timed alone;
+    # each hop laid out as the ring handed it, on seeded values
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    acc = torch.randn(shape, generator=gen, device="cuda")
-    wire = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-    kout, pout = rf(acc, wire), ref.ring_fused_step(acc, wire)
-    if not all(equal(a, b) for a, b in zip(kout, pout)):
-        raise AssertionError(f"ring_fused_step at the largest rank hop {shape} differs")
-    b_ms, b_by = bound_ms(numel * 12, numel)
-    rows.append({
-        "name": "ring_fused_step", "route": "cuda",
-        "source": "src/repro_torch/csrc/ring_fused_step.cu",
-        "replaces": "src/repro/kernels/ring_fused_step.py:41",
-        "launches": res["launches"]["ring_fused_step"], "max_abs_err": max_abs_err(zip(kout, pout)),
-        "ms": cuda_ms(lambda: rf(acc, wire)),
-        "plain_ms": cuda_ms(lambda: ref.ring_fused_step(acc, wire)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "path": lpath,
-        "shape": f"acc {shape} fp32 + wire bf16: the phase's largest rank hop, on seeded inputs",
-    })
-    del acc, wire, kout, pout
+    layout, hpath = captured.pop("hop")
+    acc, wire = seeded_hop(layout, gen)
+    rows.append(ring_row(acc, wire, hpath,
+                         f"acc {tuple(acc.shape)} fp32 + wire bf16: one rank's first S3 hop of "
+                         "its fetch's backward, acc as the ring hands it",
+                         res["launches"]["ring_fused_step"]))
+    del acc, wire
+    _, layout, lpath = captured.pop("largest")
+    acc, wire = seeded_hop(layout, gen)
+    rows.append(ring_row(acc, wire, lpath,
+                         f"acc {tuple(acc.shape)} fp32 + wire bf16: the phase's largest rank "
+                         "hop, acc as the ring hands it",
+                         res["launches"]["ring_fused_step"]))
+    del acc, wire
     values, ids, nseg, spath = captured.pop("combine")
     values, ids = values.cuda(), ids.cuda()
     sr = bare_launchers()[1]
@@ -4214,7 +4464,8 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
 
 def procs_train_check(arch: str, what: str, recs: list, want: list, launches: dict) -> dict:
     """One arch of a phase 13 world, its ranks' records (``procs_train_arch``)
-    against the world-dim run's steps ``want``: raises where a check fails;
+    against the world-dim run's steps ``want`` (and no hop's input copied
+    before ``ring_fused_step``'s kernel): raises where a check fails;
     returns the readings and adds the ranks' launches to ``launches``."""
     r0 = recs[0]
     out = {"mesh": r0["mesh"], "tp": r0["tp"], "ring_hops": r0["ring_hops"], "steps": []}
@@ -4245,6 +4496,9 @@ def procs_train_check(arch: str, what: str, recs: list, want: list, launches: di
             if lr["ring_fused_step"] != want_hops or lr["flash_attention"] or lr["hash_partition"]:
                 raise AssertionError(f"procs_train {arch} ({what}): a rank made {lr} launches, "
                                      f"not its {want_hops} ring hops")
+            if r["steps"][i]["copies"]:
+                raise AssertionError(f"procs_train {arch} ({what}): a rank's ring_fused_step "
+                                     f"copied {r['steps'][i]['copies']} hop inputs")
             if (lr["segment_reduce"] > 0) != (arch == "granite-moe-1b-a400m"):
                 raise AssertionError(f"procs_train {arch} ({what}): {lr['segment_reduce']} "
                                      "segment_reduce launches")
@@ -4384,18 +4638,21 @@ def nccl_kernel_checks(capture: dict, words, n: int) -> list:
     """This rank's kernels on its own card against their plain versions:
     its first S3 hop of the timed data plane (``procs_timed``'s capture)
     bitwise, then ``data_plane_rows`` at the rank's shapes (its words, the
-    token path's received words, a hop of its S3 hop's length), which
+    token path's received words, a hop laid out as that first hop), which
     checks and times each. Returns the rows."""
     from repro_torch.kernels import ref
 
-    acc, wire = capture[("aggregate_s3_in_net_map", "ring_fused_step")]
+    import torch
+
+    acc, wire, layout = capture[("aggregate_s3_in_net_map", "ring_fused_step")]
     rf = bare_launchers()[2]
     if not all(equal(a, b) for a, b in zip(rf(acc, wire), ref.ring_fused_step(acc, wire))):
         raise AssertionError(f"ring_fused_step differs from its plain version at a rank's hop "
                              f"{tuple(acc.shape)} on {acc.device}")
     recv = capture[("wordcount_token", "segment_reduce")][1]
-    return data_plane_rows(words.reshape(1, -1), recv.reshape(1, -1), acc.numel(), "nccl_",
-                           buckets=n)
+    gen = torch.Generator(device=acc.device).manual_seed(SEED)
+    return data_plane_rows(words.reshape(1, -1), recv.reshape(1, -1),
+                           seeded_hop(layout, gen, acc.device), "nccl_", buckets=n)
 
 
 def nccl_rank(tmp: str, full: bool, device) -> dict:
@@ -4707,10 +4964,12 @@ def main() -> int:
     # 2. kernels against their plain versions, edge shapes ----------------
     stage("phase 2 edge checks")
     t0 = time.perf_counter()
-    check_kernels_at_edges(torch)
+    ring_copies = check_kernels_at_edges(torch)
     n_flash = check_flash_at_edges(torch)
     log(f"edge checks: all four kernels match their plain versions ({n_flash} flash_attention "
-        f"cases; {time.perf_counter() - t0:.2f} s)")
+        f"cases; ring_fused_step bitwise on {len(ring_copies)} layouts, copies "
+        f"{ {k: v for k, v in ring_copies.items() if v} } (only {RING_COPIED}); "
+        f"{time.perf_counter() - t0:.2f} s)")
 
     # 3. main paths -----------------------------------------------------------
     stage("phase 3 main paths")
@@ -4799,9 +5058,11 @@ def main() -> int:
         got = dict(ops.LAUNCHES)
         for k, v in got.items():
             launches[k] += v
-        log(f"path {name}: {walls[name] * 1e3:.3f} ms wall, launches {got}, peak device memory "
-            f"{path_peak_gb[name]:.3f} GB ({path_peak_gb[name] - base_gb:.3f} GB over the "
-            f"{base_gb:.3f} GB held before the call)")
+        copies = (f", ring_fused_step copied {ops.COPIES['ring_fused_step']} hop inputs"
+                  if got["ring_fused_step"] else "")
+        log(f"path {name}: {walls[name] * 1e3:.3f} ms wall, launches {got}{copies}, peak "
+            f"device memory {path_peak_gb[name]:.3f} GB ({path_peak_gb[name] - base_gb:.3f} GB "
+            f"over the {base_gb:.3f} GB held before the call)")
         return out, got, vectorized.STEPS["torch"]
 
     # the phase's peak so far: each path below resets the counter to read its own
@@ -4923,10 +5184,15 @@ def main() -> int:
         del out
 
     # 4. kernels at their main-path shapes: agreement and time ---------------
-    rows = data_plane_rows(words, outs["recv"], GRAD_SIZE)
+    # the world-dim ring's hop: every device's chunk, gathered into a new tensor
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    world_hop = ((N_MAPPERS, GRAD_SIZE // N_MAPPERS), (GRAD_SIZE // N_MAPPERS, 1), 0, GRAD_SIZE)
+    rows = data_plane_rows(words, outs["recv"], seeded_hop(world_hop, gen))
     # and at one rank's shapes of phase 11: rank 0's shard, its received
-    # words, one hop's chunk (launch counts from phase 11)
-    procs_rows = data_plane_rows(words[:1], outs.pop("recv")[:1], GRAD_SIZE // N_MAPPERS,
+    # words, its first hop's chunk as a view of its chunks (launch counts
+    # from phase 11)
+    procs_rows = data_plane_rows(words[:1], outs.pop("recv")[:1],
+                                 seeded_hop(process_hop_layout(GRAD_SIZE, N_MAPPERS), gen),
                                  "procs_")
     seg_mod = importlib.import_module("repro_torch.kernels.segment_reduce")
     sr = bare_launchers()[1]  # the MoE combine's row, after phase 10
@@ -5317,4 +5583,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ring-hops"]:
+        sys.exit(ring_hops(Path(sys.argv[2] if len(sys.argv) > 2 else Path(__file__).parent)
+                           .resolve()))
     sys.exit(main())

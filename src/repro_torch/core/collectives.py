@@ -46,15 +46,19 @@ def _ring_perm(mesh: Mesh, axis_name, groups, step: int = 1):
     return perm
 
 
-def _group_rank(mesh: Mesh, axis_name, groups) -> torch.Tensor:
-    """Every device's rank within its ring (0..p-1), a tensor of the mesh shape."""
-    idx = mesh.axis_index(axis_name)
+def _group_rank(mesh: Mesh, axis_name, groups):
+    """The rank within its ring (0..p-1) of each device this call computes
+    for (``Mesh.own_index``): a tensor of the mesh shape on world dims, this
+    process's as a host int on a ``ProcessMesh``."""
+    idx = mesh.own_index(axis_name)
     if groups is None:
         return idx
     table = [0] * mesh.axis_size(axis_name)
     for g in groups:
         for k, src in enumerate(g):
             table[src] = k
+    if isinstance(idx, int):
+        return table[idx]
     return torch.tensor(table, device=idx.device)[idx]
 
 
@@ -76,6 +80,12 @@ def ring_reduce_scatter(
     (r−1−s) mod p and accumulates the received partial of chunk
     (r−2−s) mod p with its local copy. ``wire_map``/``unmap`` implement the
     S3 fused map; the bf16/fp32 pair runs each hop as ``ring_fused_step``.
+
+    On a ``ProcessMesh`` the ring rank is a host int (``own_index``), and each
+    hop's local chunk is a view of ``x`` (``ProcessMesh.dynamic_index_in_dim``):
+    ``ring_fused_step`` reads it where it lies, transposed or not. On the
+    world-dim mesh one call serves every device, and the chunks are gathered
+    by index.
     """
     nm = mesh.ndim
     p = _axis_size(mesh, axis_name, groups)

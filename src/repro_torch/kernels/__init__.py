@@ -7,6 +7,7 @@ flash_attention  — the LM stack's prefill attention (online-softmax blocks)
 """
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ops import (
+    COPIES,
     LAUNCHES,
     flash_attention,
     hash_partition,
@@ -18,6 +19,7 @@ from repro_torch.kernels.ops import (
 __all__ = [
     "ops",
     "ref",
+    "COPIES",
     "LAUNCHES",
     "flash_attention",
     "hash_partition",

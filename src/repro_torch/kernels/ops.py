@@ -6,7 +6,9 @@ is no fallback from one to the other. A tensor on the ``meta`` device
 (shapes, no values: the dry run) goes to the plain version too, which gives
 the output's shape and dtype. ``LAUNCHES`` counts, per kernel, the
 kernel launches made through these wrappers (CPU calls do not count), so a
-run can show that its path went through the kernels.
+run can show that its path went through the kernels; ``COPIES`` counts the
+inputs a kernel's own wrapper copied before it could read them (the bare
+launchers count too), zeroed with ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -17,14 +19,16 @@ from repro_torch.kernels import hash_partition as _hashp
 from repro_torch.kernels import ref
 from repro_torch.kernels import ring_fused_step as _ring
 from repro_torch.kernels import segment_reduce as _segred
+from repro_torch.kernels.ring_fused_step import COPIES
 
 LAUNCHES = {"hash_partition": 0, "segment_reduce": 0, "ring_fused_step": 0,
             "flash_attention": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, COPIES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_cpu(t: torch.Tensor) -> bool:

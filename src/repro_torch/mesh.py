@@ -160,6 +160,12 @@ class Mesh:
         idx = torch.arange(self.shape[a], device=self.device).view(view)
         return idx.expand(self.shape).contiguous()
 
+    def own_index(self, axis: str) -> torch.Tensor | int:
+        """The index along ``axis`` of the devices one call computes for: on
+        world dims every device's (``axis_index``); a ``ProcessMesh`` gives
+        its own device's as a host int."""
+        return self.axis_index(axis)
+
     def shard(self, data) -> torch.Tensor:
         """Lay per-device numpy shards onto the mesh (``in_specs=P(*axes)``):
         an array whose leading dims are the mesh shape, or a flat sequence of
@@ -498,6 +504,10 @@ class ProcessMesh(Mesh):
         return torch.full(self.block, self.coords[self.dim(axis)], dtype=torch.int64,
                           device=self.device)
 
+    def own_index(self, axis: str) -> int:
+        """This device's index along ``axis``, on the host."""
+        return self.coords[self.dim(axis)]
+
     def shard(self, data) -> torch.Tensor:
         """This device's shard of what ``Mesh.shard`` takes (an array whose
         leading dims are the mesh shape, or ``mesh.size`` per-device arrays
@@ -681,6 +691,18 @@ class ProcessMesh(Mesh):
                else x.clone(memory_format=torch.contiguous_format))
         dist.broadcast(buf, src=g.ranks[index], group=g.pg)
         return _noted("all-reduce", self._landed(buf))
+
+    def dynamic_index_in_dim(self, x: torch.Tensor, index) -> torch.Tensor:
+        """``Mesh.dynamic_index_in_dim``; an index on the host (an int: this
+        process is the one device that reads it) gives a view of ``x``'s
+        slice, not a gather, counted as ``lax`` counts it (a negative index
+        from the end, then clamped)."""
+        if not isinstance(index, (int, np.integer)):
+            return super().dynamic_index_in_dim(x, index)
+        nm = self._local(x)
+        n = x.shape[nm]
+        i = int(index) + n if index < 0 else int(index)
+        return x.select(nm, min(max(i, 0), n - 1))
 
     def gather(self, x: torch.Tensor, root: int = 0) -> torch.Tensor | None:
         """Every process's ``x`` (one shape on all) on process ``root``: the

@@ -406,7 +406,7 @@ def scatter_gradient(g: torch.Tensor, env: ShardEnv, axes, dim: int, groups=None
         chunks = gm.reshape((p, gm.shape[0] // p) + gm.shape[1:])
         if sc is Scenario.S1_HOST:
             every = mesh.all_gather(env._lead(chunks), ax, axis_index_groups=groups)
-            mine = coll._group_rank(mesh, ax, groups).reshape(())
+            mine = coll._group_rank(mesh, ax, groups)
             red = every.reshape(every.shape[nm:]).sum(0)[mine]
         else:
             red = coll.ring_reduce_scatter(env._lead(chunks), mesh, ax, groups=groups,

@@ -194,8 +194,10 @@ def test_cpu_calls_take_the_plain_path_and_do_not_count():
     ops.hash_partition(torch.zeros(4, dtype=torch.int32), 2)
     ops.segment_reduce(torch.ones(4, 1), torch.zeros(4, dtype=torch.int32), 2)
     ops.ring_fused_step(torch.ones(4), torch.ones(4, dtype=torch.bfloat16))
+    ops.ring_fused_step(torch.ones(4, 8)[:, ::2], torch.ones(4, 4, dtype=torch.bfloat16))
     assert ops.LAUNCHES == {"hash_partition": 0, "segment_reduce": 0, "ring_fused_step": 0,
                             "flash_attention": 0}
+    assert ops.COPIES == {"ring_fused_step": 0}
 
 
 @pytest.mark.parametrize("name", ["hash_partition", "ring_fused_step", "segment_reduce"])
@@ -219,6 +221,29 @@ def test_build_without_nvcc_raises(monkeypatch):
     monkeypatch.setenv("PATH", "")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+def test_timed_hops_take_their_inputs_in_turn():
+    """``chip_smoke.in_turn``, which times a hop on inputs that are not in
+    L2: each call takes the next pair, and the outputs of the last
+    ``len(pairs)`` calls stay alive, so no call writes where the one before
+    it wrote."""
+    import weakref
+
+    pairs = [(torch.full((2,), float(i)), torch.zeros(2, dtype=torch.bfloat16)) for i in range(3)]
+    seen, outs = [], []
+
+    def hop(acc, wire):
+        seen.append(float(acc[0]))
+        out = acc + wire.float()
+        outs.append(weakref.ref(out))
+        return out
+
+    call = _smoke().in_turn(hop, pairs)
+    for _ in range(7):
+        call()
+    assert seen == [0.0, 1.0, 2.0, 0.0, 1.0, 2.0, 0.0]
+    assert [o() is not None for o in outs] == [False] * 4 + [True] * 3
 
 
 @pytest.fixture
@@ -247,16 +272,33 @@ def test_kernels_match_plain_versions_on_the_card(cuda):
         assert torch.equal(k, p)
 
 
+def _smoke():
+    """``chip_smoke.py`` as a module: the edge sweeps' one definition."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_at_edges_on_the_card(cuda):
     """The edge sweep of ``chip_smoke.py`` (its one definition), with both
     branches of ``segment_reduce``: the shared-memory histogram up to the
     largest segment count that fits and the global atomics past it."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    smoke.check_kernels_at_edges(torch)
+    _smoke().check_kernels_at_edges(torch)
+
+
+@pytest.mark.cuda
+def test_ring_fused_step_reads_every_layout_on_the_card(cuda):
+    """``ring_fused_step`` on the layout sweep of ``chip_smoke.py``
+    (``check_kernels_at_edges``, its one definition): bitwise its plain
+    version on each layout, and no input copied on the layouts a kernel
+    route reads, one on each of ``RING_COPIED``."""
+    smoke = _smoke()
+    copies = smoke.check_kernels_at_edges(torch)
+    assert len(copies) > len(smoke.RING_COPIED)
+    assert {k: v for k, v in copies.items() if v} == dict.fromkeys(smoke.RING_COPIED, 1)
 
 
 @pytest.mark.cuda
@@ -265,6 +307,15 @@ def test_wrappers_count_kernel_launches_on_the_card(cuda):
     ops.hash_partition(torch.zeros(4, dtype=torch.int32, device=cuda), 2)
     ops.segment_reduce(torch.ones(4, 1, device=cuda), torch.zeros(4, dtype=torch.int32, device=cuda), 2)
     ops.ring_fused_step(torch.ones(4, device=cuda), torch.ones(4, dtype=torch.bfloat16, device=cuda))
+    # a transposed acc is read where it lies; a strided slice is copied first
+    ops.ring_fused_step(torch.ones(8, 4, device=cuda).t(),
+                        torch.ones(4, 8, dtype=torch.bfloat16, device=cuda))
+    assert ops.COPIES == {"ring_fused_step": 0}
+    ops.ring_fused_step(torch.ones(4, 8, device=cuda)[:, ::2],
+                        torch.ones(4, 4, dtype=torch.bfloat16, device=cuda))
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"hash_partition": 1, "segment_reduce": 1, "ring_fused_step": 1,
+    assert ops.LAUNCHES == {"hash_partition": 1, "segment_reduce": 1, "ring_fused_step": 3,
                             "flash_attention": 0}
+    assert ops.COPIES == {"ring_fused_step": 1}
+    ops.reset_launches()
+    assert ops.COPIES == {"ring_fused_step": 0}

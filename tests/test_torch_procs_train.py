@@ -80,8 +80,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import collectives as coll  # noqa: E402
 from repro_torch.data.pipeline import TrainPipeline  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.ring_fused_step import plan as ring_plan  # noqa: E402
 from repro_torch.launch import procs, steps, train  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.mesh import ProcessMesh  # noqa: E402
@@ -388,7 +390,9 @@ def case_model(tag: str, mesh, jax_out: dict | None, device):
 
 def two_steps(tag: str, mesh, jax_out: dict | None, device, gather, after=None) -> dict:
     """A case's two steps on ``mesh``: each step's metrics and S3 hops
-    (``ring_fused_step``'s plain version counted), ``ring_hops()``, and the
+    (``ring_fused_step``'s plain version counted, and the hops whose ``acc``
+    is a view of its ring's chunked gradient that the kernel's wrapper plans
+    to read without a copy), ``ring_hops()``, and the
     first step's moments and the second's parameters and moments through
     ``gather`` (``gather(model, step, tree)`` → {JAX leaf path: numpy}; 8-bit
     moments: {JAX leaf path: (codes, scales)} in the world-dim rows). With
@@ -409,21 +413,35 @@ def two_steps(tag: str, mesh, jax_out: dict | None, device, gather, after=None) 
             "layout": step.layout, "shapes": {k: tuple(t.shape) for k, t in tree.items()}}
     state = step.init_state()
     pipe = TrainPipeline(cfg, step.env, gb, SEQ, seed=SEED)
-    real, hops, metrics = ops.ring_fused_step, [], []
+    real, hops, in_place, metrics = ops.ring_fused_step, [], [], []
+    real_ring, rings = coll.ring_reduce_scatter, []
     dtype = torch.float32 if tag in FP32_CASES else torch.bfloat16
+
+    def ring(x, *args, **kw):
+        rings.append(x)
+        return real_ring(x, *args, **kw)
+
     for k in range(STEPS):
         hops.append(0)
+        in_place.append(0)
 
         def counted(acc, wire):
             hops[-1] += 1
+            # a view of its ring's chunked gradient that the kernel reads as it lies
+            in_place[-1] += (acc.untyped_storage().data_ptr()
+                             == rings[-1].untyped_storage().data_ptr()
+                             and ring_plan(acc.shape, acc.stride(), wire.stride()).route
+                             != "copy")
             return real(acc, wire)
 
-        with mock.patch.object(ops, "ring_fused_step", counted), computing(dtype):
+        with (mock.patch.object(ops, "ring_fused_step", counted),
+              mock.patch.object(coll, "ring_reduce_scatter", ring), computing(dtype)):
             state, m = step(state, pipe.batch_at(k))
         metrics.append({n: float(m[n]) for n in ("loss", "grad_norm", "lr", "ntok")})
         if k == 0:
             m1 = gather(model, step, state.m)
-    return {"metrics": metrics, "hops": hops, "ring_hops": step.ring_hops(), "m1": m1,
+    return {"metrics": metrics, "hops": hops, "in_place": in_place,
+            "ring_hops": step.ring_hops(), "m1": m1,
             "param": gather(model, step, step.params), "m": gather(model, step, state.m),
             "v": gather(model, step, state.v), **extra,
             **({} if after is None else {"after": after(step, state)})}
@@ -745,6 +763,18 @@ def test_s3_hops_are_ring_fused_steps(ranks, tag):
         assert r[tag]["hops"] == [want] * STEPS
     if sc == "s3_in_net_map":
         assert ranks[0][tag]["ring_hops"] > 0
+
+
+@pytest.mark.parametrize("tag", [t for t in CASES if CASES[t][2] == "s3_in_net_map"])
+def test_s3_hops_read_the_chunked_gradient_in_place(ranks, tag):
+    """On a process mesh every S3 hop's ``acc`` shares storage with the
+    chunked gradient its ring reduce-scatters (the ring's chunk index is on
+    the host, so no gather copies it), and ``ring_fused_step``'s wrapper
+    plans to read it as it lies; the ring's results are held to the
+    reference and to world dims by the tests above."""
+    assert ranks[0][tag]["hops"][0] > 0
+    for r in ranks:
+        assert r[tag]["in_place"] == r[tag]["hops"]
 
 
 def test_collectives_backward_is_the_transpose(ranks):
