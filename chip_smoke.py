@@ -283,17 +283,30 @@
    4-ring) held to its world-dim run as phase 11 holds it; the five
    collectives alone at ``NCCL_COLL_BYTES`` a rank; each rank's three
    data-plane kernels against their plain versions on its own card; then
-   qwen1.5 at (2, 2) at full depth served (8 x 4,096 prompts, 8 tokens,
-   both routes, flash prefill) and trained (S3, 8 x 1,024 rows, 2 steps,
-   the checkpoint gathered to rank 0 and written), held as phases 12 and
-   13 hold them; every rank's transport "nccl" and nothing staged. The
-   same four ranks under gloo, staged through host memory (the data plane
-   and the collectives). Then two nccl ranks on cards 0-1 (1, 2) restore
-   the checkpoint and take a step. Prints each path's slowest-rank wall
-   beside the world-dim one under both backends, the collectives' ms and
-   algorithm and bus GB/s, the cards and their topology; the kernels line
-   gets rank 3's data-plane kernels (timed on cuda:3) and rank 0's flash
-   prefill, with phase 14's launches.
+   every block kind served as phase 12 serves it (``NCCL_SERVE``: qwen1.5
+   at (2, 2) at full depth, 8 x 4,096 prompts, 8 tokens; granite-moe at
+   (1, 4) on its a2a route at full depth, mamba2 (2, 2), minicpm3 (1, 4),
+   recurrentgemma (2, 2), qwen2-vl (1, 4), seamless (1, 4), 4 rows and 3
+   tokens; both decode routes where the mesh has a data world, flash
+   prefill) and trained as phase 13 trains it (``NCCL_TRAIN_WORLDS``: S3,
+   1,024-token rows, qwen1.5 (2, 2) 2 steps with the checkpoint gathered
+   to rank 0 and written, then a step each of granite-moe (1, 4),
+   mamba2 (2, 2), minicpm3 (1, 4), recurrentgemma (1, 4) on its rep ring,
+   qwen2-vl (1, 4), seamless (2, 2) and qwen1.5 (2, 2) with 8-bit moments,
+   their checkpoint restored bitwise), each held to its world-dim
+   reference (phases 12 and 13's four-rank ones reused), then
+   phi3-medium-14b at (2, 2) at full depth, which does not fit one card,
+   held by its own routes (``nccl_phi3_rank``); every rank's transport
+   "nccl" and nothing staged. The same four ranks under gloo, staged
+   through host memory (the data plane and the collectives). Then two
+   nccl ranks on cards 0-1 (1, 2) restore the checkpoint and take a step.
+   Prints each path's slowest-rank wall beside the world-dim one under
+   both backends, the collectives' ms and algorithm and bus GB/s, the
+   cards and their topology, phi3's peak a rank beside the whole model's
+   bytes; the kernels line gets rank 3's data-plane kernels (timed on
+   cuda:3) and, on cuda:0, rank 0's flash prefill of qwen1.5, qwen2-vl,
+   phi3 and seamless's encoder, its a2a combine and recurrentgemma's first
+   rep-ring hop, with phase 14's launches.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -319,6 +332,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -761,7 +775,62 @@ PROCS_SERVE_CAD += (NCCL_CASE,)
 PROCS_SERVE_SHARE += (NCCL_CASE,)
 PROCS_TRAIN[NCCL_CASE] = ((2, 2), 8, 2)
 PROCS_TRAIN_LAYERS[NCCL_CASE] = 24  # of 24
-NCCL_TRAIN_WORLDS = {"first": ((NCCL_CASE, "train"),), "restart": ((NCCL_CASE, "restart"),)}
+# every other block kind in the same nccl world after qwen1.5, served and
+# trained at full width as phases 12 and 13 serve and train them and held the
+# same way: granite-moe at (1, 4) on its a2a route (tp 4: 8 experts and 2 kv
+# heads a rank, the config's capacity 1.25), all 24 layers served, 4
+# trained; qwen2-vl at (1, 4) (tp 4, rep 1: 7 q heads over one kv head a
+# rank), 4 of 28 layers served, 2 trained; these two with references of
+# their own. mamba2, minicpm3, recurrentgemma and seamless on their phase 12
+# and 13 meshes, and qwen1.5's 8-bit job on PROCS_TRAIN_8BIT, reuse those
+# phases' four-rank references (``procs_serve_phase``/``procs_train_phase``
+# keep them for phase 14): the ranks draw the same weights from SEED
+NCCL_MOE, NCCL_VL = "granite-moe-1b-a400m@nccl", "qwen2-vl-7b@nccl"
+PROCS_SERVE[NCCL_MOE] = ((1, 4), 4, 2048, 3)
+PROCS_SERVE_LAUNCHES[NCCL_MOE] = (24, 24)  # all 24 layers
+PROCS_SERVE[NCCL_VL] = ((1, 4), 4, 2048, 3)
+PROCS_SERVE_LAYERS[NCCL_VL] = 4  # of 28
+PROCS_SERVE_LAUNCHES[NCCL_VL] = (4, 0)
+PROCS_TRAIN[NCCL_MOE] = ((1, 4), 4, 1)
+PROCS_TRAIN_LAYERS[NCCL_MOE] = 4  # of 24
+PROCS_TRAIN[NCCL_VL] = ((1, 4), 4, 1)
+PROCS_TRAIN_LAYERS[NCCL_VL] = 2  # of 28
+NCCL_SERVE = (NCCL_CASE, NCCL_MOE, "mamba2-1.3b", "minicpm3-4b", "recurrentgemma-2b", NCCL_VL,
+              "seamless-m4t-large-v2")
+NCCL_TRAIN_WORLDS = {"first": ((NCCL_CASE, "train"), (NCCL_MOE, "train"), ("mamba2-1.3b", "train"),
+                               ("minicpm3-4b", "train"), ("recurrentgemma-2b", "train"),
+                               (NCCL_VL, "train"), ("seamless-m4t-large-v2", "train"),
+                               ("qwen1.5-0.5b", "8bit")),
+                     "restart": ((NCCL_CASE, "restart"),)}
+# phi3-medium-14b at (2, 2) (tp 2, data 2: 20 q heads over 5 kv heads and a
+# quarter of its ~14.7 B parameters a rank), all 40 layers: 4 x 2,048
+# prompts, 3 tokens, both decode routes. It does not fit one card, so it has
+# no world-dim reference: its routes are held against each other on the
+# ranks (``nccl_phi3_rank``): the flash prefill against the masked one
+# within SERVE_TOL scaled to its 40 layers (``within``'s random walk), the
+# compute-at-data decode step against the gather one from one cache within
+# CAD_TOL scaled the same way (the column products' two bf16 partials a
+# product, now over 40 layers), and ``cache_consistency`` within
+# CONSIST_TOL. On random weights 40 layers deep (d 5,120) the two prefills
+# and the two decode steps part further than those random walks (measured
+# 0.112 and 0.0586 on four H100s): the roundings compound, as phase 9 found
+# for the TP routes (qwen2-vl 0.30). So, as phase 9 holds them, each limit
+# is the larger of that scaled one and SENSITIVITY_FACTOR x the model's own
+# response to one-ulp noise on every row-parallel product
+# (``rounding_noise``, the same route with and without it), each flash
+# layer is held against the masked attention on its own input within
+# ATTN_TOL (``layer_readings``: nothing compounds there), and the prefill's
+# limit must reject a kernel without its causal mask
+NCCL_PHI3 = "phi3-medium-14b"
+PROCS_SERVE[NCCL_PHI3] = ((2, 2), 4, 2048, 3)
+PROCS_SERVE_LAUNCHES[NCCL_PHI3] = (40, 0)
+PHI3_DEPTH = (40 / 24) ** 0.5
+# the kernel rows at a rank's shapes in phase 14: flash_attention at rank 0's
+# first launch of each of these cases, and what it is
+NCCL_FLASH = {NCCL_CASE: "rank 0's heads and rows of the prefill at (2, 2)",
+              NCCL_VL: "rank 0's prefill at (1, 4), GQA (7 q heads over one kv head)",
+              NCCL_PHI3: "rank 0's prefill at (2, 2), GQA (20 q heads over 5 kv heads)",
+              "seamless-m4t-large-v2": "rank 0's encoder layer at (1, 4)"}
 
 
 def case_arch(case: str) -> str:
@@ -3669,7 +3738,19 @@ def procs_serve_world(arch: str, tmp: Path) -> dict:
     return out
 
 
-def procs_serve_rank(arch: str, tmp: str, device) -> dict:
+def process_mesh(dims: tuple, device, meshes: dict | None = None):
+    """The ("data", "model") process mesh of ``dims`` on ``device``: the one
+    in ``meshes`` of that shape (made there the first time), else a new one."""
+    from repro_torch.mesh import ProcessMesh
+
+    if meshes is None:
+        return ProcessMesh(("data", "model"), dims, device=device)
+    if dims not in meshes:
+        meshes[dims] = ProcessMesh(("data", "model"), dims, device=device)
+    return meshes[dims]
+
+
+def procs_serve_rank(arch: str, tmp: str, device, meshes: dict | None = None) -> dict:
     """Phase 12 for ``arch`` in one rank (``launch.procs.spawn``): the model
     made from ``SEED`` under its process mesh's env (each leaf cut to its
     device's shard as it is drawn; the setup's peak memory read), the seeded
@@ -3682,13 +3763,14 @@ def procs_serve_rank(arch: str, tmp: str, device) -> dict:
     step on the rows whose tokens so far agree: each row's largest logit
     difference, and the step's squared differences and squared reference
     logits; and the final cache block's worst normwise difference on the
-    rows whose tokens all agree."""
+    rows whose tokens all agree. ``meshes``: process meshes by shape that
+    the rank's cases share (their groups made once), else one of its own."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.kernels import ops
     from repro_torch.launch import serve, steps
-    from repro_torch.mesh import ProcessMesh, count_collectives, count_staging
+    from repro_torch.mesh import count_collectives, count_staging
     from repro_torch.models.convert import flatten
     from repro_torch.models.model import Model
 
@@ -3699,7 +3781,7 @@ def procs_serve_rank(arch: str, tmp: str, device) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    pm = ProcessMesh(("data", "model"), dims, device=device)
+    pm = process_mesh(dims, device, meshes)
     env = steps.make_env(cfg, pm)
     model = Model(cfg, device=device, seed=SEED, env=env)
     batch = procs_serve_batch(model, steps.held_rows(env.world(), gb), arch)
@@ -3936,7 +4018,53 @@ def procs_flash_row(capture: tuple, launches: int, what: str) -> dict:
     return row
 
 
-def procs_serve_phase(launches: dict, rows: list) -> dict:
+def keep_refs(kept: dict, tmp: Path, names: list, ranks: int) -> None:
+    """Move each rank's reference file ``<name>.<rank>.pt`` of ``names`` from
+    ``tmp`` into ``kept["dir"]``, where phase 14 reads them (``main`` holds
+    the directory from phase 12 to phase 14)."""
+    import shutil
+
+    for name in names:
+        for r in range(ranks):
+            shutil.move(tmp / f"{name}.{r}.pt", kept["dir"] / f"{name}.{r}.pt")
+
+
+def combine_row(capture: tuple, launches: int, path: str, what: str) -> dict:
+    """The ``segment_reduce`` row at a rank's a2a combine (``capture``: its
+    (values, ids, nseg), copied to the current card), held against the plain
+    version within ``COMBINE_TOL`` of the largest sum and timed alone beside
+    it and ``index_add_`` on the kept rows; ``launches``: its path's."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    values, ids, nseg = capture[:3]
+    values, ids = values.cuda(), ids.cuda()
+    sr = bare_launchers()[1]
+    ks, ps = sr(values, ids, nseg), ref.segment_reduce(values, ids, nseg)
+    comb_err = float((ks - ps).abs().max() / ps.abs().max())
+    if comb_err > COMBINE_TOL:
+        raise AssertionError(f"segment_reduce at {what}: {comb_err} off (relative)")
+    ok = ids >= 0
+    vals32, ids64, kept = values[ok].float(), ids[ok].long(), int(ok.sum())
+    lib_out = torch.zeros_like(ps)
+    b_ms, b_by = bound_ms(kept * values.shape[1] * values.element_size() + ids.numel() * 4
+                          + ps.numel() * 4, kept * values.shape[1])
+    return {
+        "name": "segment_reduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_reduce.cu",
+        "replaces": "src/repro/kernels/segment_reduce.py:55",
+        "launches": launches, "max_abs_err": max_abs_err([(ks, ps)]),
+        "rel_err": comb_err, "ms": cuda_ms(lambda: sr(values, ids, nseg)),
+        "plain_ms": cuda_ms(lambda: ref.segment_reduce(values, ids, nseg)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, ids64, vals32)), "path": path,
+        "shape": f"values {tuple(values.shape)} bf16, ids ({ids.numel()},) int32 ({kept} kept), "
+                 f"nseg={nseg}: {what}",
+    }
+
+
+def procs_serve_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
     """Phase 12: for each group of ``PROCS_SERVE_SPAWNS`` the world-dim
     reference of each of its archs (``procs_serve_world``), then one gloo
     rank per mesh device spawned on the card once for the group
@@ -3944,13 +4072,14 @@ def procs_serve_phase(launches: dict, rows: list) -> dict:
     (``procs_serve_check``). Adds the ranks' launches to ``launches`` and
     the kernel rows at a rank's shapes to ``rows``: ``flash_attention`` at
     each of ``PROCS_SERVE_FLASH``'s archs, ``segment_reduce`` at the a2a
-    combine; returns the readings."""
+    combine; returns the readings. With ``kept`` (``keep_refs``) the
+    references of the archs served on ``NCCL_WORLD`` ranks stay for phase 14."""
     import functools
     import tempfile
 
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import procs
 
     res = {"archs": {}, "launches": dict.fromkeys(ops.LAUNCHES, 0), "spawns": []}
@@ -3975,6 +4104,10 @@ def procs_serve_phase(launches: dict, rows: list) -> dict:
                                 backend="gloo", store_path=Path(tmp) / "store",
                                 timeout_s=PROCS_TIMEOUT_S)
             spawn_s = time.perf_counter() - t
+            if kept is not None and n == NCCL_WORLD:
+                for arch in group:
+                    keep_refs(kept, Path(tmp), [f"ref.{arch}"], n)
+                    kept["serve"][arch] = world[arch]
         res["spawns"].append({"archs": list(group), "ranks": n, "spawn_s": spawn_s})
         for arch in group:
             mine = [r[arch] for r in ranks]
@@ -3997,32 +4130,8 @@ def procs_serve_phase(launches: dict, rows: list) -> dict:
                 else res["archs"][arch]["flash_launches"])
         rows.append(procs_flash_row(captured.pop(arch), n_fa, what))
     values, ids, nseg, spath = captured.pop("combine")
-    values, ids = values.cuda(), ids.cuda()
-    sr = bare_launchers()[1]
-    ks, ps = sr(values, ids, nseg), ref.segment_reduce(values, ids, nseg)
-    comb_err = float((ks - ps).abs().max() / ps.abs().max())
-    if comb_err > COMBINE_TOL:
-        raise AssertionError(f"segment_reduce at a rank's a2a combine: {comb_err} off (relative)")
-    ok = ids >= 0
-    vals32, ids64 = values[ok].float(), ids[ok].long()
-    lib_out = torch.zeros_like(ps)
-    kept = int(ok.sum())
-    b_ms, b_by = bound_ms(kept * values.shape[1] * values.element_size() + ids.numel() * 4
-                          + ps.numel() * 4, kept * values.shape[1])
-    rows.append({
-        "name": "segment_reduce", "route": "cuda",
-        "source": "src/repro_torch/csrc/segment_reduce.cu",
-        "replaces": "src/repro/kernels/segment_reduce.py:55",
-        "launches": res["launches"]["segment_reduce"], "max_abs_err": max_abs_err([(ks, ps)]),
-        "rel_err": comb_err,
-        "ms": cuda_ms(lambda: sr(values, ids, nseg)),
-        "plain_ms": cuda_ms(lambda: ref.segment_reduce(values, ids, nseg)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, ids64, vals32)),
-        "path": "procs_" + spath,
-        "shape": f"values {tuple(values.shape)} bf16, ids ({ids.numel()},) int32 ({kept} kept), "
-                 f"nseg={nseg}: one rank's a2a combine",
-    })
+    rows.append(combine_row((values, ids, nseg), res["launches"]["segment_reduce"],
+                            "procs_" + spath, "one rank's a2a combine"))
     for k2, v2 in res["launches"].items():
         launches[k2] += v2
     return res
@@ -4129,25 +4238,28 @@ def procs_train_world(tmp: Path, worlds: dict = PROCS_TRAIN_WORLDS) -> dict:
     jobs = {job for js in worlds.values() for job in js}
     out = {}
     for arch, (dims, gb, n) in PROCS_TRAIN.items():
-        if (arch, "train") not in jobs and (arch, "restart") not in jobs:
+        whats = {what for a, what in jobs if a == arch}
+        if not whats:
             continue
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        model, step, pipe = procs_train_build(arch, make_mesh(dims, device="cuda"))
-        state, metrics = procs_train_steps(step, step.init_state(), pipe, 0, n)
-        lrs = [m["lr"] for m in metrics]
-        procs_train_shards(step, tmp, arch, metrics, lrs)
-        out[arch] = {"steps": metrics, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-        if (arch, "restart") in jobs:
-            dims = procs_train_dims(arch, "restart")
-            step, pipe = train.build(model, make_mesh(dims, device="cuda"),
-                                     procs_train_args(arch, dims))
-            state, metrics = procs_train_steps(step, state, pipe, n, 1)
-            procs_train_shards(step, tmp, f"{arch}.restart", metrics,
-                               lrs + [m["lr"] for m in metrics])
-            out[arch]["restart"] = metrics
-        if (arch, "8bit") in jobs:
+        out[arch] = {}
+        if whats & {"train", "restart"}:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model, step, pipe = procs_train_build(arch, make_mesh(dims, device="cuda"))
+            state, metrics = procs_train_steps(step, step.init_state(), pipe, 0, n)
+            lrs = [m["lr"] for m in metrics]
+            procs_train_shards(step, tmp, arch, metrics, lrs)
+            out[arch].update(steps=metrics, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if "restart" in whats:
+                dims = procs_train_dims(arch, "restart")
+                step, pipe = train.build(model, make_mesh(dims, device="cuda"),
+                                         procs_train_args(arch, dims))
+                state, metrics = procs_train_steps(step, state, pipe, n, 1)
+                procs_train_shards(step, tmp, f"{arch}.restart", metrics,
+                                   lrs + [m["lr"] for m in metrics])
+                out[arch]["restart"] = metrics
             del model, step, state, pipe
+        if "8bit" in whats:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             model, step, pipe = procs_train_build(arch, make_mesh(PROCS_TRAIN_8BIT,
@@ -4157,7 +4269,7 @@ def procs_train_world(tmp: Path, worlds: dict = PROCS_TRAIN_WORLDS) -> dict:
                                state)
             out[arch]["8bit"] = metrics
             out[arch]["8bit_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        del model, step, state, pipe
+            del model, step, state, pipe
     torch.cuda.empty_cache()
     return out
 
@@ -4211,8 +4323,8 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
         plain = ref.ring_fused_step(acc, wire)
         hops["n"] += 1
         hops["equal"] = hops["equal"] and all(equal(a, b) for a, b in zip(out, plain))
-        if pm.rank == 0 and "hop" not in capture:  # how the ring hands it
-            capture["hop"] = (hop_layout(acc), f"procs_train_{arch}")
+        if pm.rank == 0 and f"hop {arch}" not in capture:  # how the ring hands it
+            capture[f"hop {arch}"] = (hop_layout(acc), f"procs_train_{arch}")
         if pm.rank == 0 and acc.numel() > capture.get("largest", (0,))[0]:
             capture["largest"] = (acc.numel(), hop_layout(acc), f"procs_train_{arch}")
         return out
@@ -4338,20 +4450,18 @@ def procs_eightbit_readings(step, state, want: dict, pm) -> dict:
     return out
 
 
-def procs_train_rank(tmp: str, jobs: tuple, device) -> dict:
+def procs_train_rank(tmp: str, jobs: tuple, device, meshes: dict | None = None) -> dict:
     """Phase 13 (or 14) in one rank of a world whose ``jobs`` are (arch,
     what) pairs (``PROCS_TRAIN_WORLDS``, ``launch.procs.spawn``): each of
-    its archs (``procs_train_arch``) on its process mesh. Returns their
-    records and rank 0's captured kernel inputs."""
+    its archs (``procs_train_arch``) on its process mesh (``meshes``'s of
+    its shape). Returns their records and rank 0's captured kernel inputs."""
     import torch
 
-    from repro_torch.mesh import ProcessMesh
-
     torch.set_num_threads(1)  # the ranks share the host's cores
-    res, capture, meshes, writes = {"archs": {}}, {}, {}, []
+    res, capture, writes = {"archs": {}}, {}, []
+    meshes = {} if meshes is None else meshes
     for arch, what in jobs:
-        dims = procs_train_dims(arch, what)
-        pm = meshes.setdefault(dims, ProcessMesh(("data", "model"), dims, device=device))
+        pm = process_mesh(procs_train_dims(arch, what), device, meshes)
         res["archs"][f"{arch}/{what}"] = procs_train_arch(arch, what, pm, Path(tmp), capture,
                                                           writes)
     t = time.perf_counter()
@@ -4359,24 +4469,26 @@ def procs_train_rank(tmp: str, jobs: tuple, device) -> dict:
         store.wait()
         res["ckpt"] = {**store.stats[-1], "wait_s": time.perf_counter() - t}
     torch.distributed.barrier()
-    res["transport"] = next(iter(meshes.values())).transport
+    res["transport"] = pm.transport
     res["capture"] = {k: tuple(t.cpu() if hasattr(t, "cpu") else t for t in v)
                       for k, v in capture.items()}
     return res
 
 
-def procs_train_phase(launches: dict, rows: list) -> dict:
+def procs_train_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
     """Phase 13: the world-dim references (``procs_train_world``), then the
     two worlds of gloo ranks spawned on the card (``procs_train_rank``),
     held to them. Adds the ranks' launches to ``launches`` and the kernel
     rows at a rank's shapes to ``rows`` (the first S3 hop, the largest one,
-    the first combine); returns the readings."""
+    the first combine); returns the readings. With ``kept`` (``keep_refs``)
+    the references of the jobs trained on ``NCCL_WORLD`` ranks (but a
+    restart) stay for phase 14."""
     import functools
     import tempfile
 
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.launch import procs
 
     res = {"worlds": {}, "launches": dict.fromkeys(ops.LAUNCHES, 0)}
@@ -4399,6 +4511,12 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
                                 timeout_s=PROCS_TIMEOUT_S)
             st = {"spawn_s": time.perf_counter() - t, "ranks": len(ranks),
                   "transport": ranks[0]["transport"], "archs": {}}
+            if kept is not None and len(ranks) == NCCL_WORLD:
+                for arch, what in jobs:
+                    if what != "restart":
+                        keep_refs(kept, Path(tmp), [arch if what == "train" else f"{arch}.{what}"],
+                                  len(ranks))
+                        kept["train"][arch] = world[arch]
             for key in ranks[0]["archs"]:
                 arch, what = key.split("/")
                 recs = [r["archs"][key] for r in ranks]
@@ -4419,7 +4537,7 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
     # the kernels at a rank's shapes (rank 0's first S3 hop and first combine), timed alone;
     # each hop laid out as the ring handed it, on seeded values
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    layout, hpath = captured.pop("hop")
+    layout, hpath = captured.pop(f"hop {PROCS_TRAIN_WORLDS['first'][0][0]}")
     acc, wire = seeded_hop(layout, gen)
     rows.append(ring_row(acc, wire, hpath,
                          f"acc {tuple(acc.shape)} fp32 + wire bf16: one rank's first S3 hop of "
@@ -4434,29 +4552,8 @@ def procs_train_phase(launches: dict, rows: list) -> dict:
                          res["launches"]["ring_fused_step"]))
     del acc, wire
     values, ids, nseg, spath = captured.pop("combine")
-    values, ids = values.cuda(), ids.cuda()
-    sr = bare_launchers()[1]
-    ks, ps = sr(values, ids, nseg), ref.segment_reduce(values, ids, nseg)
-    comb_err = float((ks - ps).abs().max() / ps.abs().max())
-    if comb_err > COMBINE_TOL:
-        raise AssertionError(f"segment_reduce at a rank's training combine: {comb_err} off")
-    ok = ids >= 0
-    vals32, ids64, kept = values[ok].float(), ids[ok].long(), int(ok.sum())
-    lib_out = torch.zeros_like(ps)
-    b_ms, b_by = bound_ms(kept * values.shape[1] * values.element_size() + ids.numel() * 4
-                          + ps.numel() * 4, kept * values.shape[1])
-    rows.append({
-        "name": "segment_reduce", "route": "cuda",
-        "source": "src/repro_torch/csrc/segment_reduce.cu",
-        "replaces": "src/repro/kernels/segment_reduce.py:55",
-        "launches": res["launches"]["segment_reduce"], "max_abs_err": max_abs_err([(ks, ps)]),
-        "rel_err": comb_err, "ms": cuda_ms(lambda: sr(values, ids, nseg)),
-        "plain_ms": cuda_ms(lambda: ref.segment_reduce(values, ids, nseg)),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: lib_out.index_add_(0, ids64, vals32)), "path": spath,
-        "shape": f"values {tuple(values.shape)} bf16, ids ({ids.numel()},) int32 ({kept} kept), "
-                 f"nseg={nseg}: one rank's a2a combine in training",
-    })
+    rows.append(combine_row((values, ids, nseg), res["launches"]["segment_reduce"], spath,
+                            "one rank's a2a combine in training"))
     for k, v in res["launches"].items():
         launches[k] += v
     return res
@@ -4499,7 +4596,7 @@ def procs_train_check(arch: str, what: str, recs: list, want: list, launches: di
             if r["steps"][i]["copies"]:
                 raise AssertionError(f"procs_train {arch} ({what}): a rank's ring_fused_step "
                                      f"copied {r['steps'][i]['copies']} hop inputs")
-            if (lr["segment_reduce"] > 0) != (arch == "granite-moe-1b-a400m"):
+            if (lr["segment_reduce"] > 0) != (case_arch(arch) == "granite-moe-1b-a400m"):
                 raise AssertionError(f"procs_train {arch} ({what}): {lr['segment_reduce']} "
                                      "segment_reduce launches")
             for k, v in lr.items():
@@ -4571,6 +4668,241 @@ def calls_counted(calls: dict):
         real(kind, nbytes)
 
     return mock.patch.object(mesh, "note_collective", note)
+
+
+def sq_sums(got, want) -> tuple[float, float]:
+    """(Σ (got − want)², Σ want²) in float64 over the entries where ``want``
+    is finite (a padded vocab's -inf left out): one rank's part of a
+    normwise relative difference whose whole spans the ranks."""
+    import torch
+
+    ok = torch.isfinite(want)
+    d = torch.where(ok, got.double() - want.double(), 0.0)
+    return float((d * d).sum()), float(torch.where(ok, want.double() ** 2, 0.0).sum())
+
+
+def nccl_phi3_rank(device, meshes: dict | None = None) -> dict:
+    """phi3-medium-14b (``NCCL_PHI3``) in one rank of phase 14's nccl world:
+    made from ``SEED`` under its process mesh's env (each leaf cut as it is
+    drawn; the setup's peak read), the seeded prompts' rows of its block,
+    then its routes on the ranks (it has no world-dim reference): the flash
+    and the masked prefill into fresh caches, this rank's ``sq_sums`` of
+    the prefill's logits (its rows, its vocab shard) and of each layer's
+    cache leaves, and the same of the flash prefill under ``rounding_noise``
+    against the plain flash prefill (the model's sensitivity) and of a
+    flash prefill without its causal mask against the masked one (the
+    control); each flash layer against the masked attention on its own
+    input (``layer_readings``); one decode step from the flash prefill's
+    cache on the gather and the compute-at-data route and the gather one
+    under ``rounding_noise`` (each from a copy: decode writes in place),
+    the ``sq_sums`` of their logits against the gather step's;
+    ``cache_consistency``; then
+    per route one served call (``serve.generate``: flash prefill, ``gen``
+    tokens) with its launches, staged copies and collectives counted and
+    its tokens (rank 0 keeps a copy of its first ``flash_attention``
+    inputs)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.mesh import count_collectives, count_staging
+    from repro_torch.models.model import Model
+
+    arch = NCCL_PHI3
+    dims, gb, s, gen = PROCS_SERVE[arch]
+    cfg = procs_serve_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pm = process_mesh(dims, device, meshes)
+    env = steps.make_env(cfg, pm)
+    model = Model(cfg, device=device, seed=SEED, env=env)
+    batch = procs_serve_batch(model, steps.held_rows(env.world(), gb), arch)
+    rows = steps.map_batch(batch, lambda v: steps.rank_rows(env, v, gb))
+    del batch
+    torch.cuda.synchronize()
+    res = {"setup_s": time.perf_counter() - t0,
+           "setup_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "held_gb": torch.cuda.memory_allocated() / 1e9,
+           "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+           "transport": pm.transport, "coords": tuple(pm.coords), "routes": {}, "capture": {}}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = steps.batch_shape(rows)[0]
+    dm = steps.map_batch(rows, lambda v: steps.device_major(env, v, gb))
+    real_fa = ops.flash_attention
+
+    def prefill(impl: str, ctx=contextlib.nullcontext):
+        logs = []
+        pstep = steps.make_prefill_step(model, global_batch=gb, seq=s, impl=impl, mesh=pm)
+        with recording_logits(logs), ctx():
+            cache, tok = pstep(dm, model.init_cache(b, s + 1))
+        return cache, logs[0], tok
+
+    def readings(got, want):
+        (cg, lg, _), (cw, lw, _) = got, want
+        return {"logits": sq_sums(lg, lw),
+                "layers": [{k: sq_sums(g[k], w[k]) for k in w}
+                           for g, w in zip(layer_caches(model, cg), layer_caches(model, cw))]}
+
+    # the flash prefill against the masked one, the model's response to
+    # one-ulp noise, and a kernel without its causal mask (the control)
+    flash, masked = prefill("flash"), prefill("masked")
+    res["prefill"] = readings(flash, masked)
+    res["prefill_noise"] = readings(prefill("flash", rounding_noise), flash)
+    res["prefill_control"] = readings(prefill("flash", lambda: mock.patch.object(
+        ops, "flash_attention", lambda q, k, v, causal=True: real_fa(q, k, v, causal=False))),
+        masked)
+    del masked
+    res["by_layer"] = layer_readings(model, rows)
+    # one decode step from the flash prefill's cache on each route
+    cf, _, tok = flash
+    del flash
+    dec = {}
+    for route in ("gather", "noise", "cad"):
+        logs = []
+        sstep = steps.make_serve_step(model, global_batch=gb, seq_max=s + 1, mesh=pm,
+                                      compute_at_data=route == "cad")
+        c = cf if route == "cad" else tree_clone(cf)
+        # rounding_noise patches as it is made: make it where it is entered
+        with (recording_logits(logs),
+              rounding_noise() if route == "noise" else contextlib.nullcontext()):
+            sstep(c, tok, s)
+        dec[route] = logs[0]
+        del c
+    res["decode"] = {"cad_vs_gather": sq_sums(dec["cad"], dec["gather"]),
+                     "noise_vs_gather": sq_sums(dec["noise"], dec["gather"])}
+    del cf, dec
+    res["consistency"] = cache_consistency(model, rows, "flash")
+
+    def fa(q, k, v, causal=True):
+        if "flash" not in res["capture"]:
+            res["capture"]["flash"] = tuple(t.clone() for t in (q, k, v)) + (causal,)
+        return real_fa(q, k, v, causal=causal)
+
+    for route in ("gather", "cad"):
+        torch.cuda.synchronize()
+        dist.barrier()
+        ops.reset_launches()
+        with (count_staging() as staged, count_collectives() as coll,
+              mock.patch.object(ops, "flash_attention", fa) if pm.rank == 0 and route == "gather"
+              else contextlib.nullcontext()):
+            out = serve.generate(model, rows, gen, impl="flash", mesh=pm, global_batch=gb,
+                                 compute_at_data=route == "cad")
+        torch.cuda.synchronize()
+        toks = out["tokens"]
+        res["routes"][route] = {
+            "launches": dict(ops.LAUNCHES), "prefill_s": out["prefill_s"],
+            "decode_s": out["decode_s"], "staged": dict(staged), "collectives": dict(coll),
+            "tokens": toks.cpu(),
+            "in_vocab": bool(((toks >= 0) & (toks < cfg.vocab)).all())}
+        del out
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["capture"] = {k: tuple(t.cpu() if hasattr(t, "cpu") else t for t in v)
+                      for k, v in res["capture"].items()}
+    res["arch_s"] = time.perf_counter() - t0
+    del model, rows, dm, tok
+    torch.cuda.empty_cache()
+    return res
+
+
+def nccl_phi3_check(recs: list, res: dict) -> dict:
+    """phi3's ranks (``nccl_phi3_rank``) held by its own routes (the
+    constants' comment says why each limit): the flash prefill's logits and
+    its worst layer's cache against the masked prefill's (normwise over the
+    ranks) within the larger of ``SERVE_TOL`` scaled by ``PHI3_DEPTH`` and
+    ``SENSITIVITY_FACTOR`` x the model's response to one-ulp noise, the
+    caches' limit one that the non-causal control must exceed (as phase 5's
+    control); every flash layer within
+    ``ATTN_TOL`` of the masked attention on its own input; the
+    compute-at-data decode step's logits against the gather step's within
+    the larger of ``CAD_TOL`` scaled so and ``SENSITIVITY_FACTOR`` x the
+    decode's response to that noise; ``cache_consistency`` within
+    ``CONSIST_TOL`` on every rank (its empty-cache control beyond it); every
+    rank's launches ``PROCS_SERVE_LAUNCHES``'s, tokens in the vocab.
+    Adds the ranks' launches to ``res``; returns the readings, with a rank's
+    peak beside the whole model's reckoned bytes."""
+    import torch
+
+    from repro_torch.models.model import Model
+
+    def rel(parts):
+        num, den = map(sum, zip(*parts))
+        return (num / den) ** 0.5
+
+    def layers(key):  # each layer's worst leaf, normwise over the ranks
+        n = len(recs[0][key]["layers"])
+        return [max(rel([r[key]["layers"][i][k] for r in recs]) for k in recs[0][key]["layers"][i])
+                for i in range(n)]
+
+    dims, gb, s, gen = PROCS_SERVE[NCCL_PHI3]
+    cfg = procs_serve_config(NCCL_PHI3)
+    kv = {key: layers(key) for key in ("prefill", "prefill_noise", "prefill_control")}
+    lg = {key: rel([r[key]["logits"] for r in recs])
+          for key in ("prefill", "prefill_noise", "prefill_control")}
+    dec = {key: rel([r["decode"][key] for r in recs]) for key in ("cad_vs_gather", "noise_vs_gather")}
+    whole = Model(cfg, device="meta", seed=SEED)
+    whole_bytes = sum(p.numel() * p.element_size() for p in whole.parameters())
+    st = {"ranks": len(recs), "layers": cfg.n_layers,
+          "transport": sorted({r["transport"] for r in recs}),
+          "prefill_logits_rel": lg["prefill"], "prefill_kv_worst": max(kv["prefill"]),
+          "prefill_kv_worst_layer": kv["prefill"].index(max(kv["prefill"])),
+          "prefill_kv_layer0": kv["prefill"][0],
+          "sensitivity_logits": lg["prefill_noise"], "sensitivity_kv": max(kv["prefill_noise"]),
+          "control_logits": lg["prefill_control"], "control_kv": max(kv["prefill_control"]),
+          "prefill_logits_tol": max(SERVE_TOL * PHI3_DEPTH,
+                                    SENSITIVITY_FACTOR * lg["prefill_noise"]),
+          "prefill_kv_tol": max(SERVE_TOL * PHI3_DEPTH,
+                                SENSITIVITY_FACTOR * max(kv["prefill_noise"])),
+          "attention_by_layer_worst": max(r["by_layer"]["attention_worst"] for r in recs),
+          "attention_layers": min(r["by_layer"]["attention_layers"] for r in recs),
+          "cad_vs_gather_logits": dec["cad_vs_gather"],
+          "decode_sensitivity": dec["noise_vs_gather"],
+          "cad_tol": max(CAD_TOL * PHI3_DEPTH, SENSITIVITY_FACTOR * dec["noise_vs_gather"]),
+          "consistency_worst": max(r["consistency"]["decode_vs_prefill"] for r in recs),
+          "consistency_control_least": min(r["consistency"]["control"] for r in recs),
+          "finite": all(r["consistency"]["finite"] for r in recs),
+          "setup_s": max(r["setup_s"] for r in recs), "rank_s": max(r["arch_s"] for r in recs),
+          "setup_peak_gb_per_rank": max(r["setup_peak_gb"] for r in recs),
+          "held_gb_per_rank": max(r["held_gb"] for r in recs),
+          "param_gb_per_rank": max(r["param_bytes"] for r in recs) / 1e9,
+          "peak_gb_per_rank": max(r["peak_gb"] for r in recs),
+          "whole_param_gb": whole_bytes / 1e9,
+          "whole_with_bf16_gb": whole_bytes * 1.5 / 1e9, "routes": {}, "flash_launches": 0}
+    del whole
+    want_fa, want_sr = PROCS_SERVE_LAUNCHES[NCCL_PHI3]
+    for route in ("gather", "cad"):
+        rr = [r["routes"][route] for r in recs]
+        for i, x in enumerate(rr):
+            got = x["launches"]
+            if (got["flash_attention"], got["segment_reduce"]) != (want_fa, want_sr) or (
+                    got["hash_partition"] or got["ring_fused_step"]):
+                raise AssertionError(f"nccl {NCCL_PHI3} ({route}): rank {i} made {got} launches")
+            for k, v in got.items():
+                res["launches"][k] += v
+            st["flash_launches"] += got["flash_attention"]
+        toks = torch.stack([x["tokens"] for x in rr])
+        st["routes"][route] = {
+            "prefill_s": max(x["prefill_s"] for x in rr),
+            "decode_ms_per_step": max(x["decode_s"] for x in rr) / max(1, gen - 1) * 1e3,
+            "tokens_shape": list(toks.shape), "in_vocab": all(x["in_vocab"] for x in rr),
+            "staged_bytes": sum(x["staged"]["bytes"] for x in rr),
+            "collectives_rank0": rr[0]["collectives"],
+            "launches_per_rank": {k: v for k, v in rr[0]["launches"].items() if v}}
+    st["staged_bytes"] = sum(r["staged_bytes"] for r in st["routes"].values())
+    bad = (st["prefill_logits_rel"] > st["prefill_logits_tol"]
+           or st["prefill_kv_worst"] > st["prefill_kv_tol"]
+           or st["control_kv"] <= st["prefill_kv_tol"]
+           or st["attention_by_layer_worst"] > ATTN_TOL or st["attention_layers"] != cfg.n_layers
+           or st["cad_vs_gather_logits"] > st["cad_tol"]
+           or st["consistency_worst"] > CONSIST_TOL
+           or st["consistency_control_least"] <= CONSIST_TOL or not st["finite"]
+           or not all(r["in_vocab"] for r in st["routes"].values()))
+    if bad:
+        raise AssertionError(f"nccl {NCCL_PHI3}: its routes disagree: {st}")
+    return st
 
 
 def nccl_first(device) -> dict:
@@ -4661,9 +4993,12 @@ def nccl_rank(tmp: str, full: bool, device) -> dict:
     W = ``NCCL_WORLD`` (``procs_inputs``, ``procs_timed`` with each call's
     collectives counted), the collectives alone (``nccl_collectives``),
     the kernels on this rank's card (``nccl_kernel_checks``); with ``full``
-    then qwen1.5 served (``procs_serve_rank``) and trained
-    (``procs_train_rank``) as ``NCCL_CASE``, held to their world-dim files
-    under ``tmp``."""
+    then every case of ``NCCL_SERVE`` served (``procs_serve_rank``),
+    phi3 served (``nccl_phi3_rank``) and the jobs of
+    ``NCCL_TRAIN_WORLDS["first"]`` trained (``procs_train_rank``), each on
+    the process mesh of its shape (shared: its groups made once), each
+    served case and the training with the collectives it called, held to
+    their world-dim files under ``tmp``."""
     import torch
     import torch.distributed as dist
 
@@ -4688,14 +5023,20 @@ def nccl_rank(tmp: str, full: bool, device) -> dict:
     del words, grads, grads24, capture, meshes
     torch.cuda.empty_cache()
     if full:
+        meshes, res["serve"] = {}, {}
+        for case in NCCL_SERVE:
+            calls = {}
+            with calls_counted(calls):
+                res["serve"][case] = procs_serve_rank(case, tmp, device, meshes)
+            res["serve"][case]["calls"] = calls
         calls = {}
         with calls_counted(calls):
-            res["serve"] = procs_serve_rank(NCCL_CASE, tmp, device)
-        res["serve"]["calls"] = calls
-        calls = {}
-        with calls_counted(calls):
-            res["train"] = procs_train_rank(tmp, NCCL_TRAIN_WORLDS["first"], device)
+            res["train"] = procs_train_rank(tmp, NCCL_TRAIN_WORLDS["first"], device, meshes)
         res["train"]["calls"] = calls
+        calls = {}
+        with calls_counted(calls):
+            res["phi3"] = nccl_phi3_rank(device, meshes)
+        res["phi3"]["calls"] = calls
     return res
 
 
@@ -4771,6 +5112,12 @@ def nccl_world_dataplane() -> tuple[dict, dict]:
             {"paths": recs, "peak_gb": peak})
 
 
+def nccl_unstaged(label: str, transports: list, staged) -> None:
+    """Under nccl every rank's transport is "nccl" and nothing is staged."""
+    if transports != ["nccl"] or staged:
+        raise AssertionError(f"{label}: transports {transports}, {staged} staged")
+
+
 def nccl_hold_world(ranks: list, backend: str, ref: dict, world_dp: dict, launches: dict
                     ) -> dict:
     """One world of 14a/14b (``nccl_rank``): the first collective, the data
@@ -4794,8 +5141,8 @@ def nccl_hold_world(ranks: list, backend: str, ref: dict, world_dp: dict, launch
         p.pop("held")
     staged = sum(p["staged_bytes"] for p in paths.values()) + sum(
         c["staged_bytes"] for r in ranks for c in r["collectives"].values())
-    if backend == "nccl" and (transports != ["nccl"] or staged):
-        raise AssertionError(f"{label}: transports {transports}, {staged} bytes staged")
+    if backend == "nccl":
+        nccl_unstaged(label, transports, staged)
     n = NCCL_WORLD
     coll = {}
     for name in ranks[0]["collectives"]:
@@ -4811,21 +5158,26 @@ def nccl_hold_world(ranks: list, backend: str, ref: dict, world_dp: dict, launch
             "collectives": coll, "kernel_check_s": max(r["kernel_check_s"] for r in ranks)}
 
 
-def nccl_phase(launches: dict, rows: list) -> dict:
+def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
     """Phase 14, the process mesh under nccl with one card per rank: on a
     host with fewer than ``NCCL_WORLD`` cards it says so and returns
-    {"ran": False, "cards": N}. Else the references on world dims on
-    cuda:0 (``nccl_world_dataplane``, ``procs_serve_world`` and
-    ``procs_train_world`` of ``NCCL_CASE``), the kernels on the last card
-    (``nccl_other_card``), then three spawns: ``NCCL_WORLD`` nccl ranks
-    (``nccl_rank`` in full), the same ranks under gloo (the data plane and
-    the collectives, staged), and the restart world ``NCCL_RESTART`` on
-    cards 0-1; each held to its reference. Adds the ranks' launches to
-    ``launches`` and the kernel rows at a rank's shapes to ``rows``
-    (rank 3's data-plane kernels on cuda:3, rank 0's first flash prefill);
-    returns the readings."""
+    {"ran": False, "cards": N}. Else the kernels on the last card
+    (``nccl_other_card``), the references on world dims on cuda:0
+    (``nccl_world_dataplane``, ``procs_serve_world`` of each case of
+    ``NCCL_SERVE`` and ``procs_train_world`` of each job of
+    ``NCCL_TRAIN_WORLDS`` that ``kept`` does not hold: phases 12 and 13's
+    four-rank references, ``keep_refs``; phase 14 alone computes them all),
+    then three spawns: ``NCCL_WORLD`` nccl ranks (``nccl_rank`` in full),
+    the same ranks under gloo (the data plane and the collectives, staged),
+    and the restart world ``NCCL_RESTART`` on cards 0-1; each case held to
+    its reference as phases 11-13 hold theirs, phi3 by its own routes
+    (``nccl_phi3_check``), and under nccl every rank's transport "nccl"
+    with nothing staged. Adds the ranks' launches to ``launches`` and the
+    kernel rows at a rank's shapes to ``rows`` (rank 3's data-plane kernels
+    on cuda:3; on cuda:0 rank 0's first flash prefill of each of
+    ``NCCL_FLASH``'s cases, its first a2a combine and recurrentgemma's
+    first rep-ring hop); returns the readings."""
     import functools
-    import tempfile
 
     import torch
 
@@ -4843,25 +5195,35 @@ def nccl_phase(launches: dict, rows: list) -> dict:
         log(f"  {line}")
     _build.build_all()  # built already: the ranks only load
     res["other_card"] = nccl_other_card(NCCL_WORLD - 1)
-    with tempfile.TemporaryDirectory() as tmp:
+    train_jobs = NCCL_TRAIN_WORLDS["first"] + NCCL_TRAIN_WORLDS["restart"]
+    with contextlib.ExitStack() as stack:
+        if kept is None:  # phase 14 alone: every reference of its own
+            kept = {"dir": Path(stack.enter_context(tempfile.TemporaryDirectory())),
+                    "serve": {}, "train": {}}
+        tmp = kept["dir"]
         stage("phase 14 world dims")
         t = time.perf_counter()
         ref, world_dp = nccl_world_dataplane()
-        world_serve = procs_serve_world(NCCL_CASE, Path(tmp))
-        world_train = procs_train_world(Path(tmp), NCCL_TRAIN_WORLDS)[NCCL_CASE]
+        world_serve = dict(kept["serve"])
+        for case in NCCL_SERVE:
+            if case not in world_serve:
+                world_serve[case] = procs_serve_world(case, tmp)
+        world_train = {**kept["train"], **procs_train_world(
+            tmp, {"phase 14": tuple(j for j in train_jobs if j[0] not in kept["train"])})}
         res["world_s"] = time.perf_counter() - t
+        res["reused_refs"] = sorted(set(kept["serve"]) | set(kept["train"]))
         torch.cuda.synchronize()
         torch.cuda.empty_cache()  # rank 0 shares cuda:0 with this process
         spawns = {}
         for name, backend, world, fn in (
-                ("nccl", "nccl", NCCL_WORLD, functools.partial(nccl_rank, tmp, True)),
-                ("gloo", "gloo", NCCL_WORLD, functools.partial(nccl_rank, tmp, False)),
+                ("nccl", "nccl", NCCL_WORLD, functools.partial(nccl_rank, str(tmp), True)),
+                ("gloo", "gloo", NCCL_WORLD, functools.partial(nccl_rank, str(tmp), False)),
                 ("restart", "nccl", math.prod(NCCL_RESTART),
-                 functools.partial(procs_train_rank, tmp, NCCL_TRAIN_WORLDS["restart"]))):
+                 functools.partial(procs_train_rank, str(tmp), NCCL_TRAIN_WORLDS["restart"]))):
             stage(f"phase 14 {name} world")
             t = time.perf_counter()
             spawns[name] = procs.spawn(fn, world, backend=backend,
-                                       store_path=Path(tmp) / f"store_{name}",
+                                       store_path=tmp / f"store_{name}",
                                        timeout_s=NCCL_TIMEOUT_S)
             res[f"{name}_spawn_s"] = time.perf_counter() - t
     ranks = spawns["nccl"]
@@ -4879,47 +5241,66 @@ def nccl_phase(launches: dict, rows: list) -> dict:
             log(f"collective {name} ({b}), {NCCL_COLL_BYTES >> 20} MiB a rank: {c['ms']:.3f} ms, "
                 f"{c['algbw_gb_s']:.2f} GB/s algorithm, {c['busbw_gb_s']:.2f} GB/s bus "
                 f"(x {c['bus_factor']:.3f})")
-    # 14c: serving, held as phase 12 holds it
-    serve = [r["serve"] for r in ranks]
-    st = procs_serve_check(NCCL_CASE, world_serve, serve, res)
-    st["transport"] = sorted({r["transport"] for r in serve})
-    st["staged_bytes"] = sum(sum(x["staged"]["bytes"] for x in r["routes"].values())
-                             for r in serve)
-    st["collective_calls_rank0"] = ranks[0]["serve"]["calls"]
-    if st["transport"] != ["nccl"] or st["staged_bytes"]:
-        raise AssertionError(f"nccl serve: transports {st['transport']}, {st['staged_bytes']} "
-                             "bytes staged")
-    res["serve"] = st
-    log(f"process mesh under nccl, serve {case_arch(NCCL_CASE)} on "
-        f"{PROCS_SERVE[NCCL_CASE][0]}: {json.dumps(st)}")
-    # 14d: training and the restart, held as phase 13 holds them
+    # 14c: serving every block kind, held as phase 12 holds it; phi3 by its routes
+    res["serve"] = {}
+    for case in NCCL_SERVE:
+        serve = [r["serve"][case] for r in ranks]
+        st = procs_serve_check(case, world_serve[case], serve, res)
+        st["staged_bytes"] = sum(sum(x["staged"]["bytes"] for x in r["routes"].values())
+                                 for r in serve)
+        st["collective_calls_rank0"] = serve[0]["calls"]
+        nccl_unstaged(f"nccl serve {case}", st["transport"], st["staged_bytes"])
+        res["serve"][case] = st
+        log(f"process mesh under nccl, serve {case_arch(case)} on {PROCS_SERVE[case][0]}: "
+            f"{json.dumps(st)}")
+    phi3 = [r["phi3"] for r in ranks]
+    st = nccl_phi3_check(phi3, res)
+    st["collective_calls_rank0"] = phi3[0]["calls"]
+    nccl_unstaged(f"nccl serve {NCCL_PHI3}", st["transport"], st["staged_bytes"])
+    res["phi3"] = st
+    log(f"process mesh under nccl, serve {NCCL_PHI3} on {PROCS_SERVE[NCCL_PHI3][0]} (its own "
+        f"routes; a rank's peak beside the whole model's reckoned bytes): {json.dumps(st)}")
+    # 14d: training every block kind, 8-bit moments and the restart, held as phase 13 holds them
     res["train"] = {}
-    for key, recs_of, want in (
-            ("train", [r["train"] for r in ranks], world_train["steps"]),
-            ("restart", spawns["restart"], world_train["restart"])):
-        recs = [r["archs"][f"{NCCL_CASE}/{key}"] for r in recs_of]
-        tr = procs_train_check(NCCL_CASE, key, recs, want, res["launches"])
+    for arch, what in train_jobs:
+        recs_of = spawns["restart"] if what == "restart" else [r["train"] for r in ranks]
+        recs = [r["archs"][f"{arch}/{what}"] for r in recs_of]
+        tr = procs_train_check(arch, what, recs, world_train[arch]["steps" if what == "train"
+                                                                   else what], res["launches"])
         tr["transport"] = sorted({r["transport"] for r in recs_of})
         tr["staged_gb"] = sum(s["staged_gb"] for s in tr["steps"])
-        tr["world_peak_gb"] = world_train["peak_gb"]
-        if tr["transport"] != ["nccl"] or tr["staged_gb"]:
-            raise AssertionError(f"nccl {key}: transports {tr['transport']}, {tr['staged_gb']} GB "
-                                 "staged")
-        if "ckpt" in recs_of[0]:
+        tr["world_peak_gb"] = world_train[arch].get(f"{what}_peak_gb",
+                                                    world_train[arch].get("peak_gb"))
+        nccl_unstaged(f"nccl {arch} ({what})", tr["transport"], tr["staged_gb"])
+        if "ckpt" in recs_of[0] and case_arch(arch) == TRAIN_ARCH and what == "train":
             tr["ckpt_rank0"] = recs_of[0]["ckpt"]
-        res["train"][key] = tr
-        log(f"process mesh under nccl, {key} {case_arch(NCCL_CASE)} on "
-            f"{tr['mesh']}: {json.dumps(tr)}")
-    res["train"]["train"]["collective_calls_rank0"] = ranks[0]["train"]["calls"]
-    # the kernel rows: rank 3's data-plane kernels on cuda:3, rank 0's flash
+        res["train"][f"{arch}/{what}"] = tr
+        log(f"process mesh under nccl, {what} {case_arch(arch)} on {tr['mesh']}: {json.dumps(tr)}")
+    res["train_collective_calls_rank0"] = ranks[0]["train"]["calls"]
+    # the kernel rows: rank 3's data-plane kernels on cuda:3; rank 0's on cuda:0
     for row in ranks[-1]["rows"]:
         row["launches"] = res["launches"][row["name"]]
         row["card"] = ranks[-1]["device"]
         rows.append(row)
-    cap = ranks[0]["serve"]["capture"]["flash"] + (f"serve_{NCCL_CASE}",)
-    rows.append(procs_flash_row(cap, res["launches"]["flash_attention"],
-                                "rank 0's heads and rows of the prefill at (2, 2), on cuda:0"))
-    rows[-1]["path"] = "nccl_serve_qwen1.5"
+    for case, what in NCCL_FLASH.items():
+        rec = ranks[0]["phi3"] if case == NCCL_PHI3 else ranks[0]["serve"][case]
+        if case == NCCL_CASE:
+            n_fa = res["launches"]["flash_attention"]
+        else:
+            n_fa = (res["phi3"] if case == NCCL_PHI3 else res["serve"][case])["flash_launches"]
+        rows.append(procs_flash_row(rec["capture"]["flash"] + (f"serve_{case}",), n_fa,
+                                    what + ", on cuda:0"))
+        rows[-1]["path"] = f"nccl_serve_{case_arch(case)}"
+    rows.append(combine_row(ranks[0]["serve"][NCCL_MOE]["capture"]["combine"],
+                            res["launches"]["segment_reduce"], f"nccl_serve_{case_arch(NCCL_MOE)}",
+                            "rank 0's a2a combine at (1, 4), on cuda:0"))
+    layout, _ = ranks[0]["train"]["capture"]["hop recurrentgemma-2b"]
+    acc, wire = seeded_hop(layout, torch.Generator(device="cuda").manual_seed(SEED))
+    rows.append(ring_row(acc, wire, "nccl_train_recurrentgemma-2b",
+                         f"acc {tuple(acc.shape)} fp32 + wire bf16: rank 0's first rep-ring hop "
+                         "of recurrentgemma at (1, 4), acc as the ring hands it, on cuda:0",
+                         res["launches"]["ring_fused_step"]))
+    del acc, wire
     for k, v in res["launches"].items():
         launches[k] += v
     res["wall_s"] = time.perf_counter() - t0
@@ -5503,9 +5884,12 @@ def main() -> int:
 
     # 12. serving on a process mesh: one process per device, each its shard ---------
     stage("phase 12 serving on a process mesh")
+    # phases 12 and 13's four-rank references, which phase 14 serves and trains again
+    refs = tempfile.TemporaryDirectory()
+    kept = {"dir": Path(refs.name), "serve": {}, "train": {}}
     t = time.perf_counter()
     procs_serve_rows = []  # the kernels at a rank's shapes, with phase 12's launches
-    procs_serving = procs_serve_phase(launches, procs_serve_rows)
+    procs_serving = procs_serve_phase(launches, procs_serve_rows, kept)
     procs_serving["wall_s"] = time.perf_counter() - t
     log(f"serving on a process mesh phase: {procs_serving['wall_s']:.2f} s")
 
@@ -5513,14 +5897,15 @@ def main() -> int:
     stage("phase 13 training on a process mesh")
     t = time.perf_counter()
     procs_train_rows = []  # the kernels at a rank's shapes, with phase 13's launches
-    procs_training = procs_train_phase(launches, procs_train_rows)
+    procs_training = procs_train_phase(launches, procs_train_rows, kept)
     procs_training["wall_s"] = time.perf_counter() - t
     log(f"training on a process mesh phase: {procs_training['wall_s']:.2f} s")
 
     # 14. the process mesh under nccl, one card per rank (four cards or more) ---------
     stage("phase 14 the process mesh under nccl")
     nccl_rows = []  # the kernels at a rank's shapes, with phase 14's launches
-    nccl = nccl_phase(launches, nccl_rows)
+    nccl = nccl_phase(launches, nccl_rows, kept)
+    refs.cleanup()
     if nccl["ran"]:
         log(f"process mesh under nccl phase: {nccl['wall_s']:.2f} s")
     for k, v in launches.items():

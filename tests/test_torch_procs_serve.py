@@ -38,7 +38,10 @@ state by tp rank, the rolling window over kv 1 duplicated over a span of 4;
 also the compute-at-data decode); qwen2-vl at (1, 8) (tp 4, rep 2: patch
 embeddings and their M-RoPE grid, the batch split over rep); seamless at
 (2, 4) (tp 4: the encoder over ``ENC`` frames, the cross cache of each
-rank's kv slots).
+rank's kv slots). phi3-medium-14b at (2, 2) (tp 2, GQA 2 kv heads; also the
+compute-at-data decode), the first configuration of the repo that does not
+fit one card, is held as the dense cases are; its four ranks are a world of
+their own, spawned beside the eight.
 The MoE prefill replays the reference's route on each rank (a router
 near-tie could flip an expert), as ``test_torch_tp_serve`` does. Each rank
 also makes every served arch from the seed under its process mesh's env:
@@ -85,6 +88,7 @@ from repro_torch.models.convert import (cache_to_jax, flatten, params_from_jax, 
 WORLD = 8
 TIMEOUT_S = 240
 JAX_WAIT_S = 200  # how long a rank waits for the reference's outputs
+WORLDS = (WORLD, 4)  # the ranks' worlds: every case runs on the one of its mesh's size
 # the CLI on the 8 ranks' (2, 4) mesh: qwen1.5, and seamless with an encoder of its own length
 CLI = ["--arch", "qwen1.5-0.5b", "--smoke", "--mesh", "2,4", "--batch", "8", "--prompt-len", "16",
        "--gen", "3", "--device", "cpu"]
@@ -103,10 +107,11 @@ CASES = {  # tag: (arch, mesh)
     "rg24": ("recurrentgemma-2b", (2, 4)),
     "qwen2vl18": ("qwen2-vl-7b", (1, 8)),
     "seamless24": ("seamless-m4t-large-v2", (2, 4)),
+    "phi3_22": ("phi3-medium-14b", (2, 2)),  # on a world of 4 ranks of its own
 }
 # the other block kinds: references from test_torch_tp_serve_kinds.jax_case, dict inputs
 KINDS = ("minicpm18", "rg24", "qwen2vl18", "seamless24")
-CAD = ("qwen24", "granite24", "rg24")  # the compute-at-data decode: meshes with an fsdp world
+CAD = ("qwen24", "granite24", "rg24", "phi3_22")  # the compute-at-data decode: an fsdp world
 # every served arch, at one case's mesh: made from the seed on the ranks
 SEEDED = {CASES[t][0]: t for t in ("qwen24", "granite24", "mamba42") + KINDS}
 CF = {"granite18cf1": 1.0}  # a case's MoE capacity factor where not its config's
@@ -294,7 +299,8 @@ def jax_side(tags) -> dict:
 
 # the reference's cases in parts that run side by side (their compiles take
 # most of the time)
-JAX_PARTS = (("qwen24", "qwen18", "minicpm18", "qwen2vl18"), ("mamba42", "granite24", "rg24"),
+JAX_PARTS = (("qwen24", "qwen18", "minicpm18", "qwen2vl18"),
+             ("mamba42", "granite24", "rg24", "phi3_22"),
              ("granite18", "granite18cf1", "seamless24"))
 JAX_XLA = "--xla_backend_optimization_level=0"
 JAX_SCRIPT = r"""
@@ -326,10 +332,10 @@ def spawned(multidevice, tmp_path_factory):
         with np.load(part) as f:
             return dict(f)
 
-    with ThreadPoolExecutor(len(JAX_PARTS) + 1) as pool:
-        ranks = pool.submit(procs.spawn, functools.partial(_rank, str(path)), WORLD,
-                            backend="gloo", device="cpu", store_path=tmp / "store",
-                            timeout_s=TIMEOUT_S)
+    with ThreadPoolExecutor(len(JAX_PARTS) + len(WORLDS)) as pool:
+        worlds = [pool.submit(procs.spawn, functools.partial(_rank, str(path)), n,
+                              backend="gloo", device="cpu", store_path=tmp / f"store{n}",
+                              timeout_s=TIMEOUT_S) for n in WORLDS]
         out = {}
         try:
             for part in pool.map(run, range(len(JAX_PARTS))):
@@ -339,7 +345,11 @@ def spawned(multidevice, tmp_path_factory):
         except BaseException:
             (tmp / "out.failed").touch()  # the ranks stop waiting
             raise
-        return out, ranks.result()
+        ranks = worlds[0].result()
+        for other in worlds[1:]:  # a smaller world's ranks beside the first ranks
+            for r, res in enumerate(other.result()):
+                ranks[r].update(res)
+        return out, ranks
 
 
 @pytest.fixture(scope="module")
@@ -482,15 +492,20 @@ def seeded(device) -> dict:
 
 def _rank(path: str, device) -> dict:
     """What needs no reference first (the refusals, the seeded models, the
-    CLI as ``torchrun`` would start it), then every case on this rank, once
-    the reference's npz at ``path`` is written (``spawned``)."""
+    CLI as ``torchrun`` would start it: on the world of ``WORLD`` ranks),
+    then every case of this world's size on this rank, once the reference's
+    npz at ``path`` is written (``spawned``)."""
+    import torch.distributed as dist
+
     torch.set_num_threads(1)
-    res = {"refusals": refusals(device), "seeded": seeded(device)}  # meanwhile: no reference
-    for name, cli in (("cli", CLI), ("cli_enc", CLI_ENC)):
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            res[name] = serve.run(serve.parser().parse_args(cli + ["--backend", "gloo"]))
-        res[f"{name}_out"] = buf.getvalue()
+    res = {}
+    if dist.get_world_size() == WORLD:  # meanwhile: no reference
+        res.update(refusals=refusals(device), seeded=seeded(device))
+        for name, cli in (("cli", CLI), ("cli_enc", CLI_ENC)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                res[name] = serve.run(serve.parser().parse_args(cli + ["--backend", "gloo"]))
+            res[f"{name}_out"] = buf.getvalue()
     failed = os.path.join(os.path.dirname(path), "out.failed")
     deadline = time.monotonic() + JAX_WAIT_S
     while not os.path.exists(path):
@@ -501,6 +516,8 @@ def _rank(path: str, device) -> dict:
         jax_out = dict(f)
     meshes = {}
     for tag, (arch, dims) in CASES.items():
+        if np.prod(dims) != dist.get_world_size():
+            continue
         pm = meshes.setdefault(dims, ProcessMesh(("data", "model"), dims, device=device))
         cfg = case_cfg(tag)
         env = steps.make_env(cfg, pm)
@@ -557,6 +574,11 @@ def replay_world(model, jax_out, tag, env) -> None:
         blk.moe.route = route
 
 
+def case_ranks(ranks, tag) -> list:
+    """The ranks that ran ``tag``: the first ranks, as many as its mesh has devices."""
+    return [r for r in ranks if tag in r]
+
+
 def stacked(ranks, tag, pick, dims) -> np.ndarray:
     """The ranks' blocks (each behind two dims of 1) of one output, device-major."""
     blocks = [pick(r[tag]) for r in ranks]
@@ -599,6 +621,7 @@ def test_prefill_on_processes_matches_reference(ranks, world, jax_out, tag):
     position's logits, stacked device-major, as the reference's and as the
     world-dim port's; the prefill step's tokens."""
     dims = CASES[tag][1]
+    ranks = case_ranks(ranks, tag)
     got = stacked_tree(ranks, tag, lambda r: r["prefill"], dims)
     if tag in KINDS:
         TK.close_cache(got, jax_out, f"{tag}/prefill/")
@@ -628,6 +651,7 @@ def test_decode_on_processes_matches_reference(ranks, world, jax_out, route, tag
     rank (``cad``: the compute-at-data route): each step's tokens as the
     reference's and the world-dim port's, and the final cache blocks."""
     dims = CASES[tag][1]
+    ranks = case_ranks(ranks, tag)
     md = dims[1] if world_env(tag).batch_split_rep(B) else 1
     for i in range(GEN):
         got = np.stack([r[tag][route]["toks"][i] for r in ranks]).reshape(dims + (-1,))
@@ -655,7 +679,7 @@ def test_collectives_are_process_group_calls(ranks, world, route, tag):
     compute-at-data all-to-alls and reduce-scatters, the MoE's
     all-to-alls and all-gather all ran as process-group calls."""
     want = world[tag][route]["counts"]
-    got = {k: sum(r[tag][route]["counts"][k] for r in ranks) for k in want}
+    got = {k: sum(r[tag][route]["counts"][k] for r in case_ranks(ranks, tag)) for k in want}
     assert got == want
     assert want["all-gather"] > 0 and want["all-reduce"] > 0
     if tag.startswith("granite"):
@@ -674,7 +698,7 @@ def test_rank_holds_its_device_shard(ranks, jax_out, tag):
     local = ref_tree(jax_out, f"{tag}/local/")
     cfg, env = case_cfg(tag), world_env(tag)
     per_device = sum(int(np.prod(s)) * 4 for s in local.values())  # fp32 storage
-    for r in ranks:
+    for r in case_ranks(ranks, tag):
         assert r[tag]["shapes"] == {k: tuple(int(x) for x in v) for k, v in local.items()}
         assert r[tag]["bytes"] == per_device
     tree = tree_of(jax_out, tag)

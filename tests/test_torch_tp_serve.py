@@ -243,7 +243,8 @@ def jax_serve_mesh(tag: str) -> dict:
         # unrolled, without remat: the same layers, with each router's output in reach
         x, _, _ = JM.backbone(p, x, dataclasses.replace(cfg, remat=False), env, ctx)
         x = JM._ln(p["final_norm"], x, cfg, env)
-        lg = sharded_logits(x[:, -1], p["embed"], env).astype(jnp.float32)
+        head = p["embed"] if cfg.tie_embeddings else p["head"]  # JM.prefill's table
+        lg = sharded_logits(x[:, -1], head, env).astype(jnp.float32)
         rt = [jnp.stack([r[i] for r in routes]) for i in (0, 1)] if routes else []
         return jsteps._expand((lg, *rt), 2)
 
