@@ -297,11 +297,15 @@
    reference (phases 12 and 13's four-rank ones reused), then
    phi3-medium-14b at (2, 2) at full depth, which does not fit one card,
    held by its own routes (``nccl_phi3_rank``); every rank's transport
-   "nccl" and nothing staged. The same four ranks under gloo, staged
-   through host memory (the data plane and the collectives). Then two
-   nccl ranks on cards 0-1 (1, 2) restore the checkpoint and take a step.
-   Prints each path's slowest-rank wall beside the world-dim one under
-   both backends, the collectives' ms and algorithm and bus GB/s, the
+   "nccl" and nothing staged; last the elastic restart inside that world:
+   ranks 2 and 3 leave, ranks 0 and 1 form (1, 2) over a group of their
+   own (``launch.procs.shrink_process_mesh``), rebuild qwen1.5, restore its
+   checkpoint (bitwise, gathered back) and take a step, held as the
+   training is, the time from the failure to the end of that step printed
+   by its parts. The same four ranks under gloo, staged through host
+   memory (the data plane and the collectives). Prints each path's
+   slowest-rank wall beside the world-dim one under both backends, the
+   collectives' ms and algorithm and bus GB/s, the
    cards and their topology, phi3's peak a rank beside the whole model's
    bytes; the kernels line gets rank 3's data-plane kernels (timed on
    cuda:3) and, on cuda:0, rank 0's flash prefill of qwen1.5, qwen2-vl,
@@ -754,8 +758,9 @@ PROCS_UPDATE_TOL = 0.15
 # tables: 8 x 4,096 prompts, 8 tokens, both routes, flash prefill; S3, 8 x
 # PROCS_TRAIN_SEQ rows, 2 steps, the checkpoint gathered to rank 0 and
 # written); the same 4 ranks then under gloo, staged through pinned host
-# memory (the data plane and the collectives); last a world of 2 on cards
-# 0-1, NCCL_RESTART, which restores the checkpoint and takes a step
+# memory (the data plane and the collectives). The nccl world ends in the
+# elastic restart inside it: ranks 0-1 go on on NCCL_RESTART over a group of
+# their own, restore the checkpoint and take a step; ranks 2-3 leave
 NCCL_WORLD = 4
 NCCL_TIMEOUT_S = 300
 NCCL_FIRST = ((0, 1),)  # rank 1 receives rank 0's block; ranks 2, 3 take no part
@@ -769,6 +774,11 @@ NCCL_BUS = {"all_reduce": lambda n: 2 * (n - 1) / n, "all_gather": lambda n: (n 
             "ppermute": lambda n: 1.0}
 NCCL_CASE = "qwen1.5-0.5b@nccl"
 NCCL_RESTART = (1, 2)
+# the restart's relaunch form, a new world of NCCL_RESTART spawned on cards
+# 0-1 that restores the checkpoint and takes the step, as this script ran it
+# before the restart went inside the world: the spawn and the step's wall on
+# four NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §5)
+RELAUNCH_FORM_S = {"spawn_s": 34.7, "step_s": 12.394}
 PROCS_SERVE[NCCL_CASE] = ((2, 2), 8, 4096, 8)
 PROCS_SERVE_LAUNCHES[NCCL_CASE] = (24, 0)  # full depth
 PROCS_SERVE_CAD += (NCCL_CASE,)
@@ -4301,14 +4311,20 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
     dims = procs_train_dims(arch, what)
     n = PROCS_TRAIN[arch][2] if what == "train" else 1
     model, step, pipe = procs_train_build(arch, pm, what)
-    rec = {"mesh": list(dims), "tp": step.env.tp, "ring_hops": step.ring_hops(), "steps": []}
+    torch.cuda.synchronize()
+    rec = {"mesh": list(dims), "tp": step.env.tp, "ring_hops": step.ring_hops(), "steps": [],
+           "build_s": time.perf_counter() - t0}
     k0 = 0
     store = CheckpointStore(str(tmp / "procs"))
     p0 = {k: p.detach().clone() for k, p in step.params.items()}  # the seeded weights
     if what == "restart":
         t = time.perf_counter()
         state, k0 = train.restore(step, store)
+        torch.cuda.synchronize()
         rec["restore_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        rec["restore_bitwise"] = procs_restored_bitwise(step, state, store, k0)
+        rec["restore_check_s"] = time.perf_counter() - t
     else:
         state = step.init_state()
     want = torch.load(tmp / f"{arch}{'' if what == 'train' else '.' + what}.{pm.rank}.pt")
@@ -4338,7 +4354,7 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
     for i, k in enumerate(range(k0, k0 + n)):
         batch = pipe.batch_at(k)
         torch.cuda.synchronize()
-        dist.barrier()
+        dist.barrier(group=pm.group)
         ops.reset_launches()
         phases = {}
         fetch, real_fetch = {}, step.fetch
@@ -4390,7 +4406,7 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
         store8 = CheckpointStore(str(tmp / "procs8"))
         t = time.perf_counter()
         train.save(store8, k0 + n, step, state, blocking=True)  # rank 0 writes
-        dist.barrier()
+        dist.barrier(group=pm.group)
         rec["ckpt8_save_s"] = time.perf_counter() - t
         kept = {k: p.detach().clone() for k, p in step.params.items()}
         with torch.no_grad():
@@ -4420,6 +4436,24 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
     del model, step, state, pipe, want, p0
     torch.cuda.empty_cache()
     return rec
+
+
+def procs_restored_bitwise(step, state, store, k: int) -> bool | None:
+    """A restored process step's parameters and moments gathered back into
+    whole leaves on rank 0 (``train.checkpoint_tree``, every rank calls it)
+    against checkpoint ``k``'s leaves as the store reads them: bitwise on
+    rank 0, None on the others."""
+    from repro_torch.launch import train
+
+    tree = train.checkpoint_tree(step, state)
+    if tree is None:
+        return None
+    flat, _ = store.restore(step=k, device="cpu")
+    count, m, v = tree["opt"]
+    got = {**{f"params/{p}": t for p, t in tree["params"].items()},
+           **{f"opt/1/{p}": t for p, t in m.items()}, **{f"opt/2/{p}": t for p, t in v.items()}}
+    return (int(flat["opt/0"]) == int(count) and set(got) == set(flat) - {"opt/0"}
+            and all(equal(t.cpu(), flat[p]) for p, t in got.items()))
 
 
 def procs_eightbit_readings(step, state, want: dict, pm) -> dict:
@@ -4610,9 +4644,14 @@ def procs_train_check(arch: str, what: str, recs: list, want: list, launches: di
     out.update({"param_max_abs": worst, "param_atol": r0["param_atol"], "update_rel": update,
                 "peak_gb_per_rank": max(r["peak_gb"] for r in recs),
                 "setup_s": max(r["setup_s"] for r in recs)})
-    for key in ("restore_s", "ckpt_gather_s", "ckpt8_save_s"):
+    for key in ("build_s", "restore_s", "restore_check_s", "ckpt_gather_s", "ckpt8_save_s"):
         if key in r0:
             out[key] = max(r[key] for r in recs)
+    if "restore_bitwise" in r0:  # rank 0 gathered the restored shards back
+        out["restore_bitwise"] = r0["restore_bitwise"]
+        if r0["restore_bitwise"] is not True:
+            raise AssertionError(f"procs_train {arch} ({what}): the restored parameters and "
+                                 "moments, gathered back, are not the checkpoint's bitwise")
     if what == "8bit":
         out["moments"] = procs_eightbit_check(arch, recs)
     if worst > r0["param_atol"] or update > PROCS_UPDATE_TOL:
@@ -5003,6 +5042,7 @@ def nccl_rank(tmp: str, full: bool, device) -> dict:
     import torch.distributed as dist
 
     torch.set_num_threads(4)  # the ranks share the host's cores
+    t0 = time.perf_counter()
     backend = dist.get_backend()
     res = {"first": nccl_first(device), "device": str(device)}
     t = time.perf_counter()
@@ -5037,6 +5077,50 @@ def nccl_rank(tmp: str, full: bool, device) -> dict:
         with calls_counted(calls):
             res["phi3"] = nccl_phi3_rank(device, meshes)
         res["phi3"]["calls"] = calls
+        calls = {}
+        with calls_counted(calls):
+            res["restart"] = nccl_restart_rank(tmp, device, meshes)
+        res["restart"]["calls"] = calls
+    res["rank_s"] = time.perf_counter() - t0  # the spawn's wall less this: start and teardown
+    return res
+
+
+def nccl_restart_rank(tmp: str, device, meshes: dict) -> dict:
+    """Phase 14's elastic restart inside the world, at its end: the failure
+    (a barrier of the world, qwen1.5's checkpoint on disk since its
+    training), then ``launch.procs.shrink_process_mesh`` from the (2, 2)
+    world mesh to ``NCCL_RESTART``: ranks 0-1 form it over a group of their
+    own, made by them alone, and ranks 2-3 leave. The survivors rebuild
+    qwen1.5 on it, restore the checkpoint and take a step
+    (``procs_train_arch``'s "restart": the restore held bitwise, the step
+    to the world-dim run's, each S3 hop to ``ring_fused_step``'s plain
+    version), then release their groups; no call of theirs reaches the
+    default group after the shrink. Returns the time of the group's
+    formation, and on a survivor its record under ``archs`` as
+    ``procs_train_rank`` returns it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import procs
+    from repro_torch.runtime.fault_tolerance import elastic_mesh_plan
+
+    world = process_mesh(PROCS_TRAIN[NCCL_CASE][0], device, meshes)
+    torch.cuda.synchronize()
+    dist.barrier()  # the failure: every rank here, the checkpoint written
+    t = time.perf_counter()
+    pm = procs.shrink_process_mesh(world, elastic_mesh_plan(math.prod(NCCL_RESTART),
+                                                            model_size=world.shape[-1]))
+    torch.cuda.synchronize()
+    res = {"group_s": time.perf_counter() - t, "left": pm is None}
+    if pm is None:
+        return res
+    if pm.shape != NCCL_RESTART:
+        raise AssertionError(f"phase 14's restart: the survivors' mesh is {pm.shape}, "
+                             f"not {NCCL_RESTART}")
+    res["archs"] = {f"{NCCL_CASE}/restart": procs_train_arch(
+        NCCL_CASE, "restart", pm, Path(tmp), {}, [])}
+    res["transport"], res["ranks"] = pm.transport, pm.ranks
+    procs.release_process_mesh(pm)
     return res
 
 
@@ -5158,6 +5242,33 @@ def nccl_hold_world(ranks: list, backend: str, ref: dict, world_dp: dict, launch
             "collectives": coll, "kernel_check_s": max(r["kernel_check_s"] for r in ranks)}
 
 
+def nccl_restart_check(recs: list, trained: dict) -> dict:
+    """The restart inside the nccl world (``nccl_restart_rank``, the
+    survivors' records; its step held with the training in ``trained``):
+    the time from the failure to the end of the first restarted step on the
+    slowest survivor, split into the group's formation, the rebuild, the
+    restore and the step, printed beside the relaunch form's
+    (``RELAUNCH_FORM_S``). The survivors' groups are their own: their
+    global ranks are the mesh's first positions."""
+    tr = trained[f"{NCCL_CASE}/restart"]
+    if any(r["ranks"] != list(range(len(recs))) for r in recs):
+        raise AssertionError(f"phase 14's restart: the survivors' groups span "
+                             f"{[r['ranks'] for r in recs]}")
+    parts = {"group_s": max(r["group_s"] for r in recs), "rebuild_s": tr["build_s"],
+             "restore_s": tr["restore_s"], "step_s": tr["steps"][0]["wall_s"]}
+    st = {"mesh": tr["mesh"], "transport": sorted({r["transport"] for r in recs}),
+          "failure_to_first_step_s": sum(parts.values()), **parts,
+          "restore_check_s": tr["restore_check_s"], "restore_bitwise": tr["restore_bitwise"],
+          "relaunch_form_s": RELAUNCH_FORM_S, "collective_calls_rank0": recs[0]["calls"]}
+    log(f"restart inside the nccl world, (2, 2) -> {NCCL_RESTART} on cards 0-1: "
+        f"{st['failure_to_first_step_s']:.3f} s from the failure to the end of the first "
+        f"restarted step (group {parts['group_s']:.3f} s, rebuild {parts['rebuild_s']:.3f} s, "
+        f"restore {parts['restore_s']:.3f} s, step {parts['step_s']:.3f} s); the relaunch "
+        f"form: a new world's spawn {RELAUNCH_FORM_S['spawn_s']} s plus its first step "
+        f"{RELAUNCH_FORM_S['step_s']} s")
+    return st
+
+
 def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
     """Phase 14, the process mesh under nccl with one card per rank: on a
     host with fewer than ``NCCL_WORLD`` cards it says so and returns
@@ -5167,12 +5278,13 @@ def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
     ``NCCL_SERVE`` and ``procs_train_world`` of each job of
     ``NCCL_TRAIN_WORLDS`` that ``kept`` does not hold: phases 12 and 13's
     four-rank references, ``keep_refs``; phase 14 alone computes them all),
-    then three spawns: ``NCCL_WORLD`` nccl ranks (``nccl_rank`` in full),
-    the same ranks under gloo (the data plane and the collectives, staged),
-    and the restart world ``NCCL_RESTART`` on cards 0-1; each case held to
-    its reference as phases 11-13 hold theirs, phi3 by its own routes
-    (``nccl_phi3_check``), and under nccl every rank's transport "nccl"
-    with nothing staged. Adds the ranks' launches to ``launches`` and the
+    then two spawns: ``NCCL_WORLD`` nccl ranks (``nccl_rank`` in full,
+    ending in the elastic restart inside that world, ``nccl_restart_rank``:
+    ranks 0-1 go on on ``NCCL_RESTART`` over a group of their own) and the
+    same ranks under gloo (the data plane and the collectives, staged);
+    each case held to its reference as phases 11-13 hold theirs, phi3 by
+    its own routes (``nccl_phi3_check``), and under nccl every rank's
+    transport "nccl" with nothing staged. Adds the ranks' launches to ``launches`` and the
     kernel rows at a rank's shapes to ``rows`` (rank 3's data-plane kernels
     on cuda:3; on cuda:0 rank 0's first flash prefill of each of
     ``NCCL_FLASH``'s cases, its first a2a combine and recurrentgemma's
@@ -5217,15 +5329,16 @@ def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
         spawns = {}
         for name, backend, world, fn in (
                 ("nccl", "nccl", NCCL_WORLD, functools.partial(nccl_rank, str(tmp), True)),
-                ("gloo", "gloo", NCCL_WORLD, functools.partial(nccl_rank, str(tmp), False)),
-                ("restart", "nccl", math.prod(NCCL_RESTART),
-                 functools.partial(procs_train_rank, str(tmp), NCCL_TRAIN_WORLDS["restart"]))):
+                ("gloo", "gloo", NCCL_WORLD, functools.partial(nccl_rank, str(tmp), False))):
             stage(f"phase 14 {name} world")
             t = time.perf_counter()
             spawns[name] = procs.spawn(fn, world, backend=backend,
                                        store_path=tmp / f"store_{name}",
                                        timeout_s=NCCL_TIMEOUT_S)
             res[f"{name}_spawn_s"] = time.perf_counter() - t
+            res[f"{name}_rank_s"] = [r["rank_s"] for r in spawns[name]]
+            log(f"phase 14 {name} world: spawn {res[f'{name}_spawn_s']:.2f} s, each rank's "
+                f"work {[round(x, 2) for x in res[f'{name}_rank_s']]} s")
     ranks = spawns["nccl"]
     if [r["device"] for r in ranks] != [f"cuda:{i}" for i in range(NCCL_WORLD)]:
         raise AssertionError(f"phase 14's ranks ran on {[r['device'] for r in ranks]}")
@@ -5261,9 +5374,14 @@ def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
     log(f"process mesh under nccl, serve {NCCL_PHI3} on {PROCS_SERVE[NCCL_PHI3][0]} (its own "
         f"routes; a rank's peak beside the whole model's reckoned bytes): {json.dumps(st)}")
     # 14d: training every block kind, 8-bit moments and the restart, held as phase 13 holds them
+    survivors = math.prod(NCCL_RESTART)
+    restarts = [r["restart"] for r in ranks]
+    if [r["left"] for r in restarts] != [i >= survivors for i in range(NCCL_WORLD)]:
+        raise AssertionError(f"phase 14's restart: ranks {[r['left'] for r in restarts]} left, "
+                             f"not all but the first {survivors}")
     res["train"] = {}
     for arch, what in train_jobs:
-        recs_of = spawns["restart"] if what == "restart" else [r["train"] for r in ranks]
+        recs_of = restarts[:survivors] if what == "restart" else [r["train"] for r in ranks]
         recs = [r["archs"][f"{arch}/{what}"] for r in recs_of]
         tr = procs_train_check(arch, what, recs, world_train[arch]["steps" if what == "train"
                                                                    else what], res["launches"])
@@ -5277,6 +5395,7 @@ def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
         res["train"][f"{arch}/{what}"] = tr
         log(f"process mesh under nccl, {what} {case_arch(arch)} on {tr['mesh']}: {json.dumps(tr)}")
     res["train_collective_calls_rank0"] = ranks[0]["train"]["calls"]
+    res["restart"] = nccl_restart_check(restarts[:survivors], res["train"])
     # the kernel rows: rank 3's data-plane kernels on cuda:3; rank 0's on cuda:0
     for row in ranks[-1]["rows"]:
         row["launches"] = res["launches"][row["name"]]

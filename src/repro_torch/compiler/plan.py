@@ -161,6 +161,7 @@ class CompiledPlan:
         axis_name: str = "all",
         item_dtype=None,
         device=None,
+        mesh=None,
     ) -> dict[str, np.ndarray]:
         """One execution surface over every backend.
 
@@ -173,9 +174,12 @@ class CompiledPlan:
           numpy arrays or tensors, which may already lie on the card;
           float64 outputs. In a process whose ``torch.distributed`` group
           is initialized it runs on a ``ProcessMesh`` instead, one rank per
-          switch (the world size must be the switch count): each rank's
-          inputs are read only for the Stores placed on its own switch,
-          and every rank returns the same outputs;
+          switch: ``mesh`` (one axis, ``axis_name``, of the switch count:
+          a mesh over a group of some of the world's ranks, the survivors
+          of a shrink), else ``process_mesh``'s over the whole world (the
+          world size must be the switch count). Each rank's inputs are
+          read only for the Stores placed on its own switch, and every
+          rank returns the same outputs;
         * ``"reference"`` — the oracle (``core.codelet.execute_reference``),
           on the host: it takes numpy arrays or CPU tensors and refuses a
           tensor on the card;
@@ -197,22 +201,38 @@ class CompiledPlan:
                 raise ValueError(
                     f"unknown backend {backend!r}; one of 'simulate', 'torch', 'reference'"
                 )
-            return self._run_torch(inputs, axis_name=axis_name, item_dtype=item_dtype, device=device)
+            return self._run_torch(inputs, axis_name=axis_name, item_dtype=item_dtype,
+                                   device=device, mesh=mesh)
 
-    def _run_torch(self, inputs, *, axis_name: str, item_dtype, device):
-        import torch
+    def process_mesh(self, *, axis_name: str = "all", device=None):
+        """The ``ProcessMesh`` over the whole default group that the torch
+        backend runs on, one rank per switch (``axis_name``); None where no
+        process group is initialized. Raises where the world size is not
+        the switch count."""
         import torch.distributed as dist
 
-        from repro_torch.mesh import Mesh, ProcessMesh
+        from repro_torch.mesh import ProcessMesh
+
+        if not (dist.is_available() and dist.is_initialized()):
+            return None
+        n = self._mesh_devices()
+        if dist.get_world_size() != n:
+            raise ValueError(f"the plan's {n} switches need {n} processes; "
+                             f"the process group has {dist.get_world_size()}")
+        return ProcessMesh((axis_name,), (n,), device=device)
+
+    def _run_torch(self, inputs, *, axis_name: str, item_dtype, device, mesh):
+        import torch
+
+        from repro_torch.mesh import Mesh
 
         n = self._mesh_devices()
-        if dist.is_available() and dist.is_initialized():
-            if dist.get_world_size() != n:
-                raise ValueError(f"the plan's {n} switches need {n} processes; "
-                                 f"the process group has {dist.get_world_size()}")
-            mesh = ProcessMesh((axis_name,), (n,), device=device)
-        else:
-            mesh = Mesh((axis_name,), (n,), device=device)
+        if mesh is None:
+            mesh = (self.process_mesh(axis_name=axis_name, device=device)
+                    or Mesh((axis_name,), (n,), device=device))
+        elif mesh.shape != (n,) or mesh.axis_names != (axis_name,):
+            raise ValueError(f"the plan's {n} switches need a mesh ({axis_name!r},) of ({n},); "
+                             f"got {mesh.axis_names} of {mesh.shape}")
         step = self.torch_step(mesh, axis_name=axis_name, item_dtype=item_dtype)
 
         def on_mesh(v):

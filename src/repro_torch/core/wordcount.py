@@ -254,6 +254,7 @@ def wordcount_via_plan(
     weights: Sequence[float] | None = None,
     backend: str = "torch",
     device=None,
+    mesh=None,
 ):
     """Count words through the compiler: shards → histograms → MAP→KEYBY→
     REDUCE program → ``lower-shuffle`` → the compiled plan. Returns
@@ -267,8 +268,10 @@ def wordcount_via_plan(
     step in float64; the ``SimResult`` holds those counts and the plan's
     streamed timing (``plan.simulate_timing()``, which depends on the
     traffic's shape only). In a process whose ``torch.distributed`` group is
-    initialized the plan runs on a ``ProcessMesh`` (``CompiledPlan.run``),
-    and each rank counts only the shards placed on its own switch.
+    initialized the plan runs on a ``ProcessMesh`` (``CompiledPlan.run``):
+    ``mesh`` (one "all" axis of the shard count, e.g. over the survivors'
+    group of a shrink), else one over the whole world; each rank counts
+    only the shards placed on its own switch, its rank in that mesh.
     ``backend="simulate"`` is the reference
     package's route and runs on the host alone: numpy histograms, then
     the packet simulator.
@@ -291,16 +294,15 @@ def wordcount_via_plan(
         }
         sim = plan.simulate(inputs)
         return sim.outputs["OUT"].astype(np.int64), sim
-    import torch.distributed as dist
-
     from repro_torch.compiler.simulator import SimResult
     from repro_torch.mesh import resolve_device
 
     dev = resolve_device(device, "wordcount_via_plan")
     n = len(word_shards)
+    mesh = mesh if mesh is not None else plan.process_mesh(device=dev)
     mine = list(range(n))
-    if dist.is_available() and dist.is_initialized():
-        mine = [i for i in mine if int(plan.placement.switch_of(f"s{i}")) == dist.get_rank()]
+    if mesh is not None:
+        mine = [i for i in mine if int(plan.placement.switch_of(f"s{i}")) == mesh.rank]
     hist = torch.zeros((n, vocab), dtype=torch.int32, device=dev)
     if mine:
         width = max(len(word_shards[i]) for i in mine)
@@ -310,5 +312,5 @@ def wordcount_via_plan(
             words[j, : len(ws)] = torch.from_numpy(ws)
         hist[mine] = kernel_histogram(words.to(dev), vocab)
     out = plan.run({f"s{i}": hist[i] for i in range(n)},
-                   backend="torch", device=dev, item_dtype=torch.float64)
+                   backend="torch", device=dev, item_dtype=torch.float64, mesh=mesh)
     return out["OUT"].astype(np.int64), SimResult(outputs=out, report=plan.simulate_timing())

@@ -20,6 +20,13 @@ world's communicator exists before any collective: a ``ppermute`` that
 leaves some ranks out may then be the first call. NCCL's watchdog aborts a
 collective that waits past the timeout, and a rank that fails leaves its
 group without waiting for the others.
+
+``shrink_process_mesh`` is the elastic restart's mesh inside the running
+world: the first ranks of a mesh form a process group of their own, made
+by them alone under either backend (``mesh.local_group``; not a split of
+the world's communicator, which every rank would have to join), and a
+``ProcessMesh`` of the smaller shape over it; the other ranks leave.
+``release_process_mesh`` destroys its groups when the survivors are done.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ from typing import Callable, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.mesh import ProcessMesh, process_device
+from repro_torch.mesh import ProcessMesh, local_group, process_device
 
 TIMEOUT_S = 300
 
@@ -76,6 +83,35 @@ def init_process_mesh(shape: Sequence[int], axes: Sequence[str], *, backend: str
     if not dist.is_initialized():
         _join(backend, device, TIMEOUT_S, rank=int(os.environ["RANK"]), world_size=world)
     return ProcessMesh(axes, shape, device=device)
+
+
+def shrink_process_mesh(mesh: ProcessMesh, plan) -> ProcessMesh | None:
+    """The survivors' mesh of an elastic shrink to ``plan``
+    (``runtime.fault_tolerance.elastic_mesh_plan``: its ``shape`` and
+    ``axes``): the processes at ``mesh``'s positions ``0 … prod(plan.shape)
+    − 1``, the first devices as the reference's ``make_mesh`` takes them,
+    form a process group of their own (``local_group``, made by them alone)
+    and get a ``ProcessMesh`` of ``plan.shape`` over it on the same device;
+    the other processes get None and make no call. Every process of
+    ``mesh`` calls it; the default group is not touched, and the survivors'
+    calls on the new mesh name only its group and the groups made over its
+    ranks."""
+    n = math.prod(plan.shape)
+    if n > mesh.size:
+        raise ValueError(f"a mesh of {tuple(plan.shape)} needs {n} processes; "
+                         f"the mesh {mesh.shape} has {mesh.size}")
+    if mesh.rank >= n:
+        return None
+    group = local_group(mesh.ranks[:n], mesh.device)
+    return ProcessMesh(plan.axes, plan.shape, device=mesh.device, group=group)
+
+
+def release_process_mesh(mesh: ProcessMesh) -> None:
+    """Destroy a survivors' mesh's groups (``shrink_process_mesh``): the
+    ones it made over its ranks, then the group it spans. Its processes
+    call it together; the default group is left as it is."""
+    mesh.close()
+    dist.destroy_process_group(mesh.group)
 
 
 def _rank_main(rank: int, world: int, backend: str, device, store: str, timeout_s: float,

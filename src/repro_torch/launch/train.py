@@ -38,12 +38,19 @@ leaf; ``launch.steps.ProcessTrainStep``) and its block of every batch. A
 checkpoint gathers the shards into the same whole leaves, and the 8-bit
 rows into the world-dim form's rows, which rank 0 writes: the same files as
 a world-dim run on that mesh writes. A restore reads them in every process,
-which keeps its shard (its row). The
-failure ends that world once the checkpoint is written, and the restart is
-a new one: the same command on ``--nproc-per-node 4 ... --mesh 2,2`` without
-``--fail-step`` (``relaunch_args``; ``spawn_run`` spawns both worlds). With
-a card per process, ``--backend nccl`` and no ``--device``: each process
-computes on its local rank's card and the collectives go card to card.
+which keeps its shard (its row). The restart carries on inside the
+processes, as the reference's does inside its one: once the checkpoint is
+on disk (a barrier of the whole world), ranks ``0 … prod(plan.shape) − 1``
+form a process group of their own (``procs.shrink_process_mesh``, made by
+them alone under gloo and nccl), rebuild the model (each leaf cut to its
+new shard as it is drawn), the step and the pipeline on a ``ProcessMesh`` of
+the plan's shape over it, restore the checkpoint and train on to
+``--steps``; the other ranks return their losses. After the shrink no call
+of a survivor reaches the default group. The same command on the smaller
+world without ``--fail-step`` (``--nproc-per-node 4 ... --mesh 2,2``,
+``relaunch_args``) restores the latest checkpoint too. With a card per
+process, ``--backend nccl`` and no ``--device``: each process computes on
+its local rank's card and the collectives go card to card.
 
 A checkpoint is the reference's tree, ``{"params": {JAX leaf path: array},
 "opt": (count, m, v)}`` (``checkpoint_tree``: kv heads and experts in their
@@ -64,6 +71,7 @@ import torch
 
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.data.pipeline import TrainPipeline
+from repro_torch.launch import procs as procs_lib
 from repro_torch.launch import steps as steps_lib
 from repro_torch.launch.mesh import AXES, make_mesh
 from repro_torch.mesh import Mesh, ProcessMesh
@@ -178,6 +186,19 @@ def _moments(step: steps_lib.TrainStep, flat: dict, prefix: str, like: dict | No
     return out
 
 
+def refuse_eightbit_change(manifest: dict, world: int, mesh_shape) -> None:
+    """Raise where 8-bit moments of checkpoint ``manifest`` cannot restore at
+    data-parallel ``world`` on ``mesh_shape``: they are cut per device shard,
+    so another mesh (or the reference's files) cannot take them."""
+    meta = manifest["meta"]
+    if meta.get("world") != world or meta.get("mesh", list(mesh_shape)) != list(mesh_shape):
+        raise ValueError(
+            f"8-bit moments of step {manifest['step']} were cut per device shard at world "
+            f"{meta.get('world', 'unknown (not written by the port)')} (mesh "
+            f"{meta.get('mesh')}) and do not restore at world {world} (mesh "
+            f"{list(mesh_shape)}): restart on the same mesh, or train with fp32 moments")
+
+
 @torch.no_grad()
 def restore(step: steps_lib.TrainStep, store: CheckpointStore, at: int | None = None
             ) -> tuple[OptState, int]:
@@ -190,14 +211,8 @@ def restore(step: steps_lib.TrainStep, store: CheckpointStore, at: int | None = 
     re-sharding restore does."""
     model, opt = step.model, step.optimizer
     manifest = store.manifest(at)
-    meta = manifest["meta"]
-    if opt.eightbit and (meta.get("world") != step.world
-                         or meta.get("mesh", list(step.mesh_shape)) != list(step.mesh_shape)):
-        raise ValueError(
-            f"8-bit moments of step {manifest['step']} were cut per device shard at world "
-            f"{meta.get('world', 'unknown (not written by the port)')} (mesh "
-            f"{meta.get('mesh')}) and do not restore at world {step.world} (mesh "
-            f"{list(step.mesh_shape)}): restart on the same mesh, or train with fp32 moments")
+    if opt.eightbit:
+        refuse_eightbit_change(manifest, step.world, step.mesh_shape)
     host = step.env.mesh is not None
     flat, manifest = store.restore(step=manifest["step"], device="cpu" if host else model.device)
     params = _leaves(step, flat, "params/")
@@ -236,9 +251,11 @@ def run(args, optimizer=None) -> list[float]:
     ``args.seed``) or the latest checkpoint; returns the loss of every step
     taken (a restart takes its steps again). Under ``torchrun``
     (``WORLD_SIZE`` set) this process is one device of a ``ProcessMesh``
-    (``--backend``), holding its shards; a simulated failure there ends the
-    run once the checkpoint is written, and the restart is a new world
-    (``relaunch_args``, ``spawn_run``)."""
+    (``--backend``), holding its shards; after a simulated failure the
+    survivors carry on over a group of their own and the others return the
+    losses they took (the module's doc). The default group is destroyed
+    here only where this call joined it, so that a caller's world goes
+    on."""
     from repro_torch.configs import get_config, get_smoke_config
 
     if args.fail_step is not None and args.shrink_to and not args.ckpt:
@@ -274,23 +291,31 @@ def _train(args, cfg, mesh: Mesh, optimizer) -> list[float]:
     saved = k if store is not None and store.latest_step() == k else None
     fail_step = args.fail_step
     losses = []
+    shrunk = None  # the survivors' mesh, whose groups this run made
     while k < args.steps:
         if fail_step is not None and k == fail_step and args.shrink_to:
-            store.wait()
-            if procs:  # every process stops once the checkpoint is on disk
-                torch.distributed.barrier()
-                nxt = relaunch_args(args)
-                _say(step, f"[train] step {k}: simulating a device failure; the latest "
-                           f"checkpoint is written: relaunch {args.shrink_to} devices' "
-                           f"processes on --mesh {nxt.mesh}")
-                return losses
             # simulated failure: shrink the data world and restore
-            print(f"[train] step {k}: simulating a device failure; shrinking to "
-                  f"{args.shrink_to} devices")
+            store.wait()
+            if procs:  # rank 0's checkpoint is on disk before anyone leaves
+                torch.distributed.barrier(group=mesh.group)
             plan = elastic_mesh_plan(args.shrink_to, model_size=step.env.model_size)
+            if step.optimizer.eightbit:  # on every rank, before any leaves
+                refuse_eightbit_change(store.manifest(), steps_lib.make_env(
+                    cfg, make_mesh(plan.shape, plan.axes, device=mesh.device)).dp_world,
+                    plan.shape)
+            _say(step, f"[train] step {k}: simulating a device failure; shrinking to "
+                       f"{args.shrink_to} devices: --mesh {','.join(map(str, plan.shape))}")
             del step, pipe, state
-            step, pipe = build(model, make_mesh(plan.shape, plan.axes, device=mesh.device),
-                               args, optimizer)
+            if procs:
+                mesh = shrunk = procs_lib.shrink_process_mesh(mesh, plan)
+                if mesh is None:  # this process's device is gone
+                    return losses
+                del model  # a survivor's shards are larger: drawn anew, then restored
+                model = Model(cfg, device=mesh.device, seed=args.seed,
+                              env=steps_lib.make_env(cfg, mesh))
+            else:
+                mesh = make_mesh(plan.shape, plan.axes, device=mesh.device)
+            step, pipe = build(model, mesh, args, optimizer)
             state, k = init_or_restore(step, store, fresh=False)
             fail_step = None
             continue
@@ -310,6 +335,8 @@ def _train(args, cfg, mesh: Mesh, optimizer) -> list[float]:
         store.wait()
         if saved != k:
             save(store, k, step, state, blocking=True)
+    if shrunk is not None:
+        procs_lib.release_process_mesh(shrunk)
     return losses
 
 
@@ -324,10 +351,11 @@ def save(store: CheckpointStore, k: int, step: steps_lib.TrainStep, state: OptSt
 
 
 def relaunch_args(args) -> argparse.Namespace | None:
-    """The second world's arguments after a run on a process mesh stopped at
-    ``--fail-step`` for ``--shrink-to N``: ``elastic_mesh_plan(N,
-    model_size=...)``'s mesh (the model axis kept), the latest checkpoint
-    restored, no failure to simulate. None where the run simulates none."""
+    """The relaunch form of the restart after ``--fail-step`` for
+    ``--shrink-to N``: a new world on ``elastic_mesh_plan(N,
+    model_size=...)``'s mesh (the model axis kept) that restores the latest
+    checkpoint and simulates no failure, as the survivors carry on inside
+    the first world. None where the run simulates none."""
     if args.fail_step is None or not args.shrink_to:
         return None
     shape = [int(x) for x in args.mesh.split(",")]
@@ -343,22 +371,15 @@ def _rank_run(args, device) -> list[float]:
 
 
 def spawn_run(args, store_path, *, backend: str = "gloo", device=None,
-              timeout_s: float = 300) -> list[list[float]]:
+              timeout_s: float = 300) -> list[float]:
     """``run(args)`` in one spawned process per mesh device
-    (``launch.procs.spawn``, ``device``: each rank's, ``None`` the card),
-    then, after a simulated failure, the new world of ``relaunch_args``'
-    mesh, which restores the checkpoint and carries on. Returns each
-    world's losses (rank 0's; every rank's are the same)."""
-    from repro_torch.launch import procs
-
-    out = []
-    while args is not None:
-        world = math.prod(int(x) for x in args.mesh.split(","))
-        ranks = procs.spawn(functools.partial(_rank_run, args), world, backend=backend,
-                            device=device, store_path=store_path, timeout_s=timeout_s)
-        out.append(ranks[0])
-        args = relaunch_args(args)
-    return out
+    (``launch.procs.spawn``, ``device``: each rank's, ``None`` the card);
+    a simulated failure restarts inside the same processes. Returns rank
+    0's losses, a survivor's: the steps before the failure, then the
+    restarted ones (every survivor's are the same)."""
+    world = math.prod(int(x) for x in args.mesh.split(","))
+    return procs_lib.spawn(functools.partial(_rank_run, args), world, backend=backend,
+                           device=device, store_path=store_path, timeout_s=timeout_s)[0]
 
 
 def parser():

@@ -443,6 +443,37 @@ def _reduce_op(op):
             torch.amin: dist.ReduceOp.MIN}[op]
 
 
+def _group_ranks(pg) -> list[int]:
+    """The global ranks of process group ``pg`` (None: the default group), in group rank order."""
+    return dist.get_process_group_ranks(pg if pg is not None else dist.group.WORLD)
+
+
+def local_group(ranks: Sequence[int], device):
+    """A process group over the global ``ranks``, made by its members alone
+    (``new_group(..., use_local_synchronization=True)``; a process outside
+    it makes no call and gets None), its communicator formed before it
+    returns by one ``all_reduce`` of the members. A default group bound to
+    a card (nccl, ``launch.procs``) would make it by splitting the world's
+    communicator, which every rank of the world must join: the binding is
+    lifted while it is made, so that the members form it among themselves.
+    The members call it together, as SPMD code does."""
+    ranks = sorted(int(r) for r in ranks)
+    if dist.get_rank() not in ranks:
+        return None
+    default = dist.group.WORLD
+    bound = default.bound_device_id
+    if bound is not None:
+        default.bound_device_id = None
+    try:
+        pg = dist.new_group(ranks, use_local_synchronization=True)
+    finally:
+        if bound is not None:
+            default.bound_device_id = bound
+    on = torch.device(device) if dist.get_backend(pg) == "nccl" else torch.device("cpu")
+    dist.all_reduce(torch.zeros(1, device=on), group=pg)
+    return pg
+
+
 class _Group:
     """This process's group of a collective: the process group (None: the
     default group), its members' global ranks in member order, and
@@ -451,8 +482,7 @@ class _Group:
 
     def __init__(self, pg, ranks: list[int]):
         self.pg, self.ranks = pg, ranks
-        grp = dist.get_process_group_ranks(pg if pg is not None else dist.group.WORLD)
-        order = [ranks.index(r) for r in grp]
+        order = [ranks.index(r) for r in _group_ranks(pg)]
         self.order = None if order == list(range(len(ranks))) else order
 
 
@@ -472,8 +502,15 @@ class ProcessMesh(Mesh):
     code asks in the same order on every rank, as ``new_group`` needs.
 
     The default process group must be initialized first
-    (``launch.procs.init_process_mesh`` or ``launch.procs.spawn``), with
-    ``prod(shape)`` ranks. ``device=None`` means the card
+    (``launch.procs.init_process_mesh`` or ``launch.procs.spawn``). The
+    mesh spans ``group``, ``prod(shape)`` processes: the default group
+    (None), or a group of some of its ranks (``local_group``; the survivors
+    of an elastic shrink, ``launch.procs.shrink_process_mesh``). Its rank is
+    the process's rank in that group, and every call names that group or
+    one made over its ranks by them alone (``local_group``), with peers and
+    roots among them: after a shrink no call reaches the default group or a
+    rank that left. ``close`` destroys the groups such a mesh made.
+    ``device=None`` means the card
     (``process_device``). Under gloo on the card every collective copies
     its operand into a pinned host buffer (one per shape, kept), runs
     gloo on it and copies the result back: ``transport`` says so, and
@@ -481,22 +518,29 @@ class ProcessMesh(Mesh):
     they are.
     """
 
-    def __init__(self, axis_names: Sequence[str], shape: Sequence[int], device=None):
+    def __init__(self, axis_names: Sequence[str], shape: Sequence[int], device=None,
+                 group=None):
         if not dist.is_initialized():
             raise RuntimeError("ProcessMesh() needs an initialized process group "
                                "(launch.procs.init_process_mesh or launch.procs.spawn)")
-        backend = dist.get_backend()
+        backend = dist.get_backend(group)
         super().__init__(axis_names, shape, device=process_device(device, backend))
-        world = dist.get_world_size()
+        world = dist.get_world_size(group)
         if world != self.size:
             raise ValueError(f"a mesh of {self.shape} needs {self.size} processes; "
                              f"the process group has {world}")
-        self.rank = dist.get_rank()
+        self.group = group
+        self.ranks = _group_ranks(group)  # the global rank of each mesh position
+        self.rank = dist.get_rank(group)
+        if self.rank < 0:
+            raise ValueError(f"this process (rank {dist.get_rank()}) is not in the mesh's "
+                             f"group {self.ranks}")
         self.coords = tuple(int(c) for c in np.unravel_index(self.rank, self.shape))
         self.block = (1,) * self.ndim
         self.staged = backend == "gloo" and self.device.type == "cuda"
         self.transport = backend + (", staged through pinned host memory" if self.staged else "")
         self._pgs: dict = {}
+        self._made: list = []  # the groups made over ``group``, which ``close`` destroys
         self._pinned: dict = {}
 
     def axis_index(self, axis: str) -> torch.Tensor:
@@ -526,7 +570,7 @@ class ProcessMesh(Mesh):
 
     # -- groups and the host copies ---------------------------------------------
     def _peer(self, a: int, index: int) -> int:
-        """The global rank of the device at ``index`` along dim ``a`` beside this one."""
+        """The mesh position of the device at ``index`` along dim ``a`` beside this one."""
         return self.rank + (int(index) - self.coords[a]) * math.prod(self.shape[a + 1:])
 
     def _group(self, axes, axis_index_groups=None) -> _Group:
@@ -555,12 +599,45 @@ class ProcessMesh(Mesh):
                     c = [0] * self.ndim
                     for d, v in itertools.chain(zip(others, rest), zip(dims, m)):
                         c[d] = v
-                    ranks.append(int(np.ravel_multi_index(c, self.shape)))
-                pg = None if len(ranks) == self.size else dist.new_group(sorted(ranks))
-                if self.rank in ranks:
+                    ranks.append(self.ranks[int(np.ravel_multi_index(c, self.shape))])
+                pg = self._new_group(ranks)
+                if self.ranks[self.rank] in ranks:
                     mine = (pg, ranks)
         hit = self._pgs[key] = _Group(*mine)
         return hit
+
+    def _new_group(self, ranks: list[int]):
+        """The process group over the global ``ranks``: the mesh's own where
+        they are all of it; on the default group a ``new_group`` that every
+        rank makes; over a group of its own one made by its members alone
+        (``local_group``), None elsewhere."""
+        if len(ranks) == self.size:
+            return self.group
+        if self.group is None:
+            return dist.new_group(sorted(ranks))
+        pg = local_group(ranks, self.device)
+        if pg is not None:
+            self._made.append(pg)
+        return pg
+
+    def close(self) -> None:
+        """Destroy the groups that this mesh made over a group of its own
+        (its axes' groups), in the order they were made: its members call it
+        together. Not the group it spans, which is its maker's; on the
+        default group nothing (its groups live as long as the world)."""
+        for pg in self._made:
+            dist.destroy_process_group(pg)
+        self._made.clear()
+        if self.group is not None:
+            self._pgs.clear()
+
+    def _p2p(self, op, t: torch.Tensor, index: int):
+        """A ``P2POp`` to or from the process at mesh position ``index``: its
+        global rank on the default group, its rank in the mesh's group on one
+        of its own."""
+        if self.group is None:
+            return dist.P2POp(op, t, index)
+        return dist.P2POp(op, t, group=self.group, group_peer=index)
 
     def _buffer(self, tag: str, shape, dtype) -> torch.Tensor:
         key = (tag, tuple(shape), dtype)
@@ -617,10 +694,10 @@ class ProcessMesh(Mesh):
             return _noted("collective-permute", x.clone(memory_format=torch.contiguous_format))
         ops = []
         if to:
-            ops.append(dist.P2POp(dist.isend, self._outgoing(x), self._peer(a, to[0])))
+            ops.append(self._p2p(dist.isend, self._outgoing(x), self._peer(a, to[0])))
         if frm:
             recv = self._incoming(x.shape, x.dtype)
-            ops.append(dist.P2POp(dist.irecv, recv, self._peer(a, frm[0])))
+            ops.append(self._p2p(dist.irecv, recv, self._peer(a, frm[0])))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -705,22 +782,24 @@ class ProcessMesh(Mesh):
         return x.select(nm, min(max(i, 0), n - 1))
 
     def gather(self, x: torch.Tensor, root: int = 0) -> torch.Tensor | None:
-        """Every process's ``x`` (one shape on all) on process ``root``: the
-        (processes, *x) stack in rank order there, None elsewhere; one
-        ``gather`` on the default group. Not a ``lax`` collective (nothing
-        counts it): a checkpoint's writer collects the shards with it.
-        Unstaged, the processes' shards land in the rows of the stack itself."""
+        """Every process's ``x`` (one shape on all) on process ``root`` (a
+        mesh position): the (processes, *x) stack in rank order there, None
+        elsewhere; one ``gather`` on the mesh's group. Not a ``lax``
+        collective (nothing counts it): a checkpoint's writer collects the
+        shards with it. Unstaged, the processes' shards land in the rows of
+        the stack itself."""
         send = self._outgoing(x)
+        to = {"dst": root} if self.group is None else {"group": self.group, "group_dst": root}
         if self.rank != root:
-            dist.gather(send, None, dst=root)
+            dist.gather(send, None, **to)
             return None
         if not self.staged:
             out = torch.empty((self.size,) + tuple(send.shape), dtype=send.dtype,
                               device=self.device)
-            dist.gather(send, list(out.unbind(0)), dst=root)
+            dist.gather(send, list(out.unbind(0)), **to)
             return out
         bufs = [self._buffer(f"gather{i}", send.shape, send.dtype) for i in range(self.size)]
-        dist.gather(send, bufs, dst=root)
+        dist.gather(send, bufs, **to)
         return torch.stack([self._landed(b) for b in bufs])
 
     def psum_scatter(self, x: torch.Tensor, axis: str, scatter_dimension: int = 0,

@@ -205,11 +205,14 @@ class _Recorder:
     """Every ``torch.distributed`` call of this process while ``installed``:
     ``calls``, each (op, the global ranks of its group, its tensors' (shape,
     dtype, contiguous, device), what else it names: a root or source, a
-    point-to-point op's peer); ``groups``, the ranks of each ``new_group``
-    in the order they were made."""
+    point-to-point op's peer, and whether the group is the default one);
+    ``groups``, the ranks of each ``new_group`` in the order they were made,
+    ``local`` those made by their members alone
+    (``use_local_synchronization``), and ``shrunk_at``, the number of calls
+    made before the first of those (None: none was made)."""
 
     def __init__(self):
-        self.calls, self.groups = [], []
+        self.calls, self.groups, self.local, self.shrunk_at = [], [], [], None
 
     @staticmethod
     def _ranks(group):
@@ -226,12 +229,16 @@ class _Recorder:
     def installed(self):
         import torch.distributed as dist
 
+        def default(group):
+            return group is None or group is dist.group.WORLD
+
         def wrap(name, real):
             def call(*args, **kw):
                 group = kw.get("group")
                 tensors = [a for a in args if isinstance(a, torch.Tensor)]
                 tensors += [t for a in args if isinstance(a, list) for t in a]
-                extra = {k: kw[k] for k in ("src", "dst") if k in kw}
+                extra = {k: kw[k] for k in ("src", "dst", "group_src", "group_dst") if k in kw}
+                extra["default"] = default(group)
                 self.calls.append((name, self._ranks(group), [self._desc(t) for t in tensors],
                                    extra))
                 return real(*args, **kw)
@@ -241,16 +248,21 @@ class _Recorder:
             for op in ops:
                 self.calls.append(("isend" if op.op is dist.isend else "irecv",
                                    self._ranks(op.group), [self._desc(op.tensor)],
-                                   {"peer": op.peer}))
+                                   {"peer": op.peer, "default": default(op.group)}))
             return real_batch(ops)
 
         def new_group(ranks=None, *a, **kw):
-            self.groups.append(tuple(ranks))
+            if kw.get("use_local_synchronization"):
+                if self.shrunk_at is None:
+                    self.shrunk_at = len(self.calls)
+                self.local.append(tuple(ranks))
+            else:
+                self.groups.append(tuple(ranks))
             return real_new_group(ranks, *a, **kw)
 
         real_batch, real_new_group = dist.batch_isend_irecv, dist.new_group
         patches = [mock.patch.object(dist, n, wrap(n, getattr(dist, n)))
-                   for n in COLLECTIVES if hasattr(dist, n)]
+                   for n in COLLECTIVES + ("barrier",) if hasattr(dist, n)]
         patches += [mock.patch.object(dist, "batch_isend_irecv", batch),
                     mock.patch.object(dist, "new_group", new_group)]
         with contextlib.ExitStack() as stack:
@@ -324,7 +336,7 @@ def _phase14_rank(device) -> dict:
                 if eightbit:
                     tree = train.checkpoint_tree(step, state)
                     res["rows"] = None if tree is None else tree["opt"][1:]
-        res.update(calls=rec.calls, groups=rec.groups, device=str(device))
+        res.update(calls=rec.calls, groups=rec.groups, local=rec.local, device=str(device))
         out[arch] = res
     return out
 
@@ -454,13 +466,20 @@ def test_phase14_case_calls_fit_nccl(phase14_ranks, arch):
     every operand is contiguous and on the mesh's device."""
     ranks = [r[arch] for r in phase14_ranks]
     assert all(r["groups"] == ranks[0]["groups"] for r in ranks)
+    assert all(not r["local"] for r in ranks)
+    calls_fit_nccl(ranks, arch)
+
+
+def calls_fit_nccl(ranks: list, what: str) -> None:
+    """``test_phase14_case_calls_fit_nccl``'s checks of the calls of
+    ``ranks``' records ({"calls", "device"}), a rank's place its global rank."""
     per_group, p2p = {}, {}
     for rank, r in enumerate(ranks):
-        assert r["calls"], arch
+        assert r["calls"], what
         for op, group, tensors, extra in r["calls"]:
             assert rank in group, (op, group)
             for shape, dtype, contiguous, device in tensors:
-                assert dtype in NCCL_DTYPES, (op, dtype)
+                assert dtype in NCCL_DTYPES, (what, op, dtype)
                 assert contiguous and device == r["device"], (op, shape, device)
             if op in ("isend", "irecv"):
                 pair = (rank, extra["peer"]) if op == "isend" else (extra["peer"], rank)
@@ -477,6 +496,229 @@ def test_phase14_case_calls_fit_nccl(phase14_ranks, arch):
         if op == "isend":
             assert p2p.get(("irecv", a, b)) == sent, (a, b)
     assert {k[1:] for k in p2p if k[0] == "isend"} == {k[1:] for k in p2p if k[0] == "irecv"}
+
+
+# --------------------------- the survivors' mesh over a group of their own --
+# the elastic restart inside the processes: of a (2, 2) world, ranks 2 and 3
+# leave and ranks 0 and 1 form elastic_mesh_plan(2, model_size=2)'s (1, 2)
+# over a group of their own (``procs.shrink_process_mesh``)
+SHRINK_AXES, SHRINK_FROM, SHRINK_TO = ("data", "model"), (2, 2), 2
+SHRINK_VOCAB, SHRINK_TOKENS = 64, 500
+# qwen1.5 smoke trained at (2, 2) under S3, failing at RESTART_FAIL and
+# restarting on (1, 2) in the same world, as ``launch/train.py`` runs it
+RESTART_ARGS = ["--arch", "qwen1_5_0_5b", "--smoke", "--mesh", "2,2", "--scenario",
+                "s3_in_net_map", "--steps", "4", "--global-batch", "4", "--seq", "16",
+                "--ckpt-every", "2", "--fail-step", "2", "--shrink-to", str(SHRINK_TO),
+                "--log-every", "100", "--device", "cpu"]
+RESTART_FAIL, RESTART_STEPS = 2, 4
+# the processes' losses against the world-dim run's: the same products on
+# other shapes, gloo's order of fp32 sums (test_torch_procs_train's WORLD_LOSS_TOL)
+RESTART_LOSS_TOL = 1e-4
+
+
+def _shrink_inputs() -> dict:
+    """Seeded integer-valued blocks of the (1, 2) mesh (the mesh dims lead):
+    sums agree whatever order gloo adds in."""
+    rs = np.random.RandomState(11)
+    return {"x": rs.randint(-50, 50, (1, 2, 3, 4)).astype(np.float32),
+            "y": rs.randint(-50, 50, (1, 2, 4, 3)).astype(np.float32)}
+
+
+def _group_cases(m) -> dict:
+    """The collectives on a (1, 2) mesh ``m`` (world dims or a process's)."""
+    data = _shrink_inputs()
+    x, y = m.shard(data["x"]), m.shard(data["y"])
+    return {"ppermute": m.ppermute(x, "model", [(0, 1), (1, 0)]),
+            "ppermute_partial": m.ppermute(x, "model", [(0, 1)]),
+            "all_to_all": m.all_to_all(y, "model", 0, 1, tiled=True),
+            "all_gather": m.all_gather(x, "model"),
+            "all_gather_tiled": m.all_gather(x, "model", tiled=True),
+            "psum": m.psum(x, "model"),
+            "psum_mesh": m.psum(x, ("data", "model")),
+            "psum_data": m.psum(x, "data"),
+            "psum_scatter": m.psum_scatter(y, "model", 0, tiled=True),
+            "broadcast": m.broadcast(x, "model", 1)}
+
+
+def _shrink_words() -> list:
+    rs = np.random.RandomState(12)
+    return [np.minimum(rs.zipf(1.3, SHRINK_TOKENS) - 1, SHRINK_VOCAB - 1).astype(np.int32)
+            for _ in range(2)]
+
+
+def _shrink_rank(ckpt: str, device) -> dict:
+    """One rank of a world of four: a (2, 2) mesh's collectives; the
+    survivors' (1, 2) mesh, twice over the same ranks, each's collectives
+    and ``gather``, the word-count plan on one axis over the survivors'
+    group, every call recorded; both meshes released; the world going on
+    (the first mesh's collectives again, and a new mesh of all four); then
+    the restart of ``RESTART_ARGS`` through ``train.run``, every call
+    recorded."""
+    import torch.distributed as dist
+
+    from repro_torch.core import wordcount as wc
+    from repro_torch.runtime.fault_tolerance import elastic_mesh_plan
+
+    torch.set_num_threads(1)
+    m22 = ProcessMesh(SHRINK_AXES, SHRINK_FROM, device=device)
+    x22 = m22.shard(np.arange(24, dtype=np.float32).reshape(2, 2, 6))
+    out = {"before": m22.psum(x22, "data").numpy()}
+    plan = elastic_mesh_plan(SHRINK_TO, model_size=SHRINK_FROM[1])
+    rec = _Recorder()
+    with rec.installed():
+        meshes = [procs.shrink_process_mesh(m22, plan) for _ in range(2)]
+        if meshes[0] is not None:
+            a, b = meshes
+            out["ranks"] = (a.ranks, b.ranks, a.rank)
+            out["distinct_groups"] = a.group is not b.group
+            out["cases"] = [{k: v.numpy() for k, v in _group_cases(m).items()} for m in (a, b)]
+            g = a.gather(a.shard(_shrink_inputs()["x"]))
+            out["gather"] = None if g is None else g.numpy()
+            one = ProcessMesh(("all",), (SHRINK_TO,), device=device, group=b.group)
+            out["wordcount"] = wc.wordcount_via_plan(_shrink_words(), SHRINK_VOCAB,
+                                                     device=device, mesh=one)[0]
+            one.close()
+            for m in meshes:
+                procs.release_process_mesh(m)
+    out["shrink"] = {"calls": rec.calls, "local": rec.local, "groups": rec.groups,
+                     "shrunk_at": rec.shrunk_at, "device": str(device)}
+    out["after"] = m22.psum(x22, "data").numpy()
+    m4 = ProcessMesh(("all",), (WORLD,), device=device)
+    x4 = m4.shard(np.arange(WORLD * 2, dtype=np.float32).reshape(WORLD, 2))
+    out["after_new"] = m4.psum(x4, "all").numpy()
+    out["pg_names"] = len(dist.distributed_c10d._world.pg_names)
+    rec = _Recorder()
+    with rec.installed():
+        out["losses"] = train.run(train.parser().parse_args(RESTART_ARGS + ["--ckpt", ckpt]))
+    out["restart"] = {"calls": rec.calls, "local": rec.local, "groups": rec.groups,
+                      "shrunk_at": rec.shrunk_at, "device": str(device)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def shrink_ranks(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("shrink")
+    import functools
+
+    return procs.spawn(functools.partial(_shrink_rank, str(tmp / "ckpt")), WORLD, backend="gloo",
+                       device="cpu", store_path=tmp / "store", timeout_s=TIMEOUT_S)
+
+
+def test_survivors_form_a_mesh_of_their_own(shrink_ranks):
+    """Ranks 0 and 1, the first devices, get the (1, 2) mesh over a group of
+    their own, its positions their global ranks; each shrink a group of its
+    own over the same ranks; ranks 2 and 3 get None and make no call."""
+    for r, out in enumerate(shrink_ranks):
+        if r < SHRINK_TO:
+            assert out["ranks"] == ([0, 1], [0, 1], r) and out["distinct_groups"]
+        else:
+            assert "ranks" not in out and out["shrink"]["calls"] == []
+            assert out["shrink"]["local"] == [] and out["shrink"]["groups"] == []
+
+
+@pytest.mark.parametrize("name", sorted(_group_cases(Mesh(SHRINK_AXES, (1, 2), device="cpu"))))
+def test_group_mesh_collective_bitwise_to_world_dims(shrink_ranks, name):
+    """Each collective on both survivors' meshes (two groups over the same
+    ranks) equals the world-dim ``Mesh``'s of the same shape, bitwise."""
+    m = Mesh(SHRINK_AXES, (1, 2), device="cpu")
+    want = _group_cases(m)[name].numpy()
+    for which in range(2):
+        got = np.concatenate([shrink_ranks[r]["cases"][which][name] for r in range(SHRINK_TO)],
+                             axis=1)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=f"{name} on mesh {which}")
+
+
+def test_group_mesh_gathers_to_its_root(shrink_ranks):
+    assert shrink_ranks[1]["gather"] is None
+    got = shrink_ranks[0]["gather"]
+    np.testing.assert_array_equal(got.reshape(_shrink_inputs()["x"].shape),
+                                  _shrink_inputs()["x"])
+
+
+def test_wordcount_plan_on_the_survivors_mesh_matches_world_dims(shrink_ranks):
+    """The word-count plan on one axis over the survivors' group (the
+    shards each rank counts picked by its rank there) against the
+    world-dim plan on the same shards, bitwise."""
+    from repro_torch.core import wordcount as wc
+
+    want = wc.wordcount_via_plan(_shrink_words(), SHRINK_VOCAB, device="cpu")[0]
+    np.testing.assert_array_equal(want, wc.wordcount_reference(_shrink_words(), SHRINK_VOCAB))
+    for r in range(SHRINK_TO):
+        got = shrink_ranks[r]["wordcount"]
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def _after_shrink(out: dict) -> list:
+    """A survivor's recorded calls from its first group of its own on."""
+    assert out["shrunk_at"] is not None
+    return out["calls"][out["shrunk_at"]:]
+
+
+@pytest.mark.parametrize("what", ["shrink", "restart"])
+def test_survivors_call_neither_the_default_group_nor_a_departed_rank(shrink_ranks, what):
+    """After the shrink every call of a survivor names a group of its own
+    (the survivors' group or one made over its ranks), whose ranks, and
+    every peer and root, are survivors; the leavers made no call after the
+    barrier that the whole world passed."""
+    gone = set(range(SHRINK_TO, WORLD))
+    for r in range(SHRINK_TO):
+        calls = _after_shrink(shrink_ranks[r][what])
+        assert calls, what
+        for op, group, _, extra in calls:
+            assert not extra["default"], (what, op, group)
+            assert not set(group) & gone, (what, op, group)
+            for k in ("peer", "src", "dst"):
+                assert extra.get(k) not in gone, (what, op, extra)
+            assert set(shrink_ranks[r][what]["local"]) <= {(0,), (1,), (0, 1)}
+    for r in sorted(gone):
+        rec = shrink_ranks[r][what]
+        assert rec["shrunk_at"] is None and rec["local"] == []
+        if what == "restart":
+            assert rec["calls"][-1][0] == "barrier" and rec["calls"][-1][3]["default"]
+
+
+@pytest.mark.parametrize("what", ["shrink", "restart"])
+def test_the_shrink_calls_fit_nccl(shrink_ranks, what):
+    """The calls of the shrink and of the restart as NCCL needs them
+    (``calls_fit_nccl``): every rank made the world's groups in one order,
+    any two survivors the groups of their own that hold both in one order,
+    and every group's members the same calls on it."""
+    recs = [r[what] for r in shrink_ranks]
+    assert all(r["groups"] == recs[0]["groups"] for r in recs)
+    for a in range(SHRINK_TO):
+        for b in range(SHRINK_TO):
+            assert ([g for g in recs[a]["local"] if b in g]
+                    == [g for g in recs[b]["local"] if a in g]), (a, b)
+    calls_fit_nccl([r for r in recs if r["calls"]], what)
+
+
+def test_the_world_goes_on_after_the_shrink(shrink_ranks):
+    """The leavers and the survivors (their groups released) go on in the
+    same world: the first mesh's collectives as before the shrink, a new
+    mesh of all four, and as many groups on every rank."""
+    w = Mesh(("all",), (WORLD,), device="cpu")
+    want = w.psum(w.shard(np.arange(WORLD * 2, dtype=np.float32).reshape(WORLD, 2)), "all").numpy()
+    for out in shrink_ranks:
+        np.testing.assert_array_equal(out["after"], out["before"])
+        np.testing.assert_array_equal(out["after_new"], want[:1])
+        assert out["pg_names"] == shrink_ranks[0]["pg_names"]
+
+
+def test_restart_inside_the_processes_matches_world_dims(shrink_ranks, tmp_path):
+    """qwen1.5 trained at (2, 2), failing at ``RESTART_FAIL``: the survivors
+    restore the checkpoint on (1, 2) and train on to ``RESTART_STEPS``, as
+    the world-dim run of the same arguments does (the same losses within
+    ``RESTART_LOSS_TOL``); the leavers return the losses they took."""
+    want = train.run(train.parser().parse_args(RESTART_ARGS + ["--ckpt", str(tmp_path / "ckpt")]))
+    assert len(want) == RESTART_STEPS
+    for r, out in enumerate(shrink_ranks):
+        got = out["losses"]
+        assert len(got) == (RESTART_STEPS if r < SHRINK_TO else RESTART_FAIL)
+        assert got == shrink_ranks[0]["losses"][:len(got)]
+        for g, w in zip(got, want):
+            assert abs(g - w) <= RESTART_LOSS_TOL * w, (r, got, want)
 
 
 # ------------------------------------------------------------ on the cards --

@@ -40,8 +40,12 @@ step's rows (``train.gather_rows``). After grok's steps rank 0 writes their
 checkpoint, every rank restores it into a model from other weights, and a
 restore on the world's other mesh, (2, 4), is refused. Then the
 ``FP32_CASES`` from seeded weights (an RG-LRU one, and grok's 8-bit steps),
-and what training on processes refuses. The e2e's second world, 4 ranks on
-(2, 2), is spawned once the first has ended.
+and what training on processes refuses (an 8-bit run's restart among it).
+The e2e restarts inside the world: at its failure ranks 0-3 form (2, 2)
+over a group of their own and train on to its last step, while ranks 4-7
+return and go on to the cases. Its relaunch form, a new world of 4 ranks
+on (2, 2) from a copy of the checkpoints without the survivors' last one,
+is spawned once the first world has ended: the yardstick of the restart.
 
 Tolerances: against the reference, ``test_torch_train``'s (``LOSS_TOL``,
 ``NORM_TOL``, ``MOMENT_TOL``, ``MOMENTS_TOL``, each parameter within two
@@ -160,12 +164,21 @@ FP32_CODE_SHARE, FP32_8BIT_TOL = 1e-2, 2e-4
 # the wire, a relative 2^-9 each (measured 3.7e-4)
 ADJOINT_TOL = {"fp32": 1e-6, "s3_in_net_map": 5e-3}
 # the reference's end-to-end target on processes: qwen1.5 smoke at (4, 2)
-# under S2, a failure at step 16, the new world of 4 on (2, 2) from the
-# step-16 checkpoint to step 24
+# under S2, a failure at step 16, the survivors (ranks 0-3) on (2, 2) from
+# the step-16 checkpoint to step 24 inside the same world
 E2E = ["--arch", "qwen1_5_0_5b", "--smoke", "--steps", "24", "--mesh", "4,2",
        "--scenario", "s2_in_net", "--global-batch", "8", "--seq", "32", "--microbatches", "2",
        "--ckpt-every", "8", "--fail-step", "16", "--shrink-to", "4", "--log-every", "100"]
+E2E_FAIL, E2E_STEPS, E2E_SURVIVORS = 16, 24, 4
 E2E_FALL = 0.02  # the mean of the last 4 losses below the first 4's, less this
+# the survivors' losses after the restart against the relaunch form's, which
+# takes the same steps on the same shapes in a new world, relative
+E2E_RELAUNCH_TOL = 1e-5
+# an 8-bit run whose restart inside the world is refused: qwen1.5 smoke at
+# (4, 2), a failure at step 2 for 4 devices
+EIGHTBIT_RESTART = ["--arch", "qwen1_5_0_5b", "--smoke", "--steps", "3", "--mesh", "4,2",
+                    "--global-batch", "8", "--seq", "16", "--ckpt-every", "2", "--fail-step",
+                    "2", "--shrink-to", "4", "--log-every", "100", "--device", "cpu"]
 
 
 def axes(dims) -> tuple[str, ...]:
@@ -260,12 +273,15 @@ print("OK")
 
 @pytest.fixture(scope="module")
 def spawned(multidevice, tmp_path_factory):
-    """(the reference's outputs, every rank's results, the e2e's second
-    world's losses, the e2e's checkpoint directory, the 8-bit case's
+    """(the reference's outputs, every rank's results, the e2e's relaunch
+    form's losses, the e2e's checkpoint directory, the 8-bit case's
     checkpoint directory). The ranks are spawned
     while the reference's parts run side by side; they check the
-    collectives and run the e2e's first world meanwhile, then wait for the
-    reference's npz (``_rank``)."""
+    collectives and run the e2e (its restart inside the world) meanwhile,
+    then wait for the reference's npz (``_rank``). The relaunch form
+    restores step 16 from a copy of the e2e's checkpoints without the
+    survivors' step 24."""
+    import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     tmp = tmp_path_factory.mktemp("jax_procs_train")
@@ -294,8 +310,10 @@ def spawned(multidevice, tmp_path_factory):
             (tmp / "out.failed").touch()  # the ranks stop waiting
             raise
         got = ranks.result()
-    (world2,) = train.spawn_run(train.relaunch_args(e2e_args(ckpt)), tmp / "store2",
-                                device="cpu", timeout_s=TIMEOUT_S)
+    relaunch = str(tmp / "ckpt_relaunch")
+    shutil.copytree(ckpt, relaunch, ignore=shutil.ignore_patterns(f"step_{E2E_STEPS:08d}"))
+    world2 = train.spawn_run(train.relaunch_args(e2e_args(relaunch)), tmp / "store2",
+                             device="cpu", timeout_s=TIMEOUT_S)
     return out, got, world2, ckpt, ckpt8
 
 
@@ -519,8 +537,10 @@ def eightbit_checkpoint(directory: str, meshes: dict, device):
     return after
 
 
-def refusals(device) -> dict:
-    """The messages of what training on a process mesh refuses."""
+def refusals(device, ckpt: str) -> dict:
+    """The messages of what training on a process mesh refuses: among them
+    the restart inside the world of an 8-bit run (``EIGHTBIT_RESTART``,
+    checkpoints in ``ckpt``), refused on every rank before any leaves."""
     pm = ProcessMesh(("data", "model"), (4, 2), device=device)
     cfg = get_smoke_config("qwen1_5_0_5b")
     model = M.Model(cfg, device=device, seed=0, env=steps.make_env(cfg, pm))
@@ -529,6 +549,8 @@ def refusals(device) -> dict:
         "world_model": lambda: steps.make_train_step(
             M.Model(cfg, device=device, seed=0, env=steps.make_env(cfg, pm).world()), pm,
             global_batch=8, seq=SEQ),
+        "eightbit_restart": lambda: train.run(train.parser().parse_args(
+            EIGHTBIT_RESTART + ["--ckpt", ckpt]), optimizer=AdamW(eightbit=True)),
     }
     out = {}
     for name, fn in cases.items():
@@ -542,11 +564,13 @@ def refusals(device) -> dict:
 
 def _rank(path: str, ckpt: str, ckpt8: str, device) -> dict:
     """This rank's part of the file (``spawned``): the collectives' checks,
-    the refusals, the e2e's first world, then every case once the
+    the refusals, the e2e (ranks 0-3 restart inside the world and train on;
+    the others return at the failure), then every case once the
     reference's npz at ``path`` is written, the 8-bit one's checkpoint in
     ``ckpt8``."""
     torch.set_num_threads(1)
-    res = {"functions": function_checks(device), "refusals": refusals(device)}
+    res = {"functions": function_checks(device),
+           "refusals": refusals(device, f"{ckpt8}_restart")}
     t = time.perf_counter()
     res["e2e"] = train.run(train.parser().parse_args(E2E + ["--ckpt", ckpt, "--device", "cpu"]))
     res["e2e_s"] = time.perf_counter() - t
@@ -795,7 +819,9 @@ def test_collectives_backward_is_the_transpose(ranks):
     ("flash", "no backward"),
     ("world_model", "made for"),
     ("eightbit_other_mesh", "8-bit moments of step 2 were cut per device shard at world 4 "
-                            r"\(mesh \[4, 2\]\) and do not restore at world 2 \(mesh \[2, 4\]\)")])
+                            r"\(mesh \[4, 2\]\) and do not restore at world 2 \(mesh \[2, 4\]\)"),
+    ("eightbit_restart", "8-bit moments of step 2 were cut per device shard at world 4 "
+                         r"\(mesh \[4, 2\]\) and do not restore at world 2 \(mesh \[2, 2\]\)")])
 def test_process_training_refuses(ranks, name, match):
     for r in ranks:
         assert r["refusals"][name] is not None and re.search(match, r["refusals"][name]), \
@@ -866,18 +892,25 @@ def test_eightbit_process_checkpoint_restores_on_both_forms(spawned, tmp_path):
 
 def test_e2e_restart_on_processes(spawned):
     """The reference's end-to-end target on gloo processes: qwen1.5 smoke at
-    (4, 2) under S2, the failure at step 16 ends the first world once its
-    checkpoint is written, and a new world of 4 ranks on (2, 2) restores
-    step 16 and runs to 24: the loss falls by more than ``E2E_FALL``."""
+    (4, 2) under S2; at the failure at step 16, once the checkpoint is
+    written, ranks 0-3 restore step 16 on (2, 2) over a group of their own
+    and run to 24 in the same processes, and ranks 4-7 return the 16
+    losses they took: the loss falls by more than ``E2E_FALL``, the four
+    survivors agree, and their losses after the restart are the relaunch
+    form's (a new world of 4 from the same checkpoint) within
+    ``E2E_RELAUNCH_TOL``."""
     _, ranks_, world2, ckpt, _ = spawned
-    first = ranks_[0]["e2e"]
-    assert all(r["e2e"] == first for r in ranks_)
-    assert len(first) == 16 and len(world2) == 8
-    losses = first + world2
+    losses = ranks_[0]["e2e"]
+    assert len(losses) == E2E_STEPS and len(world2) == E2E_STEPS - E2E_FAIL
+    assert all(r["e2e"] == losses for r in ranks_[:E2E_SURVIVORS])
+    assert all(r["e2e"] == losses[:E2E_FAIL] for r in ranks_[E2E_SURVIVORS:])
+    for got, want in zip(losses[E2E_FAIL:], world2):
+        assert abs(got - want) <= E2E_RELAUNCH_TOL * want, (losses[E2E_FAIL:], world2)
     a, b = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
     assert b < a - E2E_FALL, (a, b)
     meta = CheckpointStore(ckpt).manifest()["meta"]
-    assert meta["mesh"] == [2, 2] and meta["tp"] == 2 and CheckpointStore(ckpt).latest_step() == 24
+    assert meta["mesh"] == [2, 2] and meta["tp"] == 2
+    assert CheckpointStore(ckpt).latest_step() == E2E_STEPS
 
 
 def test_process_checkpoint_restores_on_world_dims(spawned):
