@@ -3,6 +3,7 @@
 
     PYTHONPATH=src python3 chip_smoke.py
     python3 chip_smoke.py --ring-hops [TREE]   # ring_fused_step's hops alone
+    python3 chip_smoke.py --nccl-phase         # phase 14 alone, on four cards
 
 1. Builds the Hopper kernels (``src/repro_torch/csrc``) into ``build/``.
 2. Holds every kernel against its plain PyTorch version on the card, at edge
@@ -297,12 +298,13 @@
    reference (phases 12 and 13's four-rank ones reused), then
    phi3-medium-14b at (2, 2) at full depth, which does not fit one card,
    held by its own routes (``nccl_phi3_rank``); every rank's transport
-   "nccl" and nothing staged; last the elastic restart inside that world:
-   ranks 2 and 3 leave, ranks 0 and 1 form (1, 2) over a group of their
-   own (``launch.procs.shrink_process_mesh``), rebuild qwen1.5, restore its
+   "nccl" and nothing staged; last the elastic restart inside that world,
+   through ``launch/train.py``'s own (``train.restart``): ranks 2 and 3
+   leave, ranks 0 and 1 form (1, 2) over a group of their own
+   (``launch.procs.shrink_process_mesh``), draw qwen1.5, restore its
    checkpoint (bitwise, gathered back) and take a step, held as the
-   training is, the time from the failure to the end of that step printed
-   by its parts. The same four ranks under gloo, staged through host
+   training is, the wall time from the failure to the end of that step on
+   the slower survivor printed with its parts. The same four ranks under gloo, staged through host
    memory (the data plane and the collectives). Prints each path's
    slowest-rank wall beside the world-dim one under both backends, the
    collectives' ms and algorithm and bus GB/s, the
@@ -774,11 +776,6 @@ NCCL_BUS = {"all_reduce": lambda n: 2 * (n - 1) / n, "all_gather": lambda n: (n 
             "ppermute": lambda n: 1.0}
 NCCL_CASE = "qwen1.5-0.5b@nccl"
 NCCL_RESTART = (1, 2)
-# the restart's relaunch form, a new world of NCCL_RESTART spawned on cards
-# 0-1 that restores the checkpoint and takes the step, as this script ran it
-# before the restart went inside the world: the spawn and the step's wall on
-# four NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §5)
-RELAUNCH_FORM_S = {"spawn_s": 34.7, "step_s": 12.394}
 PROCS_SERVE[NCCL_CASE] = ((2, 2), 8, 4096, 8)
 PROCS_SERVE_LAUNCHES[NCCL_CASE] = (24, 0)  # full depth
 PROCS_SERVE_CAD += (NCCL_CASE,)
@@ -4160,32 +4157,40 @@ def procs_train_build(arch: str, mesh, what: str = "train"):
     weights from ``SEED`` (a process keeps its device's shard), S3,
     ``PROCS_TRAIN_SEQ`` tokens a row, 8-bit moments for ``8bit``, through
     ``launch/train.py``'s ``build``."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
     from repro_torch.launch import steps, train
     from repro_torch.models.model import Model
     from repro_torch.optim import AdamW
 
-    cut = {"n_layers": PROCS_TRAIN_LAYERS[arch]}
-    if arch in PROCS_TRAIN_ENC_LAYERS:
-        cut["enc_layers"] = PROCS_TRAIN_ENC_LAYERS[arch]
-    cfg = dataclasses.replace(get_config(case_arch(arch)), **cut)
+    cfg = procs_train_cfg(arch)
     model = Model(cfg, device=mesh.device, seed=SEED, env=steps.make_env(cfg, mesh))
     step, pipe = train.build(model, mesh, procs_train_args(arch, procs_train_dims(arch, what)),
                              optimizer=AdamW(eightbit=True) if what == "8bit" else None)
     return model, step, pipe
 
 
-def procs_train_args(arch: str, dims):
-    """``launch/train.py``'s arguments of phase 13's ``arch`` on ``dims``."""
+def procs_train_cfg(arch: str):
+    """Phase 13's config of ``arch``: full width at ``PROCS_TRAIN_LAYERS``
+    (and ``PROCS_TRAIN_ENC_LAYERS``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cut = {"n_layers": PROCS_TRAIN_LAYERS[arch]}
+    if arch in PROCS_TRAIN_ENC_LAYERS:
+        cut["enc_layers"] = PROCS_TRAIN_ENC_LAYERS[arch]
+    return dataclasses.replace(get_config(case_arch(arch)), **cut)
+
+
+def procs_train_args(arch: str, dims, *extra: str):
+    """``launch/train.py``'s arguments of phase 13's ``arch`` on ``dims``,
+    and ``extra``."""
     from repro_torch.launch import train
 
     return train.parser().parse_args([
         "--arch", case_arch(arch), "--scenario", "s3_in_net_map", "--mesh",
         ",".join(map(str, dims)),
         "--global-batch", str(PROCS_TRAIN[arch][1]), "--seq", str(PROCS_TRAIN_SEQ),
-        "--seed", str(SEED)])
+        "--seed", str(SEED), *extra])
 
 
 def procs_train_steps(step, state, pipe, k0: int, n: int) -> tuple:
@@ -4284,11 +4289,13 @@ def procs_train_world(tmp: Path, worlds: dict = PROCS_TRAIN_WORLDS) -> dict:
     return out
 
 
-def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes: list
-                     ) -> dict:
+def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes: list,
+                     restarted=None) -> dict:
     """One arch of phase 13 in this rank: built from ``SEED`` (its device's
     shards kept), or for ``restart`` restored from the processes'
-    checkpoint (``tmp/procs``); its steps phase by phase between barriers,
+    checkpoint (``tmp/procs``), or, given ``restarted``
+    (``launch/train.py``'s ``restart`` on ``pm``), as that built and
+    restored it; its steps phase by phase between barriers,
     each with its launches, staged copies and collectives counted, the
     first one's ``ring_fused_step`` hops each held bitwise against the plain
     version (rank 0 keeps the first hop's and the first combine's inputs in
@@ -4310,23 +4317,33 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
     t0 = time.perf_counter()
     dims = procs_train_dims(arch, what)
     n = PROCS_TRAIN[arch][2] if what == "train" else 1
-    model, step, pipe = procs_train_build(arch, pm, what)
-    torch.cuda.synchronize()
+    if restarted is None:
+        model, step, pipe = procs_train_build(arch, pm, what)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    else:
+        model, step, pipe = restarted.model, restarted.step, restarted.pipe
+        build_s = restarted.times["rebuild_s"]
     rec = {"mesh": list(dims), "tp": step.env.tp, "ring_hops": step.ring_hops(), "steps": [],
-           "build_s": time.perf_counter() - t0}
+           "build_s": build_s}
     k0 = 0
     store = CheckpointStore(str(tmp / "procs"))
-    p0 = {k: p.detach().clone() for k, p in step.params.items()}  # the seeded weights
-    if what == "restart":
+    # the seeded weights (a restarted run's, restored in place, are drawn again below)
+    p0 = None if restarted else {k: p.detach().clone() for k, p in step.params.items()}
+    if restarted is not None:
+        state, k0 = restarted.state, restarted.k
+        rec["restore_s"] = restarted.times["restore_s"]
+    elif what == "restart":
         t = time.perf_counter()
         state, k0 = train.restore(step, store)
         torch.cuda.synchronize()
         rec["restore_s"] = time.perf_counter() - t
+    else:
+        state = step.init_state()
+    if what == "restart":
         t = time.perf_counter()
         rec["restore_bitwise"] = procs_restored_bitwise(step, state, store, k0)
         rec["restore_check_s"] = time.perf_counter() - t
-    else:
-        state = step.init_state()
     want = torch.load(tmp / f"{arch}{'' if what == 'train' else '.' + what}.{pm.rank}.pt")
     rec["setup_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -4355,6 +4372,7 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
         batch = pipe.batch_at(k)
         torch.cuda.synchronize()
         dist.barrier(group=pm.group)
+        started = time.perf_counter()
         ops.reset_launches()
         phases = {}
         fetch, real_fetch = {}, step.fetch
@@ -4383,6 +4401,8 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
             state, gnorm = step.apply(state, grads)
             torch.cuda.synchronize()
             phases["apply"] = time.perf_counter() - t
+        if i == 0:  # on this process's clock, as ``restarted.failed_at``
+            rec["first_step_at"] = (started, time.perf_counter())
         del grads
         rec["steps"].append({
             "loss": float(nll) * step.norm, "grad_norm": float(gnorm),
@@ -4423,6 +4443,9 @@ def procs_train_arch(arch: str, what: str, pm, tmp: Path, capture: dict, writes:
                     for a, b in zip(pair, getattr(got, what_)[path])))
         del kept, got
     # this rank's shards against the world-dim run's, and the update since the seeded weights
+    if p0 is None:
+        p0 = {k: p.detach().clone()
+              for k, p in procs_train_build(arch, pm, what)[1].params.items()}
     lrs = want["lrs"]
     worst, num, den = 0.0, 0.0, 0.0
     for key, p in step.params.items():
@@ -5086,40 +5109,44 @@ def nccl_rank(tmp: str, full: bool, device) -> dict:
 
 
 def nccl_restart_rank(tmp: str, device, meshes: dict) -> dict:
-    """Phase 14's elastic restart inside the world, at its end: the failure
-    (a barrier of the world, qwen1.5's checkpoint on disk since its
-    training), then ``launch.procs.shrink_process_mesh`` from the (2, 2)
-    world mesh to ``NCCL_RESTART``: ranks 0-1 form it over a group of their
-    own, made by them alone, and ranks 2-3 leave. The survivors rebuild
-    qwen1.5 on it, restore the checkpoint and take a step
-    (``procs_train_arch``'s "restart": the restore held bitwise, the step
-    to the world-dim run's, each S3 hop to ``ring_fused_step``'s plain
-    version), then release their groups; no call of theirs reaches the
-    default group after the shrink. Returns the time of the group's
-    formation, and on a survivor its record under ``archs`` as
-    ``procs_train_rank`` returns it."""
+    """Phase 14's elastic restart inside the world, at its end, through
+    ``launch/train.py``'s own (``train.restart``, the ``--fail-step`` branch
+    of ``train.run``): on the (2, 2) world mesh, with qwen1.5's checkpoint
+    on disk since its training, a barrier of the world (the failure), then
+    ranks 0-1 go on on ``NCCL_RESTART`` over a group of their own, made by
+    them alone, draw qwen1.5 on it, build the step and restore the
+    checkpoint; ranks 2-3 leave. The survivors take a step
+    (``procs_train_arch`` given the restarted run: the restore held
+    bitwise, the step to the world-dim run's, each S3 hop to
+    ``ring_fused_step``'s plain version), then release their groups; no
+    call of theirs reaches the default group after the shrink. Returns on a
+    survivor its record under ``archs`` as ``procs_train_rank`` returns it,
+    the restart's parts and the failure's time on its clock."""
     import torch
-    import torch.distributed as dist
 
-    from repro_torch.launch import procs
-    from repro_torch.runtime.fault_tolerance import elastic_mesh_plan
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.launch import procs, train
 
     world = process_mesh(PROCS_TRAIN[NCCL_CASE][0], device, meshes)
+    args = procs_train_args(NCCL_CASE, world.shape, "--fail-step",
+                            str(PROCS_TRAIN[NCCL_CASE][2]), "--shrink-to",
+                            str(math.prod(NCCL_RESTART)), "--ckpt", str(Path(tmp) / "procs"))
     torch.cuda.synchronize()
-    dist.barrier()  # the failure: every rank here, the checkpoint written
-    t = time.perf_counter()
-    pm = procs.shrink_process_mesh(world, elastic_mesh_plan(math.prod(NCCL_RESTART),
-                                                            model_size=world.shape[-1]))
-    torch.cuda.synchronize()
-    res = {"group_s": time.perf_counter() - t, "left": pm is None}
-    if pm is None:
+    restarted = train.restart(args, procs_train_cfg(NCCL_CASE), world,
+                              CheckpointStore(args.ckpt))
+    res = {"left": restarted is None}
+    if restarted is None:
         return res
+    pm = restarted.mesh
     if pm.shape != NCCL_RESTART:
         raise AssertionError(f"phase 14's restart: the survivors' mesh is {pm.shape}, "
                              f"not {NCCL_RESTART}")
-    res["archs"] = {f"{NCCL_CASE}/restart": procs_train_arch(
-        NCCL_CASE, "restart", pm, Path(tmp), {}, [])}
-    res["transport"], res["ranks"] = pm.transport, pm.ranks
+    rec = procs_train_arch(NCCL_CASE, "restart", pm, Path(tmp), {}, [], restarted)
+    res.update(archs={f"{NCCL_CASE}/restart": rec}, times=restarted.times,
+               wall_s=rec["first_step_at"][1] - restarted.failed_at,
+               step_s=rec["first_step_at"][1] - rec["first_step_at"][0],
+               transport=pm.transport, ranks=pm.ranks)
+    del restarted
     procs.release_process_mesh(pm)
     return res
 
@@ -5242,30 +5269,28 @@ def nccl_hold_world(ranks: list, backend: str, ref: dict, world_dp: dict, launch
             "collectives": coll, "kernel_check_s": max(r["kernel_check_s"] for r in ranks)}
 
 
-def nccl_restart_check(recs: list, trained: dict) -> dict:
+def nccl_restart_check(recs: list) -> dict:
     """The restart inside the nccl world (``nccl_restart_rank``, the
-    survivors' records; its step held with the training in ``trained``):
-    the time from the failure to the end of the first restarted step on the
-    slowest survivor, split into the group's formation, the rebuild, the
-    restore and the step, printed beside the relaunch form's
-    (``RELAUNCH_FORM_S``). The survivors' groups are their own: their
-    global ranks are the mesh's first positions."""
-    tr = trained[f"{NCCL_CASE}/restart"]
+    survivors' records): the wall time from the failure to the end of the
+    first restarted step on the slowest survivor, with its parts there: the
+    group's formation, the rebuild and the restore (``train.restart``), this
+    script's checks before the step (the restore gathered back bitwise, the
+    world-dim reference loaded) and the step. The survivors' groups are
+    their own: their global ranks are the mesh's first positions."""
     if any(r["ranks"] != list(range(len(recs))) for r in recs):
         raise AssertionError(f"phase 14's restart: the survivors' groups span "
                              f"{[r['ranks'] for r in recs]}")
-    parts = {"group_s": max(r["group_s"] for r in recs), "rebuild_s": tr["build_s"],
-             "restore_s": tr["restore_s"], "step_s": tr["steps"][0]["wall_s"]}
-    st = {"mesh": tr["mesh"], "transport": sorted({r["transport"] for r in recs}),
-          "failure_to_first_step_s": sum(parts.values()), **parts,
-          "restore_check_s": tr["restore_check_s"], "restore_bitwise": tr["restore_bitwise"],
-          "relaunch_form_s": RELAUNCH_FORM_S, "collective_calls_rank0": recs[0]["calls"]}
+    slow = max(recs, key=lambda r: r["wall_s"])
+    parts = {**slow["times"], "checks_s": slow["wall_s"] - sum(slow["times"].values())
+             - slow["step_s"], "step_s": slow["step_s"]}
+    st = {"mesh": list(NCCL_RESTART), "transport": sorted({r["transport"] for r in recs}),
+          "failure_to_first_step_s": slow["wall_s"], "slowest_rank": recs.index(slow),
+          "each_rank_s": [r["wall_s"] for r in recs], **parts,
+          "collective_calls_rank0": recs[0]["calls"]}
     log(f"restart inside the nccl world, (2, 2) -> {NCCL_RESTART} on cards 0-1: "
-        f"{st['failure_to_first_step_s']:.3f} s from the failure to the end of the first "
-        f"restarted step (group {parts['group_s']:.3f} s, rebuild {parts['rebuild_s']:.3f} s, "
-        f"restore {parts['restore_s']:.3f} s, step {parts['step_s']:.3f} s); the relaunch "
-        f"form: a new world's spawn {RELAUNCH_FORM_S['spawn_s']} s plus its first step "
-        f"{RELAUNCH_FORM_S['step_s']} s")
+        f"{slow['wall_s']:.3f} s from the failure to the end of the first restarted step on "
+        f"rank {st['slowest_rank']}, the slower survivor (" +
+        ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in parts.items()) + ")")
     return st
 
 
@@ -5395,7 +5420,7 @@ def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
         res["train"][f"{arch}/{what}"] = tr
         log(f"process mesh under nccl, {what} {case_arch(arch)} on {tr['mesh']}: {json.dumps(tr)}")
     res["train_collective_calls_rank0"] = ranks[0]["train"]["calls"]
-    res["restart"] = nccl_restart_check(restarts[:survivors], res["train"])
+    res["restart"] = nccl_restart_check(restarts[:survivors])
     # the kernel rows: rank 3's data-plane kernels on cuda:3; rank 0's on cuda:0
     for row in ranks[-1]["rows"]:
         row["launches"] = res["launches"][row["name"]]
@@ -6086,7 +6111,39 @@ def main() -> int:
     return 0
 
 
+def nccl_phase_alone() -> int:
+    """``chip_smoke.py --nccl-phase``: phase 14 alone (``nccl_phase``, which
+    computes every reference itself) after the kernels' build, its checks
+    as in the whole script; prints its lines, then the restart's readings,
+    the references', spawns' and ranks' times and the kernels' launches as one JSON
+    object, and the card's name and power limit. Returns 1 on a host with
+    fewer than ``NCCL_WORLD`` cards."""
+    import torch
+
+    if torch.cuda.device_count() < NCCL_WORLD:
+        print(f"chip_smoke --nccl-phase: needs {NCCL_WORLD} cards, not "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _build, ops
+
+    log(f"build: {_build.build_all():.2f} s for {len(_build.NAMES)} kernels")
+    launches, rows = dict.fromkeys(ops.LAUNCHES, 0), []
+    t = time.perf_counter()
+    res = nccl_phase(launches, rows)
+    log(f"phase 14 alone: {time.perf_counter() - t:.2f} s")
+    log(json.dumps({"restart": res["restart"], "launches": launches,
+                    "times": {k: v for k, v in res.items()
+                              if k == "world_s" or k.endswith(("spawn_s", "rank_s"))}}))
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60, check=True
+                       ).stdout.strip().splitlines()[0])
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--nccl-phase"]:
+        sys.exit(nccl_phase_alone())
     if sys.argv[1:2] == ["--ring-hops"]:
         sys.exit(ring_hops(Path(sys.argv[2] if len(sys.argv) > 2 else Path(__file__).parent)
                            .resolve()))

@@ -65,6 +65,7 @@ import functools
 import math
 import os
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -294,29 +295,13 @@ def _train(args, cfg, mesh: Mesh, optimizer) -> list[float]:
     shrunk = None  # the survivors' mesh, whose groups this run made
     while k < args.steps:
         if fail_step is not None and k == fail_step and args.shrink_to:
-            # simulated failure: shrink the data world and restore
-            store.wait()
-            if procs:  # rank 0's checkpoint is on disk before anyone leaves
-                torch.distributed.barrier(group=mesh.group)
-            plan = elastic_mesh_plan(args.shrink_to, model_size=step.env.model_size)
-            if step.optimizer.eightbit:  # on every rank, before any leaves
-                refuse_eightbit_change(store.manifest(), steps_lib.make_env(
-                    cfg, make_mesh(plan.shape, plan.axes, device=mesh.device)).dp_world,
-                    plan.shape)
-            _say(step, f"[train] step {k}: simulating a device failure; shrinking to "
-                       f"{args.shrink_to} devices: --mesh {','.join(map(str, plan.shape))}")
-            del step, pipe, state
-            if procs:
-                mesh = shrunk = procs_lib.shrink_process_mesh(mesh, plan)
-                if mesh is None:  # this process's device is gone
-                    return losses
-                del model  # a survivor's shards are larger: drawn anew, then restored
-                model = Model(cfg, device=mesh.device, seed=args.seed,
-                              env=steps_lib.make_env(cfg, mesh))
-            else:
-                mesh = make_mesh(plan.shape, plan.axes, device=mesh.device)
-            step, pipe = build(model, mesh, args, optimizer)
-            state, k = init_or_restore(step, store, fresh=False)
+            kept = None if procs else model  # a survivor's shards are larger: drawn anew
+            del step, pipe, state, model
+            restarted = restart(args, cfg, mesh, store, optimizer, model=kept)
+            if restarted is None:  # this process's device is gone
+                return losses
+            mesh, model, step, pipe, state, k = restarted[:6]
+            shrunk = mesh if procs else None
             fail_step = None
             continue
         t0 = time.perf_counter()
@@ -338,6 +323,80 @@ def _train(args, cfg, mesh: Mesh, optimizer) -> list[float]:
     if shrunk is not None:
         procs_lib.release_process_mesh(shrunk)
     return losses
+
+
+class Restarted(NamedTuple):
+    """A survivor's run after the elastic restart (``restart``): the new
+    mesh, model, step, pipeline, restored state and step to go on from;
+    ``failed_at``, the ``time.perf_counter()`` of the failure on this
+    process, and ``times``, the seconds of each part since: the group's
+    formation (a process mesh only), the rebuild and the restore."""
+    mesh: Mesh
+    model: Model
+    step: steps_lib.TrainStep
+    pipe: TrainPipeline
+    state: OptState
+    k: int
+    failed_at: float
+    times: dict
+
+
+def restart(args, cfg, mesh: Mesh, store: CheckpointStore, optimizer=None, *,
+            model: Model | None = None) -> Restarted | None:
+    """The elastic restart after a simulated failure at ``--fail-step``
+    (``--shrink-to N``), once the caller has let go of its step, pipeline
+    and state: wait for the checkpoint writes (on a process mesh, then a
+    barrier of ``mesh``'s processes), take ``elastic_mesh_plan(N,
+    model_size=...)``, refuse a change of mesh with 8-bit moments (every
+    process, before any leaves), then on a process mesh shrink to the
+    plan's first ranks (``procs.shrink_process_mesh``; the others get None
+    and make no further call) and on world dims make the plan's mesh, draw
+    ``cfg``'s model from ``args.seed`` on it unless ``model`` is given (on
+    world dims the run's own, whose leaves are whole), build the step and
+    the pipeline and restore the latest checkpoint. A survivor releases the
+    groups of its mesh when it is done (``procs.release_process_mesh``)."""
+    procs = isinstance(mesh, ProcessMesh)
+    store.wait()
+    if procs:  # rank 0's checkpoint is on disk before anyone leaves
+        torch.distributed.barrier(group=mesh.group)
+    failed_at = time.perf_counter()
+    first = not procs or mesh.rank == 0
+    plan = elastic_mesh_plan(args.shrink_to, model_size=steps_lib.make_env(cfg, mesh).model_size)
+    eightbit = optimizer.eightbit if optimizer is not None else cfg.opt_state_8bit
+    if eightbit:
+        refuse_eightbit_change(store.manifest(), steps_lib.make_env(
+            cfg, make_mesh(plan.shape, plan.axes, device=mesh.device)).dp_world, plan.shape)
+    if first:
+        print(f"[train] step {args.fail_step}: simulating a device failure; shrinking to "
+              f"{args.shrink_to} devices: --mesh {','.join(map(str, plan.shape))}", flush=True)
+    times, t = {}, failed_at
+    if procs:
+        mesh = procs_lib.shrink_process_mesh(mesh, plan)
+        if mesh is None:
+            return None
+        t = _lap(times, "group_s", t, mesh.device)
+    else:
+        mesh = make_mesh(plan.shape, plan.axes, device=mesh.device)
+    if model is None:
+        model = Model(cfg, device=mesh.device, seed=args.seed, env=steps_lib.make_env(cfg, mesh))
+    step, pipe = build(model, mesh, args, optimizer)
+    t = _lap(times, "rebuild_s", t, mesh.device)
+    state, k = init_or_restore(step, store, fresh=False)
+    _lap(times, "restore_s", t, mesh.device)
+    if first:
+        print(f"[train] restarted at step {k} on --mesh {','.join(map(str, plan.shape))}: "
+              + ", ".join(f"{key[:-2]} {v:.2f}s" for key, v in times.items()), flush=True)
+    return Restarted(mesh, model, step, pipe, state, k, failed_at, times)
+
+
+def _lap(times: dict, key: str, since: float, device) -> float:
+    """Record the seconds since ``since`` under ``key``, once ``device``'s
+    queued work is done; returns the time now."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    now = time.perf_counter()
+    times[key] = now - since
+    return now
 
 
 def save(store: CheckpointStore, k: int, step: steps_lib.TrainStep, state: OptState, *,

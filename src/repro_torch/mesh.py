@@ -631,14 +631,6 @@ class ProcessMesh(Mesh):
         if self.group is not None:
             self._pgs.clear()
 
-    def _p2p(self, op, t: torch.Tensor, index: int):
-        """A ``P2POp`` to or from the process at mesh position ``index``: its
-        global rank on the default group, its rank in the mesh's group on one
-        of its own."""
-        if self.group is None:
-            return dist.P2POp(op, t, index)
-        return dist.P2POp(op, t, group=self.group, group_peer=index)
-
     def _buffer(self, tag: str, shape, dtype) -> torch.Tensor:
         key = (tag, tuple(shape), dtype)
         buf = self._pinned.get(key)
@@ -694,10 +686,12 @@ class ProcessMesh(Mesh):
             return _noted("collective-permute", x.clone(memory_format=torch.contiguous_format))
         ops = []
         if to:
-            ops.append(self._p2p(dist.isend, self._outgoing(x), self._peer(a, to[0])))
+            ops.append(dist.P2POp(dist.isend, self._outgoing(x), group=self.group,
+                                   group_peer=self._peer(a, to[0])))
         if frm:
             recv = self._incoming(x.shape, x.dtype)
-            ops.append(self._p2p(dist.irecv, recv, self._peer(a, frm[0])))
+            ops.append(dist.P2POp(dist.irecv, recv, group=self.group,
+                                   group_peer=self._peer(a, frm[0])))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -789,17 +783,16 @@ class ProcessMesh(Mesh):
         shards with it. Unstaged, the processes' shards land in the rows of
         the stack itself."""
         send = self._outgoing(x)
-        to = {"dst": root} if self.group is None else {"group": self.group, "group_dst": root}
         if self.rank != root:
-            dist.gather(send, None, **to)
+            dist.gather(send, None, group=self.group, group_dst=root)
             return None
         if not self.staged:
             out = torch.empty((self.size,) + tuple(send.shape), dtype=send.dtype,
                               device=self.device)
-            dist.gather(send, list(out.unbind(0)), **to)
+            dist.gather(send, list(out.unbind(0)), group=self.group, group_dst=root)
             return out
         bufs = [self._buffer(f"gather{i}", send.shape, send.dtype) for i in range(self.size)]
-        dist.gather(send, bufs, **to)
+        dist.gather(send, bufs, group=self.group, group_dst=root)
         return torch.stack([self._landed(b) for b in bufs])
 
     def psum_scatter(self, x: torch.Tensor, axis: str, scatter_dimension: int = 0,

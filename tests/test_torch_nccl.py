@@ -22,7 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.launch import procs, serve, train  # noqa: E402
-from repro_torch.mesh import Mesh, ProcessMesh, process_device  # noqa: E402
+from repro_torch.mesh import Mesh, ProcessMesh, local_group, process_device  # noqa: E402
 
 WORLD = 4
 TIMEOUT_S = 120
@@ -511,6 +511,8 @@ RESTART_ARGS = ["--arch", "qwen1_5_0_5b", "--smoke", "--mesh", "2,2", "--scenari
                 "--ckpt-every", "2", "--fail-step", "2", "--shrink-to", str(SHRINK_TO),
                 "--log-every", "100", "--device", "cpu"]
 RESTART_FAIL, RESTART_STEPS = 2, 4
+# a (1, 2) mesh over ranks whose positions in it are not their global ranks
+OTHER_RANKS = (1, 3)
 # the processes' losses against the world-dim run's: the same products on
 # other shapes, gloo's order of fp32 sums (test_torch_procs_train's WORLD_LOSS_TOL)
 RESTART_LOSS_TOL = 1e-4
@@ -582,6 +584,16 @@ def _shrink_rank(ckpt: str, device) -> dict:
                 procs.release_process_mesh(m)
     out["shrink"] = {"calls": rec.calls, "local": rec.local, "groups": rec.groups,
                      "shrunk_at": rec.shrunk_at, "device": str(device)}
+    if dist.get_rank() in OTHER_RANKS:
+        other = ProcessMesh(SHRINK_AXES, (1, 2), device=device,
+                            group=local_group(OTHER_RANKS, device))
+        out["other"] = {k: v.numpy() for k, v in _group_cases(other).items()}
+        x = other.shard(_shrink_inputs()["x"])
+        for root in range(2):
+            g = other.gather(x, root)
+            out["other"][f"gather{root}"] = None if g is None else g.numpy()
+        out["other_rank"] = (other.rank, other.ranks)
+        procs.release_process_mesh(other)
     out["after"] = m22.psum(x22, "data").numpy()
     m4 = ProcessMesh(("all",), (WORLD,), device=device)
     x4 = m4.shard(np.arange(WORLD * 2, dtype=np.float32).reshape(WORLD, 2))
@@ -648,6 +660,33 @@ def test_wordcount_plan_on_the_survivors_mesh_matches_world_dims(shrink_ranks):
         got = shrink_ranks[r]["wordcount"]
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
+
+
+def test_mesh_over_other_ranks_takes_its_positions(shrink_ranks):
+    """A mesh over global ranks ``OTHER_RANKS``: its positions are their
+    places in that group, not their global ranks."""
+    for pos, r in enumerate(OTHER_RANKS):
+        assert shrink_ranks[r]["other_rank"] == (pos, list(OTHER_RANKS))
+    assert all("other" not in shrink_ranks[r] for r in set(range(WORLD)) - set(OTHER_RANKS))
+
+
+@pytest.mark.parametrize("name", sorted(_group_cases(Mesh(SHRINK_AXES, (1, 2), device="cpu")))
+                         + ["gather0", "gather1"])
+def test_mesh_over_other_ranks_bitwise_to_world_dims(shrink_ranks, name):
+    """Each collective, and ``gather`` to either position, on a (1, 2) mesh
+    over ``OTHER_RANKS`` equals the world-dim ``Mesh``'s, bitwise: peers,
+    sources and roots are taken as positions in the mesh's group."""
+    x = _shrink_inputs()["x"]
+    got = [shrink_ranks[r]["other"][name] for r in OTHER_RANKS]
+    if name.startswith("gather"):
+        root = int(name[-1])
+        assert got[1 - root] is None
+        np.testing.assert_array_equal(got[root].reshape(x.shape), x)
+        return
+    want = _group_cases(Mesh(SHRINK_AXES, (1, 2), device="cpu"))[name].numpy()
+    got = np.concatenate(got, axis=1)
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    np.testing.assert_array_equal(got, want, err_msg=name)
 
 
 def _after_shrink(out: dict) -> list:
