@@ -141,7 +141,9 @@
    within ``DRYRUN_FLOP_TOL``.
 
 9. Serves across a ("data", "model") mesh of world dims (``MESH_SERVE``),
-   at full width and depth, random weights from ``SEED``, through
+   at full width and depth (granite-moe, mamba2 and minicpm3 cut,
+   ``MESH_LAYERS``),
+   random weights from ``SEED``, through
    ``launch.serve.generate`` over the mesh (the batch device-major, its rows
    held once): Qwen1.5-0.5B at (2, 4) (tp 4; 8 × 4,096 tokens, 16 greedy
    tokens), granite-moe-1b-a400m at (1, 16) (tp 16, kv 8 over 16 ranks:
@@ -219,8 +221,8 @@
    config's capacity, the replicated decode), mamba2 at (2, 2), minicpm3
    (MLA) at (1, 4), recurrentgemma at (2, 2) (both decode routes), qwen2-vl
    at (1, 8) (patch embeddings on their grid, split over rep) and seamless
-   at (1, 4) (``ENC_FRAMES`` frames), at full width, qwen1.5 at full depth
-   and the others at ``PROCS_SERVE_LAYERS``; the archs of one world size
+   at (1, 4) (``ENC_FRAMES`` frames), at full width and cut in depth to
+   ``PROCS_SERVE_LAYERS``; the archs of one world size
    share a spawn (``PROCS_SERVE_SPAWNS``). Each arch is first served on the
    world-dim mesh of the same mesh shape, weights and rows. On each route every rank's greedy tokens equal
    its rows' there wherever the world-dim logits' top-two margin exceeds
@@ -332,10 +334,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import importlib
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -408,11 +412,12 @@ PIPE_STAGES, PIPE_MICRO, PIPE_SHAPE = 8, 32, (8, 512, 1024)
 RECURRENCE_TOL = 2e-5
 # the other block kinds: one model per family (src/repro/configs), full width
 # and depth; 4 prompts of 2,048 tokens (a multiple of recurrentgemma's
-# 2,048 window and of mamba2's 256 chunk), 16 greedy tokens; seamless's
+# 2,048 window and of mamba2's 256 chunk), 8 greedy tokens (16 until the
+# script had to be cut to its time limit); seamless's
 # encoder takes 2,048 frames and its decoder a 128-token prompt
 FAMILY_ARCHS = ("granite-moe-1b-a400m", "minicpm3-4b", "mamba2-1.3b", "recurrentgemma-2b",
                 "qwen2-vl-7b", "seamless-m4t-large-v2")
-FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 4, 2048, 16
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_GEN = 4, 2048, 8
 ENC_FRAMES, DEC_PROMPT = 2048, 128
 # kernel launches of one served prefill: (flash_attention, segment_reduce).
 # flash takes GQA self-attention with head dim 64 or 128 and no window (the
@@ -465,6 +470,9 @@ TRAIN_PHASES = ("rank_gradients", "aggregate", "apply")
 # first loss after it is the same step on the same parameters and global
 # batch, only the ranks' sum in another order: RESTART_LOSS_TOL relative
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_SHRINK, RESTART_AT = 4, 2, 3, 4, 2
+# the restarts' rows (phase 8's and phase 10's), half phase 7's: the
+# checkpoint is the same 5.57 GB, and the steps around the failure cost half
+RESTART_SEQ = 1024
 RESTART_FLAGS = ("--ckpt-every", str(RESTART_EVERY), "--fail-step", str(RESTART_FAIL),
                  "--shrink-to", str(RESTART_SHRINK))
 RESTART_LOSS_TOL = 1e-5
@@ -492,6 +500,9 @@ DRYRUN_PEAK_TOL, DRYRUN_FLOP_TOL, DRYRUN_JOBS = 0.25, 1e-6, 6
 # M-RoPE over patch embeddings, the batch split over the rep groups);
 # seamless at (1, 16) (tp 16: the non-causal encoder over ENC_FRAMES frames,
 # cross-attention, a DEC_PROMPT-token decoder prompt)
+# (all at full depth until the script had to be cut to its time limit: now
+# granite-moe at 12 of 24 layers, mamba2 at 24 of 48 and minicpm3 at 16 of
+# 62, MESH_LAYERS)
 MESH_SERVE = {"qwen1.5-0.5b": ((2, 4), 8, 4096, 16),
               "granite-moe-1b-a400m": ((1, 16), 4, 2048, 8),
               "mamba2-1.3b": ((2, 2), 4, 2048, 8),
@@ -499,9 +510,10 @@ MESH_SERVE = {"qwen1.5-0.5b": ((2, 4), 8, 4096, 16),
               "recurrentgemma-2b": ((2, 2), 4, 2048, 8),
               "qwen2-vl-7b": ((1, 8), 4, 2048, 8),
               "seamless-m4t-large-v2": ((1, 16), 4, DEC_PROMPT, 8)}
+MESH_LAYERS = {"granite-moe-1b-a400m": 12, "mamba2-1.3b": 24, "minicpm3-4b": 16}
 # launches of one served path over the mesh: (flash_attention, segment_reduce);
 # seamless: 24 encoder layers (non-causal) and 24 decoder self-attentions
-MESH_LAUNCHES = {"qwen1.5-0.5b": (24, 0), "granite-moe-1b-a400m": (24, 24),
+MESH_LAUNCHES = {"qwen1.5-0.5b": (24, 0), "granite-moe-1b-a400m": (12, 12),
                  "mamba2-1.3b": (0, 0), "minicpm3-4b": (0, 0), "recurrentgemma-2b": (0, 0),
                  "qwen2-vl-7b": (28, 0), "seamless-m4t-large-v2": (48, 0)}
 # the warm TP prefills that benchmarks/torch_path_profile.py traces
@@ -629,8 +641,10 @@ PROCS_LAUNCHES = {"wordcount_histogram": {"segment_reduce": 1},
 # rows); granite-moe at (1, 8), not phase 9's (1, 16), to keep the phase at 8
 # processes (tp 8: one kv head and 4 experts a rank, the a2a at the config's
 # capacity 1.25); mamba2 at (2, 2) as phase 9 (tp 2). Full width; the
-# greedy tokens cut from phase 9's 16 and 8 to 3, and the depth of the two
-# archs other than qwen1.5 halved (PROCS_SERVE_LAYERS), so that the whole
+# greedy tokens cut from phase 9's 16 and 8 to 3, and the depth of qwen1.5
+# and of the two archs beside it halved (PROCS_SERVE_LAYERS; qwen1.5 served
+# all 24 layers until the script had to be cut to its time limit, and is
+# served at full depth under nccl in phase 14), so that the whole
 # script stays well inside its time limit: a decode step takes 1.3-2.9 s on
 # gloo ranks that share the card, a prefill 7-15 s (measured on an NVIDIA
 # H100 80GB HBM3 at 700.00 W; PERF.md §5). The other block kinds at full
@@ -650,14 +664,15 @@ PROCS_SERVE = {"qwen1.5-0.5b": ((2, 4), 8, 4096, 3),
                "recurrentgemma-2b": ((2, 2), 4, 2048, 3),
                "qwen2-vl-7b": ((1, 8), 4, 2048, 3),
                "seamless-m4t-large-v2": ((1, 4), 4, DEC_PROMPT, 3)}
-PROCS_SERVE_LAYERS = {"granite-moe-1b-a400m": 12, "mamba2-1.3b": 24,  # of 24 and 48
+PROCS_SERVE_LAYERS = {"qwen1.5-0.5b": 12,  # of 24
+                      "granite-moe-1b-a400m": 12, "mamba2-1.3b": 24,  # of 24 and 48
                       "minicpm3-4b": 8, "recurrentgemma-2b": 8, "qwen2-vl-7b": 4,
                       "seamless-m4t-large-v2": 6}  # of 62, 26, 28 and 24
 PROCS_SERVE_ENC_LAYERS = {"seamless-m4t-large-v2": 6}  # of 24
 # each rank's launches of one served path: (flash_attention, segment_reduce),
 # one prefill flash per layer on the rank's heads (seamless: its encoder's
 # non-causal ones and its decoder's), one a2a combine per MoE layer
-PROCS_SERVE_LAUNCHES = {"qwen1.5-0.5b": (24, 0), "granite-moe-1b-a400m": (12, 12),
+PROCS_SERVE_LAUNCHES = {"qwen1.5-0.5b": (12, 0), "granite-moe-1b-a400m": (12, 12),
                         "mamba2-1.3b": (0, 0), "minicpm3-4b": (0, 0),
                         "recurrentgemma-2b": (0, 0), "qwen2-vl-7b": (4, 0),
                         "seamless-m4t-large-v2": (12, 0)}
@@ -759,8 +774,9 @@ PROCS_UPDATE_TOL = 0.15
 # depth as phases 12 and 13 serve and train (NCCL_CASE's entries of their
 # tables: 8 x 4,096 prompts, 8 tokens, both routes, flash prefill; S3, 8 x
 # PROCS_TRAIN_SEQ rows, 2 steps, the checkpoint gathered to rank 0 and
-# written); the same 4 ranks then under gloo, staged through pinned host
-# memory (the data plane and the collectives). The nccl world ends in the
+# written); the same 4 processes on a gloo group of their own, staged
+# through pinned host memory (the data plane and the collectives), in the
+# same world (``nccl_gloo_group``). The nccl world ends in the
 # elastic restart inside it: ranks 0-1 go on on NCCL_RESTART over a group of
 # their own, restore the checkpoint and take a step; ranks 2-3 leave
 NCCL_WORLD = 4
@@ -850,13 +866,80 @@ def log(msg: str) -> None:
 
 
 START = time.perf_counter()
+STAGES: dict[str, tuple[float, str]] = {}  # each phase's first stage: (its time, its line)
 
 
 def stage(what: str) -> None:
     """A line on standard error as each phase starts, with the seconds since
-    the script began: where a run that was cut stood."""
-    print(f"chip_smoke: {time.perf_counter() - START:.1f} s: {what}", file=sys.stderr,
-          flush=True)
+    the script began: where a run that was cut stood. The first stage of
+    each phase ("phase N ...") and "done" are kept for ``phase_walls``."""
+    now = time.perf_counter()
+    key = what.split()[1] if what.startswith("phase ") else what
+    STAGES.setdefault(key, (now, what.removeprefix("phase ")))
+    print(f"chip_smoke: {now - START:.1f} s: {what}", file=sys.stderr, flush=True)
+
+
+def phase_walls() -> dict:
+    """Each phase's wall in seconds, from its first stage to the next
+    phase's (the last one's to "done"), by its first stage's words in phase
+    order, and the script's so far under "script_s"."""
+    marks = sorted(STAGES.values())
+    walls = {label: b[0] - a for (a, label), b in zip(marks, marks[1:])}
+    order = sorted(walls, key=lambda label: (int(label.split()[0].rstrip("b")), label))
+    return {**{label: walls[label] for label in order}, "script_s": time.perf_counter() - START}
+
+
+def _gated_call(fn, gate: str, device) -> dict:
+    """A rank's call of ``fn`` once the file ``gate`` exists (``spawning``),
+    with the wall-clock times it stood ready, began and ended; raises where
+    ``gate`` + ".failed" appears instead."""
+    ready = time.time()
+    while not Path(gate).exists():
+        if Path(gate + ".failed").exists():
+            raise RuntimeError("the parent failed before the ranks' call")
+        time.sleep(0.02)
+    begin = time.time()
+    out = fn(device)
+    return {"out": out, "ready": ready, "begin": begin, "end": time.time()}
+
+
+@contextlib.contextmanager
+def spawning(fn, world: int, **kw):
+    """``launch.procs.spawn(fn, world, **kw)`` begun before what ``fn``
+    reads exists: the ranks start (the processes, torch's import, a CUDA
+    context each, the group) while the ``with`` block makes it, and call
+    ``fn`` once the block has ended; where the block fails they stop. Yields
+    a dict that after the block holds "ranks", every rank's result, and
+    "times", where the wall went: "start_s" from the spawn to the last rank
+    standing ready, "idle_s" how long the ranks then stood ready for the
+    block (0 where they were still starting when it ended), "call_s" the
+    slowest rank's call, "teardown_s" from the last call's end to the
+    spawn's return (the group's end, the processes' exit)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import procs
+
+    gate = f"{kw['store_path']}.go"
+    for p in (gate, gate + ".failed"):
+        Path(p).unlink(missing_ok=True)
+    got = {}
+    t0 = time.time()
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(procs.spawn, functools.partial(_gated_call, fn, gate), world, **kw)
+        try:
+            yield got
+        except BaseException:
+            Path(gate + ".failed").touch()
+            raise
+        go = time.time()
+        Path(gate).touch()
+        ranks = ranks.result()
+    t1 = time.time()
+    ready, end = max(r["ready"] for r in ranks), max(r["end"] for r in ranks)
+    got["ranks"] = [r["out"] for r in ranks]
+    got["times"] = {"spawn_s": t1 - t0, "start_s": ready - t0, "idle_s": max(0.0, go - ready),
+                    "call_s": max(r["end"] - r["begin"] for r in ranks),
+                    "teardown_s": t1 - end}
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1174,18 +1257,29 @@ def data_plane_rows(words, recv, hop: tuple, prefix: str = "", buckets: int = N_
     return rows
 
 
-def inputs():
-    """The full-size data of the main paths, made from ``SEED`` on the host
-    and laid on the card: (word shards as numpy, words (8, 2**24) int32,
-    gradients as numpy, gradients (8, 25,557,032) fp32)."""
+def draw_inputs(world: int = N_MAPPERS, tokens: int = TOKENS_PER_MAPPER,
+                grad_size: int = GRAD_SIZE) -> tuple:
+    """The data of the main paths for ``world`` mappers and devices, made
+    from ``SEED`` on the host: (word shards, a list of ``tokens`` int32
+    arrays; gradients (world, grad_size) fp32). A world's rows are the first
+    rows of any larger world's."""
     import numpy as np
 
     from repro_torch.data.pipeline import wordcount_shards
+
+    shards = wordcount_shards(world * tokens, world, VOCAB, seed=SEED)
+    shards[3][-5:] = -1  # padding, as the tests do
+    grads_np = np.random.default_rng(SEED).standard_normal((world, grad_size), dtype=np.float32)
+    return shards, grads_np
+
+
+def inputs():
+    """The full-size data of the main paths (``draw_inputs``), laid on the
+    card: (word shards as numpy, words (8, 2**24) int32, gradients as numpy,
+    gradients (8, 25,557,032) fp32)."""
     from repro_torch.mesh import Mesh
 
-    shards = wordcount_shards(N_MAPPERS * TOKENS_PER_MAPPER, N_MAPPERS, VOCAB, seed=SEED)
-    shards[3][-5:] = -1  # padding, as the tests do
-    grads_np = np.random.default_rng(SEED).standard_normal((8, GRAD_SIZE), dtype=np.float32)
+    shards, grads_np = draw_inputs()
     return (shards, Mesh(("all",), (N_MAPPERS,)).shard(shards),
             grads_np, Mesh(("data",), (8,)).shard(grads_np))
 
@@ -1255,6 +1349,28 @@ def compile_plans(compile_ms: dict | None = None) -> dict:
         if compile_ms is not None:
             compile_ms[name] = (time.perf_counter() - t) * 1e3
     return plans
+
+
+def timed(fn, *args):
+    """(``fn(*args)``, its seconds): a host process's job, timed where it runs."""
+    t = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t
+
+
+def plan_on_cpu(plan, saved: str) -> tuple[str, float]:
+    """A compiled plan's run on the CPU over phase 3's gradient rows
+    (``save_inputs``' files under ``saved``), in the host process beside the
+    card's phases: (the ``digest`` of its output's bits, its seconds)."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(4)  # the card's phases keep the other cores
+    grads = np.load(Path(saved) / "grads.npy", mmap_mode="c")
+    t = time.perf_counter()
+    out = plan.run({f"g{i}": torch.from_numpy(np.array(grads[i])) for i in range(N_MAPPERS)},
+                   backend="torch", device="cpu")["OUT"]
+    return digest(out), time.perf_counter() - t
 
 
 def schedule_tenants():
@@ -1952,13 +2068,16 @@ def cache_consistency(model, batch, impl: str) -> dict:
             "finite": bool(torch.isfinite(h_dec).all())}
 
 
-def mesh_inputs(arch: str):
-    """``arch`` at full width and depth served over its ``MESH_SERVE`` mesh
-    (``launch.mesh.make_mesh``) on the card: (the model under the mesh's
+def mesh_inputs(arch: str, layers: int | None = None):
+    """``arch`` at full width (``layers`` deep, by default its full depth)
+    served over its ``MESH_SERVE`` mesh (``launch.mesh.make_mesh``) on the
+    card: (the model under the mesh's
     ``ShardEnv``, weights from a ``torch.Generator`` seeded with ``SEED``;
     the mesh; the prompt rows held once, ``launch.serve.prompt_batch`` from
     ``SEED``: tokens, patch embeddings with their grid for qwen2-vl,
     ``ENC_FRAMES`` frames and a token prompt for seamless)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch import serve, steps
     from repro_torch.launch.mesh import make_mesh
@@ -1966,6 +2085,8 @@ def mesh_inputs(arch: str):
 
     dims, gb, prompt, _ = MESH_SERVE[arch]
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     mesh = make_mesh(dims, device="cuda")
     model = Model(cfg, device="cuda", seed=SEED, env=steps.make_env(cfg, mesh))
     return model, mesh, serve.prompt_batch(model, steps.held_rows(model.env, gb), prompt,
@@ -2265,10 +2386,11 @@ def mesh_phase(drive, launches: dict, rows: list) -> dict:
     sr = importlib.import_module("repro_torch.kernels.segment_reduce").segment_reduce
     stats, checks, captured = {}, {}, {}
     for arch, (dims, gb, prompt, gen) in MESH_SERVE.items():
+        stage(f"phase 9 {arch}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        model, mesh, batch = mesh_inputs(arch)
+        model, mesh, batch = mesh_inputs(arch, MESH_LAYERS.get(arch))
         torch.cuda.synchronize()
         cfg, env = model.cfg, model.env
         held_gb = torch.cuda.memory_allocated() / 1e9
@@ -2427,15 +2549,15 @@ def mesh_phase(drive, launches: dict, rows: list) -> dict:
 
 
 def train_args(arch: str, scenario: str, mesh: str, global_batch: int, steps: int = 1,
-               *extra: str):
+               *extra: str, seq: int = TRAIN_SEQ):
     """``python -m repro_torch.launch.train``'s arguments for ``arch`` at full
-    width on the card: random weights from ``SEED``, ``TRAIN_SEQ`` tokens a
+    width on the card: random weights from ``SEED``, ``seq`` tokens a
     sequence, a step's loss logged each step; ``extra``: more flags."""
     from repro_torch.launch import train
 
     return train.parser().parse_args([
         "--arch", arch, "--scenario", scenario, "--mesh", mesh, "--global-batch",
-        str(global_batch), "--seq", str(TRAIN_SEQ), "--seed", str(SEED), "--steps", str(steps),
+        str(global_batch), "--seq", str(seq), "--seed", str(SEED), "--steps", str(steps),
         "--device", "cuda", "--log-every", "1", *extra])
 
 
@@ -2598,6 +2720,7 @@ def train_phase(launches: dict) -> dict:
     del model, init
 
     # (b) TRAIN_STEPS steps under S3, through launch/train.py's run
+    stage("phase 7 the S3 run")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -2623,6 +2746,7 @@ def train_phase(launches: dict) -> dict:
         raise AssertionError(f"the S3 run made {got['ring_fused_step']} ring_fused_step launches")
 
     # (c) granite-moe: the combine on segment_reduce in the training forward
+    stage(f"phase 7 {MOE_TRAIN_ARCH}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step, state, pipe = train_inputs(MOE_TRAIN_ARCH, "native", "1,1", MOE_TRAIN_BATCH)
@@ -2766,7 +2890,7 @@ def restart_run(count, mesh: str = "8,1", steps: int = RESTART_STEPS,
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launches()
         args = train_args(TRAIN_ARCH, "s3_in_net_map", mesh, TRAIN_BATCH, steps,
-                          "--ckpt", tmp, *flags)
+                          "--ckpt", tmp, *flags, seq=RESTART_SEQ)
         t = time.perf_counter()
         with mock.patch.object(CheckpointStore, "save", save), \
                 mock.patch.object(train, "restore", restore), \
@@ -2806,7 +2930,7 @@ def restart_run(count, mesh: str = "8,1", steps: int = RESTART_STEPS,
            "wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     after = list(elastic_mesh_plan(shrink, model_size=shape[-1]).shape)
     log(f"restart {TRAIN_ARCH} s3_in_net_map {mesh} -> {after} ({' '.join(flags)}, "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens): {json.dumps(res)}")
+        f"{TRAIN_BATCH} x {RESTART_SEQ} tokens): {json.dumps(res)}")
     log(f"  saves: {gb:.2f} GB each; async snapshot "
         f"{np.mean([s['snapshot_ms'] for s in stats]):.1f} ms, write "
         f"{np.mean([s['write_ms'] for s in stats]):.1f} ms; blocking {blocking_ms:.1f} ms "
@@ -3010,10 +3134,13 @@ def restart_phase(launches: dict, dryrun_pending: dict) -> dict:
         return got
 
     try:
-        res = {"restart": restart_run(count), "moe_restore": moe_restore(count)}
+        res = {"restart": restart_run(count)}
+        stage("phase 8 the MoE restore")
+        res["moe_restore"] = moe_restore(count)
     except BaseException:
         dryrun_pending["executor"].shutdown(wait=True, cancel_futures=True)
         raise
+    stage("phase 8 the dry run's card checks")
     res["dryrun"] = dryrun_phase(dryrun_pending)
     return res
 
@@ -3037,12 +3164,13 @@ def tp_model(arch: str, mesh: str, layers: int | None = None):
     return Model(cfg, device="cuda", seed=SEED, env=env)
 
 
-def rec_tp_depth(arch: str, mesh: str, rows: int, layers: int) -> dict:
+def rec_tp_depth(arch: str, mesh: str, rows: int, layers: int, card_bytes: float) -> dict:
     """``arch``'s deepest cut (whole superblocks and its tail, its full
     depth at most) whose S3 train step on ``mesh`` over ``rows`` ×
     ``TRAIN_SEQ`` tokens fits the card: the dry run's meta-device count of
     the step's peak (``dryrun.Cell.memory``) within ``1 - REC_TP_MARGIN``
-    of ``dryrun.card_memory()``. The search starts at ``layers`` and moves
+    of the card's ``card_bytes`` (``dryrun.card_memory()``; the count runs
+    in the host process, beside the card's phases). The search starts at ``layers`` and moves
     a superblock at a time. Returns {"layers", "limit_gb", "peak_gb":
     {layers counted: peak GB}}."""
     import dataclasses
@@ -3057,7 +3185,7 @@ def rec_tp_depth(arch: str, mesh: str, rows: int, layers: int) -> dict:
     unit = len(block_pattern(cfg)[0])
     world = make_mesh(tuple(int(x) for x in mesh.split(",")), device="meta")
     shape = shp.ShapeSpec("phase10", TRAIN_SEQ, rows, "train")
-    limit = (1 - REC_TP_MARGIN) * dryrun.card_memory()
+    limit = (1 - REC_TP_MARGIN) * card_bytes
     peak: dict[int, float] = {}
 
     def fits(n: int) -> bool:
@@ -3165,11 +3293,11 @@ def tp_busy(step, batch) -> dict:
     return {"window_ms": window, "busy_ms": busy, "idle": 1 - busy / window}
 
 
-def tp_train_phase(launches: dict) -> dict:
+def tp_train_phase(launches: dict, depth: dict) -> dict:
     """Phase 10: training under tensor parallelism at full width, paths (a)
-    to (c) (``TP_TRAIN_MESHES``, ``TP_RESTART``, ``REC_TP``, ``MOE_TP``).
-    Returns its numbers for the JSON line; adds its main paths' kernel
-    launches to ``launches``."""
+    to (c) (``TP_TRAIN_MESHES``, ``TP_RESTART``, ``REC_TP`` at ``depth``,
+    ``rec_tp_depth``'s, ``MOE_TP``). Returns its numbers for the JSON line;
+    adds its main paths' kernel launches to ``launches``."""
     import numpy as np
     import torch
 
@@ -3184,6 +3312,7 @@ def tp_train_phase(launches: dict) -> dict:
         now = time.perf_counter()
         res["section_s"][name] = now - t_section[0]
         t_section[0] = now
+        stage(f"phase 10 after {name}")
 
     def count():
         for k, v in ops.LAUNCHES.items():
@@ -3270,9 +3399,8 @@ def tp_train_phase(launches: dict) -> dict:
     section("a_restart")
 
     # (b) recurrentgemma on (1, 4): rep 2, the rep groups' rings
-    arch, mesh, rows, layers = REC_TP
+    arch, mesh, rows, _ = REC_TP
     torch.cuda.empty_cache()
-    depth = rec_tp_depth(arch, mesh, rows, layers)
     layers = depth["layers"]
     log(f"  {arch} on {mesh}: {layers} layers, the deepest whose step fits "
         f"{depth['limit_gb']:.2f} GB (meta-device peak GB by layers: "
@@ -3394,37 +3522,59 @@ def procs_launches(name: str, world: int) -> dict:
     return want
 
 
-def procs_meshes(world: int, device, process: bool = True) -> dict:
+def procs_meshes(world: int, device, process: bool = True, group=None) -> dict:
     """The data plane's meshes over ``world`` devices: "all" and "data" of
-    ``world``, "pod_data" (2, world / 2); this process's ``ProcessMesh``es,
-    or (``process`` False) world dims on ``device``."""
+    ``world``, "pod_data" (2, world / 2); this process's ``ProcessMesh``es
+    over ``group`` (None: the default group), or (``process`` False) world
+    dims on ``device``."""
     from repro_torch.mesh import Mesh, ProcessMesh
 
-    cls = ProcessMesh if process else Mesh
-    return {"all": cls(("all",), (world,), device=device),
-            "data": cls(("data",), (world,), device=device),
-            "pod_data": cls(("pod", "data"), (2, world // 2), device=device)}
+    if not process:
+        return {"all": Mesh(("all",), (world,), device=device),
+                "data": Mesh(("data",), (world,), device=device),
+                "pod_data": Mesh(("pod", "data"), (2, world // 2), device=device)}
+    return {"all": ProcessMesh(("all",), (world,), device=device, group=group),
+            "data": ProcessMesh(("data",), (world,), device=device, group=group),
+            "pod_data": ProcessMesh(("pod", "data"), (2, world // 2), device=device,
+                                    group=group)}
 
 
-def procs_inputs(meshes: dict) -> tuple:
-    """Phase 3's inputs at the meshes' world, made from ``SEED`` as
-    ``inputs()`` makes them, each mesh's share of them (a process's shard,
-    or every row on world dims), and the word-count plan on a ring of that
-    many switches: (words, grads, grads on "pod_data", plan)."""
+def save_inputs(directory: Path, shards, grads_np) -> Path:
+    """Phase 3's inputs written under ``directory`` for ``procs_inputs``:
+    the word shards (one row a mapper) and the gradient rows, ``.npy``."""
+    import numpy as np
+
+    np.save(directory / "shards.npy", np.stack(shards))
+    np.save(directory / "grads.npy", grads_np)
+    return directory
+
+
+def procs_inputs(meshes: dict, tokens: int = TOKENS_PER_MAPPER, grad_size: int = GRAD_SIZE,
+                 saved: Path | None = None) -> tuple:
+    """Phase 3's inputs at the meshes' world (``draw_inputs``: ``tokens`` a
+    mapper, ``grad_size`` gradients a device), or their first rows read
+    from ``save_inputs``' files under ``saved``, each mesh's share of them
+    (a process's shard, or every row on world dims), and the word-count
+    plan on a ring of that many switches: (words, grads, grads on
+    "pod_data", plan)."""
     import numpy as np
 
     from repro_torch import compiler
     from repro_torch.core import wordcount as wc
     from repro_torch.core.topology import TorusTopology
-    from repro_torch.data.pipeline import wordcount_shards
 
     world = meshes["all"].axis_size("all")
-    shards = wordcount_shards(world * TOKENS_PER_MAPPER, world, VOCAB, seed=SEED)
-    shards[3][-5:] = -1
+    if saved is not None:
+        shards = np.load(Path(saved) / "shards.npy", mmap_mode="c")[:world]
+        grads_np = np.load(Path(saved) / "grads.npy", mmap_mode="c")[:world]
+        if shards.shape != (world, tokens) or grads_np.shape != (world, grad_size):
+            raise ValueError(f"saved inputs {shards.shape}, {grads_np.shape} are not a world "
+                             f"of {world} at {tokens} tokens and {grad_size} gradients")
+    else:
+        shards, grads_np = draw_inputs(world, tokens, grad_size)
     words = meshes["all"].shard(shards)
-    grads_np = np.random.default_rng(SEED).standard_normal((world, GRAD_SIZE), dtype=np.float32)
     grads = meshes["data"].shard(grads_np)
-    grads24 = meshes["pod_data"].shard(grads_np.reshape(2, world // 2, GRAD_SIZE))
+    grads24 = meshes["pod_data"].shard(grads_np.reshape(2, world // 2, grad_size))
     plan = compiler.compile(wc.wordcount_program(world, VOCAB),
                             TorusTopology(dims=(world,)), passes=PLAN_PASSES)
     return words, grads, grads24, plan
@@ -3451,11 +3601,11 @@ def procs_paths(meshes: dict, words, grads, grads24, plan) -> dict:
     def plan_path():
         hist = wc.kernel_histogram(words, VOCAB)
         if not isinstance(m, ProcessMesh):
-            return plan.run({f"s{i}": hist[i] for i in range(n)})
+            return plan.run({f"s{i}": hist[i] for i in range(n)}, mesh=m)
         # the plan reads a rank's inputs only for the Store on its own switch
         other = torch.zeros_like(hist[0])
         return plan.run({f"s{i}": hist[0] if int(plan.placement.switch_of(f"s{i}")) == m.rank
-                         else other for i in range(n)})
+                         else other for i in range(n)}, mesh=m)
 
     paths = {
         "wordcount_histogram": hist_path,
@@ -3510,7 +3660,7 @@ def procs_timed(meshes: dict, paths: dict, grads, capture: dict | None = None) -
         fn()  # the warm-up: groups, pinned buffers, the allocator's blocks
         torch.cuda.synchronize()
         if process:
-            dist.barrier()
+            dist.barrier(group=meshes["all"].group)
         ops.reset_launches()
         with count_staging() as staged, count_collectives() as colls, capturing(name):
             t = time.perf_counter()
@@ -3531,15 +3681,15 @@ def procs_timed(meshes: dict, paths: dict, grads, capture: dict | None = None) -
     return out_recs
 
 
-def procs_rank(device) -> dict:
+def procs_rank(saved: str, device) -> dict:
     """Phase 11 in one rank (``launch.procs.spawn``): its shards of phase 3's
-    inputs (``procs_inputs``), every path of ``procs_paths`` timed
-    (``procs_timed``), and the rank's peak memory."""
+    inputs (``procs_inputs``, from the files under ``saved``), every path of
+    ``procs_paths`` timed (``procs_timed``), and the rank's peak memory."""
     import torch
 
     t = time.perf_counter()
     meshes = procs_meshes(PROCS_WORLD, device)
-    words, grads, grads24, plan = procs_inputs(meshes)
+    words, grads, grads24, plan = procs_inputs(meshes, saved=saved)
     res = {"transport": meshes["all"].transport, "setup_s": time.perf_counter() - t}
     torch.cuda.reset_peak_memory_stats()
     res["paths"] = procs_timed(meshes, procs_paths(meshes, words, grads, grads24, plan), grads)
@@ -3601,7 +3751,7 @@ def procs_hold(ranks: list, ref: dict, world: int, launches: dict, label: str) -
     return out
 
 
-def procs_phase(ref: dict) -> dict:
+def procs_phase(ref: dict, saved: Path) -> dict:
     """Phase 11: ``PROCS_WORLD`` gloo ranks spawned on the one card
     (``procs_rank``); each path's outputs in every rank held to phase 3's
     world-dim run (``ref``, from ``procs_record``) and its launches to
@@ -3615,21 +3765,22 @@ def procs_phase(ref: dict) -> dict:
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.launch import procs
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # the ranks share the card with this process
-    t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        ranks = procs.spawn(procs_rank, PROCS_WORLD, backend="gloo", store_path=Path(tmp) / "store",
-                            timeout_s=PROCS_TIMEOUT_S)
+        with spawning(functools.partial(procs_rank, str(saved)), PROCS_WORLD, backend="gloo",
+                      store_path=Path(tmp) / "store", timeout_s=PROCS_TIMEOUT_S) as got:
+            pass  # nothing to make meanwhile: phase 3 made the reference
+        ranks, spawned = got["ranks"], got["times"]
     res = {"ranks": PROCS_WORLD, "transport": sorted({r["transport"] for r in ranks}),
-           "spawn_s": time.perf_counter() - t, "setup_s": max(r["setup_s"] for r in ranks),
+           **spawned, "setup_s": max(r["setup_s"] for r in ranks),
            "peak_gb_per_rank": max(r["peak_gb"] for r in ranks),
            "launches": dict.fromkeys(ops.LAUNCHES, 0)}
     log(f"process mesh: {PROCS_WORLD} ranks on one card, {' / '.join(res['transport'])}; spawned, "
-        f"run and joined in {res['spawn_s']:.2f} s (a rank's setup, its shards made from seed "
-        f"{SEED} and the plan compiled: {res['setup_s']:.2f} s at most)")
+        f"run and joined in {res['spawn_s']:.2f} s (start {res['start_s']:.2f} s, the slowest "
+        f"rank's call {res['call_s']:.2f} s, teardown {res['teardown_s']:.2f} s; a rank's setup, "
+        f"its shards read and the plan compiled: {res['setup_s']:.2f} s at most)")
     res["paths"] = procs_hold(ranks, ref, PROCS_WORLD, res["launches"], "procs")
     for name, p in res["paths"].items():
         log(f"path procs_{name}: {p['wall_s'] * 1e3:.3f} ms wall (the slowest rank), "
@@ -3640,6 +3791,43 @@ def procs_phase(ref: dict) -> dict:
     log(f"  peak device memory of a rank {res['peak_gb_per_rank']:.3f} GB; launches summed over "
         f"the ranks {res['launches']}")
     return res
+
+
+def procs_phases(procs_ref: dict, saved: Path, refs: Path) -> dict:
+    """Phases 11-13, the process mesh on one card: the data plane held to
+    phase 3's world-dim run (``procs_ref``, its inputs ``saved``), serving
+    and training every block kind, with the four-rank references that phase
+    14 reuses kept under ``refs`` (``keep_refs``). Returns each phase's
+    readings (its ``wall_s`` among them), their kernel rows at a rank's
+    shapes, the launches of their main paths and what phase 14 reuses
+    ("kept")."""
+    from repro_torch.kernels import ops
+
+    launches = dict.fromkeys(ops.LAUNCHES, 0)
+    stage("phase 11 data plane on a process mesh")
+    t = time.perf_counter()
+    procs = procs_phase(procs_ref, saved)
+    procs["wall_s"] = time.perf_counter() - t
+    for k in launches:
+        launches[k] += procs["launches"][k]
+    log(f"process mesh phase: {procs['wall_s']:.2f} s")
+
+    stage("phase 12 serving on a process mesh")
+    kept = {"dir": refs, "serve": {}, "train": {}}
+    t = time.perf_counter()
+    serve_rows = []  # the kernels at a rank's shapes, with phase 12's launches
+    serving = procs_serve_phase(launches, serve_rows, kept)
+    serving["wall_s"] = time.perf_counter() - t
+    log(f"serving on a process mesh phase: {serving['wall_s']:.2f} s")
+
+    stage("phase 13 training on a process mesh")
+    t = time.perf_counter()
+    train_rows = []  # the kernels at a rank's shapes, with phase 13's launches
+    training = procs_train_phase(launches, train_rows, kept)
+    training["wall_s"] = time.perf_counter() - t
+    log(f"training on a process mesh phase: {training['wall_s']:.2f} s")
+    return {"procs": procs, "procs_serving": serving, "procs_training": training,
+            "rows": serve_rows + train_rows, "launches": launches, "kept": kept}
 
 
 def recording_logits(log: list):
@@ -4072,22 +4260,21 @@ def combine_row(capture: tuple, launches: int, path: str, what: str) -> dict:
 
 
 def procs_serve_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
-    """Phase 12: for each group of ``PROCS_SERVE_SPAWNS`` the world-dim
-    reference of each of its archs (``procs_serve_world``), then one gloo
-    rank per mesh device spawned on the card once for the group
-    (``procs_serve_ranks``), each arch held to its reference
+    """Phase 12: for each group of ``PROCS_SERVE_SPAWNS`` one gloo rank per
+    mesh device spawned on the card once for the group
+    (``procs_serve_ranks``), which starts while the world-dim reference of
+    each of its archs is made (``procs_serve_world``, ``spawning``) and
+    then serves them, each arch held to its reference
     (``procs_serve_check``). Adds the ranks' launches to ``launches`` and
     the kernel rows at a rank's shapes to ``rows``: ``flash_attention`` at
     each of ``PROCS_SERVE_FLASH``'s archs, ``segment_reduce`` at the a2a
     combine; returns the readings. With ``kept`` (``keep_refs``) the
     references of the archs served on ``NCCL_WORLD`` ranks stay for phase 14."""
-    import functools
     import tempfile
 
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.launch import procs
 
     res = {"archs": {}, "launches": dict.fromkeys(ops.LAUNCHES, 0), "spawns": []}
     captured = {}
@@ -4098,24 +4285,25 @@ def procs_serve_phase(launches: dict, rows: list, kept: dict | None = None) -> d
         n = sizes.pop()
         with tempfile.TemporaryDirectory() as tmp:
             world, world_s = {}, {}
-            for arch in group:
-                stage(f"phase 12 {arch} on world dims")
-                t = time.perf_counter()
-                world[arch] = procs_serve_world(arch, Path(tmp))
-                world_s[arch] = time.perf_counter() - t
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()  # the ranks share the card with this process
-            stage(f"phase 12 {n} ranks: {', '.join(group)}")
-            t = time.perf_counter()
-            ranks = procs.spawn(functools.partial(procs_serve_ranks, group, tmp), n,
-                                backend="gloo", store_path=Path(tmp) / "store",
-                                timeout_s=PROCS_TIMEOUT_S)
-            spawn_s = time.perf_counter() - t
+            # the ranks start while their references are made
+            with spawning(functools.partial(procs_serve_ranks, group, tmp), n, backend="gloo",
+                          store_path=Path(tmp) / "store", timeout_s=PROCS_TIMEOUT_S) as got:
+                for arch in group:
+                    stage(f"phase 12 {arch} on world dims")
+                    t = time.perf_counter()
+                    world[arch] = procs_serve_world(arch, Path(tmp))
+                    world_s[arch] = time.perf_counter() - t
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()  # the ranks share the card with this process
+                stage(f"phase 12 {n} ranks: {', '.join(group)}")
+            ranks, spawned = got["ranks"], got["times"]
+            spawn_s = spawned["spawn_s"]
             if kept is not None and n == NCCL_WORLD:
                 for arch in group:
                     keep_refs(kept, Path(tmp), [f"ref.{arch}"], n)
                     kept["serve"][arch] = world[arch]
-        res["spawns"].append({"archs": list(group), "ranks": n, "spawn_s": spawn_s})
+        res["spawns"].append({"archs": list(group), "ranks": n, **spawned})
+        log(f"phase 12 spawn of {n} ranks ({', '.join(group)}): {json.dumps(spawned)}")
         for arch in group:
             mine = [r[arch] for r in ranks]
             st = procs_serve_check(arch, world[arch], mine, res)
@@ -4533,40 +4721,46 @@ def procs_train_rank(tmp: str, jobs: tuple, device, meshes: dict | None = None) 
 
 
 def procs_train_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
-    """Phase 13: the world-dim references (``procs_train_world``), then the
-    two worlds of gloo ranks spawned on the card (``procs_train_rank``),
-    held to them. Adds the ranks' launches to ``launches`` and the kernel
-    rows at a rank's shapes to ``rows`` (the first S3 hop, the largest one,
-    the first combine); returns the readings. With ``kept`` (``keep_refs``)
+    """Phase 13: the two worlds of gloo ranks spawned on the card
+    (``procs_train_rank``), each starting while the world-dim references of
+    its archs are made (``procs_train_world``, ``spawning``), held to them.
+    Adds the ranks' launches to ``launches`` and the kernel rows at a rank's
+    shapes to ``rows`` (the first S3 hop, the largest one, the first
+    combine); returns the readings. With ``kept`` (``keep_refs``)
     the references of the jobs trained on ``NCCL_WORLD`` ranks (but a
     restart) stay for phase 14."""
-    import functools
     import tempfile
 
     import torch
 
     from repro_torch.kernels import ops
-    from repro_torch.launch import procs
 
     res = {"worlds": {}, "launches": dict.fromkeys(ops.LAUNCHES, 0)}
     captured = {}
     with tempfile.TemporaryDirectory() as tmp:
-        t = time.perf_counter()
-        world = procs_train_world(Path(tmp))
-        res["world_s"] = time.perf_counter() - t
+        world, res["world_s"] = {}, 0.0
         for name, jobs in PROCS_TRAIN_WORLDS.items():
-            stage(f"phase 13 {name} world")
             dims = {procs_train_dims(arch, what) for arch, what in jobs}
             n = {d[0] * d[1] for d in dims}
             if len(n) != 1:
                 raise AssertionError(f"phase 13's {name} world mixes mesh sizes {sorted(dims)}")
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()  # the ranks share the card with this process
-            t = time.perf_counter()
-            ranks = procs.spawn(functools.partial(procs_train_rank, tmp, jobs), n.pop(),
-                                backend="gloo", store_path=Path(tmp) / f"store_{name}",
-                                timeout_s=PROCS_TIMEOUT_S)
-            st = {"spawn_s": time.perf_counter() - t, "ranks": len(ranks),
+            # the ranks start while the references of this world's archs are made, each
+            # arch's every job at once (a restart carries on from its training)
+            new = {a for a, _ in jobs} - set(world)
+            with spawning(functools.partial(procs_train_rank, tmp, jobs), n.pop(),
+                          backend="gloo", store_path=Path(tmp) / f"store_{name}",
+                          timeout_s=PROCS_TIMEOUT_S) as got:
+                stage(f"phase 13 {name} world's references")
+                t = time.perf_counter()
+                world.update(procs_train_world(Path(tmp), {
+                    w: tuple(j for j in js if j[0] in new)
+                    for w, js in PROCS_TRAIN_WORLDS.items()}))
+                res["world_s"] += time.perf_counter() - t
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()  # the ranks share the card with this process
+                stage(f"phase 13 {name} world")
+            ranks, spawned = got["ranks"], got["times"]
+            st = {**spawned, "ranks": len(ranks),
                   "transport": ranks[0]["transport"], "archs": {}}
             if kept is not None and len(ranks) == NCCL_WORLD:
                 for arch, what in jobs:
@@ -4967,15 +5161,17 @@ def nccl_phi3_check(recs: list, res: dict) -> dict:
     return st
 
 
-def nccl_first(device) -> dict:
-    """The world's first collective, before any other: ``NCCL_FIRST``'s
-    partial permutation, which leaves some ranks out, against the
-    world-dim ``Mesh`` on the CPU; then the reverse permutation."""
+def nccl_first(device, group=None) -> dict:
+    """The world's first collective, before any other (on ``group``, a
+    gloo group of the world's ranks: its first after the one that formed
+    it): ``NCCL_FIRST``'s partial permutation, which leaves some ranks out,
+    against the world-dim ``Mesh`` on the CPU; then the reverse
+    permutation."""
     import numpy as np
 
     from repro_torch.mesh import Mesh, ProcessMesh
 
-    pm = ProcessMesh(("all",), (NCCL_WORLD,), device=device)
+    pm = ProcessMesh(("all",), (NCCL_WORLD,), device=device, group=group)
     w = Mesh(("all",), (NCCL_WORLD,), device="cpu")
     data = np.arange(NCCL_WORLD * 6, dtype=np.float32).reshape(NCCL_WORLD, 2, 3) + 1
     out = {}
@@ -5014,14 +5210,14 @@ def nccl_collectives(m, iters: int) -> dict:
         right = bool((y == value).all()) and y.numel() * 4 in (NCCL_COLL_BYTES, NCCL_COLL_BYTES // n)
         del y
         torch.cuda.synchronize()
-        dist.barrier()
+        dist.barrier(group=m.group)
         with count_staging() as staged:
             t = time.perf_counter()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t) / iters * 1e3
-        dist.barrier()
+        dist.barrier(group=m.group)
         out[name] = {"ms": ms, "staged_bytes": staged["bytes"], "right": right}
     del x, part
     torch.cuda.empty_cache()
@@ -5049,28 +5245,33 @@ def nccl_kernel_checks(capture: dict, words, n: int) -> list:
                            seeded_hop(layout, gen, acc.device), "nccl_", buckets=n)
 
 
-def nccl_rank(tmp: str, full: bool, device) -> dict:
-    """Phase 14 in one rank (``launch.procs.spawn``, nccl or gloo):
-    ``nccl_first`` before any other collective; phase 11's data plane at
-    W = ``NCCL_WORLD`` (``procs_inputs``, ``procs_timed`` with each call's
-    collectives counted), the collectives alone (``nccl_collectives``),
-    the kernels on this rank's card (``nccl_kernel_checks``); with ``full``
-    then every case of ``NCCL_SERVE`` served (``procs_serve_rank``),
-    phi3 served (``nccl_phi3_rank``) and the jobs of
-    ``NCCL_TRAIN_WORLDS["first"]`` trained (``procs_train_rank``), each on
-    the process mesh of its shape (shared: its groups made once), each
-    served case and the training with the collectives it called, held to
-    their world-dim files under ``tmp``."""
+def nccl_gloo_group(device):
+    """A gloo group over the nccl world's ``NCCL_WORLD`` ranks, made by them
+    (``mesh.local_group``): 14a's comparison runs staged on process meshes
+    over it, in the nccl world's own processes."""
+    from repro_torch.mesh import local_group
+
+    return local_group(range(NCCL_WORLD), device, backend="gloo")
+
+
+def nccl_dataplane(device, saved: str, group=None) -> dict:
+    """14a in one rank, on process meshes over ``group`` (None: the nccl
+    world's own; else a gloo group of its ranks, ``nccl_gloo_group``,
+    staged through pinned host memory): ``nccl_first``, phase 11's data
+    plane at W = ``NCCL_WORLD`` (``procs_inputs`` from the files under
+    ``saved``, ``procs_timed`` with each call's collectives counted), the
+    collectives alone
+    (``nccl_collectives``), the kernels on this rank's card
+    (``nccl_kernel_checks``). Returns the readings, its seconds under
+    ``s``."""
     import torch
     import torch.distributed as dist
 
-    torch.set_num_threads(4)  # the ranks share the host's cores
     t0 = time.perf_counter()
-    backend = dist.get_backend()
-    res = {"first": nccl_first(device), "device": str(device)}
+    res = {"first": nccl_first(device, group), "device": str(device)}
     t = time.perf_counter()
-    meshes = procs_meshes(NCCL_WORLD, device)
-    words, grads, grads24, plan = procs_inputs(meshes)
+    meshes = procs_meshes(NCCL_WORLD, device, group=group)
+    words, grads, grads24, plan = procs_inputs(meshes, saved=saved)
     res.update(transport=meshes["all"].transport, setup_s=time.perf_counter() - t)
     torch.cuda.reset_peak_memory_stats()
     capture, calls = {}, {}
@@ -5079,31 +5280,57 @@ def nccl_rank(tmp: str, full: bool, device) -> dict:
                                    grads, capture)
     res["calls"] = calls  # the warm-up calls' and the timed calls' together
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    res["collectives"] = nccl_collectives(meshes["all"], NCCL_COLL_ITERS[backend])
+    res["collectives"] = nccl_collectives(meshes["all"],
+                                          NCCL_COLL_ITERS[dist.get_backend(group)])
     t = time.perf_counter()
     res["rows"] = nccl_kernel_checks(capture, words, NCCL_WORLD)
     res["kernel_check_s"] = time.perf_counter() - t
+    for m in meshes.values():
+        m.close()
     del words, grads, grads24, capture, meshes
     torch.cuda.empty_cache()
-    if full:
-        meshes, res["serve"] = {}, {}
-        for case in NCCL_SERVE:
-            calls = {}
-            with calls_counted(calls):
-                res["serve"][case] = procs_serve_rank(case, tmp, device, meshes)
-            res["serve"][case]["calls"] = calls
+    res["s"] = time.perf_counter() - t0
+    return res
+
+
+def nccl_rank(tmp: str, saved: str, device) -> dict:
+    """Phase 14 in one rank of the nccl world (``launch.procs.spawn``): 14a
+    (``nccl_dataplane``) on the world's own group, ``nccl_first`` before any
+    other collective, then the same staged on a gloo group of the same
+    ranks (``nccl_gloo_group``, under ``gloo``); every case of
+    ``NCCL_SERVE`` served (``procs_serve_rank``), phi3 served
+    (``nccl_phi3_rank``) and the jobs of ``NCCL_TRAIN_WORLDS["first"]``
+    trained (``procs_train_rank``), each on the process mesh of its shape
+    (shared: its groups made once), each served case and the training with
+    the collectives it called, held to their world-dim files under
+    ``tmp``; and the restart inside the world (``nccl_restart_rank``)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(4)  # the ranks share the host's cores
+    t0 = time.perf_counter()
+    res = nccl_dataplane(device, saved)
+    pg = nccl_gloo_group(device)
+    res["gloo"] = nccl_dataplane(device, saved, pg)
+    dist.destroy_process_group(pg)
+    meshes, res["serve"] = {}, {}
+    for case in NCCL_SERVE:
         calls = {}
         with calls_counted(calls):
-            res["train"] = procs_train_rank(tmp, NCCL_TRAIN_WORLDS["first"], device, meshes)
-        res["train"]["calls"] = calls
-        calls = {}
-        with calls_counted(calls):
-            res["phi3"] = nccl_phi3_rank(device, meshes)
-        res["phi3"]["calls"] = calls
-        calls = {}
-        with calls_counted(calls):
-            res["restart"] = nccl_restart_rank(tmp, device, meshes)
-        res["restart"]["calls"] = calls
+            res["serve"][case] = procs_serve_rank(case, tmp, device, meshes)
+        res["serve"][case]["calls"] = calls
+    calls = {}
+    with calls_counted(calls):
+        res["train"] = procs_train_rank(tmp, NCCL_TRAIN_WORLDS["first"], device, meshes)
+    res["train"]["calls"] = calls
+    calls = {}
+    with calls_counted(calls):
+        res["phi3"] = nccl_phi3_rank(device, meshes)
+    res["phi3"]["calls"] = calls
+    calls = {}
+    with calls_counted(calls):
+        res["restart"] = nccl_restart_rank(tmp, device, meshes)
+    res["restart"]["calls"] = calls
     res["rank_s"] = time.perf_counter() - t0  # the spawn's wall less this: start and teardown
     return res
 
@@ -5204,14 +5431,15 @@ def nccl_smi() -> dict:
     return {"cards": cards, "topo": topo}
 
 
-def nccl_world_dataplane() -> tuple[dict, dict]:
+def nccl_world_dataplane(saved: Path) -> tuple[dict, dict]:
     """14a's reference: phase 11's paths at W = ``NCCL_WORLD`` on world dims
-    on the current card (``procs_inputs``, ``procs_timed``). Returns (each
-    path's ``procs_record`` per device, each path's readings)."""
+    on the current card (``procs_inputs`` from the files under ``saved``,
+    ``procs_timed``). Returns (each path's ``procs_record`` per device, each
+    path's readings)."""
     import torch
 
     meshes = procs_meshes(NCCL_WORLD, "cuda", process=False)
-    words, grads, grads24, plan = procs_inputs(meshes)
+    words, grads, grads24, plan = procs_inputs(meshes, saved=saved)
     torch.cuda.reset_peak_memory_stats()
     recs = procs_timed(meshes, procs_paths(meshes, words, grads, grads24, plan), grads)
     if not recs["aggregate_s3_in_net_map"]["plain_ring_equal"]:
@@ -5231,8 +5459,9 @@ def nccl_unstaged(label: str, transports: list, staged) -> None:
 
 def nccl_hold_world(ranks: list, backend: str, ref: dict, world_dp: dict, launches: dict
                     ) -> dict:
-    """One world of 14a/14b (``nccl_rank``): the first collective, the data
-    plane held to the world-dim run (``procs_hold``; every rank's launches
+    """One group of 14a, nccl or gloo (``nccl_dataplane``'s records): the
+    first collective, the data plane held to the world-dim run
+    (``procs_hold``; every rank's launches
     added to ``launches``), the collectives' values; under nccl every rank's
     transport "nccl" and nothing staged. Returns the readings."""
     label = f"nccl_{backend}"
@@ -5294,7 +5523,8 @@ def nccl_restart_check(recs: list) -> dict:
     return st
 
 
-def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
+def nccl_phase(launches: dict, rows: list, kept: dict | None = None,
+               saved: Path | None = None) -> dict:
     """Phase 14, the process mesh under nccl with one card per rank: on a
     host with fewer than ``NCCL_WORLD`` cards it says so and returns
     {"ran": False, "cards": N}. Else the kernels on the last card
@@ -5303,23 +5533,21 @@ def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
     ``NCCL_SERVE`` and ``procs_train_world`` of each job of
     ``NCCL_TRAIN_WORLDS`` that ``kept`` does not hold: phases 12 and 13's
     four-rank references, ``keep_refs``; phase 14 alone computes them all),
-    then two spawns: ``NCCL_WORLD`` nccl ranks (``nccl_rank`` in full,
-    ending in the elastic restart inside that world, ``nccl_restart_rank``:
-    ranks 0-1 go on on ``NCCL_RESTART`` over a group of their own) and the
-    same ranks under gloo (the data plane and the collectives, staged);
-    each case held to its reference as phases 11-13 hold theirs, phi3 by
+    then one spawn of ``NCCL_WORLD`` nccl ranks (``nccl_rank``: the data
+    plane and the collectives on the world's group and, staged, on a gloo
+    group of the same ranks; the cases; ending in the elastic restart inside
+    that world, ``nccl_restart_rank``: ranks 0-1 go on on ``NCCL_RESTART``
+    over a group of their own); each case held to its reference as phases
+    11-13 hold theirs, phi3 by
     its own routes (``nccl_phi3_check``), and under nccl every rank's
     transport "nccl" with nothing staged. Adds the ranks' launches to ``launches`` and the
     kernel rows at a rank's shapes to ``rows`` (rank 3's data-plane kernels
     on cuda:3; on cuda:0 rank 0's first flash prefill of each of
     ``NCCL_FLASH``'s cases, its first a2a combine and recurrentgemma's
     first rep-ring hop); returns the readings."""
-    import functools
-
     import torch
 
     from repro_torch.kernels import _build, ops
-    from repro_torch.launch import procs
 
     cards = torch.cuda.device_count()
     if cards < NCCL_WORLD:
@@ -5338,33 +5566,43 @@ def nccl_phase(launches: dict, rows: list, kept: dict | None = None) -> dict:
             kept = {"dir": Path(stack.enter_context(tempfile.TemporaryDirectory())),
                     "serve": {}, "train": {}}
         tmp = kept["dir"]
-        stage("phase 14 world dims")
-        t = time.perf_counter()
-        ref, world_dp = nccl_world_dataplane()
-        world_serve = dict(kept["serve"])
-        for case in NCCL_SERVE:
-            if case not in world_serve:
-                world_serve[case] = procs_serve_world(case, tmp)
-        world_train = {**kept["train"], **procs_train_world(
-            tmp, {"phase 14": tuple(j for j in train_jobs if j[0] not in kept["train"])})}
-        res["world_s"] = time.perf_counter() - t
-        res["reused_refs"] = sorted(set(kept["serve"]) | set(kept["train"]))
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()  # rank 0 shares cuda:0 with this process
-        spawns = {}
-        for name, backend, world, fn in (
-                ("nccl", "nccl", NCCL_WORLD, functools.partial(nccl_rank, str(tmp), True)),
-                ("gloo", "gloo", NCCL_WORLD, functools.partial(nccl_rank, str(tmp), False))):
-            stage(f"phase 14 {name} world")
+        if saved is None:  # phase 14 alone: its inputs drawn here
+            saved = Path(stack.enter_context(tempfile.TemporaryDirectory()))
+            save_inputs(saved, *draw_inputs(NCCL_WORLD))
+        # the nccl world starts while the references are made
+        with spawning(functools.partial(nccl_rank, str(tmp), str(saved)), NCCL_WORLD,
+                      backend="nccl", store_path=tmp / "store_nccl",
+                      timeout_s=NCCL_TIMEOUT_S) as got:
+            stage("phase 14 world dims")
             t = time.perf_counter()
-            spawns[name] = procs.spawn(fn, world, backend=backend,
-                                       store_path=tmp / f"store_{name}",
-                                       timeout_s=NCCL_TIMEOUT_S)
-            res[f"{name}_spawn_s"] = time.perf_counter() - t
-            res[f"{name}_rank_s"] = [r["rank_s"] for r in spawns[name]]
-            log(f"phase 14 {name} world: spawn {res[f'{name}_spawn_s']:.2f} s, each rank's "
-                f"work {[round(x, 2) for x in res[f'{name}_rank_s']]} s")
-    ranks = spawns["nccl"]
+            ref_s = {}
+            ref, world_dp = nccl_world_dataplane(saved)
+            ref_s["data_plane"] = time.perf_counter() - t
+            world_serve = dict(kept["serve"])
+            for case in NCCL_SERVE:
+                if case not in world_serve:
+                    t1 = time.perf_counter()
+                    world_serve[case] = procs_serve_world(case, tmp)
+                    ref_s[f"serve {case}"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            world_train = {**kept["train"], **procs_train_world(
+                tmp, {"phase 14": tuple(j for j in train_jobs if j[0] not in kept["train"])})}
+            ref_s["train"] = time.perf_counter() - t1
+            res["world_s"], res["world_ref_s"] = time.perf_counter() - t, ref_s
+            res["reused_refs"] = sorted(set(kept["serve"]) | set(kept["train"]))
+            log(f"phase 14 references on world dims: {res['world_s']:.2f} s "
+                f"({json.dumps(ref_s)}); reused from phases 12 and 13: {res['reused_refs']}")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # rank 0 shares cuda:0 with this process
+            stage("phase 14 nccl world")
+        ranks, spawned = got["ranks"], got["times"]
+        res["nccl_spawn_s"], res["nccl_spawn"] = spawned["spawn_s"], spawned
+        res["nccl_rank_s"] = [r["rank_s"] for r in ranks]
+        res["gloo_s"] = [r["gloo"]["s"] for r in ranks]
+        log(f"phase 14 nccl world: spawn {json.dumps(spawned)}, each rank's work "
+            f"{[round(x, 2) for x in res['nccl_rank_s']]} s, of it the data plane staged "
+            f"on the gloo group {[round(x, 2) for x in res['gloo_s']]} s")
+    spawns = {"nccl": ranks, "gloo": [r["gloo"] for r in ranks]}
     if [r["device"] for r in ranks] != [f"cuda:{i}" for i in range(NCCL_WORLD)]:
         raise AssertionError(f"phase 14's ranks ran on {[r['device'] for r in ranks]}")
     res["data_plane"] = {b: nccl_hold_world(spawns[b], b, ref, world_dp, res["launches"])
@@ -5458,6 +5696,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     import numpy as np
 
     from repro_torch.compiler import vectorized
@@ -5474,6 +5715,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+
+    # the host's own work, in a process of its own beside the card's phases: the
+    # tenants' schedule from the start (phase 3 reads it), the scenario plans'
+    # runs on the CPU once they are compiled (checked after phase 6), phase
+    # 10's depth search
+    host = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    scheduled = host.submit(timed, schedule_tenants)
 
     # 1. build ------------------------------------------------------------
     stage("phase 1 build")
@@ -5500,6 +5748,9 @@ def main() -> int:
     stage("phase 3 main paths")
     t = time.perf_counter()
     shards, words, grads_np, grads = inputs()
+    # the same inputs, for the process meshes of phases 11 and 14 to read
+    saved_inputs = tempfile.TemporaryDirectory()
+    saved = save_inputs(Path(saved_inputs.name), shards, grads_np)
     want_counts = wc.wordcount_reference(shards, VOCAB)
     if want_counts.max() >= wc.MAX_EXACT_COUNT:
         raise AssertionError("a word count reaches 2**24: fp32 atomics would not be exact")
@@ -5521,9 +5772,12 @@ def main() -> int:
     t = time.perf_counter()
     plans["plan_wordcount_autotuned"], tuned_telemetry = autotuned_wordcount()
     compile_ms["plan_wordcount_autotuned"] = (time.perf_counter() - t) * 1e3
-    t = time.perf_counter()
-    schedule = schedule_tenants()
-    compile_ms["scheduler_two_tenants"] = (time.perf_counter() - t) * 1e3
+    on_cpu = {name: host.submit(plan_on_cpu, plan, str(saved)) for name, plan in plans.items()
+              if name.startswith("plan_scenario_")}
+    from repro_torch.launch.dryrun import card_memory
+    rec_depth = host.submit(rec_tp_depth, *REC_TP, card_memory())
+    schedule, sched_s = scheduled.result()
+    compile_ms["scheduler_two_tenants"] = sched_s * 1e3
     paths = main_paths(words, grads, plans, schedule)
     makespans = {}
     for name, plan in plans.items():
@@ -5593,6 +5847,7 @@ def main() -> int:
     # the phase's peak so far: each path below resets the counter to read its own
     pre_paths_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     procs_ref = {}  # what phase 11's process mesh is held to
+    card_bits = {}  # the scenario plans' results on the card, held to the CPU's after phase 6
     for name, fn in paths.items():
         out, got, torch_steps = drive(name, fn)
         if name in PROCS_PATHS:
@@ -5643,21 +5898,14 @@ def main() -> int:
             tol = AGG_TOL[sc]
             got_sum = out["OUT"]
             err = float(np.linalg.norm(got_sum - want_sum) / np.linalg.norm(want_sum))
-            # the same plan object on the CPU at full width: a lowered plan's
-            # bucket windows are fixed at GRAD_SIZE, so a prefix would not do
-            t = time.perf_counter()
-            cpu = plans[name].run({f"g{i}": grads[i].cpu() for i in range(8)},
-                                  backend="torch", device="cpu")["OUT"]
-            host_s[f"{name}.cpu_run"] = time.perf_counter() - t
-            same = np.array_equal(got_sum.view(np.uint64), cpu.view(np.uint64))
-            del cpu
+            # the same plan object on the CPU at full width (a lowered plan's
+            # bucket windows are fixed at GRAD_SIZE, so a prefix would not do),
+            # in the host process (``plan_on_cpu``): its bits held to these after phase 6
+            card_bits[name] = digest(got_sum)
             log(f"  normwise err vs float64 host sum {err!r} (limit {tol}); all {GRAD_SIZE} "
-                f"elements {'bitwise ==' if same else 'DIFFER from'} the plan run on the CPU "
-                f"({host_s[f'{name}.cpu_run']:.2f} s wall there)")
+                f"elements held bitwise to the plan run on the CPU after phase 6")
             if not np.isfinite(got_sum).all() or got_sum.shape != (GRAD_SIZE,) or err > tol:
                 raise AssertionError(f"{name}: beyond {tol} of the float64 sum, or malformed")
-            if not same:
-                raise AssertionError(f"{name}: the card's result differs from the CPU's")
         elif name == "scheduler_two_tenants":
             if got["segment_reduce"] != 1:
                 raise AssertionError(f"{name} made {got['segment_reduce']} segment_reduce launches")
@@ -5709,6 +5957,7 @@ def main() -> int:
         del out
 
     # 4. kernels at their main-path shapes: agreement and time ---------------
+    stage("phase 4 kernels at the main paths' shapes")
     # the world-dim ring's hop: every device's chunk, gathered into a new tensor
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     world_hop = ((N_MAPPERS, GRAD_SIZE // N_MAPPERS), (GRAD_SIZE // N_MAPPERS, 1), 0, GRAD_SIZE)
@@ -5730,8 +5979,8 @@ def main() -> int:
     del paths, schedule, tenant_plans, recv, reducer_counts, err
 
     # 3b. the recurrences: a phase of its own, with its own peak (the
-    stage("phase 3b recurrences")
     # allocator keeps its cached blocks, as it did for the paths above)
+    stage("phase 3b recurrences")
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     recurrence = recurrence_inputs()
@@ -5900,6 +6149,7 @@ def main() -> int:
     family_checks: dict[str, dict] = {}
     combine = {}
     for arch in FAMILY_ARCHS:
+        stage(f"phase 6 {arch}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -5984,6 +6234,16 @@ def main() -> int:
         family_checks[name] = checks
         del model, batch, fn
 
+    # phase 3's scenario plans on the CPU, run in the host process meanwhile
+    for name, job in on_cpu.items():
+        cpu_bits, host_s[f"{name}.cpu_run"] = job.result()
+        same = cpu_bits == card_bits.pop(name)
+        log(f"{name}: all {GRAD_SIZE} elements {'bitwise ==' if same else 'DIFFER from'} the "
+            f"plan run on the CPU ({host_s[f'{name}.cpu_run']:.2f} s wall there, in the host "
+            f"process)")
+        if not same:
+            raise AssertionError(f"{name}: the card's result differs from the CPU's")
+
     # 7. training at full width, phase 8's dry run on the host beside it ----------
     stage("phase 7 training")
     t = time.perf_counter()
@@ -6013,43 +6273,26 @@ def main() -> int:
     # 10. training under tensor parallelism ---------------------------------------
     stage("phase 10 training under TP")
     t = time.perf_counter()
-    tp_training = tp_train_phase(launches)
+    tp_training = tp_train_phase(launches, rec_depth.result())
+    host.shutdown()
     tp_training["wall_s"] = time.perf_counter() - t
     log(f"training under tensor parallelism phase: {tp_training['wall_s']:.2f} s")
 
-    # 11. the data plane on a process mesh: one process per device ---------------
-    stage("phase 11 data plane on a process mesh")
-    t = time.perf_counter()
-    procs = procs_phase(procs_ref)
-    procs["wall_s"] = time.perf_counter() - t
+    # 11-13. the process mesh, one process per device, each its shard: the data
+    # plane, serving and training
+    refs = tempfile.TemporaryDirectory()  # phases 12-13's four-rank references, for phase 14
+    p = procs_phases(procs_ref, saved, Path(refs.name))
+    procs, procs_serving, procs_training = p["procs"], p["procs_serving"], p["procs_training"]
+    kept = p["kept"]
     for k in launches:
-        launches[k] += procs["launches"][k]
-    log(f"process mesh phase: {procs['wall_s']:.2f} s")
-
-    # 12. serving on a process mesh: one process per device, each its shard ---------
-    stage("phase 12 serving on a process mesh")
-    # phases 12 and 13's four-rank references, which phase 14 serves and trains again
-    refs = tempfile.TemporaryDirectory()
-    kept = {"dir": Path(refs.name), "serve": {}, "train": {}}
-    t = time.perf_counter()
-    procs_serve_rows = []  # the kernels at a rank's shapes, with phase 12's launches
-    procs_serving = procs_serve_phase(launches, procs_serve_rows, kept)
-    procs_serving["wall_s"] = time.perf_counter() - t
-    log(f"serving on a process mesh phase: {procs_serving['wall_s']:.2f} s")
-
-    # 13. training on a process mesh: one process per device, each its shard ----------
-    stage("phase 13 training on a process mesh")
-    t = time.perf_counter()
-    procs_train_rows = []  # the kernels at a rank's shapes, with phase 13's launches
-    procs_training = procs_train_phase(launches, procs_train_rows, kept)
-    procs_training["wall_s"] = time.perf_counter() - t
-    log(f"training on a process mesh phase: {procs_training['wall_s']:.2f} s")
+        launches[k] += p["launches"][k]
 
     # 14. the process mesh under nccl, one card per rank (four cards or more) ---------
     stage("phase 14 the process mesh under nccl")
     nccl_rows = []  # the kernels at a rank's shapes, with phase 14's launches
-    nccl = nccl_phase(launches, nccl_rows, kept)
+    nccl = nccl_phase(launches, nccl_rows, kept, saved)
     refs.cleanup()
+    saved_inputs.cleanup()
     if nccl["ran"]:
         log(f"process mesh under nccl phase: {nccl['wall_s']:.2f} s")
     for k, v in launches.items():
@@ -6085,7 +6328,7 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
     for row in procs_rows:  # the process mesh's launches, summed over its ranks
         row["launches"] = procs["launches"][row["name"]]
-    rows += procs_rows + procs_serve_rows + procs_train_rows + nccl_rows
+    rows += procs_rows + p["rows"] + nccl_rows
 
     log(json.dumps({"paths_wall_s": walls, "serve": serve_stats, "serve_checks": serve_checks,
                     "family_checks": family_checks, "training": training,
@@ -6103,6 +6346,7 @@ def main() -> int:
                     "build_s": build_s}))
     log(f"script: {time.perf_counter() - START:.1f} s")
     stage("done")
+    log(json.dumps({"phase_walls_s": phase_walls()}))
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -6134,7 +6378,7 @@ def nccl_phase_alone() -> int:
     log(f"phase 14 alone: {time.perf_counter() - t:.2f} s")
     log(json.dumps({"restart": res["restart"], "launches": launches,
                     "times": {k: v for k, v in res.items()
-                              if k == "world_s" or k.endswith(("spawn_s", "rank_s"))}}))
+                              if k in ("world_s", "gloo_s") or k.endswith(("spawn_s", "rank_s"))}}))
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True, timeout=60, check=True
                        ).stdout.strip().splitlines()[0])

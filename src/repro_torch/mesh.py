@@ -448,15 +448,18 @@ def _group_ranks(pg) -> list[int]:
     return dist.get_process_group_ranks(pg if pg is not None else dist.group.WORLD)
 
 
-def local_group(ranks: Sequence[int], device):
+def local_group(ranks: Sequence[int], device, backend: str | None = None):
     """A process group over the global ``ranks``, made by its members alone
     (``new_group(..., use_local_synchronization=True)``; a process outside
     it makes no call and gets None), its communicator formed before it
-    returns by one ``all_reduce`` of the members. A default group bound to
-    a card (nccl, ``launch.procs``) would make it by splitting the world's
-    communicator, which every rank of the world must join: the binding is
-    lifted while it is made, so that the members form it among themselves.
-    The members call it together, as SPMD code does."""
+    returns by one ``all_reduce`` of the members. ``backend``: the group's
+    (None: the default group's; "gloo" in an nccl world gives a group that
+    stages the card's tensors through host memory beside the world's own).
+    A default group bound to a card (nccl, ``launch.procs``) would make it
+    by splitting the world's communicator, which every rank of the world
+    must join: the binding is lifted while it is made, so that the members
+    form it among themselves. The members call it together, as SPMD code
+    does."""
     ranks = sorted(int(r) for r in ranks)
     if dist.get_rank() not in ranks:
         return None
@@ -465,7 +468,7 @@ def local_group(ranks: Sequence[int], device):
     if bound is not None:
         default.bound_device_id = None
     try:
-        pg = dist.new_group(ranks, use_local_synchronization=True)
+        pg = dist.new_group(ranks, use_local_synchronization=True, backend=backend)
     finally:
         if bound is not None:
             default.bound_device_id = bound
@@ -504,12 +507,13 @@ class ProcessMesh(Mesh):
     The default process group must be initialized first
     (``launch.procs.init_process_mesh`` or ``launch.procs.spawn``). The
     mesh spans ``group``, ``prod(shape)`` processes: the default group
-    (None), or a group of some of its ranks (``local_group``; the survivors
-    of an elastic shrink, ``launch.procs.shrink_process_mesh``). Its rank is
-    the process's rank in that group, and every call names that group or
-    one made over its ranks by them alone (``local_group``), with peers and
-    roots among them: after a shrink no call reaches the default group or a
-    rank that left. ``close`` destroys the groups such a mesh made.
+    (None), or a group of some or all of its ranks (``local_group``; the
+    survivors of an elastic shrink, ``launch.procs.shrink_process_mesh``; a
+    gloo group beside an nccl world's). Its rank is the process's rank in
+    that group, and every call names that group or one made over its ranks
+    by them alone under its backend (``local_group``), with peers and roots
+    among them: after a shrink no call reaches the default group or a rank
+    that left. ``close`` destroys the groups such a mesh made.
     ``device=None`` means the card
     (``process_device``). Under gloo on the card every collective copies
     its operand into a pinned host buffer (one per shape, kept), runs
@@ -610,12 +614,12 @@ class ProcessMesh(Mesh):
         """The process group over the global ``ranks``: the mesh's own where
         they are all of it; on the default group a ``new_group`` that every
         rank makes; over a group of its own one made by its members alone
-        (``local_group``), None elsewhere."""
+        (``local_group``) under that group's backend, None elsewhere."""
         if len(ranks) == self.size:
             return self.group
         if self.group is None:
             return dist.new_group(sorted(ranks))
-        pg = local_group(ranks, self.device)
+        pg = local_group(ranks, self.device, dist.get_backend(self.group))
         if pg is not None:
             self._made.append(pg)
         return pg

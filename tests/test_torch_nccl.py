@@ -209,10 +209,13 @@ class _Recorder:
     ``groups``, the ranks of each ``new_group`` in the order they were made,
     ``local`` those made by their members alone
     (``use_local_synchronization``), and ``shrunk_at``, the number of calls
-    made before the first of those (None: none was made)."""
+    made before the first of those (None: none was made); ``pgs``, beside
+    ``calls``, the group object each named (None: the default group), for
+    the rank's own use (it is not picklable)."""
 
     def __init__(self):
         self.calls, self.groups, self.local, self.shrunk_at = [], [], [], None
+        self.pgs = []
 
     @staticmethod
     def _ranks(group):
@@ -241,6 +244,7 @@ class _Recorder:
                 extra["default"] = default(group)
                 self.calls.append((name, self._ranks(group), [self._desc(t) for t in tensors],
                                    extra))
+                self.pgs.append(group)
                 return real(*args, **kw)
             return call
 
@@ -249,6 +253,7 @@ class _Recorder:
                 self.calls.append(("isend" if op.op is dist.isend else "irecv",
                                    self._ranks(op.group), [self._desc(op.tensor)],
                                    {"peer": op.peer, "default": default(op.group)}))
+                self.pgs.append(op.group)
             return real_batch(ops)
 
         def new_group(ranks=None, *a, **kw):
@@ -496,6 +501,204 @@ def calls_fit_nccl(ranks: list, what: str) -> None:
         if op == "isend":
             assert p2p.get(("irecv", a, b)) == sent, (a, b)
     assert {k[1:] for k in p2p if k[0] == "isend"} == {k[1:] for k in p2p if k[0] == "irecv"}
+
+
+# ------------------ 14a staged on a gloo group inside the world, on the CPU --
+# ``chip_smoke.py`` phase 14 runs 14a's data plane in its nccl world twice:
+# on the world's group, then staged on a gloo group of the same four
+# processes (``nccl_gloo_group``), in place of a gloo world of its own. Here
+# four gloo ranks make that group as the smoke does and run 14a's meshes
+# over it (``procs_meshes(..., group=)``) at a small size, then the same on
+# the world's own group, as the nccl cases run there, every call recorded
+STAGED_TOKENS, STAGED_GRAD = 4096, 1024
+
+
+def _staged_cases(meshes) -> dict:
+    """The collectives of 14a's meshes ("all" of 4, "pod_data" (2, 2); world
+    dims or a process's) on seeded integer-valued blocks: sums agree
+    whatever order gloo adds in."""
+    data = np.random.RandomState(14).randint(-50, 50, (WORLD, 4, 3)).astype(np.float32)
+    a, p = meshes["all"], meshes["pod_data"]
+    x, y = a.shard(data), p.shard(data.reshape(2, 2, 4, 3))
+    return {"psum": a.psum(x, "all"), "all_gather": a.all_gather(x, "all", tiled=True),
+            "psum_scatter": a.psum_scatter(x, "all", 0, tiled=True),
+            "all_to_all": a.all_to_all(x, "all", 0, 0, tiled=True),
+            "ppermute": a.ppermute(x, "all", [(i, (i + 1) % WORLD) for i in range(WORLD)]),
+            "broadcast": a.broadcast(x, "all", 2),
+            "psum_pod": p.psum(y, "pod"), "psum_data": p.psum(y, "data"),
+            "psum_pod_data": p.psum(y, ("pod", "data")),
+            "all_gather_data": p.all_gather(y, "data", tiled=True)}
+
+
+def _data_plane(meshes) -> dict:
+    """14a's paths (``procs_paths``) on ``meshes`` at ``STAGED_TOKENS`` tokens
+    and ``STAGED_GRAD`` gradients a device: each path's ``procs_record``."""
+    words, grads, grads24, plan = CS.procs_inputs(meshes, STAGED_TOKENS, STAGED_GRAD)
+    one = isinstance(meshes["all"], ProcessMesh)
+    return {name: CS.procs_record(name, fn(), 1 if one else WORLD)
+            for name, fn in CS.procs_paths(meshes, words, grads, grads24, plan).items()}
+
+
+def _staged_rank(device) -> dict:
+    """One rank: the gloo group of the world's ranks (``nccl_gloo_group``),
+    14a's meshes over it, ``nccl_first`` on it, its collectives and data
+    plane; then the same data plane on the world's own meshes. Returns
+    their outputs, every call recorded, and for each call whether it named
+    the gloo group or one made over its ranks."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    rec = _Recorder()
+    with rec.installed():
+        pg = CS.nccl_gloo_group(device)
+        meshes = CS.procs_meshes(WORLD, device, group=pg)
+        out = {"first": CS.nccl_first(device, pg),
+               "cases": {k: v.numpy() for k, v in _staged_cases(meshes).items()},
+               "paths": _data_plane(meshes), "transport": meshes["all"].transport}
+        staged_calls = len(rec.calls)
+        made = [pg] + [g for m in meshes.values() for g in m._made]
+        for m in meshes.values():
+            m.close()
+        dist.destroy_process_group(pg)
+        out["world_paths"] = _data_plane(CS.procs_meshes(WORLD, device))
+    on_staged = [any(g is m for m in made) for g in rec.pgs]
+    return {**out, "calls": rec.calls, "staged_calls": staged_calls, "on_staged": on_staged,
+            "local": rec.local, "groups": rec.groups, "device": str(device)}
+
+
+@pytest.fixture(scope="module")
+def staged_ranks(tmp_path_factory):
+    store = tmp_path_factory.mktemp("staged") / "store"
+    return procs.spawn(_staged_rank, WORLD, backend="gloo", device="cpu", store_path=store,
+                       timeout_s=TIMEOUT_S)
+
+
+@pytest.mark.parametrize("name", sorted(_staged_cases(CS.procs_meshes(WORLD, "cpu",
+                                                                      process=False))))
+def test_gloo_group_collective_bitwise_to_world_dims(staged_ranks, name):
+    """Each collective of 14a's meshes over the gloo group equals the
+    world-dim ``Mesh``'s of the same shape, bitwise."""
+    want = _staged_cases(CS.procs_meshes(WORLD, "cpu", process=False))[name].numpy()
+    got = np.concatenate([r["cases"][name] for r in staged_ranks], axis=0)
+    if name.startswith(("psum_", "all_gather_data")):  # the (2, 2) mesh's blocks
+        got = got.reshape(want.shape)
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("path", CS.PROCS_PATHS)
+def test_gloo_group_data_plane_matches_world_dims(staged_ranks, path):
+    """14a's paths on the gloo group's meshes, held as phase 14 holds its
+    gloo comparison (``procs_hold``): each rank's outputs bitwise to the
+    world-dim run's device, or for ``PROCS_CLOSE`` within ``PROCS_TOL``;
+    the same on the world's own group; and the first permutations as the
+    world-dim mesh's."""
+    want = _data_plane(CS.procs_meshes(WORLD, "cpu", process=False))[path]
+    for r, out in enumerate(staged_ranks):
+        assert all(v["equal"] for v in out["first"].values()), out["first"]
+        for got in (out["paths"][path], out["world_paths"][path]):
+            if path.startswith("plan_"):
+                assert got == want, r
+            elif path in CS.PROCS_CLOSE:
+                np.testing.assert_allclose(got[0], want[r], rtol=CS.PROCS_TOL,
+                                           atol=CS.PROCS_TOL * float(np.abs(want[r]).max()))
+            else:
+                assert got[0] == want[r], (path, r)
+
+
+def test_gloo_group_calls_name_only_it(staged_ranks):
+    """Every call of 14a over the gloo group names that group or one made
+    over its ranks by them alone, never the world's; no call on the world's
+    own meshes afterwards names any of them; those calls fit NCCL
+    (``calls_fit_nccl``), as every rank made the world's groups in one
+    order."""
+    for out in staged_ranks:
+        n = out["staged_calls"]
+        assert n and all(out["on_staged"][:n])
+        assert not any(out["on_staged"][n:])
+        assert all(not extra["default"] for _, _, _, extra in out["calls"][:n])
+        assert out["local"] and all(len(g) in (2, WORLD) for g in out["local"])
+        assert out["groups"] == staged_ranks[0]["groups"]
+    calls_fit_nccl([{"calls": r["calls"][r["staged_calls"]:], "device": r["device"]}
+                    for r in staged_ranks], "world after the gloo group")
+
+
+# ----------------------------------- the smoke's spawns and its phase walls --
+# ``chip_smoke.spawning`` starts the ranks while its block makes what they
+# read (phases 12-14's references) and calls them once the block has ended;
+# a failure in the block stops them. ``phase_walls`` prints each phase's wall
+# in phase order
+def _stamped_rank(device) -> dict:
+    import torch.distributed as dist
+
+    called = time.time()
+    dist.barrier()  # no rank leaves while another still joins the group
+    return {"rank": dist.get_rank(), "called": called}
+
+
+def _gated_in_rank(fn, gate: str, device):
+    """``chip_smoke._gated_call`` reached through this module, which a
+    spawned rank imports by name (the smoke is loaded here by its path)."""
+    return CS._gated_call(fn, gate, device)
+
+
+@pytest.fixture
+def gated(monkeypatch):
+    monkeypatch.setattr(CS, "_gated_call", _gated_in_rank)
+
+
+def test_spawning_calls_the_ranks_once_the_block_ends(gated, tmp_path):
+    with CS.spawning(_stamped_rank, 2, backend="gloo", device="cpu",
+                     store_path=tmp_path / "store", timeout_s=TIMEOUT_S) as got:
+        time.sleep(0.5)
+        ended = time.time()
+    assert [r["rank"] for r in got["ranks"]] == [0, 1]
+    assert all(r["called"] >= ended for r in got["ranks"])
+    times = got["times"]
+    assert set(times) == {"spawn_s", "start_s", "idle_s", "call_s", "teardown_s"}
+    assert times["spawn_s"] >= times["start_s"] > 0 and times["idle_s"] >= 0
+
+
+def test_spawning_stops_the_ranks_when_the_block_fails(gated, tmp_path, monkeypatch):
+    """The block's failure is raised, and the ranks that waited for it end
+    with theirs, before any timeout."""
+    from repro_torch.launch import procs as procs_lib
+
+    seen, real = {}, procs_lib.spawn
+
+    def spawn(*args, **kw):
+        try:
+            return real(*args, **kw)
+        except RuntimeError as e:
+            seen["ranks"] = str(e)
+            raise
+
+    monkeypatch.setattr(procs_lib, "spawn", spawn)
+    t = time.perf_counter()
+    with pytest.raises(KeyError, match="the block failed"):
+        with CS.spawning(_stamped_rank, 2, backend="gloo", device="cpu",
+                         store_path=tmp_path / "store", timeout_s=TIMEOUT_S):
+            time.sleep(0.5)
+            raise KeyError("the block failed")
+    assert "the parent failed before the ranks' call" in seen["ranks"]
+    assert time.perf_counter() - t < TIMEOUT_S
+
+
+def test_phase_walls_in_phase_order(monkeypatch):
+    """Each phase's wall from its first stage to the next phase's, in phase
+    order (3b after 3 where it ran after 4), and the script's wall."""
+    start = CS.START
+    monkeypatch.setattr(CS, "STAGES", {
+        "1": (start + 1.0, "1 build"), "3": (start + 2.0, "3 main paths"),
+        "4": (start + 4.0, "4 kernels"), "3b": (start + 5.0, "3b recurrences"),
+        "12": (start + 9.0, "12 serving"), "11": (start + 7.0, "11 data plane"),
+        "done": (start + 12.0, "done")})
+    walls = CS.phase_walls()
+    assert list(walls) == ["1 build", "3 main paths", "3b recurrences", "4 kernels",
+                           "11 data plane", "12 serving", "script_s"]
+    assert walls["1 build"] == 1.0 and walls["4 kernels"] == 1.0
+    assert walls["3b recurrences"] == 2.0 and walls["11 data plane"] == 2.0
+    assert walls["12 serving"] == 3.0 and walls["script_s"] > 0
 
 
 # --------------------------- the survivors' mesh over a group of their own --
